@@ -1,0 +1,132 @@
+"""Model metrics — port of ``h2o_tpu/models/metrics.py``
+(``_binomial_kernel`` :27-45, ``_auc_from_hist`` :48-69,
+``_regression_kernel`` :72-92, ``ModelMetrics`` :118-142,
+``regression_metrics`` :145-166, ``binomial_metrics`` :258-280).
+
+Binomial AUC comes from a fixed 1024-bin histogram of the scores (the
+reference's AUC2 analog), so it reduces in O(bins).  Reductions are
+float32 tensor code on the scores' device; the bin sweep runs in numpy
+on the host, copied from the reference.  The threshold tables and
+multinomial metrics wait for later slices.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+_NBINS_AUC = 1024
+EPS = 1e-15
+
+
+def _binomial_reduce(p, y, w, valid, nbins: int = _NBINS_AUC):
+    zero = torch.zeros((), dtype=p.dtype, device=p.device)
+    w = torch.where(valid, w, zero)
+    y = torch.where(valid, y, zero)
+    p = torch.where(valid, p, torch.full_like(p, 0.5))
+    wsum = torch.clamp_min(torch.sum(w), EPS)
+    logloss = torch.sum(-w * torch.where(
+        y > 0.5, torch.log(torch.clamp_min(p, EPS)),
+        torch.log(torch.clamp_min(1.0 - p, EPS))))
+    mse = torch.sum(w * (y - p) ** 2)
+    b = torch.clamp((p * nbins).to(torch.int32), 0, nbins - 1).long()
+    pos = torch.zeros(nbins, dtype=torch.float32, device=p.device)
+    neg = torch.zeros(nbins, dtype=torch.float32, device=p.device)
+    pos.index_add_(0, b, w * y)
+    neg.index_add_(0, b, w * (1 - y))
+    return dict(logloss=(logloss / wsum).item(), mse=(mse / wsum).item(),
+                pos=pos.cpu().numpy(), neg=neg.cpu().numpy(),
+                wsum=wsum.item())
+
+
+def _auc_from_hist(pos: np.ndarray, neg: np.ndarray) -> Dict[str, float]:
+    """Exact bin-sweep AUC/PR-AUC/max-F1 from score histograms
+    (thresholds descend bin edges; trapezoids between)."""
+    tp = np.cumsum(pos[::-1])
+    fp = np.cumsum(neg[::-1])
+    P, N = max(tp[-1], EPS), max(fp[-1], EPS)
+    tpr = np.concatenate([[0.0], tp / P])
+    fpr = np.concatenate([[0.0], fp / N])
+    auc = float(np.trapezoid(tpr, fpr))
+    prec = tp / np.maximum(tp + fp, EPS)
+    rec = tp / P
+    pr_auc = float(np.sum(np.diff(np.concatenate([[0.0], rec])) * prec))
+    f1 = 2 * prec * rec / np.maximum(prec + rec, EPS)
+    k = int(np.argmax(f1))
+    nb = len(pos)
+    thr = 1.0 - (k + 1) / nb
+    cm = dict(tp=float(tp[k]), fp=float(fp[k]),
+              fn=float(P - tp[k]), tn=float(N - fp[k]))
+    return dict(AUC=auc, pr_auc=pr_auc, gini=2 * auc - 1,
+                max_f1=float(f1[k]), max_f1_threshold=thr, cm=cm)
+
+
+class ModelMetrics:
+    """Host-side metrics bundle."""
+
+    def __init__(self, kind: str, data: Dict):
+        self.kind = kind
+        self.data = data
+
+    def __getitem__(self, k):
+        return self.data[k]
+
+    def get(self, k, default=None):
+        return self.data.get(k, default)
+
+    def __repr__(self):
+        keys = "mse rmse mae r2 mean_residual_deviance logloss AUC".split()
+        parts = [f"{k}={self.data[k]:.5g}" for k in keys
+                 if isinstance(self.data.get(k), (int, float))]
+        return f"<ModelMetrics{self.kind.capitalize()} {' '.join(parts)}>"
+
+
+def binomial_metrics(p1: torch.Tensor, y: torch.Tensor,
+                     w: Optional[torch.Tensor] = None,
+                     valid: Optional[torch.Tensor] = None,
+                     domain=None) -> ModelMetrics:
+    """p1: P(class 1); y: {0, 1} float with NaN = missing response."""
+    y = y.to(torch.float32)
+    valid = torch.ones_like(p1, dtype=torch.bool) if valid is None else valid
+    valid = valid & ~torch.isnan(y)
+    w = torch.ones_like(p1) if w is None else w
+    r = _binomial_reduce(p1, y, w, valid)
+    sweep = _auc_from_hist(r["pos"], r["neg"])
+    cm = sweep["cm"]
+    data = dict(mse=r["mse"], rmse=float(np.sqrt(r["mse"])),
+                logloss=r["logloss"], nobs=r["wsum"],
+                mean_per_class_error=float(
+                    0.5 * (cm["fn"] / max(cm["fn"] + cm["tp"], EPS) +
+                           cm["fp"] / max(cm["fp"] + cm["tn"], EPS))),
+                domain=list(domain) if domain else ["0", "1"], **sweep)
+    return ModelMetrics("binomial", data)
+
+
+def regression_metrics(pred: torch.Tensor, y: torch.Tensor,
+                       w: Optional[torch.Tensor] = None,
+                       valid: Optional[torch.Tensor] = None
+                       ) -> ModelMetrics:
+    """Gaussian regression metrics (deviance = weighted squared error)."""
+    valid = torch.ones_like(pred, dtype=torch.bool) if valid is None \
+        else valid
+    valid = valid & ~torch.isnan(y) & ~torch.isnan(pred)
+    w = torch.ones_like(pred) if w is None else w
+    dev = w * (y - pred) ** 2
+    zero = torch.zeros((), dtype=pred.dtype, device=pred.device)
+    w = torch.where(valid, w, zero)
+    y = torch.where(valid, y, zero)
+    pred = torch.where(valid, pred, zero)
+    wsum = torch.clamp_min(torch.sum(w), EPS)
+    err = y - pred
+    mse = torch.sum(w * err ** 2) / wsum
+    mae = torch.sum(w * torch.abs(err)) / wsum
+    ymean = torch.sum(w * y) / wsum
+    sstot = torch.sum(w * (y - ymean) ** 2) / wsum
+    mean_dev = torch.sum(torch.where(valid, dev, zero)) / wsum
+    data = dict(mse=mse.item(), rmse=float(np.sqrt(mse.item())),
+                mae=mae.item(),
+                r2=(1 - mse / torch.clamp_min(sstot, EPS)).item(),
+                mean_residual_deviance=mean_dev.item(), nobs=wsum.item())
+    return ModelMetrics("regression", data)

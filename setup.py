@@ -7,7 +7,10 @@ setup(
     version="0.3.0",
     description="TPU-native distributed ML platform with the H2O-3 "
                 "capability surface (jax/XLA compute, REST v3 API)",
-    packages=find_packages(include=["h2o_tpu", "h2o_tpu.*"]),
+    packages=find_packages(include=["h2o_tpu", "h2o_tpu.*",
+                                    "h2o_tpu_torch", "h2o_tpu_torch.*"]),
+    # the PyTorch/CUDA port builds its kernels from these at first use
+    package_data={"h2o_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "scipy", "optax"],
     extras_require={

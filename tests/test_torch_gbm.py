@@ -1,0 +1,162 @@
+"""The port's slice as a whole: h2o_tpu_torch GBM held against h2o_tpu
+GBM on the CPU, tree for tree.
+
+Four configurations on the same data (NaNs in a numeric column, one
+categorical column): bernoulli with histogram_type AUTO (UniformAdaptive,
+the default), the same with bf16_histograms, bernoulli with
+QuantilesGlobal, and gaussian with AUTO.
+Split columns, thresholds, NA directions and bitsets are equal; node
+values agree to rtol 1e-4 / atol 1e-6, predictions to atol 1e-5 and the
+training AUC to 1e-4.  The port's float32 tables are summed in another
+order than the reference's 8-shard CPU mesh, so the data has a strong,
+smooth signal: no split decision here is a near-tie.
+
+The converter carries a JAX-trained forest across unchanged; it must
+score like the JAX model to atol 1e-6.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from h2o_tpu.core.frame import Frame as JFrame, T_CAT as J_CAT, Vec as JVec
+from h2o_tpu.models.tree.gbm import GBM as JGBM
+
+from h2o_tpu_torch.core.frame import T_CAT, Frame, Vec
+from h2o_tpu_torch.models.tree.convert import gbm_from_jax_output
+from h2o_tpu_torch.models.tree.gbm import GBM
+
+pytestmark = pytest.mark.shared_dkv
+
+CONFIGS = {
+    "bernoulli_auto": dict(binomial=True, histogram_type="AUTO"),
+    "bernoulli_qg": dict(binomial=True, histogram_type="QuantilesGlobal"),
+    "gaussian_auto": dict(binomial=False, histogram_type="AUTO"),
+    # bf16_histograms rounds each row's stats to bfloat16 before the f32
+    # sums, identically in both packages, so the same tolerances hold
+    "bernoulli_auto_bf16": dict(binomial=True, histogram_type="AUTO",
+                                bf16_histograms=True),
+}
+_NAMES = ["a", "b", "c", "d", "k", "y"]
+_DOM = list("vwxyz")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small shapes gain nothing from intra-op threads, and the suite
+    runs several workers at once: keep torch to one CPU thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _data(n=600, seed=0):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, 4)).astype(np.float32)
+    X[rng.uniform(size=n) < 0.05, 1] = np.nan
+    cat = rng.integers(0, 5, n).astype(np.int32)
+    logit = (1.5 * X[:, 0] - X[:, 2] + 0.8 * (cat % 2) +
+             0.5 * np.nan_to_num(X[:, 1]))
+    yb = (rng.uniform(size=n) < 1 / (1 + np.exp(-logit))).astype(np.int32)
+    yr = (logit + 0.1 * rng.normal(size=n)).astype(np.float32)
+    return X, cat, yb, yr
+
+
+def _frames(binomial: bool):
+    X, cat, yb, yr = _data()
+    y = yb if binomial else yr
+    jv = [JVec(X[:, j]) for j in range(4)] + [JVec(cat, J_CAT, domain=_DOM)]
+    pv = [Vec(X[:, j]) for j in range(4)] + [Vec(cat, T_CAT, domain=_DOM)]
+    jv.append(JVec(y, J_CAT, domain=["n", "p"]) if binomial else JVec(y))
+    pv.append(Vec(y, T_CAT, domain=["n", "p"]) if binomial else Vec(y))
+    return JFrame(_NAMES, jv), Frame(_NAMES, pv)
+
+
+@pytest.fixture(scope="module", params=sorted(CONFIGS))
+def pair(request, cl):
+    cfg = CONFIGS[request.param]
+    jf, pf = _frames(cfg["binomial"])
+    kw = dict(ntrees=3, max_depth=3, seed=1,
+              histogram_type=cfg["histogram_type"],
+              bf16_histograms=cfg.get("bf16_histograms", False))
+    jm = JGBM(**kw).train(y="y", training_frame=jf)
+    pm = GBM(device="cpu", **kw).train(y="y", training_frame=pf)
+    return cfg, jf, pf, jm, pm
+
+
+def test_trees_equal(pair):
+    _, _, _, jm, pm = pair
+    for k in ("split_col", "thr_bin", "na_left", "bitset"):
+        np.testing.assert_array_equal(pm.output[k], np.asarray(jm.output[k]),
+                                      err_msg=k)
+    assert (pm.output["split_col"] >= 0).sum() > 3
+    assert pm.output["hist_type"] == jm.output["hist_type"]
+
+
+def test_values_close(pair):
+    _, _, _, jm, pm = pair
+    np.testing.assert_allclose(pm.output["value"],
+                               np.asarray(jm.output["value"]),
+                               rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(pm.output["f0"], np.asarray(jm.output["f0"]),
+                               rtol=1e-6)
+
+
+def test_predictions_close(pair):
+    _, jf, pf, jm, pm = pair
+    got = pm.predict_raw(pf).numpy()
+    want = np.asarray(jm.predict_raw(jf))[: pf.nrows]
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+def test_training_metrics_close(pair):
+    cfg, _, _, jm, pm = pair
+    jt, pt = jm.output["training_metrics"], pm.output["training_metrics"]
+    if cfg["binomial"]:
+        assert abs(pt["AUC"] - jt["AUC"]) <= 1e-4
+        assert pt["AUC"] > 0.75
+        assert abs(pt["logloss"] - jt["logloss"]) <= 1e-4
+    np.testing.assert_allclose(pt["mse"], jt["mse"], rtol=1e-4)
+
+
+def test_converted_forest_scores_like_reference(pair):
+    _, jf, pf, jm, _ = pair
+    out = {k: (np.asarray(v) if hasattr(v, "shape") else v)
+           for k, v in jm.output.items()}
+    cm = gbm_from_jax_output(out, jm.params, device="cpu")
+    got = cm.predict_raw(pf).numpy()
+    want = np.asarray(jm.predict_raw(jf))[: pf.nrows]
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    pred = cm.predict(pf)
+    assert pred.nrows == pf.nrows
+
+
+def test_bf16_histograms_reach_the_tables():
+    """The option changes the node values (rounded stats), not the
+    forest's shape on this data."""
+    _, pf = _frames(True)
+    kw = dict(device="cpu", ntrees=2, max_depth=3, seed=1)
+    f32 = GBM(**kw).train(y="y", training_frame=pf).output
+    b16 = GBM(bf16_histograms=True, **kw).train(
+        y="y", training_frame=pf).output
+    np.testing.assert_array_equal(b16["split_col"], f32["split_col"])
+    assert not np.array_equal(b16["value"], f32["value"])
+    np.testing.assert_allclose(b16["value"], f32["value"], rtol=2e-2,
+                               atol=1e-4)
+
+
+def test_out_of_slice_options_raise():
+    jf, pf = _frames(True)
+    for kw in (dict(sample_rate=0.5), dict(col_sample_rate=0.5),
+               dict(col_sample_rate_per_tree=0.5),
+               dict(histogram_type="Random"), dict(stats_dtype="int16"),
+               dict(stopping_rounds=2), dict(max_depth=14)):
+        with pytest.raises(NotImplementedError):
+            GBM(device="cpu", ntrees=1, **kw).train(y="y", training_frame=pf)
+    multi = Frame(["a", "y"], [Vec(np.arange(9, dtype=np.float32)),
+                               Vec(np.arange(9) % 3, T_CAT,
+                                   domain=["p", "q", "r"])])
+    with pytest.raises(NotImplementedError):
+        GBM(device="cpu", ntrees=1).train(y="y", training_frame=multi)
+    assert torch.get_default_dtype() == torch.float32
