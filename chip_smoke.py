@@ -10,9 +10,12 @@ width of 1,000,000 rows x 28 features the repository benchmarks.  Phases
   0 device  - card name and power limit
   1 build   - nvcc builds the histogram kernels from h2o_tpu_torch/csrc
   2 K1      - hist_cuda at the QuantilesGlobal shapes (uint8 bins, B=64,
-              L = 1..16) in f32, bf16 and int16 modes: held against the
-              plain PyTorch version, launched twice for bitwise equality,
-              timed beside its bound, the plain version and index_add_
+              L = 1..16) in f32, bf16, int16 and int8 modes: held against
+              the plain PyTorch version, launched twice and once on
+              row-permuted inputs (all three bitwise equal), f32 and int16
+              timed, f32 beside its bound, the plain version and
+              index_add_; at the first shape an active row's NaN stat must
+              come out NaN in its slot
   3 K2      - hist_cuda_adaptive at the default-GBM shapes (int16 fine
               bins, F=1024, (L, Bd) = (1,1024) .. (16,64)), likewise
   4 default GBM (UniformAdaptive) on 1M x 28: K2 must carry every level;
@@ -21,13 +24,16 @@ width of 1,000,000 rows x 28 features the repository benchmarks.  Phases
   5 QuantilesGlobal GBM (nbins=64): K1 must carry every level
   6 scoring - predict() on the training frame reproduces the training AUC
   7 profile - torch.profiler over 2 default trees: device busy share and
-              the kernels that take the device time
+              the kernels that take the device time; then 2 QuantilesGlobal
+              trees: each histogram kernel's device ms per main-path launch
+              (first pass + kernel + last pass, over the launch counter)
 
 The line before the last holds every kernel's numbers; the last line is
 the device summary.  Needs one CUDA card; exits non-zero without one.
 """
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -50,8 +56,9 @@ DEV = torch.device("cuda:0")
 R, C = 1_000_000, 28
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_OPS_PER_S = 67e12            # float32 outside the tensor cores
-# f32 sums of 10^6 terms in another order than the plain version's
-# float64 accumulation differ by a few float32 ulps of the largest cell
+# the kernels' f32 tables come from 64-bit fixed-point sums (one rounding
+# per stat at 2^-k, one to float32 at the end); the plain version sums in
+# float64: they agree far inside 1e-4 of the largest cell
 F32_RTOL = 1e-4
 TIMED_LAUNCHES = 12
 L2_FLUSH_BYTES = 256 * 2 ** 20   # written before each timed launch (L2: 50 MB)
@@ -162,22 +169,64 @@ def library_ms(bins, leaf, stats, L: int, B1: int, fine_map=None) -> float:
     return ms
 
 
+def nan_check(name, L, B, bins, leaf, stats_f, fm, run_kernel) -> dict:
+    """One active row's stat slot 1 set to NaN: the plain version's cells
+    that row reaches are NaN, and the kernel's slot 1 must be NaN there
+    (the kernel makes the whole slot NaN); the other slots stay within
+    F32_RTOL of the plain version."""
+    row = int(torch.nonzero(leaf >= 0)[0, 0])
+    st = stats_f.clone()
+    st[row, 1] = float("nan")
+    got = run_kernel(bins, leaf, st, L, B, False, fm)
+    plain = hist_plain(bins, leaf, st, L, B, fine_map=fm)
+    sync()
+    want_nan = torch.isnan(plain)
+    slot = torch.arange(got.shape[1], device=DEV) % 4
+    finite = slot != 1
+    err = (got[:, finite].double() - plain[:, finite].double()).abs().max()
+    scale = plain[:, finite].double().abs().max()
+    ok = (bool(want_nan.any()) and bool(torch.isnan(got[want_nan]).all())
+          and not bool(torch.isnan(got[:, finite]).any())
+          and float(err) <= F32_RTOL * float(scale))
+    rec = dict(phase=name, L=L, B=B, mode="f32_nan_row", row=row,
+               plain_nan_cells=int(want_nan.sum()),
+               kernel_nan_cells=int(torch.isnan(got).sum()),
+               other_slots_max_abs_err=float(err))
+    if not ok:
+        raise AssertionError(f"{name} L={L}: a NaN stat on an active row "
+                             f"did not give NaN in its slot: {rec}")
+    return rec
+
+
 def kernel_phase(name: str, shapes, make_inputs, run_kernel, fine: bool):
     """Check and time one kernel over the main-path shapes; returns the
-    totals over the schedule (f32 mode) for the summary line."""
+    totals over the schedule (f32 mode, and int16 ms) for the summary
+    line.  Every mode is launched twice and once more on row-permuted
+    inputs: all three tables must have the same bits."""
     tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
-               max_abs_err=0.0, bytes_ms=0.0, ops_ms=0.0)
-    for (L, B) in shapes:
+               max_abs_err=0.0, bytes_ms=0.0, ops_ms=0.0, int16_ms=0.0)
+    for si, (L, B) in enumerate(shapes):
         bins, leaf, stats_f, stats_i, fm = make_inputs(L, B)
+        # int8 stats from the int16 ones, and a row permutation from a
+        # generator of their own, so the draws above match earlier runs
+        stats_i8 = torch.div(stats_i, 16, rounding_mode="floor").to(
+            torch.int8)
+        perm = torch.from_numpy(np.random.default_rng(1000 + si).permutation(
+            bins.shape[0])).to(DEV)
+        pbins, pleaf = bins[perm].contiguous(), leaf[perm].contiguous()
         active = int((leaf >= 0).sum())
-        for mode in ("f32", "bf16", "int16"):
-            stats = stats_i if mode == "int16" else stats_f
+        if si == 0:
+            emit(nan_check(name, L, B, bins, leaf, stats_f, fm, run_kernel))
+        for mode in ("f32", "bf16", "int16", "int8"):
+            stats = {"int16": stats_i, "int8": stats_i8}.get(mode, stats_f)
             bf16 = mode == "bf16"
 
             def kern():
                 return run_kernel(bins, leaf, stats, L, B, bf16, fm)
 
             k1, k2 = kern(), kern()
+            kp = run_kernel(pbins, pleaf, stats[perm].contiguous(), L, B,
+                            bf16, fm)
             sync()
             plain = hist_plain(bins, leaf, stats, L, B, bf16=bf16,
                                fine_map=fm)
@@ -185,17 +234,24 @@ def kernel_phase(name: str, shapes, make_inputs, run_kernel, fine: bool):
             if not torch.equal(k1, k2):
                 raise AssertionError(f"{name} L={L} {mode}: two launches "
                                      "differ")
+            if not torch.equal(k1, kp):
+                raise AssertionError(f"{name} L={L} {mode}: permuted rows "
+                                     "give other bits")
             err = (k1.double() - plain.double()).abs().max().item()
             scale = plain.double().abs().max().item()
-            if mode == "int16":
+            if mode in ("int16", "int8"):
                 if not torch.equal(k1, plain):
-                    raise AssertionError(f"{name} L={L} int16: not equal "
+                    raise AssertionError(f"{name} L={L} {mode}: not equal "
                                          f"to the plain version ({err})")
             elif err > F32_RTOL * scale:
                 raise AssertionError(f"{name} L={L} {mode}: max|k-p| {err} "
                                      f"> {F32_RTOL} * {scale}")
             rec = dict(phase=name, L=L, B=B, mode=mode, max_abs_err=err,
-                       max_abs_plain=scale, bitwise_repeat=True)
+                       max_abs_plain=scale, bitwise_repeat=True,
+                       bitwise_permuted=True)
+            if mode == "int16":
+                rec["ms"] = time_ms(kern)
+                tot["int16_ms"] += rec["ms"]
             if mode == "f32":
                 nbytes = (bins.numel() * bins.element_size() + leaf.numel() * 4
                           + active * 16 + C * (B + 1) * L * 16)
@@ -206,7 +262,9 @@ def kernel_phase(name: str, shapes, make_inputs, run_kernel, fine: bool):
                 ops = active * C * 4
                 plan = hk.plan_hist(R, C, B + 1, L, adaptive=fine,
                                     n_sm=torch.cuda.get_device_properties(
-                                        DEV).multi_processor_count)
+                                        DEV).multi_processor_count,
+                                    bins_itemsize=bins.element_size(),
+                                    stats_itemsize=stats.element_size())
                 b_ms, b_by = bound(nbytes, ops)
                 rec.update(
                     ms=time_ms(kern),
@@ -310,6 +368,10 @@ def main() -> None:
                       k1_inputs(rng), run_k1, fine=False)
     k2 = kernel_phase("K2", [(1, 1024), (2, 512), (4, 256), (8, 128),
                              (16, 64)], k2_inputs(rng), run_k2, fine=True)
+    emit(dict(phase="kernel_sums", hist_cuda=dict(f32_ms=k1["ms"],
+                                                  int16_ms=k1["int16_ms"]),
+              hist_cuda_adaptive=dict(f32_ms=k2["ms"],
+                                      int16_ms=k2["int16_ms"])))
     torch.cuda.empty_cache()
 
     # -- 4 default GBM, full width -------------------------------------------
@@ -374,16 +436,41 @@ def main() -> None:
 
     # -- 7 where a default tree's time goes (torch.profiler, 2 trees) ------
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, wall_p = train(fr, ntrees=2)
-    per_name, n_kernels = {}, 0
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            per_name[ev.name] = per_name.get(ev.name, 0.0) + \
-                ev.device_time_total
-            n_kernels += 1
-    busy_ms = sum(per_name.values()) / 1e3
+
+    def profiled(**kw):
+        """Device ms by kernel name over a 2-tree training, its wall, the
+        number of device operations, and the two counters' launches."""
+        hk.reset_launches()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, wall = train(fr, ntrees=2, **kw)
+        per, n = {}, 0
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                per[ev.name] = per.get(ev.name, 0.0) + \
+                    ev.device_time_total / 1e3
+                n += 1
+        return per, wall, n, (hk.hist_cuda.launches,
+                              hk.hist_cuda_adaptive.launches)
+
+    def per_launch(per, launches):
+        """Device ms per launch of a histogram kernel on the main path:
+        its first pass, kernel and last pass (csrc/hist.cu names), from
+        the profiler's totals over the counter's launches."""
+        parts = {k: v for k, v in per.items()
+                 if re.search(r"hist_(kernel|amax_kernel|finish)", k)}
+        total = sum(parts.values())
+        return dict(launches=launches, ms_per_launch=total / max(launches, 1),
+                    parts_ms={k[:70]: v for k, v in parts.items()})
+
+    per_name, wall_p, n_kernels, (p_k1, p_k2) = profiled()
+    per_q, _, _, (pq_k1, pq_k2) = profiled(histogram_type="QuantilesGlobal",
+                                           nbins=64)
+    if p_k1 or pq_k2 or not p_k2 or not pq_k1:
+        raise AssertionError("profiled trainings took the wrong kernels")
+    main_path = dict(hist_cuda_adaptive=per_launch(per_name, p_k2),
+                     hist_cuda=per_launch(per_q, pq_k1))
+    busy_ms = sum(per_name.values())
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:6]
     # two fixed costs of every training, timed alone on the host clock
     t0 = time.perf_counter()
@@ -397,8 +484,9 @@ def main() -> None:
               device_busy_ms=busy_ms,
               device_busy_share=busy_ms / (wall_p * 1e3),
               device_ops=n_kernels,
-              top_device_ms={k[:60]: v / 1e3 for k, v in top},
-              frame_to_device_s=t1 - t0, training_metrics_s=t2 - t1))
+              top_device_ms={k[:60]: v for k, v in top},
+              frame_to_device_s=t1 - t0, training_metrics_s=t2 - t1,
+              main_path_kernels=main_path))
 
     def entry(name, replaces, launches, tot):
         return dict(name=name, route="cuda",

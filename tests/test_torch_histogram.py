@@ -170,19 +170,171 @@ _PLAN_SHAPES = [
 
 @pytest.mark.parametrize("R,C,B1,L,adaptive", _PLAN_SHAPES)
 def test_planner_covers_every_cell_once_within_budget(R, C, B1, L, adaptive):
-    plan = hk.plan_hist(R, C, B1, L, adaptive=adaptive)
-    assert plan.smem_bytes <= hk.SMEM_BUDGET <= 227 * 1024
+    """float32 stats with the main path's bins: int16 fine bins for K2,
+    uint8 for K1.  A cell is four 32-bit words in every stats mode, so
+    int16 stats get the same groups."""
+    bsize = 2 if adaptive else 1
+    plan = hk.plan_hist(R, C, B1, L, adaptive=adaptive, bins_itemsize=bsize)
+    assert plan.smem_bytes <= hk.SMEM_MAX == 227 * 1024
+    assert hk.CELL_BYTES == 16
+    p16 = hk.plan_hist(R, C, B1, L, adaptive=adaptive, bins_itemsize=bsize,
+                       stats_itemsize=2)
+    assert (p16.cg, p16.lg, p16.bg) == (plan.cg, plan.lg, plan.bg)
+    # shared memory: barriers and scales, the ring, K2's ranges, the table
+    assert plan.ranges_off == plan.ring_off + \
+        plan.stages * plan.tile_rows * (C * bsize + 4 + 16)
+    assert plan.ring_off % 16 == plan.ranges_off % 16 == \
+        plan.table_off % 16 == 0
     cover = np.zeros((C, L, B1), np.int32)
     for c0, c1, l0, l1, b0, b1 in plan.groups():
         assert c0 < c1 and l0 < l1 and b0 < b1
-        cell = 16 * (b1 - b0) + (12 if adaptive else 0)
-        assert (c1 - c0) * ((l1 - l0) * cell + (4 if adaptive else 0)) \
-            <= plan.smem_bytes
+        assert (c1 - c0) * (l1 - l0) * (b1 - b0) * hk.CELL_BYTES <= \
+            plan.smem_bytes - plan.table_off
+        assert (c1 - c0) * (l1 - l0) * 16 * adaptive <= \
+            plan.table_off - plan.ranges_off
         cover[c0:c1, l0:l1, b0:b1] += 1
     np.testing.assert_array_equal(cover, 1)
-    # every row lands in exactly one chunk; chunks are warp multiples
-    assert plan.chunk_rows % 32 == 0
+    # every row lands in exactly one chunk; chunks are whole tiles
+    assert plan.tile_rows in hk._TILE_ROWS and plan.stages in hk._STAGES
+    assert plan.ranges_off - plan.ring_off <= hk.RING_BYTES
+    assert plan.chunk_rows % plan.tile_rows == 0
     assert (plan.n_chunks - 1) * plan.chunk_rows < R <= \
         plan.n_chunks * plan.chunk_rows
-    assert plan.n_chunks * C * B1 * L * 16 <= max(hk.SCRATCH_BYTES,
-                                                  C * B1 * L * 16)
+    # residency: shared memory and 64 registers a thread allow it, and
+    # the 1M-row shapes keep at least 32 warps on every SM
+    assert plan.resident * (plan.smem_bytes + 1024) <= 228 * 1024
+    assert plan.resident * plan.warps <= 32
+    if R == 1_000_000:
+        assert plan.resident * plan.warps >= 32
+        # about one wave of CTAs (chunks are whole tiles, so a few short)
+        assert plan.ncg * plan.nlg * plan.nbg * plan.n_chunks >= \
+            0.95 * 132 * plan.resident
+
+
+def test_planner_stages_nothing_for_rows_too_wide():
+    """Rows whose tile cannot fit the ring are read from global memory."""
+    plan = hk.plan_hist(10_000, 2_000, 65, 1, bins_itemsize=4)
+    assert plan.tile_rows == 0
+    assert plan.ranges_off == plan.ring_off
+    assert plan.chunk_rows % 32 == 0 and plan.smem_bytes <= hk.SMEM_MAX
+    cover = np.zeros((2_000, 1, 65), np.int32)
+    for c0, c1, l0, l1, b0, b1 in plan.groups():
+        cover[c0:c1, l0:l1, b0:b1] += 1
+    np.testing.assert_array_equal(cover, 1)
+
+
+# -- 64-bit fixed point of the float32 tables ---------------------------------
+
+@pytest.mark.parametrize("rows", [1, 1000, 1 << 20, 1_000_000, hk.MAX_ROWS])
+@pytest.mark.parametrize("amax", [1.0, 3.7e-5, 2.5, 6.1e30, 1e-38])
+def test_fixed_point_scale_is_largest_without_overflow(rows, amax):
+    """The largest k with amax * 2^k < 2^FIXED_POINT_BITS: one more bit
+    would break the rule.  ``rows`` stats at +-amax, all of one sign, sum
+    below 2^62 (the int64 table cannot overflow), and a stat at amax
+    wraps its cell's 32-bit word at most once in 2^(32 - bits) adds."""
+    from fractions import Fraction
+    a = torch.full((4,), amax, dtype=torch.float32)
+    k = hk.fixed_point_exponents(a)
+    assert k.dtype == torch.int32 and bool((k == k[0]).all())
+    k0, bits = int(k[0]), hk.FIXED_POINT_BITS
+    exact = Fraction(float(a[0]))
+    assert exact * Fraction(2) ** k0 < 2 ** bits
+    if k0 < 126:
+        assert exact * Fraction(2) ** (k0 + 1) >= 2 ** bits
+    for sign in (1.0, -1.0):
+        q = int(hk.quantize(torch.full((1, 4), sign * amax), k)[0, 0])
+        assert abs(q) <= 2 ** bits
+        assert abs(q) * rows < 2 ** 62
+        # adds of q to a 32-bit word between two wraps
+        assert q == 0 or 2 ** 32 // abs(q) >= 2 ** (32 - bits)
+
+
+def _word_and_carries(q, order):
+    """The kernel's float32 cell, in Python: each q is added to a 32-bit
+    word that starts at 2^31, and a wrap of that word (a carry for
+    q >= 0, a borrow for q < 0) adds +-2^32 to the int64 in the global
+    table; the merge adds the word less 2^31.  Returns the int64 and the
+    number of wraps."""
+    word, glob, wraps = 2 ** 31, 0, 0
+    for i in order:
+        u = int(q[i]) % 2 ** 32
+        old, word = word, (word + u) % 2 ** 32
+        if (word < old) if q[i] >= 0 else (word > old):
+            glob += 2 ** 32 if q[i] >= 0 else -2 ** 32
+            wraps += 1
+    return glob + word - 2 ** 31, wraps
+
+
+@pytest.mark.parametrize("spread", ["one_sign_at_max", "normal"])
+def test_fixed_point_word_and_carries_are_exact_in_any_order(spread):
+    """Word plus carries gives the exact int64 sum of the quantized stats
+    for any order of the adds; the word wraps at most once in
+    2^(32 - bits) adds, as the scale rule promises, and a signed stat
+    whose sum wanders around zero does not wrap at all."""
+    rng = np.random.default_rng(8)
+    n = 4096
+    if spread == "normal":
+        st = rng.normal(size=(n, 4)).astype(np.float32) * 3
+    else:
+        st = np.full((n, 4), 2.5, np.float32) * np.array([1, -1, 1, -1],
+                                                          np.float32)
+    stats = torch.from_numpy(st)
+    k = hk.fixed_point_exponents(stats.abs().amax(0))
+    q = hk.quantize(stats, k).numpy()
+    for s in range(4):
+        want = int(q[:, s].sum())
+        got, wraps = _word_and_carries(q[:, s], range(n))
+        assert got == want
+        assert _word_and_carries(q[:, s], rng.permutation(n))[0] == want
+        assert wraps <= n // 2 ** (32 - hk.FIXED_POINT_BITS) + 1
+        if spread == "one_sign_at_max":
+            # one wrap per 2^32 of |sum|
+            assert abs(wraps - abs(want) / 2 ** 32) <= 1
+        else:
+            assert wraps == 0
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_fixed_point_sum_within_bound_of_float64(bf16):
+    """quantize -> int64 sum -> float32 against the float64 sum of the
+    same (bf16-rounded) stats: within n * 2^(-k-1) + half a float32 ulp."""
+    rng = np.random.default_rng(21)
+    R = 20_000
+    st = rng.normal(size=(R, 4)) * np.array([1.0, 1e-3, 250.0, 7e5])
+    stats = torch.from_numpy(st.astype(np.float32))
+    leaf = torch.from_numpy(rng.integers(-1, 3, size=R).astype(np.int32))
+    stats[leaf < 0] = float("nan")
+    amax = hk.active_amax(leaf, stats, 3, bf16=bf16)
+    k = hk.fixed_point_exponents(amax)
+    act = leaf >= 0
+    x = stats[act]
+    if bf16:
+        x = x.to(torch.bfloat16).to(torch.float32)
+    got = hk.dequantize(hk.quantize(x, k).sum(0), k).double()
+    want = x.double().sum(0)
+    n = int(act.sum())
+    bound = n * torch.exp2(-k.double() - 1) + want.abs() * 2.0 ** -24
+    assert bool(((got - want).abs() <= bound).all()), (got, want, bound)
+    # the quantum is below float32's rounding of amax: 2^-k <= 2^-25 amax
+    assert bool((torch.exp2(-k.double()) <=
+                 amax.double() * 2.0 ** (1 - hk.FIXED_POINT_BITS)).all())
+
+
+def test_fixed_point_amax_ignores_inactive_nan():
+    rng = np.random.default_rng(4)
+    R, L = 500, 4
+    leaf = rng.integers(0, L, size=R).astype(np.int32)
+    leaf[::7] = -1
+    leaf[::11] = L                       # outside [0, L): inactive too
+    st = rng.normal(size=(R, 4)).astype(np.float32)
+    act = (leaf >= 0) & (leaf < L)
+    st[~act] = np.nan
+    st[np.flatnonzero(~act)[0], 2] = np.inf
+    a = hk.active_amax(torch.from_numpy(leaf), torch.from_numpy(st), L)
+    np.testing.assert_array_equal(a.numpy(), np.abs(st[act]).max(0))
+    assert bool(torch.isfinite(hk.fixed_point_exponents(a)).all())
+    # an active NaN reaches the max of its slot only (the kernel makes
+    # that slot NaN)
+    st[np.flatnonzero(act)[3], 1] = np.nan
+    a = hk.active_amax(torch.from_numpy(leaf), torch.from_numpy(st), L)
+    assert np.isnan(a[1].item()) and bool(torch.isfinite(a[[0, 2, 3]]).all())
