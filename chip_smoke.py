@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-The main path is GBM training followed by scoring, at the HIGGS-shaped
-width of 1,000,000 rows x 28 features the repository benchmarks.  Phases
-(each prints one JSON line; any failure raises and the exit code is not 0):
+The main paths are GBM and DRF training followed by scoring, at the
+HIGGS-shaped width of 1,000,000 rows x 28 features the repository
+benchmarks.  Phases (each prints one JSON line; any failure raises and the
+exit code is not 0):
 
   0 device  - card name and power limit
   1 build   - nvcc builds the histogram kernels from h2o_tpu_torch/csrc
@@ -18,15 +19,36 @@ width of 1,000,000 rows x 28 features the repository benchmarks.  Phases
               come out NaN in its slot
   3 K2      - hist_cuda_adaptive at the default-GBM shapes (int16 fine
               bins, F=1024, (L, Bd) = (1,1024) .. (16,64)), likewise
+  3f frontier - K1 and K2 at the sparse-frontier shape of a default DRF
+              (L = 4,096 live leaves, B = 20) in f32 and int16: held
+              against the plain version, bitwise under repeat and row
+              permutation, timed beside the bound
   4 default GBM (UniformAdaptive) on 1M x 28: K2 must carry every level;
     then the same GBM on the first 100,000 rows on the card and on the
     CPU (the plain versions) must grow the same first tree
   5 QuantilesGlobal GBM (nbins=64): K1 must carry every level
   6 scoring - predict() on the training frame reproduces the training AUC
+  8 stochastic GBM - sample_rate 0.7, col_sample_rate 0.8,
+              col_sample_rate_per_tree 0.9, int16 stats: Random histograms
+              (K2 must carry every level), then QuantilesGlobal nbins=64
+              (K1 every level, sibling subtraction on the int32 tables);
+              the Random GBM on the first 100,000 rows on the card and on
+              the CPU must grow the same first tree
+  9 DRF     - defaults (depth 20 on the sparse-frontier engine, mtries 5,
+              sample_rate 0.632) with ntrees cut to DRF_TREES: K2 must
+              carry all 20 levels of every tree, predict() reproduces the
+              training AUC; 2 trees on the first 100,000 rows on the card
+              and on the CPU must be equal (0/1 stats sum exactly)
   7 profile - torch.profiler over 2 default trees: device busy share and
               the kernels that take the device time; then 2 QuantilesGlobal
               trees: each histogram kernel's device ms per main-path launch
-              (first pass + kernel + last pass, over the launch counter)
+              (first pass + kernel + last pass, over the launch counter);
+              the same for the two int16 stochastic GBMs and for one DRF
+              tree (where its time goes)
+
+The kernels line's launches sum every main-path training above (phases
+4, 5, 8, 9), each read from counters set to 0 just before it; the
+launches phase lists them path by path.
 
 The line before the last holds every kernel's numbers; the last line is
 the device summary.  Needs one CUDA card; exits non-zero without one.
@@ -48,6 +70,7 @@ if not torch.cuda.is_available():
 
 from h2o_tpu_torch.core.frame import T_CAT, Frame, Vec  # noqa: E402
 from h2o_tpu_torch.models.metrics import binomial_metrics  # noqa: E402
+from h2o_tpu_torch.models.tree.drf import DRF  # noqa: E402
 from h2o_tpu_torch.models.tree.gbm import GBM  # noqa: E402
 from h2o_tpu_torch.ops import hist_kernels as hk  # noqa: E402
 from h2o_tpu_torch.ops.histogram import hist_plain  # noqa: E402
@@ -61,6 +84,11 @@ F32_OPS_PER_S = 67e12            # float32 outside the tensor cores
 # float64: they agree far inside 1e-4 of the largest cell
 F32_RTOL = 1e-4
 TIMED_LAUNCHES = 12
+#: DRF trees at full width (the default is 50; cut to fit the time limit)
+DRF_TREES = 10
+#: the stochastic GBM options of phase 8
+STOCHASTIC = dict(sample_rate=0.7, col_sample_rate=0.8,
+                  col_sample_rate_per_tree=0.9, stats_dtype="int16")
 L2_FLUSH_BYTES = 256 * 2 ** 20   # written before each timed launch (L2: 50 MB)
 
 
@@ -198,13 +226,15 @@ def nan_check(name, L, B, bins, leaf, stats_f, fm, run_kernel) -> dict:
     return rec
 
 
-def kernel_phase(name: str, shapes, make_inputs, run_kernel, fine: bool):
+def kernel_phase(name: str, shapes, make_inputs, run_kernel, fine: bool,
+                 modes=("f32", "bf16", "int16", "int8")):
     """Check and time one kernel over the main-path shapes; returns the
-    totals over the schedule (f32 mode, and int16 ms) for the summary
-    line.  Every mode is launched twice and once more on row-permuted
-    inputs: all three tables must have the same bits."""
+    totals over the schedule (f32 mode, and int16 ms and bound) for the
+    summary line.  Every mode is launched twice and once more on
+    row-permuted inputs: all three tables must have the same bits."""
     tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
-               max_abs_err=0.0, bytes_ms=0.0, ops_ms=0.0, int16_ms=0.0)
+               max_abs_err=0.0, bytes_ms=0.0, ops_ms=0.0, int16_ms=0.0,
+               int16_bound_ms=0.0)
     for si, (L, B) in enumerate(shapes):
         bins, leaf, stats_f, stats_i, fm = make_inputs(L, B)
         # int8 stats from the int16 ones, and a row permutation from a
@@ -217,7 +247,7 @@ def kernel_phase(name: str, shapes, make_inputs, run_kernel, fine: bool):
         active = int((leaf >= 0).sum())
         if si == 0:
             emit(nan_check(name, L, B, bins, leaf, stats_f, fm, run_kernel))
-        for mode in ("f32", "bf16", "int16", "int8"):
+        for mode in modes:
             stats = {"int16": stats_i, "int8": stats_i8}.get(mode, stats_f)
             bf16 = mode == "bf16"
 
@@ -249,17 +279,22 @@ def kernel_phase(name: str, shapes, make_inputs, run_kernel, fine: bool):
             rec = dict(phase=name, L=L, B=B, mode=mode, max_abs_err=err,
                        max_abs_plain=scale, bitwise_repeat=True,
                        bitwise_permuted=True)
+            # bytes: bins, leaf, each active row's stats and the table
+            # (16 bytes a cell) once; operations: one add per (active
+            # row, column, stat), K2's integer bucket arithmetic not
+            # counted
+            nbytes = (bins.numel() * bins.element_size() + leaf.numel() * 4
+                      + active * 4 * stats.element_size()
+                      + C * (B + 1) * L * 16)
+            if fine:
+                nbytes += 3 * L * C * 4 + C * 4
+            ops = active * C * 4
             if mode == "int16":
-                rec["ms"] = time_ms(kern)
+                rec.update(ms=time_ms(kern), bound_ms=bound(nbytes, ops)[0],
+                           bound_bytes=nbytes)
                 tot["int16_ms"] += rec["ms"]
+                tot["int16_bound_ms"] += rec["bound_ms"]
             if mode == "f32":
-                nbytes = (bins.numel() * bins.element_size() + leaf.numel() * 4
-                          + active * 16 + C * (B + 1) * L * 16)
-                if fine:
-                    nbytes += 3 * L * C * 4 + C * 4
-                # operations: one float32 add per (active row, column,
-                # stat); K2's integer bucket arithmetic is not counted
-                ops = active * C * 4
                 plan = hk.plan_hist(R, C, B + 1, L, adaptive=fine,
                                     n_sm=torch.cuda.get_device_properties(
                                         DEV).multi_processor_count,
@@ -343,6 +378,36 @@ def train(fr, **kw):
     return m, time.perf_counter() - t0
 
 
+def train_drf(fr, **kw):
+    sync()
+    t0 = time.perf_counter()
+    m = DRF(**{"ntrees": DRF_TREES, "seed": 1, **kw}).train(
+        y="y", training_frame=fr)
+    sync()
+    return m, time.perf_counter() - t0
+
+
+def launched(fn, **kw):
+    """(model, wall, (K1 launches, K2 launches)) of one training, the
+    counters set to 0 just before it."""
+    hk.reset_launches()
+    m, wall = fn(**kw)
+    return m, wall, (hk.hist_cuda.launches, hk.hist_cuda_adaptive.launches)
+
+
+def same_forest(a: dict, b: dict, trees=None) -> dict:
+    """Which node arrays of two forests' first ``trees`` trees are equal,
+    and their node values' max |difference|."""
+    sl = slice(None, trees)
+    eq = {k: bool(np.array_equal(a[k][sl], b[k][sl]))
+          for k in ("split_col", "thr_bin", "na_left", "bitset")
+          if a.get(k) is not None}
+    if a.get("child") is not None:
+        eq["child"] = bool(np.array_equal(a["child"][sl], b["child"][sl]))
+    return dict(equal=eq, value_max_abs_diff=float(
+        np.abs(a["value"][sl] - b["value"][sl]).max()))
+
+
 def main() -> None:
     # -- 0 device ------------------------------------------------------------
     smi = subprocess.run(
@@ -372,6 +437,14 @@ def main() -> None:
                                                   int16_ms=k1["int16_ms"]),
               hist_cuda_adaptive=dict(f32_ms=k2["ms"],
                                       int16_ms=k2["int16_ms"])))
+    torch.cuda.empty_cache()
+
+    # -- 3f kernels at the sparse-frontier shape of a default DRF -----------
+    rng_f = np.random.default_rng(3)
+    k1f = kernel_phase("K1_frontier", [(4096, 20)], k1_inputs(rng_f), run_k1,
+                       fine=False, modes=("f32", "int16"))
+    k2f = kernel_phase("K2_frontier", [(4096, 20)], k2_inputs(rng_f), run_k2,
+                       fine=True, modes=("f32", "int16"))
     torch.cuda.empty_cache()
 
     # -- 4 default GBM, full width -------------------------------------------
@@ -434,16 +507,85 @@ def main() -> None:
     emit(dict(phase="score", rows=R, wall_s=score_s, auc=auc_pred))
     sync()
 
-    # -- 7 where a default tree's time goes (torch.profiler, 2 trees) ------
+    # -- 8 stochastic GBM ----------------------------------------------------
+    paths = {"gbm_default": (launches_k1, launches_k2),
+             "gbm_quantiles_global": (q_k1, q_k2)}
+    for name, kw, want in (
+            ("gbm_stochastic_random", dict(histogram_type="Random"),
+             (0, 100)),
+            ("gbm_stochastic_quantiles_global",
+             dict(histogram_type="QuantilesGlobal", nbins=64), (100, 0))):
+        m_s, wall_s, got = launched(train, fr=fr, **STOCHASTIC, **kw)
+        auc_s = m_s.output["training_metrics"]["AUC"]
+        emit(dict(phase=name, rows=R, cols=C, ntrees=20, max_depth=5,
+                  **STOCHASTIC, **kw, wall_s=wall_s,
+                  rows_trees_per_s=R * 20 / wall_s, train_auc=auc_s,
+                  k1_launches=got[0], k2_launches=got[1]))
+        if got != want:
+            raise AssertionError(f"{name}: (K1, K2) launched {got}, want "
+                                 f"{want}")
+        if not (0.5 < auc_s <= 1.0) or \
+                not np.isfinite(m_s.output["value"]).all():
+            raise AssertionError(f"{name}: implausible model (AUC {auc_s})")
+        paths[name] = got
+    kw_r = dict(STOCHASTIC, histogram_type="Random", ntrees=3)
+    m_gpu, _ = train(sub, device="cuda", **kw_r)
+    m_cpu, _ = train(sub, device="cpu", **kw_r)
+    cmp_r = same_forest(m_gpu.output, m_cpu.output, trees=1)
+    emit(dict(phase="gbm_stochastic_cuda_vs_cpu", rows=100_000, ntrees=3,
+              first_tree=cmp_r,
+              auc_cuda=m_gpu.output["training_metrics"]["AUC"],
+              auc_cpu=m_cpu.output["training_metrics"]["AUC"]))
+    if not all(cmp_r["equal"].values()):
+        raise AssertionError("stochastic GBM: cuda and cpu first trees "
+                             "differ")
+
+    # -- 9 DRF at its defaults ------------------------------------------------
+    m_drf, wall_drf, got = launched(train_drf, fr=fr)
+    paths["drf"] = got
+    auc_drf = m_drf.output["training_metrics"]["AUC"]
+    n_split = int((m_drf.output["split_col"] >= 0).sum())
+    emit(dict(phase="drf", rows=R, cols=C, ntrees=DRF_TREES, max_depth=20,
+              mtries=5, sample_rate=0.632, wall_s=wall_drf,
+              s_per_tree=wall_drf / DRF_TREES, train_auc=auc_drf,
+              splits=n_split, pool=int(m_drf.output["split_col"].shape[2]),
+              k1_launches=got[0], k2_launches=got[1]))
+    if got != (0, 20 * DRF_TREES):
+        raise AssertionError(f"DRF: (K1, K2) launched {got}, want "
+                             f"(0, {20 * DRF_TREES})")
+    if m_drf.output["child"] is None or not (0.5 < auc_drf <= 1.0):
+        raise AssertionError(f"DRF: implausible model (AUC {auc_drf})")
+    t0 = time.perf_counter()
+    pred = m_drf.predict(fr)
+    score_drf = time.perf_counter() - t0
+    auc_pred = binomial_metrics(
+        torch.from_numpy(pred.vec("s").data).to(DEV), yt)["AUC"]
+    emit(dict(phase="drf_score", rows=R, wall_s=score_drf, auc=auc_pred))
+    if pred.nrows != R or auc_pred != auc_drf:
+        raise AssertionError(f"DRF scoring: AUC from predict() {auc_pred} "
+                             f"!= training AUC {auc_drf}")
+    m_gpu, _ = train_drf(sub, ntrees=2, device="cuda")
+    m_cpu, _ = train_drf(sub, ntrees=2, device="cpu")
+    cmp_d = same_forest(m_gpu.output, m_cpu.output)
+    emit(dict(phase="drf_cuda_vs_cpu", rows=100_000, ntrees=2, forest=cmp_d,
+              splits=int((m_gpu.output["split_col"] >= 0).sum())))
+    if not all(cmp_d["equal"].values()) or \
+            cmp_d["value_max_abs_diff"] > 1e-6:
+        raise AssertionError("DRF: cuda and cpu forests differ")
+    emit(dict(phase="launches", paths={k: dict(k1=v[0], k2=v[1])
+                                       for k, v in paths.items()}))
+    sync()
+
+    # -- 7 where a tree's time goes (torch.profiler) -------------------------
     from torch.profiler import ProfilerActivity, profile
 
-    def profiled(**kw):
-        """Device ms by kernel name over a 2-tree training, its wall, the
+    def profiled(fn=train, ntrees=2, **kw):
+        """Device ms by kernel name over a short training, its wall, the
         number of device operations, and the two counters' launches."""
         hk.reset_launches()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            _, wall = train(fr, ntrees=2, **kw)
+            _, wall = fn(fr, ntrees=ntrees, **kw)
         per, n = {}, 0
         for ev in prof.events():
             if ev.device_type == torch.autograd.DeviceType.CUDA:
@@ -463,15 +605,26 @@ def main() -> None:
         return dict(launches=launches, ms_per_launch=total / max(launches, 1),
                     parts_ms={k[:70]: v for k, v in parts.items()})
 
+    def breakdown(per, wall, n):
+        busy = sum(per.values())
+        top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
+        return dict(wall_s=wall, device_busy_ms=busy,
+                    device_busy_share=busy / (wall * 1e3), device_ops=n,
+                    top_device_ms={k[:60]: v for k, v in top})
+
     per_name, wall_p, n_kernels, (p_k1, p_k2) = profiled()
     per_q, _, _, (pq_k1, pq_k2) = profiled(histogram_type="QuantilesGlobal",
                                            nbins=64)
-    if p_k1 or pq_k2 or not p_k2 or not pq_k1:
+    per_r, _, _, (pr_k1, pr_k2) = profiled(histogram_type="Random",
+                                           **STOCHASTIC)
+    per_qi, _, _, (pqi_k1, pqi_k2) = profiled(
+        histogram_type="QuantilesGlobal", nbins=64, **STOCHASTIC)
+    if p_k1 or pq_k2 or not p_k2 or not pq_k1 or pr_k1 or pqi_k2:
         raise AssertionError("profiled trainings took the wrong kernels")
     main_path = dict(hist_cuda_adaptive=per_launch(per_name, p_k2),
-                     hist_cuda=per_launch(per_q, pq_k1))
-    busy_ms = sum(per_name.values())
-    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:6]
+                     hist_cuda=per_launch(per_q, pq_k1),
+                     hist_cuda_adaptive_int16=per_launch(per_r, pr_k2),
+                     hist_cuda_int16=per_launch(per_qi, pqi_k1))
     # two fixed costs of every training, timed alone on the host clock
     t0 = time.perf_counter()
     fr.as_matrix(m_def.output["x"], DEV)
@@ -480,15 +633,19 @@ def main() -> None:
     m_def.model_metrics(fr)
     sync()
     t2 = time.perf_counter()
-    emit(dict(phase="profile_default_gbm", ntrees=2, wall_s=wall_p,
-              device_busy_ms=busy_ms,
-              device_busy_share=busy_ms / (wall_p * 1e3),
-              device_ops=n_kernels,
-              top_device_ms={k[:60]: v for k, v in top},
+    emit(dict(phase="profile_default_gbm", ntrees=2,
+              **breakdown(per_name, wall_p, n_kernels),
               frame_to_device_s=t1 - t0, training_metrics_s=t2 - t1,
               main_path_kernels=main_path))
+    per_d, wall_d, n_d, (pd_k1, pd_k2) = profiled(train_drf, ntrees=1)
+    if pd_k1 or pd_k2 != 20:
+        raise AssertionError(f"profiled DRF tree: (K1, K2) launched "
+                             f"{(pd_k1, pd_k2)}, want (0, 20)")
+    emit(dict(phase="profile_drf_tree", ntrees=1,
+              **breakdown(per_d, wall_d, n_d),
+              hist_cuda_adaptive=per_launch(per_d, pd_k2)))
 
-    def entry(name, replaces, launches, tot):
+    def entry(name, replaces, launches, tot, front):
         return dict(name=name, route="cuda",
                     source="h2o_tpu_torch/csrc/hist.cu", replaces=replaces,
                     launches=launches, max_abs_err=tot["max_abs_err"],
@@ -496,13 +653,22 @@ def main() -> None:
                     bound_ms=tot["bound_ms"],
                     bound_by=("bytes" if tot["bytes_ms"] >= tot["ops_ms"]
                               else "operations"),
-                    library_ms=tot["library_ms"])
+                    library_ms=tot["library_ms"], int16_ms=tot["int16_ms"],
+                    frontier=dict(
+                        L=4096, B=20, ms=front["ms"],
+                        bound_ms=front["bound_ms"],
+                        plain_ms=front["plain_ms"],
+                        library_ms=front["library_ms"],
+                        max_abs_err=front["max_abs_err"],
+                        int16_ms=front["int16_ms"],
+                        int16_bound_ms=front["int16_bound_ms"]))
 
     print(smi, flush=True)
     emit({"kernels": [
-        entry("hist_cuda", "h2o_tpu/ops/hist_pallas.py:308", q_k1, k1),
+        entry("hist_cuda", "h2o_tpu/ops/hist_pallas.py:308",
+              sum(v[0] for v in paths.values()), k1, k1f),
         entry("hist_cuda_adaptive", "h2o_tpu/ops/hist_pallas.py:220",
-              launches_k2, k2)]})
+              sum(v[1] for v in paths.values()), k2, k2f)]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
 

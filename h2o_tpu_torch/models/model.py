@@ -1,6 +1,6 @@
 """Model / ModelBuilder lifecycle — port of ``h2o_tpu/models/model.py``
 (``DataInfo`` :34-153 in tree mode, ``_raw_to_frame`` :156-166,
-``Model`` :169-301, ``ModelBuilder`` :383-696).
+``Model`` :169-301, ``ModelBuilder`` :383-696, ``rng_key`` :691-696).
 
 The reference runs a build as an asynchronous Job that stores the model
 in the DKV; this slice trains synchronously and returns the model.
@@ -18,6 +18,7 @@ import torch
 from h2o_tpu_torch.core.device import DeviceLike, cloud
 from h2o_tpu_torch.core.frame import T_CAT, Frame, Vec
 from h2o_tpu_torch.models import metrics as mm
+from h2o_tpu_torch.ops import prng
 
 
 class DataInfo:
@@ -140,6 +141,15 @@ class ModelBuilder:
 
     def _fit(self, x: List[str], y: str, train: Frame) -> Model:
         raise NotImplementedError
+
+    def rng_key(self) -> np.ndarray:
+        """The forest's master key from ``seed``; a seed < 0 draws one
+        from the OS's entropy."""
+        seed = self.params.get("seed")
+        seed = int(seed) if seed is not None else -1
+        if seed < 0:
+            seed = np.random.SeedSequence().entropy % (2 ** 31)
+        return prng.key(seed)
 
     def resolve_distribution(self, di: DataInfo) -> str:
         d = self.params.get("distribution", "auto")

@@ -1,24 +1,45 @@
 """Carry a model trained by ``h2o_tpu`` across to the port.
 
-``gbm_from_jax_output`` takes the numpy arrays of an ``h2o_tpu``
-``GBMModel.output`` (plain host arrays: nothing of JAX is imported
-here) and builds a port ``GBMModel`` that scores the same forest on the
-port's device.  Dense-heap forests only; the sparse-frontier layout
-(a ``child`` array) waits for its slice.
+``gbm_from_jax_output`` and ``drf_from_jax_output`` take the numpy
+arrays of an ``h2o_tpu`` model's output (plain host arrays: nothing of
+JAX is imported here) and build the port's model, which scores the same
+forest on the port's device: dense-heap forests, and sparse-frontier
+forests with their ``child`` pointers.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import numpy as np
 
 from h2o_tpu_torch.core.device import DeviceLike, cloud
+from h2o_tpu_torch.models.tree.drf import DRFModel
 from h2o_tpu_torch.models.tree.gbm import GBMModel
 
 _KEYS = ("x", "split_points", "is_cat", "nbins", "fine_nbins", "hist_type",
-         "split_col", "bitset", "value", "thr_bin", "na_left", "f0",
-         "max_depth", "distribution_resolved", "response_domain")
+         "split_col", "bitset", "value", "thr_bin", "na_left", "child",
+         "max_depth", "response_domain")
+_ARRAYS = ("split_points", "is_cat", "split_col", "bitset", "value",
+           "thr_bin", "na_left", "child", "f0")
+
+
+def _port_output(output: Dict[str, Any], keys: Tuple[str, ...],
+                 what: str) -> Dict[str, Any]:
+    missing = [k for k in keys if k not in output]
+    if missing:
+        raise ValueError(f"h2o_tpu {what} output lacks {missing}")
+    out = {k: output[k] for k in keys}
+    for k in _ARRAYS:
+        if out.get(k) is not None:
+            out[k] = np.asarray(out[k])
+    out["x"] = list(out["x"])
+    out["nbins"] = int(out["nbins"])
+    out["fine_nbins"] = int(out["fine_nbins"] or out["nbins"])
+    out["max_depth"] = int(out["max_depth"])
+    dom = out["response_domain"]
+    out["response_domain"] = list(dom) if dom is not None else None
+    return out
 
 
 def gbm_from_jax_output(output: Dict[str, Any], params: Dict[str, Any],
@@ -26,25 +47,23 @@ def gbm_from_jax_output(output: Dict[str, Any], params: Dict[str, Any],
     """Port ``GBMModel`` from an ``h2o_tpu`` GBM's output dict (arrays
     converted with ``np.asarray``) and its params (for
     ``response_column``)."""
-    missing = [k for k in _KEYS if k not in output]
-    if missing:
-        raise ValueError(f"h2o_tpu GBM output lacks {missing}")
-    if output.get("child") is not None:
-        raise NotImplementedError(
-            "sparse-frontier forests come with the frontier-engine slice")
-    dist = str(output["distribution_resolved"])
+    dist = str(output.get("distribution_resolved"))
     if dist not in ("gaussian", "bernoulli"):
         raise NotImplementedError(
             f"distribution {dist!r} is not in this slice of the port")
-    out = {k: output[k] for k in _KEYS}
-    for k in ("split_points", "is_cat", "split_col", "bitset", "value",
-              "thr_bin", "na_left", "f0"):
-        out[k] = np.asarray(out[k]) if out[k] is not None else None
-    out["x"] = list(out["x"])
-    out["nbins"] = int(out["nbins"])
-    out["fine_nbins"] = int(out["fine_nbins"] or out["nbins"])
-    out["max_depth"] = int(out["max_depth"])
-    out["child"] = None
-    dom = out["response_domain"]
-    out["response_domain"] = list(dom) if dom is not None else None
+    out = _port_output(output, _KEYS + ("f0", "distribution_resolved"),
+                       "GBM")
     return GBMModel(dict(params), out, cloud(device))
+
+
+def drf_from_jax_output(output: Dict[str, Any], params: Dict[str, Any],
+                        device: DeviceLike = None) -> DRFModel:
+    """Port ``DRFModel`` from an ``h2o_tpu`` DRF's output dict, as
+    ``gbm_from_jax_output`` does for a GBM."""
+    dom = output.get("response_domain")
+    if dom is not None and len(dom) > 2:
+        raise NotImplementedError(
+            "multinomial DRF is not in this slice of the port")
+    out = _port_output(output, _KEYS + ("ntrees_actual",), "DRF")
+    out["ntrees_actual"] = int(out["ntrees_actual"])
+    return DRFModel(dict(params), out, cloud(device))

@@ -1,0 +1,115 @@
+"""DRF — port of ``h2o_tpu/models/tree/drf.py`` (``raw_from_votes``
+:27-39, ``DRFModel`` :42-60, ``DRF`` :63-247) for regression and
+binomial responses, with the single-dispatch path of
+``driver.py:251-271`` inlined.
+
+Bagged trees fit on the response itself (no boosting): each tree sees
+a ``sample_rate`` row sample and ``mtries`` columns a split (sqrt(C)
+for classification, C/3 for regression by default), leaf values are
+plain means, and a prediction is the mean over the trees.  The default
+max_depth of 20 runs on the sparse-frontier engine
+(``engine.build_tree_frontier``).  Multinomial DRF, one tree per class,
+waits for the multinomial slice.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from h2o_tpu_torch.core.frame import Frame
+from h2o_tpu_torch.models.model import DataInfo, Model, ModelBuilder
+from h2o_tpu_torch.models.tree import engine
+from h2o_tpu_torch.models.tree import shared_tree as st
+
+
+def raw_from_votes(F: torch.Tensor, ntrees: int, dom: Optional[List[str]],
+                   threshold: float = 0.5) -> torch.Tensor:
+    """Summed per-tree votes -> raw predictions (mean over trees):
+    regression values, or [label, p0, p1] for a binomial response."""
+    F = F / max(int(ntrees), 1)
+    if dom is None:
+        return F[:, 0]
+    if len(dom) == 2:
+        p1 = F[:, 0].clamp(0.0, 1.0)
+        label = (p1 >= threshold).to(torch.float32)
+        return torch.stack([label, 1 - p1, p1], dim=1)
+    raise NotImplementedError(
+        "multinomial scoring comes with the multinomial slice")
+
+
+class DRFModel(Model):
+    algo = "drf"
+
+    def predict_raw(self, frame: Frame) -> torch.Tensor:
+        out = self.output
+        m = frame.as_matrix(out["x"], self.device)
+        bins = st.bin_matrix(m, out["split_points"], out["is_cat"],
+                             st.model_fine_na(out))
+        return raw_from_votes(st.forest_score_out(bins, out),
+                              int(out["ntrees_actual"]),
+                              out.get("response_domain"),
+                              threshold=float(out.get("default_threshold",
+                                                      0.5)))
+
+
+class DRF(ModelBuilder):
+    algo = "drf"
+    model_cls = DRFModel
+
+    def default_params(self) -> Dict:
+        p = super().default_params()
+        p.update(ntrees=50, max_depth=20, min_rows=1.0, nbins=20,
+                 nbins_cats=1024, mtries=-1, sample_rate=0.632,
+                 col_sample_rate_per_tree=1.0, min_split_improvement=1e-5,
+                 histogram_type="AUTO", nbins_top_level=1024,
+                 score_each_iteration=False, score_tree_interval=0,
+                 stopping_rounds=0, stopping_metric="AUTO",
+                 stopping_tolerance=1e-3)
+        return p
+
+    def _fit(self, x: List[str], y: str, train: Frame) -> DRFModel:
+        p = self.params
+        st.check_slice("drf", p)
+        dev = self.device
+        di = DataInfo(train, x, y, dev)
+        nclass = di.nclasses
+        if nclass > 2:
+            raise NotImplementedError(
+                "drf: a multinomial response is not in this slice of the "
+                "port; it comes with the multinomial slice")
+        binned = st.prepare_bins(di, int(p["nbins"]), int(p["nbins_cats"]),
+                                 st.resolve_histogram_type(p),
+                                 int(p.get("nbins_top_level") or 1024))
+        bins = binned.bins
+        R, C = bins.shape
+        # mtries default: sqrt(C) classification, C/3 regression
+        mtries = int(p["mtries"])
+        if mtries <= 0:
+            mtries = max(1, int(np.sqrt(C))) if nclass >= 2 \
+                else max(1, C // 3)
+        depth = engine.clamp_depth(int(p["max_depth"]))
+        tf = engine.train_forest(
+            bins, torch.nan_to_num(di.response()),
+            torch.ones(R, dtype=torch.float32, device=dev), di.valid_mask(),
+            torch.zeros((R, 1), dtype=torch.float32, device=dev),
+            torch.as_tensor(binned.is_cat, device=dev), self.rng_key(),
+            dist_name="gaussian", ntrees=int(p["ntrees"]), max_depth=depth,
+            nbins=binned.nbins, k_cols=mtries, newton=False,
+            sample_rate=float(p["sample_rate"]), learn_rate=1.0,
+            learn_rate_annealing=1.0, min_rows=float(p["min_rows"]),
+            min_split_improvement=float(p["min_split_improvement"]),
+            mode="drf",
+            col_sample_rate_per_tree=float(
+                p.get("col_sample_rate_per_tree") or 1.0),
+            kleaves=engine.plan_engine(depth),
+            adaptive=binned.hist_type in ("UniformAdaptive", "Random"),
+            fine_nbins=binned.fine_nbins,
+            hist_random=binned.hist_type == "Random")
+        out = st.forest_output(di, binned, tf, depth,
+                               di.response_domain if nclass >= 2 else None)
+        model = self.model_cls(dict(p), out, dev)
+        model.output["training_metrics"] = model.model_metrics(train)
+        return model

@@ -1,52 +1,105 @@
-"""Dense-heap tree engine — port of ``h2o_tpu/models/tree/jit_engine.py``
-(``plan_engine`` :87-94, adaptive helpers :114-185, ``_node_val`` and
-sibling subtraction :258-303, ``build_tree_traced`` :306-489,
-``_tree_predict`` :708-773 in its gather form, and the GBM path of
-``_train_forest_impl`` :916-1082).
+"""Tree engines — port of ``h2o_tpu/models/tree/jit_engine.py``
+(``clamp_depth``/``plan_engine``/``frontier_plan``/``pool_size``
+:70-111, adaptive helpers :114-185, ``_node_val`` and sibling
+subtraction :258-303, the dense ``build_tree_traced`` :306-489, the
+sparse-frontier ``build_tree_frontier`` :492-705, and
+``_train_forest_impl`` :916-1082 for one tree per iteration).
 
 The reference traces the whole forest into one XLA program (levels
 unrolled, trees a ``lax.scan``).  Here the same steps run eagerly:
 level and tree loops are Python loops over device tensors, so on the
 card every histogram is one launch of the kernels in
 ``ops/hist_kernels.py`` and nothing waits on the host until the forest
-is finished.  Level d of a tree has exactly L = 2^d leaves; node n's
-children sit at 2n+1 and 2n+2.
+is finished.
+
+Two engines, one output contract.  The dense heap gives level d exactly
+L = 2^d leaves, node n's children at 2n+1 and 2n+2.  The sparse
+frontier caps the live leaves of a level at ``kleaves``: when a level's
+split children outnumber the cap, those with the largest residual
+impurity (wgg - wg^2/w) stay live and the rest finish as leaves; nodes
+sit in a pool with an explicit left-child pointer (right = left + 1).
+Below the cap both build the same trees.
+
+Randomness follows the reference's key order exactly (``ops/prng.py``
+reproduces jax's threefry bits): tree t takes ``fold_in(master, t)``,
+splits it into (rows, class, tree-columns) keys, the class key into
+(next, tree key); each adaptive level splits the tree key once for its
+``Random`` offsets (drawn or not), and a column-sampled level once more
+for its (L, C) draw.  Keys are derived on the host; only the draws run
+on the device.
 
 Left out on purpose: the matmul router ``_mm_route_level``
 (``jit_engine.py:188-255``), which works around per-row gathers on the
-TPU — a GPU gathers natively.  Not in this slice (each raises
-``NotImplementedError`` in ``gbm.py``): row and column sampling,
-``Random`` histograms, quantized stats in training, monotone
-constraints, the sparse-frontier engine for depths beyond the dense
-cap, and every mode but ``gbm`` with gaussian or bernoulli.
+TPU — a GPU gathers natively.  Not in this slice: more than one tree an
+iteration (multinomial), monotone constraints, ``reg_lambda`` and the
+distributions other than gaussian and bernoulli.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
 
 from h2o_tpu_torch.models.distributions import get_distribution
 from h2o_tpu_torch.models.tree.shared_tree import find_splits, tree_predict
+from h2o_tpu_torch.ops import prng, statpack
 from h2o_tpu_torch.ops.binpack import widen_bins
 from h2o_tpu_torch.ops.histogram import histogram_build
 
 EPS = 1e-10
-#: frontier width cap of the reference (H2O_TPU_MAX_LIVE_LEAVES default)
+#: frontier width cap the builders run with (the reference's
+#: H2O_TPU_MAX_LIVE_LEAVES default)
 MAX_LIVE_LEAVES = 4096
+#: depth cap (the reference's H2O_TPU_MAX_TREE_DEPTH default)
+MAX_TREE_DEPTH = 30
+
+
+def clamp_depth(requested: int) -> int:
+    """A requested max_depth, capped at ``MAX_TREE_DEPTH``."""
+    return min(int(requested), MAX_TREE_DEPTH)
 
 
 def plan_engine(depth: int) -> int:
     """0 = dense heap (every level fits the frontier cap), else the cap
-    the sparse-frontier engine would run with."""
+    the sparse-frontier engine runs with."""
     if depth < 1 or 2 ** (depth - 1) <= MAX_LIVE_LEAVES:
         return 0
     return MAX_LIVE_LEAVES
 
 
+def frontier_plan(depth: int, cap: int) -> List[int]:
+    """Live-frontier width per level: doubles until the cap."""
+    widths, width = [], 1
+    for _ in range(depth):
+        widths.append(width)
+        width = min(2 * width, cap)
+    return widths
+
+
+def pool_size(depth: int, kleaves: int) -> int:
+    """Node slots of one tree: the dense heap when kleaves == 0, else the
+    root and two child slots per frontier node that may split."""
+    if kleaves <= 0:
+        return 2 ** (depth + 1) - 1
+    return 1 + 2 * sum(frontier_plan(depth, kleaves))
+
+
 def _floor_div(a: torch.Tensor, b) -> torch.Tensor:
     return torch.div(a, b, rounding_mode="floor")
+
+
+def _rand_offsets(key, L: int, C: int, lo, hi,
+                  random_mode: bool) -> torch.Tensor:
+    """Random-histogram bucket offsets in fine units, per (leaf, col):
+    every node's bucket boundaries shift by a random fraction of a
+    bucket (truncated toward zero, as the reference's cast)."""
+    if not random_mode:
+        return torch.zeros((L, C), dtype=torch.int32, device=lo.device)
+    span = (hi - lo + 1).clamp_min(1)
+    u = prng.uniform(key, (L, C), lo.device)
+    return torch.minimum((u * span.to(torch.float32)).to(torch.int32),
+                         span - 1)
 
 
 def _numeric_thr(s: Dict, lo, hi, off, B: int) -> torch.Tensor:
@@ -111,7 +164,8 @@ def _hist_level_with_sibling(bins, slot, stats, L: int, B: int, bf16: bool,
                              parent_hist, parent_split):
     """Level-d histograms by sibling subtraction: build the L/2 LEFT
     children only (slots 2p) and derive each right child as parent minus
-    left, masked to parents that split."""
+    left, masked to parents that split.  Exact on the int32 tables of
+    quantized stats."""
     half = L // 2
     left_slot = torch.where((slot >= 0) & (slot % 2 == 0),
                             _floor_div(slot, 2), torch.full_like(slot, -1))
@@ -121,6 +175,121 @@ def _hist_level_with_sibling(bins, slot, stats, L: int, B: int, bf16: bool,
     return torch.stack([left, right], dim=1).reshape(L, *left.shape[1:])
 
 
+class _Level(NamedTuple):
+    """One level's splits, shared by both engines."""
+    hist: torch.Tensor        # table as built (int32 when quantized)
+    hist_f: torch.Tensor      # float32 table split finding read
+    s: Dict                   # find_splits output
+    do_split: torch.Tensor
+    term: torch.Tensor
+    leaf_vals: torch.Tensor
+    lvals: torch.Tensor
+    rvals: torch.Tensor
+    gain_pos: torch.Tensor
+    cat_choice: torch.Tensor
+    thr_leaf: Optional[torch.Tensor]
+    split_col: torch.Tensor   # per-leaf node payloads to store
+    bitset: torch.Tensor
+    thr_bin: torch.Tensor
+    na_left: torch.Tensor
+    Bd: int
+    roff: Optional[torch.Tensor]
+
+
+def _grow_level(bins, slot, stats, key, is_cat, cfg: Dict, d: int, L: int,
+                ranges, sibling, tree_cols, inv_scale):
+    """Histogram, column draw and split finding of level d over L leaves.
+    ``sibling`` is (parent table, parent do_split) where the level may
+    subtract, else None.  Returns (key, _Level)."""
+    B = cfg["nbins"]
+    C = bins.shape[1]
+    dev = bins.device
+    adaptive = cfg["adaptive"]
+    F = int(cfg["fine_nbins"] or B)
+    bf16 = cfg["bf16"] and inv_scale is None
+    # halving schedule: F buckets at the root down to B
+    Bd = max(B, F >> d) if adaptive else B
+    roff = None
+    if adaptive:
+        key, sub = prng.split(key)
+        rlo, rhi = ranges
+        roff = _rand_offsets(sub, L, C, rlo, rhi, cfg["hist_random"])
+        hist = histogram_build(bins, slot, stats, L, Bd, bf16=bf16,
+                               fine_map=(rlo, rhi, roff, is_cat, F))
+    elif sibling is not None:
+        hist = _hist_level_with_sibling(bins, slot, stats, L, B, bf16,
+                                        *sibling)
+    else:
+        hist = histogram_build(bins, slot, stats, L, B, bf16=bf16)
+    # the one integer -> float32 crossing a level; sibling subtraction
+    # keeps the exact integer table
+    hist_f = hist if inv_scale is None else \
+        statpack.dequant_table(hist, inv_scale)
+    k_cols = cfg["k_cols"]
+    if k_cols < C:
+        key, sub = prng.split(key)
+        r = prng.uniform(sub, (L, C), dev)
+        kth = torch.sort(r, dim=1).values[:, k_cols - 1:k_cols]
+        col_allowed = r <= kth
+    else:
+        col_allowed = torch.ones((L, C), dtype=torch.bool, device=dev)
+    if tree_cols is not None:
+        col_allowed = col_allowed & tree_cols[None, :]
+    newton = cfg["newton"]
+    s = find_splits(hist_f, is_cat, col_allowed, min_rows=cfg["min_rows"],
+                    min_split_improvement=cfg["min_split_improvement"],
+                    newton=newton)
+    live = s["leaf"]["w"] > 0
+    do_split = s["do_split"] & live
+    term = live & ~do_split
+    vals = [_node_val(s[k]["wg"], s[k]["wh"], s[k]["w"], newton)
+            for k in ("leaf", "left", "right")]
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    gain_pos = torch.where(do_split, s["gain"].clamp_min(0.0), zero)
+    split_col = torch.where(do_split, s["col"], torch.full_like(s["col"], -1))
+    cat_choice = is_cat[s["col"].long()]
+    if adaptive:
+        thr_leaf = _numeric_thr(s, rlo, rhi, roff, Bd)
+        num_split = do_split & ~cat_choice
+        thr_bin = torch.where(num_split, thr_leaf,
+                              torch.full_like(thr_leaf, -1))
+        na_left = num_split & s["na_left"]
+        # numeric nodes carry the fine threshold; categorical codes live
+        # in the first B buckets whatever Bd is: keep [:B] + NA
+        bset = torch.cat([s["bitset"][:, :B], s["bitset"][:, Bd:Bd + 1]],
+                         dim=1) & (do_split & cat_choice)[:, None]
+    else:
+        thr_leaf = None
+        thr_bin = torch.full((L,), -1, dtype=torch.int32, device=dev)
+        na_left = torch.zeros(L, dtype=torch.bool, device=dev)
+        bset = s["bitset"] & do_split[:, None]
+    return key, _Level(hist, hist_f, s, do_split, term, *vals, gain_pos,
+                       cat_choice, thr_leaf, split_col, bset, thr_bin,
+                       na_left, Bd, roff)
+
+
+def _route(bins, slot, lv: _Level, adaptive: bool, F: int):
+    """Each row's side of its leaf's split: (active, leaf index, go_left,
+    leaf split)."""
+    active = slot >= 0
+    sl = slot.clamp_min(0).long()
+    c = lv.s["col"].long()[sl]
+    b = widen_bins(torch.gather(bins, 1, c[:, None])[:, 0])
+    if adaptive:
+        gset = lv.s["bitset"][sl, torch.clamp_max(b, lv.Bd).long()]
+        gthr = torch.where(b == F, lv.s["na_left"][sl], b < lv.thr_leaf[sl])
+        go_left = torch.where(lv.cat_choice[sl], gset, gthr)
+    else:
+        go_left = lv.s["bitset"][sl, b.long()]
+    return active, sl, go_left, lv.do_split[sl]
+
+
+def _next_ranges(lv: _Level, ranges, is_cat):
+    new_lo, new_hi = _refine_ranges(lv.hist_f, *ranges, lv.roff, lv.Bd)
+    return _child_ranges(new_lo, new_hi, lv.s, lv.thr_leaf, is_cat,
+                         lv.do_split)
+
+
 class Tree(NamedTuple):
     split_col: torch.Tensor   # (H,) int32, -1 = terminal
     bitset: torch.Tensor      # (H, B+1) bool
@@ -128,173 +297,251 @@ class Tree(NamedTuple):
     varimp: torch.Tensor      # (C,) float32
     thr_bin: torch.Tensor     # (H,) int32 adaptive numeric threshold
     na_left: torch.Tensor     # (H,) bool NA direction of thr splits
+    child: Optional[torch.Tensor] = None   # (H,) left-child pool ptrs
+
+
+def _new_tree(H: int, B: int, C: int, dev) -> Tree:
+    return Tree(torch.full((H,), -1, dtype=torch.int32, device=dev),
+                torch.zeros((H, B + 1), dtype=torch.bool, device=dev),
+                torch.zeros(H, dtype=torch.float32, device=dev),
+                torch.zeros(C, dtype=torch.float32, device=dev),
+                torch.full((H,), -1, dtype=torch.int32, device=dev),
+                torch.zeros(H, dtype=torch.bool, device=dev))
+
+
+def _root_ranges(C: int, F: int, dev):
+    return (torch.zeros((1, C), dtype=torch.int32, device=dev),
+            torch.full((1, C), F - 1, dtype=torch.int32, device=dev))
 
 
 def build_tree(bins: torch.Tensor, stats: torch.Tensor, leaf0: torch.Tensor,
-               is_cat: torch.Tensor, cfg: Dict) -> Tree:
-    """One tree, level by level (``build_tree_traced``).  ``cfg`` keys:
-    max_depth, nbins, newton, min_rows, min_split_improvement, bf16,
-    adaptive, fine_nbins.  Global-grid levels below the root histogram
-    their left children only (sibling subtraction)."""
-    D = cfg["max_depth"]
-    B = cfg["nbins"]
+               key, is_cat: torch.Tensor, cfg: Dict,
+               tree_cols: Optional[torch.Tensor] = None,
+               inv_scale: Optional[torch.Tensor] = None) -> Tree:
+    """One dense-heap tree, level by level (``build_tree_traced``).
+    ``cfg`` keys: max_depth, nbins, k_cols, newton, min_rows,
+    min_split_improvement, bf16, adaptive, fine_nbins, hist_random.
+    ``inv_scale`` not None means ``stats`` is the quantized carrier.
+    Global-grid levels below the root histogram their left children only
+    (sibling subtraction)."""
+    D, B = cfg["max_depth"], cfg["nbins"]
     C = bins.shape[1]
-    H = 2 ** (D + 1) - 1
     dev = bins.device
-    newton = cfg["newton"]
-    bf16 = cfg["bf16"]
-
-    split_col = torch.full((H,), -1, dtype=torch.int32, device=dev)
-    bitset = torch.zeros((H, B + 1), dtype=torch.bool, device=dev)
-    value = torch.zeros(H, dtype=torch.float32, device=dev)
-    varimp = torch.zeros(C, dtype=torch.float32, device=dev)
-    thr_arr = torch.full((H,), -1, dtype=torch.int32, device=dev)
-    na_arr = torch.zeros(H, dtype=torch.bool, device=dev)
-    leaf = leaf0
-
     adaptive = cfg["adaptive"]
     F = int(cfg["fine_nbins"] or B)
-    if adaptive:
-        rlo = torch.zeros((1, C), dtype=torch.int32, device=dev)
-        rhi = torch.full((1, C), F - 1, dtype=torch.int32, device=dev)
-    prev_hist = prev_do = None
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    t = _new_tree(2 ** (D + 1) - 1, B, C, dev)
+    leaf = leaf0
+    ranges = _root_ranges(C, F, dev) if adaptive else None
+    sibling = None
     for d in range(D):
         L = 2 ** d
         off = L - 1
-        # halving schedule: F buckets at the root down to B
-        Bd = max(B, F >> d) if adaptive else B
-        if adaptive:
-            # UniformAdaptive draws no bucket offsets (Random is out of
-            # this slice)
-            roff = torch.zeros((L, C), dtype=torch.int32, device=dev)
-            hist = histogram_build(bins, leaf, stats, L, Bd, bf16=bf16,
-                                   fine_map=(rlo, rhi, roff, is_cat, F))
-        elif d >= 1:
-            # sibling subtraction needs identical bucket edges for parent
-            # and children: global-grid binning only
-            hist = _hist_level_with_sibling(bins, leaf, stats, L, B, bf16,
-                                            prev_hist, prev_do)
-        else:
-            hist = histogram_build(bins, leaf, stats, L, B, bf16=bf16)
-        col_allowed = torch.ones((L, C), dtype=torch.bool, device=dev)
-        s = find_splits(hist, is_cat, col_allowed,
-                        min_rows=cfg["min_rows"],
-                        min_split_improvement=cfg["min_split_improvement"],
-                        newton=newton)
-        live = s["leaf"]["w"] > 0
-        do_split = s["do_split"] & live
-        term = live & ~do_split
-        leaf_vals = _node_val(s["leaf"]["wg"], s["leaf"]["wh"],
-                              s["leaf"]["w"], newton)
-        lvals = _node_val(s["left"]["wg"], s["left"]["wh"],
-                          s["left"]["w"], newton)
-        rvals = _node_val(s["right"]["wg"], s["right"]["wh"],
-                          s["right"]["w"], newton)
-        colc = s["col"].long()
-        gain_pos = torch.where(do_split, s["gain"].clamp_min(0.0), zero)
-        varimp.index_add_(0, colc, gain_pos)
-        split_col[off:off + L] = torch.where(do_split, s["col"],
-                                             torch.full_like(s["col"], -1))
-        cat_choice = is_cat[colc]
-        if adaptive:
-            thr_leaf = _numeric_thr(s, rlo, rhi, roff, Bd)
-            num_split = do_split & ~cat_choice
-            thr_arr[off:off + L] = torch.where(num_split, thr_leaf,
-                                               torch.full_like(thr_leaf, -1))
-            na_arr[off:off + L] = num_split & s["na_left"]
-            # numeric nodes carry the fine threshold; categorical codes
-            # live in the first B buckets whatever Bd is: keep [:B] + NA
-            bset_store = torch.cat([s["bitset"][:, :B],
-                                    s["bitset"][:, Bd:Bd + 1]], dim=1)
-            bset_w = bset_store & (do_split & cat_choice)[:, None]
-        else:
-            thr_leaf = None
-            bset_w = s["bitset"] & do_split[:, None]
-        bitset[off:off + L] = bset_w
-        value[off:off + L] = torch.where(term, leaf_vals, zero)
+        key, lv = _grow_level(bins, leaf, stats, key, is_cat, cfg, d, L,
+                              ranges, sibling, tree_cols, inv_scale)
+        t.varimp.index_add_(0, lv.s["col"].long(), lv.gain_pos)
+        t.split_col[off:off + L] = lv.split_col
+        t.thr_bin[off:off + L] = lv.thr_bin
+        t.na_left[off:off + L] = lv.na_left
+        t.bitset[off:off + L] = lv.bitset
+        t.value[off:off + L] = torch.where(lv.term, lv.leaf_vals,
+                                           torch.zeros_like(lv.leaf_vals))
         # pre-write child values (interleaved left/right) at level d+1
-        child_vals = torch.stack([lvals, rvals], dim=1).reshape(2 * L)
-        child_mask = do_split.repeat_interleave(2)
+        child_vals = torch.stack([lv.lvals, lv.rvals], dim=1).reshape(2 * L)
         coff = 2 * L - 1
-        value[coff:coff + 2 * L] = torch.where(
-            child_mask, child_vals, value[coff:coff + 2 * L])
-
-        # route rows
-        active = leaf >= 0
-        lf = leaf.clamp_min(0).long()
-        c = colc[lf]
-        b = widen_bins(torch.gather(bins, 1, c[:, None])[:, 0])
-        if adaptive:
-            gset = s["bitset"][lf, torch.clamp_max(b, Bd).long()]
-            gthr = torch.where(b == F, s["na_left"][lf], b < thr_leaf[lf])
-            go_left = torch.where(cat_choice[lf], gset, gthr)
-        else:
-            go_left = s["bitset"][lf, b.long()]
-        do_lf = do_split[lf]
+        t.value[coff:coff + 2 * L] = torch.where(
+            lv.do_split.repeat_interleave(2), child_vals,
+            t.value[coff:coff + 2 * L])
+        active, lf, go_left, do_lf = _route(bins, leaf, lv, adaptive, F)
         child = (2 * lf + torch.where(go_left, 0, 1)).to(torch.int32)
         leaf = torch.where(active & do_lf, child,
                            torch.where(active, torch.full_like(leaf, -1),
                                        leaf))
         if adaptive and d + 1 < D:
-            new_lo, new_hi = _refine_ranges(hist, rlo, rhi, roff, Bd)
-            rlo, rhi = _child_ranges(new_lo, new_hi, s, thr_leaf, is_cat,
-                                     do_split)
-        prev_hist, prev_do = hist, do_split
-    return Tree(split_col, bitset, value, varimp, thr_arr, na_arr)
+            ranges = _next_ranges(lv, ranges, is_cat)
+        sibling = (lv.hist, lv.do_split)
+    return t
+
+
+def build_tree_frontier(bins: torch.Tensor, stats: torch.Tensor,
+                        slot0: torch.Tensor, key, is_cat: torch.Tensor,
+                        cfg: Dict, tree_cols: Optional[torch.Tensor] = None,
+                        inv_scale: Optional[torch.Tensor] = None) -> Tree:
+    """One tree with at most ``cfg["max_live_leaves"]`` live leaves a
+    level (``build_tree_frontier``).  Nodes live in a pool of
+    ``pool_size(D, cap)`` slots with a left-child pointer; a level's
+    nodes are written at their pool ids, and empty frontier slots write
+    inert payloads to one trash slot past the pool."""
+    D, B = cfg["max_depth"], cfg["nbins"]
+    C = bins.shape[1]
+    dev = bins.device
+    adaptive = cfg["adaptive"]
+    F = int(cfg["fine_nbins"] or B)
+    widths = frontier_plan(D, cfg["max_live_leaves"])
+    N = 1 + 2 * sum(widths)
+    t = _new_tree(N + 1, B, C, dev)
+    child = torch.full((N + 1,), -1, dtype=torch.int32, device=dev)
+    frontier = torch.zeros(1, dtype=torch.long, device=dev)  # pool ids
+    slot = slot0
+    ranges = _root_ranges(C, F, dev) if adaptive else None
+    sibling = None
+    base = 1                                      # next free pool slot
+    neg_inf = torch.tensor(float("-inf"), device=dev)
+    for d in range(D):
+        L = widths[d]
+        key, lv = _grow_level(bins, slot, stats, key, is_cat, cfg, d, L,
+                              ranges, sibling, tree_cols, inv_scale)
+        s = lv.s
+        t.varimp.index_add_(0, s["col"].long(), lv.gain_pos)
+        t.split_col[frontier] = lv.split_col
+        t.thr_bin[frontier] = lv.thr_bin
+        t.na_left[frontier] = lv.na_left
+        t.bitset[frontier] = lv.bitset
+        t.value[frontier] = torch.where(lv.term, lv.leaf_vals,
+                                        torch.zeros_like(lv.leaf_vals))
+        ptr = base + 2 * torch.arange(L, dtype=torch.int32, device=dev)
+        child[frontier] = torch.where(lv.do_split, ptr,
+                                      torch.full_like(ptr, -1))
+        # pre-write child values at their fresh, contiguous pool slots
+        cvals = torch.stack([lv.lvals, lv.rvals], dim=1).reshape(2 * L)
+        cmask = lv.do_split.repeat_interleave(2)
+        t.value[base:base + 2 * L] = torch.where(cmask, cvals,
+                                                 torch.zeros_like(cvals))
+        if d + 1 < D:
+            L_next = widths[d + 1]
+            # best-first selection: the children with the most residual
+            # impurity stay live, the rest are finished leaves
+            se = [s[k]["wgg"] - s[k]["wg"] ** 2 /
+                  torch.clamp_min(s[k]["w"], EPS) for k in ("left", "right")]
+            cse = torch.stack(se, dim=1).reshape(2 * L)
+            ckey = torch.where(cmask, cse.clamp_min(0.0), neg_inf)
+            if 2 * L <= L_next:
+                sel = torch.arange(2 * L, device=dev)  # identity: dense
+            else:
+                # jax's top_k: largest first, ties to the lower index
+                sel = torch.sort(ckey, descending=True,
+                                 stable=True).indices[:L_next]
+            sel_valid = ckey[sel] > neg_inf
+            frontier = torch.where(sel_valid, base + sel,
+                                   torch.full_like(sel, N))
+            inv = torch.full((2 * L,), -1, dtype=torch.int32, device=dev)
+            inv[sel] = torch.where(
+                sel_valid, torch.arange(L_next, dtype=torch.int32,
+                                        device=dev), -1).to(torch.int32)
+            # split-parent rows follow the split to a child; rows whose
+            # child fell off the frontier finish (-1)
+            active, sl, go_left, do_sl = _route(bins, slot, lv, adaptive, F)
+            cand = 2 * sl + torch.where(go_left, 0, 1)
+            new_slot = torch.where(active & do_sl, inv[cand],
+                                   torch.full_like(slot, -1))
+            slot = torch.where(active, new_slot, slot)
+            if adaptive:
+                clo, chi = _next_ranges(lv, ranges, is_cat)
+                ranges = (clo[sel].contiguous(), chi[sel].contiguous())
+            # an uncapped next level numbers children 2*parent+{0,1} in
+            # parent order, so the dense sibling subtraction applies
+            sibling = (lv.hist, lv.do_split) if L_next == 2 * L else None
+        base += 2 * L
+    return Tree(t.split_col[:N], t.bitset[:N], t.value[:N], t.varimp,
+                t.thr_bin[:N], t.na_left[:N], child[:N])
 
 
 class TrainedForest(NamedTuple):
-    split_col: torch.Tensor   # (T, K, H)
-    bitset: torch.Tensor      # (T, K, H, B+1)
-    value: torch.Tensor       # (T, K, H)
+    split_col: torch.Tensor   # (T, K, N)
+    bitset: torch.Tensor      # (T, K, N, B+1)
+    value: torch.Tensor       # (T, K, N)
     varimp: torch.Tensor      # (C,)
-    thr_bin: torch.Tensor     # (T, K, H)
-    na_left: torch.Tensor     # (T, K, H)
+    thr_bin: torch.Tensor     # (T, K, N)
+    na_left: torch.Tensor     # (T, K, N)
+    child: Optional[torch.Tensor] = None   # (T, K, N); None = dense heap
 
 
 def train_forest(bins: torch.Tensor, yv: torch.Tensor, w: torch.Tensor,
                  active: torch.Tensor, F0: torch.Tensor,
-                 is_cat: torch.Tensor, *, dist_name: str, ntrees: int,
-                 max_depth: int, nbins: int, newton: bool,
-                 learn_rate: float, learn_rate_annealing: float,
-                 min_rows: float, min_split_improvement: float,
-                 bf16: bool = False, adaptive: bool = False,
-                 fine_nbins: int = 0) -> TrainedForest:
-    """GBM boosting (``_train_forest_impl`` with mode="gbm", K=1, every
-    row sampled, every column allowed, float32 stats; ntrees >= 1): per
-    tree, stats
-    (w, w*g, w*g^2, w*h) from the distribution's gradient at the current
-    F, one tree, F += learn_rate * tree."""
-    cfg = dict(max_depth=max_depth, nbins=nbins, newton=newton,
-               min_rows=min_rows, min_split_improvement=min_split_improvement,
-               bf16=bf16, adaptive=adaptive, fine_nbins=fine_nbins)
+                 is_cat: torch.Tensor, key, *, dist_name: str, ntrees: int,
+                 max_depth: int, nbins: int, k_cols: int, newton: bool,
+                 sample_rate: float, learn_rate: float,
+                 learn_rate_annealing: float, min_rows: float,
+                 min_split_improvement: float, bf16: bool = False,
+                 mode: str = "gbm", col_sample_rate_per_tree: float = 1.0,
+                 kleaves: int = 0, adaptive: bool = False,
+                 fine_nbins: int = 0, hist_random: bool = False,
+                 stats_dtype: str = "f32") -> TrainedForest:
+    """The forest loop of ``_train_forest_impl`` with one tree an
+    iteration (K = 1; ntrees >= 1).
+
+    mode="gbm": stats (w, w*g, w*g^2, w*h) from the distribution's
+    gradient at the current F, leaf values scaled by learn_rate *
+    annealing^t, F += tree.  mode="drf": stats (w, w*y, w*y^2, w) from
+    the response, scale 1; F is not needed (the caller scores votes).
+    kleaves=0: dense heap engine; > 0: the sparse frontier with that
+    cap.  ``key`` is the forest's master key (``prng.key``).
+    ``stats_dtype`` "int16"/"int8" quantizes each tree's stats against
+    its class key, with qmax from this call's row count."""
+    if mode not in ("gbm", "drf"):
+        raise ValueError(f"train_forest: unknown mode {mode!r}")
+    cfg = dict(max_depth=max_depth, nbins=nbins, k_cols=k_cols,
+               newton=newton, min_rows=min_rows,
+               min_split_improvement=min_split_improvement, bf16=bf16,
+               adaptive=adaptive, fine_nbins=fine_nbins,
+               hist_random=hist_random, max_live_leaves=kleaves)
+    build = build_tree_frontier if kleaves > 0 else build_tree
     dev = bins.device
+    R, C = bins.shape
     dist = get_distribution(dist_name)
     wa = torch.where(active, w, torch.zeros_like(w))
-    leaf0 = torch.where(active, 0, -1).to(torch.int32)
+    leaf_all = torch.where(active, 0, -1).to(torch.int32)
     fine_na = int(fine_nbins or nbins)
+    qmax = statpack.stats_qmax(R, stats_dtype) if stats_dtype != "f32" \
+        else 0
+    if mode == "drf":
+        g = torch.nan_to_num(yv)
+        drf_stats = torch.stack([wa, wa * g, wa * g * g, wa], dim=1)
     lr = torch.tensor(learn_rate, dtype=torch.float32, device=dev)
     ann = torch.tensor(learn_rate_annealing, dtype=torch.float32, device=dev)
     F = F0
     trees = []
     for t in range(ntrees):
-        f = F[:, 0]
-        g = torch.nan_to_num(dist.gradient(yv, f))
-        h = torch.nan_to_num(dist.hessian(yv, f))
-        stats = torch.stack([wa, wa * g, wa * g * g, wa * h], dim=1)
-        tree = build_tree(bins, stats, leaf0, is_cat, cfg)
-        scale = lr * ann ** torch.tensor(float(t), dtype=torch.float32,
-                                         device=dev)
-        value = tree.value * scale
-        trees.append(tree._replace(value=value))
-        F = F + tree_predict(bins, tree.split_col, tree.bitset, value,
-                             max_depth, thr=tree.thr_bin, na_l=tree.na_left,
-                             fine_na=fine_na)[:, None]
+        # tree t's stream depends only on (master key, t)
+        ks, kc, kcol = prng.split(prng.fold_in(key, t), 3)
+        tree_cols = None
+        if col_sample_rate_per_tree < 1.0:
+            rc = prng.uniform(kcol, (C,), dev)
+            kth = torch.sort(rc).values[
+                max(1, int(round(col_sample_rate_per_tree * C))) - 1]
+            tree_cols = rc <= kth
+        if sample_rate < 1.0:
+            samp = prng.uniform(ks, (R,), dev) < sample_rate
+            leaf0 = torch.where(samp & active, 0, -1).to(torch.int32)
+        else:
+            leaf0 = leaf_all
+        _, kk = prng.split(kc)
+        if mode == "drf":
+            stats = drf_stats
+        else:
+            f = F[:, 0]
+            g = torch.nan_to_num(dist.gradient(yv, f))
+            h = torch.nan_to_num(dist.hessian(yv, f))
+            stats = torch.stack([wa, wa * g, wa * g * g, wa * h], dim=1)
+        inv_sc = None
+        if stats_dtype != "f32":
+            stats, inv_sc = statpack.quantize_stats(stats, kk, stats_dtype,
+                                                    qmax)
+        tree = build(bins, stats, leaf0, kk, is_cat, cfg, tree_cols,
+                     inv_sc)
+        if mode == "gbm":
+            scale = lr * ann ** torch.tensor(float(t), dtype=torch.float32,
+                                             device=dev)
+            tree = tree._replace(value=tree.value * scale)
+            F = F + tree_predict(bins, tree.split_col, tree.bitset,
+                                 tree.value, max_depth, child=tree.child,
+                                 thr=tree.thr_bin, na_l=tree.na_left,
+                                 fine_na=fine_na)[:, None]
+        trees.append(tree)
 
     def stack(name):
         return torch.stack([getattr(tr, name) for tr in trees])[:, None]
 
     varimp = torch.stack([tr.varimp for tr in trees]).sum(dim=0)
     return TrainedForest(stack("split_col"), stack("bitset"), stack("value"),
-                         varimp, stack("thr_bin"), stack("na_left"))
+                         varimp, stack("thr_bin"), stack("na_left"),
+                         stack("child") if kleaves > 0 else None)

@@ -5,7 +5,10 @@
 Binning, trees and scoring run on the device given to ``GBM``: ``cuda:0`` by
 default, where every histogram goes through the hand-written kernels,
 or the CPU when the caller passes ``device="cpu"`` (the plain PyTorch
-versions).  Options outside this slice of the port raise
+versions).  Row sampling, per-level and per-tree column sampling,
+``Random`` histograms, int16/int8 stats and depths beyond the dense
+engine's frontier (the sparse-frontier engine, up to depth 30) run as in
+the reference.  Options outside this slice of the port raise
 ``NotImplementedError`` naming the slice that brings them; the blocked
 training loop, scoring intervals, early stopping and recovery wait too.
 """
@@ -22,6 +25,7 @@ from h2o_tpu_torch.models.distributions import get_distribution
 from h2o_tpu_torch.models.model import DataInfo, Model, ModelBuilder
 from h2o_tpu_torch.models.tree import engine
 from h2o_tpu_torch.models.tree import shared_tree as st
+from h2o_tpu_torch.ops import statpack
 
 def raw_from_F(F: torch.Tensor, dom: Optional[List[str]], dist_name: str,
                threshold: float = 0.5) -> torch.Tensor:
@@ -78,46 +82,17 @@ class GBM(ModelBuilder):
     def _check_slice(self) -> None:
         """Reject, by name, what this slice of the port does not run."""
         p = self.params
-
-        def out(what: str, later: str) -> None:
-            raise NotImplementedError(
-                f"gbm: {what} is not in this slice of the port; it comes "
-                f"with the {later} slice")
-
-        for k in ("sample_rate", "col_sample_rate",
-                  "col_sample_rate_per_tree"):
-            if float(p[k]) < 1.0:
-                out(f"{k} < 1", "PRNG and sampling")
-        ht = str(p.get("histogram_type") or "AUTO")
-        if ht == "Random":
-            out("histogram_type='Random'", "PRNG and sampling")
-        if ht not in ("AUTO", "UniformAdaptive", "QuantilesGlobal"):
-            raise ValueError(f"gbm: unknown histogram_type {ht!r}")
+        st.check_slice("gbm", p)
         if str(p.get("categorical_encoding")).lower() not in ("auto",
                                                              "enum"):
             raise ValueError("gbm: categorical_encoding must be AUTO/Enum")
-        if p.get("stats_dtype") != "f32":
-            out("quantized stats in training", "quantized-stats")
-        if p.get("weights_column") or p.get("offset_column"):
-            out("a weights or offset column", "weights and offset")
+        if p.get("stats_dtype") not in statpack.STATS_DTYPES:
+            raise ValueError(f"gbm: stats_dtype must be one of "
+                             f"{statpack.STATS_DTYPES}")
         if p.get("monotone_constraints"):
-            out("monotone_constraints", "monotone constraints")
-        if p.get("checkpoint"):
-            out("checkpoint", "blocked training loop and recovery")
-        if int(p.get("stopping_rounds") or 0) > 0 or \
-                int(p.get("score_tree_interval") or 0) > 0 or \
-                p.get("score_each_iteration") or \
-                float(p.get("max_runtime_secs") or 0) > 0:
-            out("early stopping / scoring intervals / max_runtime_secs",
-                "blocked training loop and early stopping")
-        if int(p.get("nfolds") or 0) > 1 or p.get("fold_column"):
-            out("cross-validation", "model orchestration")
-        if int(p["ntrees"]) < 1:
-            raise ValueError("gbm: ntrees must be >= 1")
-        if engine.plan_engine(int(p["max_depth"])) > 0:
-            out(f"max_depth={p['max_depth']} (beyond the dense engine's "
-                f"{engine.MAX_LIVE_LEAVES}-leaf frontier)",
-                "sparse-frontier engine")
+            raise NotImplementedError(
+                "gbm: monotone_constraints is not in this slice of the "
+                "port; it comes with the monotone constraints slice")
 
     def _fit(self, x: List[str], y: str, train: Frame) -> GBMModel:
         self._check_slice()
@@ -141,7 +116,7 @@ class GBM(ModelBuilder):
         bins = binned.bins
         yv = di.response()
         active = di.valid_mask()
-        R = bins.shape[0]
+        R, C = bins.shape
         w = torch.ones(R, dtype=torch.float32, device=dev)
         zero = torch.zeros((), dtype=torch.float32, device=dev)
         wa = torch.where(active, w, zero)
@@ -152,33 +127,31 @@ class GBM(ModelBuilder):
             f0 = dist.init_f0(torch.where(active, torch.nan_to_num(yv),
                                           zero), wa)[None]
         F = f0[None, :].expand(R, 1).to(torch.float32).contiguous()
-        depth = int(p["max_depth"])
-        newton = dist_name != "gaussian"
+        depth = engine.clamp_depth(int(p["max_depth"]))
+        k_cols = max(1, min(C, int(round(float(p["col_sample_rate"]) * C))))
         tf = engine.train_forest(
             bins, torch.nan_to_num(yv), w, active, F,
-            torch.as_tensor(binned.is_cat, device=dev),
+            torch.as_tensor(binned.is_cat, device=dev), self.rng_key(),
             dist_name=dist_name, ntrees=int(p["ntrees"]), max_depth=depth,
-            nbins=binned.nbins, newton=newton,
+            nbins=binned.nbins, k_cols=k_cols,
+            newton=dist_name != "gaussian",
+            sample_rate=float(p["sample_rate"]),
             learn_rate=float(p["learn_rate"]),
             learn_rate_annealing=float(p["learn_rate_annealing"]),
             min_rows=float(p["min_rows"]),
             min_split_improvement=float(p["min_split_improvement"]),
             bf16=bool(p.get("bf16_histograms", False)),
-            adaptive=binned.hist_type == "UniformAdaptive",
-            fine_nbins=binned.fine_nbins)
-        out = dict(
-            x=list(di.x), split_points=binned.split_points,
-            is_cat=binned.is_cat, nbins=binned.nbins,
-            fine_nbins=binned.fine_nbins, hist_type=binned.hist_type,
-            split_col=tf.split_col.cpu().numpy(),
-            bitset=tf.bitset.cpu().numpy(), value=tf.value.cpu().numpy(),
-            thr_bin=tf.thr_bin.cpu().numpy(),
-            na_left=tf.na_left.cpu().numpy(),
-            varimp=tf.varimp.cpu().numpy(), child=None, max_depth=depth,
-            f0=f0.cpu().numpy(), distribution_resolved=dist_name,
-            response_domain=di.response_domain if nclass >= 2 else None,
-            domains={c: list(train.vec(c).domain) for c in di.cat_names},
-            ntrees_actual=int(p["ntrees"]))
+            col_sample_rate_per_tree=float(
+                p.get("col_sample_rate_per_tree") or 1.0),
+            kleaves=engine.plan_engine(depth),
+            adaptive=binned.hist_type in ("UniformAdaptive", "Random"),
+            fine_nbins=binned.fine_nbins,
+            hist_random=binned.hist_type == "Random",
+            stats_dtype=str(p["stats_dtype"]))
+        out = st.forest_output(
+            di, binned, tf, depth,
+            di.response_domain if nclass >= 2 else None)
+        out.update(f0=f0.cpu().numpy(), distribution_resolved=dist_name)
         model = self.model_cls(dict(p), out, dev)
         model.output["training_metrics"] = model.model_metrics(train)
         return model

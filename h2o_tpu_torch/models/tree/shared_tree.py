@@ -3,7 +3,8 @@ binning (``BinnedData``, ``_quantile_split_points``, ``prepare_bins``
 :52-152; ``bin_matrix``, ``_bin_all``, ``_col_min_max``,
 ``_uniform_split_points`` :155-224), split finding (``find_splits``
 :380-498) and forest scoring (``_go_left``, ``forest_score``,
-``forest_tree_values``, ``forest_score_out`` :531-625).
+``forest_tree_values``, ``forest_score_out`` :531-625, with the
+child-pointer descent of ``jit_engine._tree_predict`` :708-773).
 
 Rows are binned once: QuantilesGlobal against per-column quantiles
 (F == B), UniformAdaptive against a uniform fine grid of
@@ -11,7 +12,8 @@ Rows are binned once: QuantilesGlobal against per-column quantiles
 engine then places B buckets per node).  Every split is a left-
 membership bitset over buckets (categoricals in mean-gradient order,
 NA as the last bit), or for adaptive numeric splits a fine-bin
-threshold; a tree is a heap array with node n's children at 2n+1/2n+2.
+threshold; a tree is a heap array with node n's children at 2n+1/2n+2,
+or (sparse-frontier engine) a node pool with a left-child pointer.
 
 All of it is float32/int32 tensor code on the caller's device, except
 the per-column quantile dedupe and the uniform grid, which the
@@ -58,8 +60,41 @@ def _quantile_split_points(m: torch.Tensor, nbins: int) -> torch.Tensor:
     return sp.T.contiguous()                             # (C, B-1)
 
 
+HISTOGRAM_TYPES = ("AUTO", "UniformAdaptive", "QuantilesGlobal", "Random")
+
+
+def check_slice(algo: str, p: Dict) -> None:
+    """Reject, by name, what neither tree builder of this slice of the
+    port runs (weights and offsets, checkpoints, the blocked training
+    loop with early stopping, cross-validation)."""
+    def out(what: str, later: str) -> None:
+        raise NotImplementedError(
+            f"{algo}: {what} is not in this slice of the port; it comes "
+            f"with the {later} slice")
+
+    if str(p.get("histogram_type") or "AUTO") not in HISTOGRAM_TYPES:
+        raise ValueError(f"{algo}: unknown histogram_type "
+                         f"{p.get('histogram_type')!r}")
+    if p.get("weights_column") or p.get("offset_column"):
+        out("a weights or offset column", "weights and offset")
+    if p.get("checkpoint"):
+        out("checkpoint", "blocked training loop and recovery")
+    if int(p.get("stopping_rounds") or 0) > 0 or \
+            int(p.get("score_tree_interval") or 0) > 0 or \
+            p.get("score_each_iteration") or \
+            float(p.get("max_runtime_secs") or 0) > 0:
+        out("early stopping / scoring intervals / max_runtime_secs",
+            "blocked training loop and early stopping")
+    if int(p.get("nfolds") or 0) > 1 or p.get("fold_column"):
+        out("cross-validation", "model orchestration")
+    if int(p["ntrees"]) < 1:
+        raise ValueError(f"{algo}: ntrees must be >= 1")
+
+
 def resolve_histogram_type(p: Dict) -> str:
-    """AUTO means UniformAdaptive (reference DHistogram default)."""
+    """AUTO means UniformAdaptive (reference DHistogram default).
+    Random bins as UniformAdaptive; the engine shifts each node's bucket
+    edges by random offsets."""
     ht = str(p.get("histogram_type") or "AUTO")
     return "UniformAdaptive" if ht == "AUTO" else ht
 
@@ -102,7 +137,7 @@ def prepare_bins(di: DataInfo, nbins: int, nbins_cats: int,
     B = max(nbins, min(max_card, nbins_cats))
     is_cat = np.array([fr.vec(c).is_categorical for c in xs], bool)
     m = di.matrix()
-    if histogram_type == "UniformAdaptive":
+    if histogram_type in ("UniformAdaptive", "Random"):
         F = max(int(nbins_top_level), B)
         mn, mx = _col_min_max(m)
         sp = _uniform_split_points(mn.cpu().numpy(), mx.cpu().numpy(),
@@ -119,9 +154,7 @@ def prepare_bins(di: DataInfo, nbins: int, nbins_cats: int,
             qs = np.unique(sp_raw[j][~np.isnan(sp_raw[j])])
             sp[j, : len(qs)] = qs
     else:
-        raise NotImplementedError(
-            f"histogram_type={histogram_type!r} is not in this slice of the "
-            "port (Random needs the PRNG slice)")
+        raise ValueError(f"unknown histogram_type {histogram_type!r}")
     bins = bin_matrix(m, sp, is_cat, F)
     return BinnedData(bins, sp, is_cat, B, F, histogram_type)
 
@@ -162,6 +195,27 @@ def _bin_all(m: torch.Tensor, split_points: torch.Tensor,
     b = torch.where(is_cat[None, :], cat_bins, num_bins)
     b = torch.where(nan_v, torch.full_like(b, nbins), b)
     return cast_bins(b, nbins).contiguous()
+
+
+def forest_output(di: DataInfo, binned: BinnedData, tf, depth: int,
+                  response_domain) -> Dict:
+    """The model-output fields both tree builders write, as host arrays:
+    the binning, the forest's node arrays (``child`` None for the dense
+    heap) and the frame's domains."""
+    def host(a):
+        return a.cpu().numpy() if a is not None else None
+
+    fr = di.frame
+    return dict(
+        x=list(di.x), split_points=binned.split_points, is_cat=binned.is_cat,
+        nbins=binned.nbins, fine_nbins=binned.fine_nbins,
+        hist_type=binned.hist_type, split_col=host(tf.split_col),
+        bitset=host(tf.bitset), value=host(tf.value),
+        thr_bin=host(tf.thr_bin), na_left=host(tf.na_left),
+        child=host(tf.child), varimp=host(tf.varimp), max_depth=depth,
+        response_domain=response_domain,
+        domains={c: list(fr.vec(c).domain) for c in di.cat_names},
+        ntrees_actual=int(tf.split_col.shape[0]))
 
 
 # -- split finding -------------------------------------------------------------
@@ -281,9 +335,12 @@ def _go_left(bs, node, b, th, na, fine_na: int, B: int):
 
 
 def tree_predict(bins: torch.Tensor, split_col, bitset, value, depth: int,
-                 thr=None, na_l=None, fine_na: int = -1) -> torch.Tensor:
-    """Descend one dense-heap tree for every row: (R,) node values
-    (``jit_engine._tree_predict``, gather branch)."""
+                 child=None, thr=None, na_l=None,
+                 fine_na: int = -1) -> torch.Tensor:
+    """Descend one tree for every row: (R,) node values
+    (``jit_engine._tree_predict``, gather branch).  ``child`` None = dense
+    heap (children at 2n+1/2n+2), else left-child pool pointers (right =
+    left + 1; -1 = no children)."""
     R = bins.shape[0]
     B = bitset.shape[-1] - 1
     node = torch.zeros(R, dtype=torch.long, device=bins.device)
@@ -293,14 +350,19 @@ def tree_predict(bins: torch.Tensor, split_col, bitset, value, depth: int,
         b = widen_bins(torch.gather(bins, 1, c.clamp_min(0).long()[:, None])
                        [:, 0])
         go_left = _go_left(bitset, node, b, thr, na_l, fine_na, B)
-        nxt = 2 * node + torch.where(go_left, 1, 2)
+        if child is None:
+            nxt = 2 * node + torch.where(go_left, 1, 2)
+        else:
+            left = child[node].long()
+            term = term | (left < 0)
+            nxt = left + torch.where(go_left, 0, 1)
         node = torch.where(term, node, nxt)
     return value[node]
 
 
 def forest_tree_values(bins, split_col, bitset, value, depth: int,
-                       thr=None, na_l=None, fine_na: int = -1):
-    """Per-tree outputs (T, K, R) of a dense-heap forest (T, K, H)."""
+                       child=None, thr=None, na_l=None, fine_na: int = -1):
+    """Per-tree outputs (T, K, R) of a forest of (T, K, H) node arrays."""
     T, K, H = split_col.shape
     out = torch.empty((T * K, bins.shape[0]), dtype=value.dtype,
                       device=bins.device)
@@ -308,21 +370,24 @@ def forest_tree_values(bins, split_col, bitset, value, depth: int,
     bs = bitset.reshape(T * K, H, -1)
     th = thr.reshape(T * K, H) if thr is not None else None
     na = na_l.reshape(T * K, H) if thr is not None else None
+    ch = child.reshape(T * K, H) if child is not None else None
     for i in range(T * K):
         out[i] = tree_predict(bins, sc[i], bs[i], vl[i], depth,
+                              child=ch[i] if ch is not None else None,
                               thr=th[i] if th is not None else None,
                               na_l=na[i] if na is not None else None,
                               fine_na=fine_na)
     return out.reshape(T, K, -1)
 
 
-def forest_score(bins, split_col, bitset, value, depth: int, thr=None,
-                 na_l=None, fine_na: int = -1) -> torch.Tensor:
+def forest_score(bins, split_col, bitset, value, depth: int, child=None,
+                 thr=None, na_l=None, fine_na: int = -1) -> torch.Tensor:
     """Sum of tree outputs per (row, k-slot): (R, K).  One descent
     implementation only (``forest_tree_values``), so scoring and staged
     predictions cannot diverge."""
     vals = forest_tree_values(bins, split_col, bitset, value, depth,
-                              thr=thr, na_l=na_l, fine_na=fine_na)
+                              child=child, thr=thr, na_l=na_l,
+                              fine_na=fine_na)
     return vals.sum(dim=0).T
 
 
@@ -333,20 +398,18 @@ def model_fine_na(out: Dict) -> int:
 
 def forest_score_out(bins: torch.Tensor, out: Dict,
                      depth: Optional[int] = None) -> torch.Tensor:
-    """forest_score over a model-output dict of host arrays (dense heap
-    only: the sparse-frontier layout waits for its slice)."""
-    if out.get("child") is not None:
-        raise NotImplementedError(
-            "sparse-frontier forests come with the frontier-engine slice")
+    """forest_score over a model-output dict of host arrays (dense heap,
+    or pool layout when ``out["child"]`` is set)."""
     dev = bins.device
 
     def t(a):
         return torch.tensor(np.asarray(a), device=dev)
 
-    thr = out.get("thr_bin")
+    thr, child = out.get("thr_bin"), out.get("child")
     return forest_score(
         bins, t(out["split_col"]), t(out["bitset"]), t(out["value"]),
         int(depth if depth is not None else out["max_depth"]),
+        child=t(child) if child is not None else None,
         thr=t(thr) if thr is not None else None,
         na_l=t(out["na_left"]) if thr is not None else None,
         fine_na=model_fine_na(out) if thr is not None else -1)

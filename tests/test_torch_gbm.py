@@ -148,12 +148,16 @@ def test_bf16_histograms_reach_the_tables():
 
 def test_out_of_slice_options_raise():
     jf, pf = _frames(True)
-    for kw in (dict(sample_rate=0.5), dict(col_sample_rate=0.5),
-               dict(col_sample_rate_per_tree=0.5),
-               dict(histogram_type="Random"), dict(stats_dtype="int16"),
-               dict(stopping_rounds=2), dict(max_depth=14)):
+    for kw in (dict(stopping_rounds=2), dict(score_tree_interval=1),
+               dict(weights_column="a"), dict(checkpoint="m"),
+               dict(nfolds=3), dict(monotone_constraints={"a": 1})):
         with pytest.raises(NotImplementedError):
             GBM(device="cpu", ntrees=1, **kw).train(y="y", training_frame=pf)
+    for kw in (dict(stats_dtype="int4"), dict(histogram_type="Exact"),
+               dict(ntrees=0)):
+        with pytest.raises(ValueError):
+            GBM(device="cpu", **{"ntrees": 1, **kw}).train(
+                y="y", training_frame=pf)
     multi = Frame(["a", "y"], [Vec(np.arange(9, dtype=np.float32)),
                                Vec(np.arange(9) % 3, T_CAT,
                                    domain=["p", "q", "r"])])
