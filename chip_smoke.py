@@ -39,15 +39,45 @@ exit code is not 0):
               carry all 20 levels of every tree, predict() reproduces the
               training AUC; 2 trees on the first 100,000 rows on the card
               and on the CPU must be equal (0/1 stats sum exactly)
+  3x K2 at the XGBoost shapes (int16 fine bins, F=1024, (L, Bd) = (8,256),
+              (16,256), (32,256)) in f32 and int16, as phase 3f
+  3c K2 at the covertype frame's shape (581,012 x 54, 44 one-hot columns
+              in two fine bins each): the deepest multinomial GBM level
+              (16, 64) and the multiclass DRF's frontier (4096, 20), in
+              f32 and int16, as phase 3f
+ 10 XGBoost gbtree at its defaults (max_bins 256, depth 6, eta 0.3,
+              reg_lambda 1, Newton leaves) with 20 trees: K2 must carry all
+              6 levels of every tree (120 launches); predict() reproduces
+              the training AUC; 2 trees on the first 100,000 rows on the
+              card and on the CPU must grow the same first tree.  Then dart
+              (rate_drop 0.1, skip_drop 0.5, seed 1, 10 trees): 60 K2
+              launches, the AUC from predict()
+ 11 multinomial on a covertype-shaped frame (581,012 x 54: 10 normal
+              columns, a 4-way and a 40-way one-hot block, 7 classes with
+              covertype's class counts, the label from a seeded softmax
+              signal): the default GBM with 20 iterations (K2 700 launches)
+              and the default DRF with 3 iterations (21 trees of depth 20,
+              420 launches); logloss and mean per-class error reproduced by
+              predict(); one GBM and one DRF iteration on the first 100,000
+              rows equal on the card and on the CPU
+ 12 distributions, weights, offset, monotone: poisson, gamma, tweedie,
+              laplace, quantile and huber GBMs (3 trees on 100,000 rows, a
+              response made for each) and a bernoulli GBM with a weights
+              column (uniform 0.5-2) and an offset column, each growing the
+              same first tree on the card and on the CPU; a 20-tree GBM at
+              1M x 28 with monotone_constraints {x0: 1, x1: -1} whose
+              link-scale predictions are monotone along a 64-point grid of
+              each constrained column over 1,000 sampled rows
   7 profile - torch.profiler over 2 default trees: device busy share and
               the kernels that take the device time; then 2 QuantilesGlobal
               trees: each histogram kernel's device ms per main-path launch
               (first pass + kernel + last pass, over the launch counter);
-              the same for the two int16 stochastic GBMs and for one DRF
-              tree (where its time goes)
+              the same for the two int16 stochastic GBMs, for one DRF tree
+              (where its time goes), one XGBoost tree and one multinomial
+              iteration (7 class trees)
 
 The kernels line's launches sum every main-path training above (phases
-4, 5, 8, 9), each read from counters set to 0 just before it; the
+4, 5, 8-12), each read from counters set to 0 just before it; the
 launches phase lists them path by path.
 
 The line before the last holds every kernel's numbers; the last line is
@@ -69,9 +99,11 @@ if not torch.cuda.is_available():
     sys.exit(2)
 
 from h2o_tpu_torch.core.frame import T_CAT, Frame, Vec  # noqa: E402
-from h2o_tpu_torch.models.metrics import binomial_metrics  # noqa: E402
+from h2o_tpu_torch.models.metrics import (binomial_metrics,  # noqa: E402
+                                          multinomial_metrics)
 from h2o_tpu_torch.models.tree.drf import DRF  # noqa: E402
 from h2o_tpu_torch.models.tree.gbm import GBM  # noqa: E402
+from h2o_tpu_torch.models.tree.xgboost import XGBoost  # noqa: E402
 from h2o_tpu_torch.ops import hist_kernels as hk  # noqa: E402
 from h2o_tpu_torch.ops.histogram import hist_plain  # noqa: E402
 
@@ -90,6 +122,23 @@ DRF_TREES = 10
 STOCHASTIC = dict(sample_rate=0.7, col_sample_rate=0.8,
                   col_sample_rate_per_tree=0.9, stats_dtype="int16")
 L2_FLUSH_BYTES = 256 * 2 ** 20   # written before each timed launch (L2: 50 MB)
+#: K2's shapes under XGBoost's defaults (max_bins 256, depth 6, F = 1024):
+#: Bd = max(256, 1024 >> d) at levels 3..5
+XGB_SHAPES = [(8, 256), (16, 256), (32, 256)]
+XGB_TREES = 20
+DART = dict(rate_drop=0.1, skip_drop=0.5, seed=1, ntrees=10)
+#: UCI Covertype's published shape and class counts (581,012 x 54, 7 classes)
+COV_COUNTS = (211_840, 283_301, 35_754, 2_747, 9_493, 17_367, 20_510)
+COV_GBM_ITERS = 20
+#: K2's (L, Bd) at the multinomial GBM's deepest level (depth 5, B = 20,
+#: F = 1024: Bd = max(20, 1024 >> 4))
+COV_GBM_SHAPE = (16, 64)
+COV_DRF_ITERS = 3
+#: the families of phase 12, with the parameters each is run with
+FAMILIES = {"poisson": {}, "gamma": {}, "tweedie": dict(tweedie_power=1.3),
+            "laplace": {}, "quantile": dict(quantile_alpha=0.25),
+            "huber": dict(huber_alpha=0.8)}
+SUB_ROWS = 100_000
 
 
 def emit(obj) -> None:
@@ -168,11 +217,65 @@ def make_data(rows: int, cols: int, seed: int = 0):
     return X, y
 
 
-def frame(X, y) -> Frame:
-    names = [f"x{j}" for j in range(X.shape[1])] + ["y"]
+def frame(X, y, extra=()) -> Frame:
+    """Columns x0.. and a binomial y, or a numeric y when ``y`` is
+    float; ``extra`` adds (name, values) numeric columns."""
+    names = [f"x{j}" for j in range(X.shape[1])] + [n for n, _ in extra] + \
+        ["y"]
     vecs = [Vec(X[:, j]) for j in range(X.shape[1])] + \
-        [Vec(y, T_CAT, domain=["b", "s"])]
+        [Vec(v) for _, v in extra] + \
+        [Vec(y) if y.dtype.kind == "f" else Vec(y, T_CAT, domain=["b", "s"])]
     return Frame(names, vecs)
+
+
+def make_covertype(seed: int = 0) -> Frame:
+    """A covertype-shaped frame: 10 normal columns, a 4-way and a 40-way
+    one-hot block (0/1 numeric columns) and 7 classes with covertype's
+    class counts.  Class scores are a seeded linear signal over three
+    numeric columns and both blocks; with Gumbel noise on each score, the
+    rarest class takes its count of the unassigned rows that score it
+    highest, then the next rarest, so the counts are exact."""
+    rng = np.random.default_rng(seed)
+    n, K = sum(COV_COUNTS), len(COV_COUNTS)
+    X = rng.normal(size=(n, 10)).astype(np.float32)
+    wild = rng.choice(4, size=n, p=[0.45, 0.05, 0.44, 0.06])
+    soil_p = 0.9 * rng.dirichlet(np.ones(40)) + 0.1 / 40
+    soil = rng.choice(40, size=n, p=soil_p)
+    score = (X[:, :3] @ rng.normal(size=(3, K)) * 1.5
+             + rng.normal(size=(4, K))[wild]
+             + 0.8 * rng.normal(size=(40, K))[soil]
+             + rng.gumbel(size=(n, K)))
+    y = np.full(n, -1, np.int32)
+    for k in np.argsort(COV_COUNTS):
+        free = np.flatnonzero(y < 0)
+        top = np.argpartition(-score[free, k], COV_COUNTS[k] - 1)[
+            :COV_COUNTS[k]]
+        y[free[top]] = k
+    cols = [X] + [(wild[:, None] == np.arange(4)).astype(np.float32),
+                  (soil[:, None] == np.arange(40)).astype(np.float32)]
+    M = np.concatenate(cols, axis=1)
+    names = ([f"elev{j}" for j in range(10)] + [f"wild{j}" for j in range(4)]
+             + [f"soil{j}" for j in range(40)] + ["y"])
+    vecs = [Vec(M[:, j]) for j in range(M.shape[1])] + \
+        [Vec(y, T_CAT, domain=[f"c{k}" for k in range(K)])]
+    return Frame(names, vecs)
+
+
+def family_response(family: str, X, seed: int = 5) -> np.ndarray:
+    """A response for ``family`` around a smooth signal of ``X``."""
+    rng = np.random.default_rng(seed)
+    eta = 0.6 * X[:, 0] - 0.4 * X[:, 1] + 0.3 * X[:, 2] * X[:, 3]
+    mu = np.exp(0.5 * eta)
+    if family == "poisson":
+        return rng.poisson(mu).astype(np.float32)
+    if family == "gamma":
+        return rng.gamma(2.0, mu / 2.0).astype(np.float32)
+    if family == "tweedie":
+        y = rng.gamma(1.5, mu / 1.5)
+        y[rng.uniform(size=y.shape) < 0.3] = 0.0
+        return y.astype(np.float32)
+    return (eta + 0.5 * rng.standard_t(3, size=eta.shape)).astype(
+        np.float32)
 
 
 def library_ms(bins, leaf, stats, L: int, B1: int, fine_map=None) -> float:
@@ -241,8 +344,9 @@ def kernel_phase(name: str, shapes, make_inputs, run_kernel, fine: bool,
         # generator of their own, so the draws above match earlier runs
         stats_i8 = torch.div(stats_i, 16, rounding_mode="floor").to(
             torch.int8)
+        rows, cols = bins.shape
         perm = torch.from_numpy(np.random.default_rng(1000 + si).permutation(
-            bins.shape[0])).to(DEV)
+            rows)).to(DEV)
         pbins, pleaf = bins[perm].contiguous(), leaf[perm].contiguous()
         active = int((leaf >= 0).sum())
         if si == 0:
@@ -276,7 +380,8 @@ def kernel_phase(name: str, shapes, make_inputs, run_kernel, fine: bool,
             elif err > F32_RTOL * scale:
                 raise AssertionError(f"{name} L={L} {mode}: max|k-p| {err} "
                                      f"> {F32_RTOL} * {scale}")
-            rec = dict(phase=name, L=L, B=B, mode=mode, max_abs_err=err,
+            rec = dict(phase=name, rows=rows, cols=cols, L=L, B=B,
+                       mode=mode, max_abs_err=err,
                        max_abs_plain=scale, bitwise_repeat=True,
                        bitwise_permuted=True)
             # bytes: bins, leaf, each active row's stats and the table
@@ -285,17 +390,17 @@ def kernel_phase(name: str, shapes, make_inputs, run_kernel, fine: bool,
             # counted
             nbytes = (bins.numel() * bins.element_size() + leaf.numel() * 4
                       + active * 4 * stats.element_size()
-                      + C * (B + 1) * L * 16)
+                      + cols * (B + 1) * L * 16)
             if fine:
-                nbytes += 3 * L * C * 4 + C * 4
-            ops = active * C * 4
+                nbytes += 3 * L * cols * 4 + cols * 4
+            ops = active * cols * 4
             if mode == "int16":
                 rec.update(ms=time_ms(kern), bound_ms=bound(nbytes, ops)[0],
                            bound_bytes=nbytes)
                 tot["int16_ms"] += rec["ms"]
                 tot["int16_bound_ms"] += rec["bound_ms"]
             if mode == "f32":
-                plan = hk.plan_hist(R, C, B + 1, L, adaptive=fine,
+                plan = hk.plan_hist(rows, cols, B + 1, L, adaptive=fine,
                                     n_sm=torch.cuda.get_device_properties(
                                         DEV).multi_processor_count,
                                     bins_itemsize=bins.element_size(),
@@ -334,28 +439,49 @@ def k1_inputs(rng):
     return make
 
 
-def k2_inputs(rng, F: int = 1024):
+def k2_inputs(rng, F: int = 1024, rows: int = R, cols: int = C):
     def make(L, B):
-        bins_np = rng.integers(0, F, size=(R, C)).astype(np.int16)
-        bins_np[rng.uniform(size=(R, C)) < 0.05] = F      # NA fine bins
-        bins_np[:, 3] = rng.integers(0, 12, size=R)       # categorical codes
-        bins_np[rng.uniform(size=R) < 0.05, 3] = F
-        is_cat = np.zeros(C, bool)
+        bins_np = rng.integers(0, F, size=(rows, cols)).astype(np.int16)
+        bins_np[rng.uniform(size=(rows, cols)) < 0.05] = F  # NA fine bins
+        bins_np[:, 3] = rng.integers(0, 12, size=rows)    # categorical codes
+        bins_np[rng.uniform(size=rows) < 0.05, 3] = F
+        is_cat = np.zeros(cols, bool)
         is_cat[3] = True
-        leaf_np = rng.integers(0, L, size=R).astype(np.int32)
-        leaf_np[rng.uniform(size=R) < 0.01] = -1
-        lo = rng.integers(0, F // 2, size=(L, C)).astype(np.int32)
-        hi = (lo + rng.integers(1, F // 2, size=(L, C))).astype(np.int32)
+        leaf_np = rng.integers(0, L, size=rows).astype(np.int32)
+        leaf_np[rng.uniform(size=rows) < 0.01] = -1
+        lo = rng.integers(0, F // 2, size=(L, cols)).astype(np.int32)
+        hi = (lo + rng.integers(1, F // 2, size=(L, cols))).astype(np.int32)
         off = rng.integers(0, hi - lo + 1).astype(np.int32)
-        st = rng.normal(size=(R, 4)).astype(np.float32)
+        st = rng.normal(size=(rows, 4)).astype(np.float32)
         st[leaf_np < 0] = np.nan
-        sti = rng.integers(-2000, 2000, size=(R, 4)).astype(np.int16)
+        sti = rng.integers(-2000, 2000, size=(rows, 4)).astype(np.int16)
         fm = tuple(torch.from_numpy(a).to(DEV) for a in (lo, hi, off,
                                                           is_cat)) + (F,)
         return (torch.from_numpy(bins_np).to(DEV),
                 torch.from_numpy(leaf_np).to(DEV),
                 torch.from_numpy(st).to(DEV), torch.from_numpy(sti).to(DEV),
                 fm)
+    return make
+
+
+def cov_k2_inputs(rng, F: int = 1024):
+    """K2's inputs at the covertype frame's shape (581,012 x 54): the
+    draws of ``k2_inputs``, then columns 10..53 made the 4- and 40-way
+    one-hot blocks of ``make_covertype`` -- fine bin 0 or F - 1, as the
+    uniform grid bins a 0/1 column -- so 44 columns pile each leaf's
+    rows into two buckets, as on the multinomial main path."""
+    n = sum(COV_COUNTS)
+    base = k2_inputs(rng, F, rows=n, cols=54)
+
+    def make(L, B):
+        bins, leaf, st, sti, fm = base(L, B)
+        wild = rng.choice(4, size=n, p=[0.45, 0.05, 0.44, 0.06])
+        soil = rng.choice(40, size=n)
+        hot = np.concatenate([wild[:, None] == np.arange(4),
+                              soil[:, None] == np.arange(40)], axis=1)
+        bins[:, 10:] = torch.from_numpy(
+            np.where(hot, F - 1, 0).astype(np.int16)).to(DEV)
+        return bins, leaf, st, sti, fm
     return make
 
 
@@ -369,22 +495,25 @@ def run_k2(bins, leaf, stats, L, B, bf16, fm):
                                  B, fine_na, bf16=bf16)
 
 
-def train(fr, **kw):
+def fit(cls, fr, **kw):
+    """(model, wall) of one training of builder ``cls`` on ``fr``."""
     sync()
     t0 = time.perf_counter()
-    m = GBM(**{"ntrees": 20, "max_depth": 5, "seed": 1, **kw}).train(
-        y="y", training_frame=fr)
+    m = cls(**kw).train(y="y", training_frame=fr)
     sync()
     return m, time.perf_counter() - t0
+
+
+def train(fr, **kw):
+    return fit(GBM, fr, **{"ntrees": 20, "max_depth": 5, "seed": 1, **kw})
 
 
 def train_drf(fr, **kw):
-    sync()
-    t0 = time.perf_counter()
-    m = DRF(**{"ntrees": DRF_TREES, "seed": 1, **kw}).train(
-        y="y", training_frame=fr)
-    sync()
-    return m, time.perf_counter() - t0
+    return fit(DRF, fr, **{"ntrees": DRF_TREES, "seed": 1, **kw})
+
+
+def train_xgb(fr, **kw):
+    return fit(XGBoost, fr, **{"ntrees": XGB_TREES, "seed": 1, **kw})
 
 
 def launched(fn, **kw):
@@ -408,7 +537,170 @@ def same_forest(a: dict, b: dict, trees=None) -> dict:
         np.abs(a["value"][sl] - b["value"][sl]).max()))
 
 
+def first_tree_check(name: str, cls, sub: Frame, trees: int = 1,
+                     **kw) -> dict:
+    """Train ``cls`` on ``sub`` on the card and on the CPU; their first
+    ``trees`` iterations must have equal split columns, thresholds, NA
+    directions, bitsets (and child pointers)."""
+    m_gpu, _ = fit(cls, sub, device="cuda", **kw)
+    m_cpu, _ = fit(cls, sub, device="cpu", **kw)
+    cmp_ = same_forest(m_gpu.output, m_cpu.output, trees=trees)
+    rec = dict(phase=name + "_cuda_vs_cpu", rows=sub.nrows, **cmp_)
+    emit(rec)
+    if not all(cmp_["equal"].values()):
+        raise AssertionError(f"{name}: the card's and the CPU's first "
+                             f"trees differ: {cmp_}")
+    return rec
+
+
+def phase_xgboost(fr: Frame, sub: Frame, yt: torch.Tensor, paths) -> None:
+    """10: XGBoost gbtree and dart at full width."""
+    m, wall, got = launched(train_xgb, fr=fr)
+    paths["xgboost_gbtree"] = got
+    auc = m.output["training_metrics"]["AUC"]
+    emit(dict(phase="xgboost_gbtree", rows=R, cols=C, ntrees=XGB_TREES,
+              max_depth=6, max_bins=256, wall_s=wall,
+              rows_trees_per_s=R * XGB_TREES / wall, train_auc=auc,
+              k1_launches=got[0], k2_launches=got[1]))
+    if got != (0, 6 * XGB_TREES):
+        raise AssertionError(f"XGBoost: (K1, K2) launched {got}, want "
+                             f"(0, {6 * XGB_TREES})")
+    if not (0.5 < auc <= 1.0) or not np.isfinite(m.output["value"]).all():
+        raise AssertionError(f"XGBoost: implausible model (AUC {auc})")
+    pred = m.predict(fr)
+    auc_pred = binomial_metrics(
+        torch.from_numpy(pred.vec("s").data).to(DEV), yt)["AUC"]
+    if auc_pred != auc:
+        raise AssertionError(f"XGBoost scoring: AUC from predict() "
+                             f"{auc_pred} != training AUC {auc}")
+    first_tree_check("xgboost_gbtree", XGBoost, sub, ntrees=2, seed=1)
+
+    m, wall, got = launched(fit, cls=XGBoost, fr=fr, booster="dart",
+                            **DART)
+    paths["xgboost_dart"] = got
+    pred = m.predict(fr)
+    auc_pred = binomial_metrics(
+        torch.from_numpy(pred.vec("s").data).to(DEV), yt)["AUC"]
+    auc = m.output["training_metrics"]["AUC"]
+    emit(dict(phase="xgboost_dart", rows=R, cols=C, **DART, wall_s=wall,
+              train_auc=auc, predict_auc=auc_pred, k1_launches=got[0],
+              k2_launches=got[1]))
+    if got != (0, 6 * DART["ntrees"]) or auc_pred != auc or \
+            not (0.5 < auc <= 1.0):
+        raise AssertionError(f"XGBoost dart: launches {got}, AUC {auc} / "
+                             f"predict() {auc_pred}")
+
+
+def phase_multinomial(cov: Frame, paths) -> None:
+    """11: multinomial GBM and DRF on the covertype-shaped frame."""
+    K = len(COV_COUNTS)
+    ycov = torch.from_numpy(cov.vec("y").as_float()).to(DEV)
+    counts = np.bincount(cov.vec("y").data, minlength=K)
+    if tuple(counts) != COV_COUNTS or cov.nrows != sum(COV_COUNTS):
+        raise AssertionError(f"covertype frame: counts {counts}")
+    for name, cls, iters, depth, want in (
+            ("multinomial_gbm", GBM, COV_GBM_ITERS, 5,
+             COV_GBM_ITERS * K * 5),
+            ("multinomial_drf", DRF, COV_DRF_ITERS, 20,
+             COV_DRF_ITERS * K * 20)):
+        m, wall, got = launched(fit, cls=cls, fr=cov, ntrees=iters, seed=1)
+        paths[name] = got
+        tm = m.output["training_metrics"]
+        pred = m.predict(cov)
+        probs = torch.stack([torch.from_numpy(pred.vec(f"c{k}").data)
+                             for k in range(K)], dim=1).to(DEV)
+        pm = multinomial_metrics(probs, ycov)
+        emit(dict(phase=name, rows=cov.nrows, cols=54, classes=K,
+                  iterations=iters, trees=iters * K, max_depth=depth,
+                  wall_s=wall, rows_trees_per_s=cov.nrows * iters * K / wall,
+                  logloss=tm["logloss"], err=tm["err"],
+                  mean_per_class_error=tm["mean_per_class_error"],
+                  predict_logloss=pm["logloss"],
+                  predict_mean_per_class_error=pm["mean_per_class_error"],
+                  k1_launches=got[0], k2_launches=got[1]))
+        if got != (0, want):
+            raise AssertionError(f"{name}: (K1, K2) launched {got}, want "
+                                 f"(0, {want})")
+        if m.output["split_col"].shape[:2] != (iters, K):
+            raise AssertionError(f"{name}: forest shape "
+                                 f"{m.output['split_col'].shape}")
+        if abs(pm["logloss"] - tm["logloss"]) > 1e-6 or \
+                pm["mean_per_class_error"] != tm["mean_per_class_error"] or \
+                not np.isfinite(tm["logloss"]) or tm["err"] >= 0.5:
+            raise AssertionError(f"{name}: training logloss "
+                                 f"{tm['logloss']} / predict() "
+                                 f"{pm['logloss']}, mean per-class error "
+                                 f"{tm['mean_per_class_error']} / "
+                                 f"{pm['mean_per_class_error']}")
+    sub = cov.slice_rows(slice(0, SUB_ROWS))
+    first_tree_check("multinomial_gbm", GBM, sub, ntrees=1, seed=1)
+    rec = first_tree_check("multinomial_drf", DRF, sub, ntrees=1, seed=1)
+    if rec["value_max_abs_diff"] > 1e-6:
+        raise AssertionError("multinomial DRF: card and CPU values differ")
+
+
+def phase_families(X, y, fr: Frame, paths) -> None:
+    """12: the other distributions, weights and offset, monotone."""
+    Xs = X[:SUB_ROWS]
+    for fam, extra in FAMILIES.items():
+        sub = frame(Xs, family_response(fam, Xs))
+        kw = dict(ntrees=3, max_depth=5, seed=1, distribution=fam, **extra)
+        hk.reset_launches()
+        m, wall = fit(GBM, sub, **kw)
+        got = (hk.hist_cuda.launches, hk.hist_cuda_adaptive.launches)
+        paths["gbm_" + fam] = got
+        tm = m.output["training_metrics"]
+        emit(dict(phase="gbm_" + fam, rows=SUB_ROWS, **extra, wall_s=wall,
+                  mse=tm["mse"],
+                  mean_residual_deviance=tm["mean_residual_deviance"],
+                  k1_launches=got[0], k2_launches=got[1]))
+        if got != (0, 15) or not np.isfinite(tm["mean_residual_deviance"]):
+            raise AssertionError(f"{fam} GBM: launches {got}, deviance "
+                                 f"{tm['mean_residual_deviance']}")
+        first_tree_check("gbm_" + fam, GBM, sub, **kw)
+    rng = np.random.default_rng(11)
+    w = rng.uniform(0.5, 2.0, SUB_ROWS).astype(np.float32)
+    off = (0.3 * np.sin(2.0 * Xs[:, 5])).astype(np.float32)
+    sub = frame(Xs, y[:SUB_ROWS], extra=[("w", w), ("off", off)])
+    kw = dict(ntrees=3, seed=1, weights_column="w", offset_column="off")
+    hk.reset_launches()
+    m, _ = fit(GBM, sub, **kw)
+    paths["gbm_weights_offset"] = (hk.hist_cuda.launches,
+                                   hk.hist_cuda_adaptive.launches)
+    if paths["gbm_weights_offset"] != (0, 15) or \
+            m.output["x"] != [f"x{j}" for j in range(C)]:
+        raise AssertionError("weighted GBM: launches "
+                             f"{paths['gbm_weights_offset']}, x "
+                             f"{m.output['x']}")
+    first_tree_check("gbm_weights_offset", GBM, sub, **kw)
+
+    mono = {"x0": 1, "x1": -1}
+    m, wall, got = launched(train, fr=fr, monotone_constraints=mono)
+    paths["gbm_monotone"] = got
+    auc = m.output["training_metrics"]["AUC"]
+    rows = np.random.default_rng(12).choice(R, 1000, replace=False)
+    base = X[rows]
+    worst = {}
+    for col, sign in mono.items():
+        j = int(col[1:])
+        grid = np.linspace(X[:, j].min(), X[:, j].max(), 64,
+                           dtype=np.float32)
+        G = np.repeat(base[None], 64, axis=0)          # (64, 1000, C)
+        G[:, :, j] = grid[:, None]
+        F = m._forest_F(torch.from_numpy(G.reshape(-1, C)).to(DEV))
+        d = sign * torch.diff(F[:, 0].reshape(64, -1), dim=0)
+        worst[col] = float(d.min())
+    emit(dict(phase="gbm_monotone", rows=R, ntrees=20,
+              monotone_constraints=mono, wall_s=wall, train_auc=auc,
+              grid=64, grid_rows=1000, min_step_along_grid=worst,
+              k1_launches=got[0], k2_launches=got[1]))
+    if got != (0, 100) or min(worst.values()) < 0 or not 0.5 < auc <= 1:
+        raise AssertionError(f"monotone GBM: launches {got}, AUC {auc}, "
+                             f"grid steps against the constraint {worst}")
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     # -- 0 device ------------------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -445,6 +737,20 @@ def main() -> None:
                        fine=False, modes=("f32", "int16"))
     k2f = kernel_phase("K2_frontier", [(4096, 20)], k2_inputs(rng_f), run_k2,
                        fine=True, modes=("f32", "int16"))
+    torch.cuda.empty_cache()
+
+    # -- 3x K2 at the XGBoost shapes -----------------------------------------
+    k2x = kernel_phase("K2_xgb", XGB_SHAPES, k2_inputs(
+        np.random.default_rng(4)), run_k2, fine=True, modes=("f32", "int16"))
+    torch.cuda.empty_cache()
+
+    # -- 3c K2 at the covertype shapes ---------------------------------------
+    rng_c = np.random.default_rng(5)
+    k2c = kernel_phase("K2_covertype", [COV_GBM_SHAPE], cov_k2_inputs(rng_c),
+                       run_k2, fine=True, modes=("f32", "int16"))
+    k2cf = kernel_phase("K2_covertype_frontier", [(4096, 20)],
+                        cov_k2_inputs(rng_c), run_k2, fine=True,
+                        modes=("f32", "int16"))
     torch.cuda.empty_cache()
 
     # -- 4 default GBM, full width -------------------------------------------
@@ -572,6 +878,13 @@ def main() -> None:
     if not all(cmp_d["equal"].values()) or \
             cmp_d["value_max_abs_diff"] > 1e-6:
         raise AssertionError("DRF: cuda and cpu forests differ")
+    sync()
+
+    # -- 10 XGBoost, 11 multinomial, 12 distributions / weights / monotone --
+    phase_xgboost(fr, sub, yt, paths)
+    cov = make_covertype(seed=0)
+    phase_multinomial(cov, paths)
+    phase_families(X, y, fr, paths)
     emit(dict(phase="launches", paths={k: dict(k1=v[0], k2=v[1])
                                        for k, v in paths.items()}))
     sync()
@@ -579,13 +892,14 @@ def main() -> None:
     # -- 7 where a tree's time goes (torch.profiler) -------------------------
     from torch.profiler import ProfilerActivity, profile
 
-    def profiled(fn=train, ntrees=2, **kw):
-        """Device ms by kernel name over a short training, its wall, the
-        number of device operations, and the two counters' launches."""
+    def profiled(fn=train, ntrees=2, on=fr, **kw):
+        """Device ms by kernel name over a short training on ``on``, its
+        wall, the number of device operations, and the two counters'
+        launches."""
         hk.reset_launches()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            _, wall = fn(fr, ntrees=ntrees, **kw)
+            _, wall = fn(on, ntrees=ntrees, **kw)
         per, n = {}, 0
         for ev in prof.events():
             if ev.device_type == torch.autograd.DeviceType.CUDA:
@@ -644,8 +958,27 @@ def main() -> None:
     emit(dict(phase="profile_drf_tree", ntrees=1,
               **breakdown(per_d, wall_d, n_d),
               hist_cuda_adaptive=per_launch(per_d, pd_k2)))
+    per_x, wall_x, n_x, (px_k1, px_k2) = profiled(train_xgb, ntrees=1)
+    per_m, wall_m, n_m, (pm_k1, pm_k2) = profiled(
+        lambda on, **kw: fit(GBM, on, seed=1, **kw), ntrees=1, on=cov)
+    if (px_k1, px_k2) != (0, 6) or (pm_k1, pm_k2) != (0, 35):
+        raise AssertionError(f"profiled XGBoost tree / multinomial "
+                             f"iteration: (K1, K2) launched "
+                             f"{(px_k1, px_k2)} / {(pm_k1, pm_k2)}")
+    emit(dict(phase="profile_xgboost_tree", ntrees=1,
+              **breakdown(per_x, wall_x, n_x),
+              hist_cuda_adaptive=per_launch(per_x, px_k2)))
+    emit(dict(phase="profile_multinomial_iteration", trees=7,
+              **breakdown(per_m, wall_m, n_m),
+              hist_cuda_adaptive=per_launch(per_m, pm_k2)))
 
-    def entry(name, replaces, launches, tot, front):
+    def block(tot, **shape):
+        return dict(**shape, ms=tot["ms"], bound_ms=tot["bound_ms"],
+                    plain_ms=tot["plain_ms"], library_ms=tot["library_ms"],
+                    max_abs_err=tot["max_abs_err"], int16_ms=tot["int16_ms"],
+                    int16_bound_ms=tot["int16_bound_ms"])
+
+    def entry(name, replaces, launches, tot, front, **more):
         return dict(name=name, route="cuda",
                     source="h2o_tpu_torch/csrc/hist.cu", replaces=replaces,
                     launches=launches, max_abs_err=tot["max_abs_err"],
@@ -654,21 +987,19 @@ def main() -> None:
                     bound_by=("bytes" if tot["bytes_ms"] >= tot["ops_ms"]
                               else "operations"),
                     library_ms=tot["library_ms"], int16_ms=tot["int16_ms"],
-                    frontier=dict(
-                        L=4096, B=20, ms=front["ms"],
-                        bound_ms=front["bound_ms"],
-                        plain_ms=front["plain_ms"],
-                        library_ms=front["library_ms"],
-                        max_abs_err=front["max_abs_err"],
-                        int16_ms=front["int16_ms"],
-                        int16_bound_ms=front["int16_bound_ms"]))
+                    frontier=block(front, L=4096, B=20), **more)
 
+    emit(dict(phase="done", seconds=time.perf_counter() - t_start))
     print(smi, flush=True)
     emit({"kernels": [
         entry("hist_cuda", "h2o_tpu/ops/hist_pallas.py:308",
               sum(v[0] for v in paths.values()), k1, k1f),
         entry("hist_cuda_adaptive", "h2o_tpu/ops/hist_pallas.py:220",
-              sum(v[1] for v in paths.values()), k2, k2f)]})
+              sum(v[1] for v in paths.values()), k2, k2f,
+              xgb=block(k2x, shapes=XGB_SHAPES),
+              covertype=dict(rows=sum(COV_COUNTS), cols=54,
+                             gbm=block(k2c, shapes=[COV_GBM_SHAPE]),
+                             frontier=block(k2cf, shapes=[(4096, 20)])))]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
 

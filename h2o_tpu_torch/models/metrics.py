@@ -1,13 +1,14 @@
 """Model metrics — port of ``h2o_tpu/models/metrics.py``
 (``_binomial_kernel`` :27-45, ``_auc_from_hist`` :48-69,
-``_regression_kernel`` :72-92, ``ModelMetrics`` :118-142,
-``regression_metrics`` :145-166, ``binomial_metrics`` :258-280).
+``_regression_kernel`` :72-92, ``_multinomial_kernel`` :96-116,
+``ModelMetrics`` :118-142, ``regression_metrics`` :145-166,
+``binomial_metrics`` :258-280, ``multinomial_metrics`` :283-307).
 
 Binomial AUC comes from a fixed 1024-bin histogram of the scores (the
 reference's AUC2 analog), so it reduces in O(bins).  Reductions are
 float32 tensor code on the scores' device; the bin sweep runs in numpy
-on the host, copied from the reference.  The threshold tables and
-multinomial metrics wait for later slices.
+on the host, copied from the reference.  The binomial threshold tables
+(a REST artifact) and RMSLE wait for the REST slice.
 """
 
 from __future__ import annotations
@@ -77,7 +78,8 @@ class ModelMetrics:
         return self.data.get(k, default)
 
     def __repr__(self):
-        keys = "mse rmse mae r2 mean_residual_deviance logloss AUC".split()
+        keys = ("mse rmse mae r2 mean_residual_deviance logloss AUC "
+                "err").split()
         parts = [f"{k}={self.data[k]:.5g}" for k in keys
                  if isinstance(self.data.get(k), (int, float))]
         return f"<ModelMetrics{self.kind.capitalize()} {' '.join(parts)}>"
@@ -106,14 +108,21 @@ def binomial_metrics(p1: torch.Tensor, y: torch.Tensor,
 
 def regression_metrics(pred: torch.Tensor, y: torch.Tensor,
                        w: Optional[torch.Tensor] = None,
-                       valid: Optional[torch.Tensor] = None
-                       ) -> ModelMetrics:
-    """Gaussian regression metrics (deviance = weighted squared error)."""
+                       valid: Optional[torch.Tensor] = None,
+                       distribution=None) -> ModelMetrics:
+    """Regression metrics; the deviance is the distribution's (its
+    log-link families read ``pred`` on the response scale), else the
+    weighted squared error."""
     valid = torch.ones_like(pred, dtype=torch.bool) if valid is None \
         else valid
     valid = valid & ~torch.isnan(y) & ~torch.isnan(pred)
     w = torch.ones_like(pred) if w is None else w
-    dev = w * (y - pred) ** 2
+    if distribution is not None:
+        dev = distribution.deviance(
+            w, y, distribution.link_fn(torch.clamp_min(pred, EPS))
+            if distribution.link == "log" else pred)
+    else:
+        dev = w * (y - pred) ** 2
     zero = torch.zeros((), dtype=pred.dtype, device=pred.device)
     w = torch.where(valid, w, zero)
     y = torch.where(valid, y, zero)
@@ -130,3 +139,47 @@ def regression_metrics(pred: torch.Tensor, y: torch.Tensor,
                 r2=(1 - mse / torch.clamp_min(sstot, EPS)).item(),
                 mean_residual_deviance=mean_dev.item(), nobs=wsum.item())
     return ModelMetrics("regression", data)
+
+
+def multinomial_metrics(probs: torch.Tensor, y: torch.Tensor,
+                        w: Optional[torch.Tensor] = None,
+                        valid: Optional[torch.Tensor] = None,
+                        domain=None) -> ModelMetrics:
+    """probs: (rows, K) class probabilities; y: class codes as float
+    with NaN = missing.  Logloss, error rate, MSE (1 - p_true)^2, the
+    confusion matrix (rows actual, columns predicted), mean per-class
+    error and top-k hit ratios (k = 1..min(10, K))."""
+    K = probs.shape[1]
+    valid = torch.ones(probs.shape[:1], dtype=torch.bool,
+                       device=probs.device) if valid is None else valid
+    valid = valid & ~torch.isnan(y)
+    w = torch.ones(probs.shape[:1], dtype=probs.dtype,
+                   device=probs.device) if w is None else w
+    zero = torch.zeros((), dtype=probs.dtype, device=probs.device)
+    w = torch.where(valid, w, zero)
+    y = torch.where(valid, y, zero)
+    probs = torch.where(valid[:, None], probs,
+                        torch.full_like(probs, 1.0 / K))
+    wsum = torch.clamp_min(torch.sum(w), EPS)
+    yi = torch.clamp(y.to(torch.int32), 0, K - 1).long()
+    py = torch.gather(probs, 1, yi[:, None])[:, 0]
+    logloss = torch.sum(-w * torch.log(torch.clamp(py, EPS, 1.0))) / wsum
+    pred = torch.argmax(probs, dim=1)
+    err = torch.sum(w * (pred != yi)) / wsum
+    cm = torch.zeros(K * K, dtype=torch.float32, device=probs.device)
+    cm.index_add_(0, yi * K + pred, w)
+    rank = torch.sum(probs > py[:, None], dim=1)
+    hits = torch.stack([torch.sum(w * (rank <= k)) / wsum
+                        for k in range(min(10, K))])
+    mse = torch.sum(w * (1.0 - py) ** 2) / wsum
+    cmat = cm.reshape(K, K).cpu().numpy()
+    row_tot = cmat.sum(axis=1)
+    per_class_err = np.where(row_tot > 0, 1.0 - np.diagonal(cmat) /
+                             np.maximum(row_tot, 1e-12), 0.0)
+    data = dict(logloss=logloss.item(), err=err.item(), mse=mse.item(),
+                rmse=float(np.sqrt(mse.item())),
+                mean_per_class_error=float(per_class_err.mean()), cm=cmat,
+                hit_ratios=hits.cpu().numpy().tolist(), nobs=wsum.item(),
+                domain=list(domain) if domain else
+                [str(i) for i in range(K)])
+    return ModelMetrics("multinomial", data)

@@ -1,10 +1,14 @@
 """Carry a model trained by ``h2o_tpu`` across to the port.
 
-``gbm_from_jax_output`` and ``drf_from_jax_output`` take the numpy
-arrays of an ``h2o_tpu`` model's output (plain host arrays: nothing of
-JAX is imported here) and build the port's model, which scores the same
-forest on the port's device: dense-heap forests, and sparse-frontier
-forests with their ``child`` pointers.
+``gbm_from_jax_output``, ``drf_from_jax_output`` and
+``xgboost_from_jax_output`` take the numpy arrays of an ``h2o_tpu``
+model's output (plain host arrays: nothing of JAX is imported here) and
+build the port's model, which scores the same forest on the port's
+device: dense-heap forests and sparse-frontier forests with their
+``child`` pointers, one tree or K class trees an iteration, and
+XGBoost's gbtree and dart forests (dart's trees carry their rescaled
+values).  The reference's gblinear models are GLMs and wait for the GLM
+slice (P11).
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import numpy as np
 from h2o_tpu_torch.core.device import DeviceLike, cloud
 from h2o_tpu_torch.models.tree.drf import DRFModel
 from h2o_tpu_torch.models.tree.gbm import GBMModel
+from h2o_tpu_torch.models.tree.xgboost import XGBoostModel
 
 _KEYS = ("x", "split_points", "is_cat", "nbins", "fine_nbins", "hist_type",
          "split_col", "bitset", "value", "thr_bin", "na_left", "child",
@@ -42,28 +47,37 @@ def _port_output(output: Dict[str, Any], keys: Tuple[str, ...],
     return out
 
 
+def _boosted(cls, what: str, output: Dict[str, Any],
+             params: Dict[str, Any], device: DeviceLike):
+    out = _port_output(output, _KEYS + ("f0", "distribution_resolved"),
+                       what)
+    out["distribution_resolved"] = str(out["distribution_resolved"])
+    return cls(dict(params), out, cloud(device))
+
+
 def gbm_from_jax_output(output: Dict[str, Any], params: Dict[str, Any],
                         device: DeviceLike = None) -> GBMModel:
     """Port ``GBMModel`` from an ``h2o_tpu`` GBM's output dict (arrays
-    converted with ``np.asarray``) and its params (for
-    ``response_column``)."""
-    dist = str(output.get("distribution_resolved"))
-    if dist not in ("gaussian", "bernoulli"):
-        raise NotImplementedError(
-            f"distribution {dist!r} is not in this slice of the port")
-    out = _port_output(output, _KEYS + ("f0", "distribution_resolved"),
-                       "GBM")
-    return GBMModel(dict(params), out, cloud(device))
+    converted with ``np.asarray``) and its params (``response_column``,
+    and the ``offset_column``/``tweedie_power`` scoring reads)."""
+    return _boosted(GBMModel, "GBM", output, params, device)
 
 
 def drf_from_jax_output(output: Dict[str, Any], params: Dict[str, Any],
                         device: DeviceLike = None) -> DRFModel:
     """Port ``DRFModel`` from an ``h2o_tpu`` DRF's output dict, as
     ``gbm_from_jax_output`` does for a GBM."""
-    dom = output.get("response_domain")
-    if dom is not None and len(dom) > 2:
-        raise NotImplementedError(
-            "multinomial DRF is not in this slice of the port")
     out = _port_output(output, _KEYS + ("ntrees_actual",), "DRF")
     out["ntrees_actual"] = int(out["ntrees_actual"])
     return DRFModel(dict(params), out, cloud(device))
+
+
+def xgboost_from_jax_output(output: Dict[str, Any], params: Dict[str, Any],
+                            device: DeviceLike = None) -> XGBoostModel:
+    """Port ``XGBoostModel`` (booster gbtree or dart) from an
+    ``h2o_tpu`` XGBoost's output dict."""
+    if str(params.get("booster", "gbtree")) == "gblinear":
+        raise NotImplementedError(
+            "an XGBoost gblinear model is a GLM; it comes with the GLM "
+            "slice (P11)")
+    return _boosted(XGBoostModel, "XGBoost", output, params, device)

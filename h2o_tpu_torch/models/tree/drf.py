@@ -1,15 +1,16 @@
 """DRF — port of ``h2o_tpu/models/tree/drf.py`` (``raw_from_votes``
-:27-39, ``DRFModel`` :42-60, ``DRF`` :63-247) for regression and
-binomial responses, with the single-dispatch path of
-``driver.py:251-271`` inlined.
+:27-39, ``DRFModel`` :42-60, ``DRF`` :63-247) with the single-dispatch
+path of ``driver.py:251-271`` inlined.
 
 Bagged trees fit on the response itself (no boosting): each tree sees
 a ``sample_rate`` row sample and ``mtries`` columns a split (sqrt(C)
 for classification, C/3 for regression by default), leaf values are
-plain means, and a prediction is the mean over the trees.  The default
-max_depth of 20 runs on the sparse-frontier engine
-(``engine.build_tree_frontier``).  Multinomial DRF, one tree per class,
-waits for the multinomial slice.
+plain (weighted) means, and a prediction is the mean over the trees.  A
+response of K > 2 classes grows one tree per class an iteration on the
+class indicator, and its votes are normalised into probabilities.  The
+default max_depth of 20 runs on the sparse-frontier engine
+(``engine.build_tree_frontier``).  ``binomial_double_trees`` is fixed at
+False, as in the reference.
 """
 
 from __future__ import annotations
@@ -24,11 +25,14 @@ from h2o_tpu_torch.models.model import DataInfo, Model, ModelBuilder
 from h2o_tpu_torch.models.tree import engine
 from h2o_tpu_torch.models.tree import shared_tree as st
 
+EPS = 1e-10
+
 
 def raw_from_votes(F: torch.Tensor, ntrees: int, dom: Optional[List[str]],
                    threshold: float = 0.5) -> torch.Tensor:
     """Summed per-tree votes -> raw predictions (mean over trees):
-    regression values, or [label, p0, p1] for a binomial response."""
+    regression values, [label, p0, p1] for a binomial response, or
+    [label, p0..pK-1] with the class votes normalised to sum to 1."""
     F = F / max(int(ntrees), 1)
     if dom is None:
         return F[:, 0]
@@ -36,8 +40,10 @@ def raw_from_votes(F: torch.Tensor, ntrees: int, dom: Optional[List[str]],
         p1 = F[:, 0].clamp(0.0, 1.0)
         label = (p1 >= threshold).to(torch.float32)
         return torch.stack([label, 1 - p1, p1], dim=1)
-    raise NotImplementedError(
-        "multinomial scoring comes with the multinomial slice")
+    P = F.clamp_min(0.0)
+    P = P / torch.clamp_min(P.sum(dim=1, keepdim=True), EPS)
+    label = torch.argmax(P, dim=1).to(torch.float32)
+    return torch.cat([label[:, None], P], dim=1)
 
 
 class DRFModel(Model):
@@ -58,6 +64,8 @@ class DRFModel(Model):
 class DRF(ModelBuilder):
     algo = "drf"
     model_cls = DRFModel
+    ENGINE_FIXED = {"histogram_type": st.HISTOGRAM_TYPES,
+                    "binomial_double_trees": (False,)}
 
     def default_params(self) -> Dict:
         p = super().default_params()
@@ -65,8 +73,9 @@ class DRF(ModelBuilder):
                  nbins_cats=1024, mtries=-1, sample_rate=0.632,
                  col_sample_rate_per_tree=1.0, min_split_improvement=1e-5,
                  histogram_type="AUTO", nbins_top_level=1024,
-                 score_each_iteration=False, score_tree_interval=0,
-                 stopping_rounds=0, stopping_metric="AUTO",
+                 binomial_double_trees=False, score_each_iteration=False,
+                 score_tree_interval=0, stopping_rounds=0,
+                 stopping_metric="AUTO",
                  stopping_tolerance=1e-3)
         return p
 
@@ -74,12 +83,9 @@ class DRF(ModelBuilder):
         p = self.params
         st.check_slice("drf", p)
         dev = self.device
-        di = DataInfo(train, x, y, dev)
+        di = DataInfo(train, x, y, dev, weights=p.get("weights_column"))
         nclass = di.nclasses
-        if nclass > 2:
-            raise NotImplementedError(
-                "drf: a multinomial response is not in this slice of the "
-                "port; it comes with the multinomial slice")
+        K = nclass if nclass > 2 else 1
         binned = st.prepare_bins(di, int(p["nbins"]), int(p["nbins_cats"]),
                                  st.resolve_histogram_type(p),
                                  int(p.get("nbins_top_level") or 1024))
@@ -92,11 +98,11 @@ class DRF(ModelBuilder):
                 else max(1, C // 3)
         depth = engine.clamp_depth(int(p["max_depth"]))
         tf = engine.train_forest(
-            bins, torch.nan_to_num(di.response()),
-            torch.ones(R, dtype=torch.float32, device=dev), di.valid_mask(),
-            torch.zeros((R, 1), dtype=torch.float32, device=dev),
+            bins, torch.nan_to_num(di.response()), di.weights(),
+            di.valid_mask(), torch.zeros((R, K), dtype=torch.float32,
+                                         device=dev),
             torch.as_tensor(binned.is_cat, device=dev), self.rng_key(),
-            dist_name="gaussian", ntrees=int(p["ntrees"]), max_depth=depth,
+            dist=None, K=K, ntrees=int(p["ntrees"]), max_depth=depth,
             nbins=binned.nbins, k_cols=mtries, newton=False,
             sample_rate=float(p["sample_rate"]), learn_rate=1.0,
             learn_rate_annealing=1.0, min_rows=float(p["min_rows"]),

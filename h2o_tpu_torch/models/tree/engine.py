@@ -3,7 +3,7 @@
 :70-111, adaptive helpers :114-185, ``_node_val`` and sibling
 subtraction :258-303, the dense ``build_tree_traced`` :306-489, the
 sparse-frontier ``build_tree_frontier`` :492-705, and
-``_train_forest_impl`` :916-1082 for one tree per iteration).
+``_train_forest_impl`` :916-1082, K class trees an iteration).
 
 The reference traces the whole forest into one XLA program (levels
 unrolled, trees a ``lax.scan``).  Here the same steps run eagerly:
@@ -21,18 +21,25 @@ sit in a pool with an explicit left-child pointer (right = left + 1).
 Below the cap both build the same trees.
 
 Randomness follows the reference's key order exactly (``ops/prng.py``
-reproduces jax's threefry bits): tree t takes ``fold_in(master, t)``,
-splits it into (rows, class, tree-columns) keys, the class key into
-(next, tree key); each adaptive level splits the tree key once for its
+reproduces jax's threefry bits): iteration t takes ``fold_in(master,
+t)`` and splits it into (rows, class, tree-columns) keys; class k of the
+iteration splits the running class key into (next class key, tree key),
+in class order; each adaptive level splits the tree key once for its
 ``Random`` offsets (drawn or not), and a column-sampled level once more
 for its (L, C) draw.  Keys are derived on the host; only the draws run
 on the device.
 
+A multinomial GBM grows K class trees an iteration on softmax gradients
+from the iteration's starting F, scales their leaves by (K-1)/K and
+updates F once after all K; a multiclass DRF grows one tree per class on
+the 0/1 indicator.  Monotone constraints reject violating splits
+(``find_splits``) and clamp node values to bounds that each split narrows
+at the midpoint of its children's values; ``reg_lambda`` enters the
+Newton denominator.
+
 Left out on purpose: the matmul router ``_mm_route_level``
 (``jit_engine.py:188-255``), which works around per-row gathers on the
-TPU — a GPU gathers natively.  Not in this slice: more than one tree an
-iteration (multinomial), monotone constraints, ``reg_lambda`` and the
-distributions other than gaussian and bernoulli.
+TPU — a GPU gathers natively.
 """
 
 from __future__ import annotations
@@ -41,7 +48,7 @@ from typing import Dict, List, NamedTuple, Optional
 
 import torch
 
-from h2o_tpu_torch.models.distributions import get_distribution
+from h2o_tpu_torch.models.distributions import Distribution
 from h2o_tpu_torch.models.tree.shared_tree import find_splits, tree_predict
 from h2o_tpu_torch.ops import prng, statpack
 from h2o_tpu_torch.ops.binpack import widen_bins
@@ -155,9 +162,34 @@ def _child_ranges(new_lo, new_hi, s: Dict, thr_leaf, is_cat, do_split):
     return lo2, hi2
 
 
-def _node_val(wg, wh, w, newton: bool):
-    denom = torch.clamp_min(wh if newton else w, EPS)
-    return wg / denom
+def _node_val(wg, wh, w, newton: bool, reg_lambda: float = 0.0):
+    if not newton:
+        return wg / torch.clamp_min(w, EPS)
+    # only XGBoost sets reg_lambda; 0 adds no operation to a level
+    return wg / torch.clamp_min(wh + reg_lambda if reg_lambda else wh, EPS)
+
+
+def _mono_bounds(vals, s: Dict, mono, bounds):
+    """Clamp (leaf, left, right) values to the leaves' bounds and derive
+    the children's, interleaved left/right (2L): an increasing column
+    caps the left child and floors the right one at the midpoint of the
+    two children's values, a decreasing one the other way round."""
+    lo_b, hi_b = bounds
+    leaf_vals, lvals, rvals = (torch.clamp(v, lo_b, hi_b) for v in vals)
+    m = mono[s["col"].long()].to(torch.float32)
+    mid = 0.5 * (lvals + rvals)
+    l_hi = torch.where(m > 0, torch.minimum(hi_b, mid), hi_b)
+    r_lo = torch.where(m > 0, torch.maximum(lo_b, mid), lo_b)
+    l_lo = torch.where(m < 0, torch.maximum(lo_b, mid), lo_b)
+    r_hi = torch.where(m < 0, torch.minimum(hi_b, mid), hi_b)
+    child_b = (torch.stack([l_lo, r_lo], dim=1).reshape(-1),
+               torch.stack([l_hi, r_hi], dim=1).reshape(-1))
+    return (leaf_vals, lvals, rvals), child_b
+
+
+def _root_bounds(dev):
+    return (torch.full((1,), float("-inf"), device=dev),
+            torch.full((1,), float("inf"), device=dev))
 
 
 def _hist_level_with_sibling(bins, slot, stats, L: int, B: int, bf16: bool,
@@ -194,13 +226,15 @@ class _Level(NamedTuple):
     na_left: torch.Tensor
     Bd: int
     roff: Optional[torch.Tensor]
+    child_b: Optional[tuple]  # children's monotone (lo, hi) bounds, (2L,)
 
 
 def _grow_level(bins, slot, stats, key, is_cat, cfg: Dict, d: int, L: int,
-                ranges, sibling, tree_cols, inv_scale):
+                ranges, sibling, tree_cols, inv_scale, mono, bounds):
     """Histogram, column draw and split finding of level d over L leaves.
     ``sibling`` is (parent table, parent do_split) where the level may
-    subtract, else None.  Returns (key, _Level)."""
+    subtract, else None; ``bounds`` the leaves' monotone (lo, hi) value
+    bounds when ``mono`` is given.  Returns (key, _Level)."""
     B = cfg["nbins"]
     C = bins.shape[1]
     dev = bins.device
@@ -235,15 +269,20 @@ def _grow_level(bins, slot, stats, key, is_cat, cfg: Dict, d: int, L: int,
         col_allowed = torch.ones((L, C), dtype=torch.bool, device=dev)
     if tree_cols is not None:
         col_allowed = col_allowed & tree_cols[None, :]
-    newton = cfg["newton"]
+    newton, reg_lambda = cfg["newton"], cfg["reg_lambda"]
+    use_mono = mono is not None
     s = find_splits(hist_f, is_cat, col_allowed, min_rows=cfg["min_rows"],
                     min_split_improvement=cfg["min_split_improvement"],
-                    newton=newton)
+                    mono=mono, use_mono=use_mono, newton=newton,
+                    reg_lambda=reg_lambda)
     live = s["leaf"]["w"] > 0
     do_split = s["do_split"] & live
     term = live & ~do_split
-    vals = [_node_val(s[k]["wg"], s[k]["wh"], s[k]["w"], newton)
+    vals = [_node_val(s[k]["wg"], s[k]["wh"], s[k]["w"], newton, reg_lambda)
             for k in ("leaf", "left", "right")]
+    child_b = None
+    if use_mono:
+        vals, child_b = _mono_bounds(vals, s, mono, bounds)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     gain_pos = torch.where(do_split, s["gain"].clamp_min(0.0), zero)
     split_col = torch.where(do_split, s["col"], torch.full_like(s["col"], -1))
@@ -265,7 +304,7 @@ def _grow_level(bins, slot, stats, key, is_cat, cfg: Dict, d: int, L: int,
         bset = s["bitset"] & do_split[:, None]
     return key, _Level(hist, hist_f, s, do_split, term, *vals, gain_pos,
                        cat_choice, thr_leaf, split_col, bset, thr_bin,
-                       na_left, Bd, roff)
+                       na_left, Bd, roff, child_b)
 
 
 def _route(bins, slot, lv: _Level, adaptive: bool, F: int):
@@ -317,13 +356,14 @@ def _root_ranges(C: int, F: int, dev):
 def build_tree(bins: torch.Tensor, stats: torch.Tensor, leaf0: torch.Tensor,
                key, is_cat: torch.Tensor, cfg: Dict,
                tree_cols: Optional[torch.Tensor] = None,
-               inv_scale: Optional[torch.Tensor] = None) -> Tree:
+               inv_scale: Optional[torch.Tensor] = None,
+               mono: Optional[torch.Tensor] = None) -> Tree:
     """One dense-heap tree, level by level (``build_tree_traced``).
-    ``cfg`` keys: max_depth, nbins, k_cols, newton, min_rows,
-    min_split_improvement, bf16, adaptive, fine_nbins, hist_random.
-    ``inv_scale`` not None means ``stats`` is the quantized carrier.
-    Global-grid levels below the root histogram their left children only
-    (sibling subtraction)."""
+    ``cfg`` keys: max_depth, nbins, k_cols, newton, reg_lambda, min_rows,
+    min_split_improvement, bf16, adaptive, fine_nbins, hist_random.  ``inv_scale`` not None means ``stats`` is the quantized
+    carrier; ``mono`` the (C,) monotone directions, or None.  Global-grid levels
+    below the root histogram their left children only (sibling
+    subtraction)."""
     D, B = cfg["max_depth"], cfg["nbins"]
     C = bins.shape[1]
     dev = bins.device
@@ -332,12 +372,15 @@ def build_tree(bins: torch.Tensor, stats: torch.Tensor, leaf0: torch.Tensor,
     t = _new_tree(2 ** (D + 1) - 1, B, C, dev)
     leaf = leaf0
     ranges = _root_ranges(C, F, dev) if adaptive else None
+    bounds = _root_bounds(dev) if mono is not None else None
     sibling = None
     for d in range(D):
         L = 2 ** d
         off = L - 1
         key, lv = _grow_level(bins, leaf, stats, key, is_cat, cfg, d, L,
-                              ranges, sibling, tree_cols, inv_scale)
+                              ranges, sibling, tree_cols, inv_scale, mono,
+                              bounds)
+        bounds = lv.child_b
         t.varimp.index_add_(0, lv.s["col"].long(), lv.gain_pos)
         t.split_col[off:off + L] = lv.split_col
         t.thr_bin[off:off + L] = lv.thr_bin
@@ -365,12 +408,14 @@ def build_tree(bins: torch.Tensor, stats: torch.Tensor, leaf0: torch.Tensor,
 def build_tree_frontier(bins: torch.Tensor, stats: torch.Tensor,
                         slot0: torch.Tensor, key, is_cat: torch.Tensor,
                         cfg: Dict, tree_cols: Optional[torch.Tensor] = None,
-                        inv_scale: Optional[torch.Tensor] = None) -> Tree:
+                        inv_scale: Optional[torch.Tensor] = None,
+                        mono: Optional[torch.Tensor] = None) -> Tree:
     """One tree with at most ``cfg["max_live_leaves"]`` live leaves a
     level (``build_tree_frontier``).  Nodes live in a pool of
     ``pool_size(D, cap)`` slots with a left-child pointer; a level's
     nodes are written at their pool ids, and empty frontier slots write
-    inert payloads to one trash slot past the pool."""
+    inert payloads to one trash slot past the pool.  Monotone bounds
+    travel with the selected children, as the adaptive ranges do."""
     D, B = cfg["max_depth"], cfg["nbins"]
     C = bins.shape[1]
     dev = bins.device
@@ -383,13 +428,15 @@ def build_tree_frontier(bins: torch.Tensor, stats: torch.Tensor,
     frontier = torch.zeros(1, dtype=torch.long, device=dev)  # pool ids
     slot = slot0
     ranges = _root_ranges(C, F, dev) if adaptive else None
+    bounds = _root_bounds(dev) if mono is not None else None
     sibling = None
     base = 1                                      # next free pool slot
     neg_inf = torch.tensor(float("-inf"), device=dev)
     for d in range(D):
         L = widths[d]
         key, lv = _grow_level(bins, slot, stats, key, is_cat, cfg, d, L,
-                              ranges, sibling, tree_cols, inv_scale)
+                              ranges, sibling, tree_cols, inv_scale, mono,
+                              bounds)
         s = lv.s
         t.varimp.index_add_(0, s["col"].long(), lv.gain_pos)
         t.split_col[frontier] = lv.split_col
@@ -434,6 +481,8 @@ def build_tree_frontier(bins: torch.Tensor, stats: torch.Tensor,
             new_slot = torch.where(active & do_sl, inv[cand],
                                    torch.full_like(slot, -1))
             slot = torch.where(active, new_slot, slot)
+            if lv.child_b is not None:
+                bounds = (lv.child_b[0][sel], lv.child_b[1][sel])
             if adaptive:
                 clo, chi = _next_ranges(lv, ranges, is_cat)
                 ranges = (clo[sel].contiguous(), chi[sel].contiguous())
@@ -457,51 +506,76 @@ class TrainedForest(NamedTuple):
 
 def train_forest(bins: torch.Tensor, yv: torch.Tensor, w: torch.Tensor,
                  active: torch.Tensor, F0: torch.Tensor,
-                 is_cat: torch.Tensor, key, *, dist_name: str, ntrees: int,
+                 is_cat: torch.Tensor, key, *,
+                 dist: Optional[Distribution], ntrees: int,
                  max_depth: int, nbins: int, k_cols: int, newton: bool,
                  sample_rate: float, learn_rate: float,
                  learn_rate_annealing: float, min_rows: float,
-                 min_split_improvement: float, bf16: bool = False,
-                 mode: str = "gbm", col_sample_rate_per_tree: float = 1.0,
+                 min_split_improvement: float, K: int = 1,
+                 bf16: bool = False, mode: str = "gbm",
+                 reg_lambda: float = 0.0,
+                 col_sample_rate_per_tree: float = 1.0,
+                 mono: Optional[torch.Tensor] = None,
                  kleaves: int = 0, adaptive: bool = False,
                  fine_nbins: int = 0, hist_random: bool = False,
                  stats_dtype: str = "f32") -> TrainedForest:
-    """The forest loop of ``_train_forest_impl`` with one tree an
-    iteration (K = 1; ntrees >= 1).
+    """The forest loop of ``_train_forest_impl``: ``ntrees`` iterations
+    of K trees each (ntrees >= 1; F0 is (R, K)).
 
-    mode="gbm": stats (w, w*g, w*g^2, w*h) from the distribution's
-    gradient at the current F, leaf values scaled by learn_rate *
-    annealing^t, F += tree.  mode="drf": stats (w, w*y, w*y^2, w) from
-    the response, scale 1; F is not needed (the caller scores votes).
-    kleaves=0: dense heap engine; > 0: the sparse frontier with that
-    cap.  ``key`` is the forest's master key (``prng.key``).
-    ``stats_dtype`` "int16"/"int8" quantizes each tree's stats against
-    its class key, with qmax from this call's row count."""
+    mode="gbm": stats (w, w*g, w*g^2, w*h) from ``dist``'s gradient at
+    the iteration's starting F, or with K > 1 (multinomial, ``dist``
+    None) from the softmax p: g = [y == k] - p, h = max(p(1-p), EPS) for
+    class k; leaf values scaled by learn_rate * annealing^t (times
+    (K-1)/K for multinomial), F += the iteration's K trees.  mode="drf":
+    stats (w, w*g, w*g^2, w) with g the response (K = 1) or the
+    indicator [y == k], scale 1, ``dist`` unused; F is not needed (the
+    caller scores votes).  kleaves=0: dense heap engine; > 0: the
+    sparse frontier with that cap.  ``key`` is the forest's
+    master key (``prng.key``).  ``stats_dtype`` "int16"/"int8" quantizes
+    each (tree, class) stats against its tree key, with qmax from this
+    call's row count.  ``mono`` ((C,) int), when given, imposes
+    monotone constraints; ``reg_lambda`` is added to every Newton
+    denominator."""
     if mode not in ("gbm", "drf"):
         raise ValueError(f"train_forest: unknown mode {mode!r}")
     cfg = dict(max_depth=max_depth, nbins=nbins, k_cols=k_cols,
-               newton=newton, min_rows=min_rows,
+               newton=newton, reg_lambda=reg_lambda, min_rows=min_rows,
                min_split_improvement=min_split_improvement, bf16=bf16,
                adaptive=adaptive, fine_nbins=fine_nbins,
                hist_random=hist_random, max_live_leaves=kleaves)
     build = build_tree_frontier if kleaves > 0 else build_tree
     dev = bins.device
     R, C = bins.shape
-    dist = get_distribution(dist_name)
+    multinomial = mode == "gbm" and K > 1
     wa = torch.where(active, w, torch.zeros_like(w))
     leaf_all = torch.where(active, 0, -1).to(torch.int32)
     fine_na = int(fine_nbins or nbins)
     qmax = statpack.stats_qmax(R, stats_dtype) if stats_dtype != "f32" \
         else 0
-    if mode == "drf":
-        g = torch.nan_to_num(yv)
-        drf_stats = torch.stack([wa, wa * g, wa * g * g, wa], dim=1)
+
+    def stats_for(kcls: int, F: torch.Tensor) -> torch.Tensor:
+        if mode == "drf":
+            g = (yv == kcls).to(torch.float32) if K > 1 \
+                else torch.nan_to_num(yv)
+            return torch.stack([wa, wa * g, wa * g * g, wa], dim=1)
+        if multinomial:
+            p = torch.softmax(F, dim=1)[:, kcls]
+            g = (yv == kcls).to(torch.float32) - p
+            h = torch.clamp_min(p * (1.0 - p), EPS)
+        else:
+            g = torch.nan_to_num(dist.gradient(yv, F[:, 0]))
+            h = torch.nan_to_num(dist.hessian(yv, F[:, 0]))
+        return torch.stack([wa, wa * g, wa * g * g, wa * h], dim=1)
+
+    # DRF's stats are the same for every iteration
+    drf_stats = [stats_for(k, F0) for k in range(K)] if mode == "drf" \
+        else None
     lr = torch.tensor(learn_rate, dtype=torch.float32, device=dev)
     ann = torch.tensor(learn_rate_annealing, dtype=torch.float32, device=dev)
     F = F0
     trees = []
     for t in range(ntrees):
-        # tree t's stream depends only on (master key, t)
+        # iteration t's stream depends only on (master key, t)
         ks, kc, kcol = prng.split(prng.fold_in(key, t), 3)
         tree_cols = None
         if col_sample_rate_per_tree < 1.0:
@@ -514,34 +588,37 @@ def train_forest(bins: torch.Tensor, yv: torch.Tensor, w: torch.Tensor,
             leaf0 = torch.where(samp & active, 0, -1).to(torch.int32)
         else:
             leaf0 = leaf_all
-        _, kk = prng.split(kc)
-        if mode == "drf":
-            stats = drf_stats
-        else:
-            f = F[:, 0]
-            g = torch.nan_to_num(dist.gradient(yv, f))
-            h = torch.nan_to_num(dist.hessian(yv, f))
-            stats = torch.stack([wa, wa * g, wa * g * g, wa * h], dim=1)
-        inv_sc = None
-        if stats_dtype != "f32":
-            stats, inv_sc = statpack.quantize_stats(stats, kk, stats_dtype,
-                                                    qmax)
-        tree = build(bins, stats, leaf0, kk, is_cat, cfg, tree_cols,
-                     inv_sc)
         if mode == "gbm":
             scale = lr * ann ** torch.tensor(float(t), dtype=torch.float32,
                                              device=dev)
-            tree = tree._replace(value=tree.value * scale)
-            F = F + tree_predict(bins, tree.split_col, tree.bitset,
-                                 tree.value, max_depth, child=tree.child,
-                                 thr=tree.thr_bin, na_l=tree.na_left,
-                                 fine_na=fine_na)[:, None]
-        trees.append(tree)
+            if multinomial:
+                scale = scale * (K - 1) / K
+        preds = []
+        for kcls in range(K):
+            kc, kk = prng.split(kc)
+            stats = drf_stats[kcls] if mode == "drf" \
+                else stats_for(kcls, F)
+            inv_sc = None
+            if stats_dtype != "f32":
+                stats, inv_sc = statpack.quantize_stats(stats, kk,
+                                                        stats_dtype, qmax)
+            tree = build(bins, stats, leaf0, kk, is_cat, cfg, tree_cols,
+                         inv_sc, mono)
+            if mode == "gbm":
+                tree = tree._replace(value=tree.value * scale)
+                preds.append(tree_predict(
+                    bins, tree.split_col, tree.bitset, tree.value, max_depth,
+                    child=tree.child, thr=tree.thr_bin, na_l=tree.na_left,
+                    fine_na=fine_na))
+            trees.append(tree)
+        if mode == "gbm":
+            F = F + torch.stack(preds, dim=1)
 
-    def stack(name):
-        return torch.stack([getattr(tr, name) for tr in trees])[:, None]
+    def stack(name):                          # (T, K, ...)
+        return torch.stack([getattr(tr, name) for tr in trees]).unflatten(
+            0, (ntrees, K))
 
-    varimp = torch.stack([tr.varimp for tr in trees]).sum(dim=0)
     return TrainedForest(stack("split_col"), stack("bitset"), stack("value"),
-                         varimp, stack("thr_bin"), stack("na_left"),
+                         stack("varimp").sum(dim=(0, 1)), stack("thr_bin"),
+                         stack("na_left"),
                          stack("child") if kleaves > 0 else None)

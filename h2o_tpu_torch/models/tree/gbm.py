@@ -1,44 +1,53 @@
 """GBM — port of ``h2o_tpu/models/tree/gbm.py`` (``raw_from_F`` :31-47,
-``GBMModel`` :50-82, ``GBM`` :85-386) with the single-dispatch path of
-``driver.py:251-271`` inlined.
+``GBMModel`` :50-82, ``GBM`` :85-386 with ``_mono_array`` :114-143) with
+the single-dispatch path of ``driver.py:251-271`` inlined.
 
 Binning, trees and scoring run on the device given to ``GBM``: ``cuda:0`` by
 default, where every histogram goes through the hand-written kernels,
 or the CPU when the caller passes ``device="cpu"`` (the plain PyTorch
-versions).  Row sampling, per-level and per-tree column sampling,
+versions).  Every distribution of ``models/distributions.py`` but
+``custom``, multinomial responses (K class trees an iteration), weights
+and offset columns, monotone constraints, ``reg_lambda`` and
+``force_newton`` (the XGBoost builder's), row and column sampling,
 ``Random`` histograms, int16/int8 stats and depths beyond the dense
 engine's frontier (the sparse-frontier engine, up to depth 30) run as in
-the reference.  Options outside this slice of the port raise
-``NotImplementedError`` naming the slice that brings them; the blocked
-training loop, scoring intervals, early stopping and recovery wait too.
+the reference.  Checkpoints, scoring intervals and early stopping raise
+``NotImplementedError`` naming the slice that brings them.
 """
 
 from __future__ import annotations
 
+import json
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from h2o_tpu_torch.core.frame import Frame
-from h2o_tpu_torch.models.distributions import get_distribution
+from h2o_tpu_torch.models.distributions import (FIRST_ORDER, Distribution,
+                                                distribution_from_params)
 from h2o_tpu_torch.models.model import DataInfo, Model, ModelBuilder
 from h2o_tpu_torch.models.tree import engine
 from h2o_tpu_torch.models.tree import shared_tree as st
 from h2o_tpu_torch.ops import statpack
 
-def raw_from_F(F: torch.Tensor, dom: Optional[List[str]], dist_name: str,
-               threshold: float = 0.5) -> torch.Tensor:
-    """Link-scale forest sum -> raw predictions: regression values, or
-    [label, p0, p1] for a binomial response."""
+EPS = 1e-10
+
+
+def raw_from_F(F: torch.Tensor, dom: Optional[List[str]],
+               dist: Distribution, threshold: float = 0.5) -> torch.Tensor:
+    """Link-scale forest sum -> raw predictions: regression values
+    through ``dist``'s inverse link, [label, p0, p1] for a binomial
+    response, [label, p0..pK-1] from the softmax for a multinomial one."""
     if dom is None:
-        return get_distribution(dist_name).link_inv(F[:, 0])
+        return dist.link_inv(F[:, 0])
     if len(dom) == 2:
         p1 = torch.sigmoid(F[:, 0])
         label = (p1 >= threshold).to(torch.float32)
         return torch.stack([label, 1 - p1, p1], dim=1)
-    raise NotImplementedError(
-        "multinomial scoring comes with the multinomial slice")
+    P = torch.softmax(F, dim=1)
+    label = torch.argmax(P, dim=1).to(torch.float32)
+    return torch.cat([label[:, None], P], dim=1)
 
 
 class GBMModel(Model):
@@ -55,15 +64,20 @@ class GBMModel(Model):
 
     def predict_raw(self, frame: Frame) -> torch.Tensor:
         F = self._forest_F(frame.as_matrix(self.output["x"], self.device))
+        off_col = self.params.get("offset_column")
+        if off_col and off_col in frame.names:
+            F = F + torch.from_numpy(frame.vec(off_col).as_float()).to(
+                F.device)[:, None]
         return raw_from_F(F, self.output.get("response_domain"),
-                          self.output["distribution_resolved"],
-                          threshold=float(self.output.get(
+                          self.family(), threshold=float(self.output.get(
                               "default_threshold", 0.5)))
 
 
 class GBM(ModelBuilder):
     algo = "gbm"
     model_cls = GBMModel
+    ENGINE_FIXED = {"histogram_type": st.HISTOGRAM_TYPES,
+                    "categorical_encoding": ("AUTO", "Enum")}
 
     def default_params(self) -> Dict:
         p = super().default_params()
@@ -80,34 +94,61 @@ class GBM(ModelBuilder):
         return p
 
     def _check_slice(self) -> None:
-        """Reject, by name, what this slice of the port does not run."""
+        """Reject, by name, what the port does not run yet."""
         p = self.params
-        st.check_slice("gbm", p)
-        if str(p.get("categorical_encoding")).lower() not in ("auto",
-                                                             "enum"):
-            raise ValueError("gbm: categorical_encoding must be AUTO/Enum")
+        st.check_slice(self.algo, p)
         if p.get("stats_dtype") not in statpack.STATS_DTYPES:
-            raise ValueError(f"gbm: stats_dtype must be one of "
+            raise ValueError(f"{self.algo}: stats_dtype must be one of "
                              f"{statpack.STATS_DTYPES}")
-        if p.get("monotone_constraints"):
-            raise NotImplementedError(
-                "gbm: monotone_constraints is not in this slice of the "
-                "port; it comes with the monotone constraints slice")
+
+    @staticmethod
+    def _mono_array(p: Dict, di: DataInfo) -> Optional[np.ndarray]:
+        """monotone_constraints {'col': +1/-1/0} (or its JSON string) ->
+        (C,) int32 directions over ``di.x``; None when nothing is
+        constrained.  Only numeric predictors can be constrained."""
+        mc = p.get("monotone_constraints")
+        if not mc:
+            return None
+        if isinstance(mc, str):
+            try:
+                mc = json.loads(mc.replace("'", '"'))
+            except json.JSONDecodeError:
+                raise ValueError(f"bad monotone_constraints: {mc!r}")
+        mono = np.zeros(len(di.x), np.int32)
+        for name, d in dict(mc).items():
+            if name not in di.x:
+                raise ValueError(f"monotone_constraints column {name!r} "
+                                 "is not a predictor")
+            if name in di.cat_names:
+                raise ValueError(f"monotone_constraints on categorical "
+                                 f"column {name!r} is not supported")
+            d = int(d)
+            if d not in (-1, 0, 1):
+                raise ValueError(f"monotone_constraints[{name!r}]={d}; "
+                                 "must be -1, 0 or 1")
+            mono[di.x.index(name)] = d
+        return mono if mono.any() else None
 
     def _fit(self, x: List[str], y: str, train: Frame) -> GBMModel:
+        model = self._train_model(x, y, train)
+        model.output["training_metrics"] = model.model_metrics(train)
+        return model
+
+    def _train_model(self, x: List[str], y: str, train: Frame) -> GBMModel:
+        """The trained model, without its training metrics."""
         self._check_slice()
         p = self.params
         dev = self.device
-        di = DataInfo(train, x, y, dev)
+        di = DataInfo(train, x, y, dev, weights=p.get("weights_column"),
+                      offset=p.get("offset_column"))
         dist_name = self.resolve_distribution(di)
-        if dist_name not in ("gaussian", "bernoulli"):
-            raise NotImplementedError(
-                f"gbm: distribution {dist_name!r} is not in this slice of "
-                "the port; it comes with the multinomial and "
-                "other-distributions slice")
-        nclass = di.nclasses if dist_name == "bernoulli" else 1
+        nclass = di.nclasses if dist_name in ("bernoulli", "multinomial") \
+            else 1
         if dist_name == "bernoulli" and nclass != 2:
             raise ValueError("bernoulli needs a two-level response")
+        K = nclass if dist_name == "multinomial" else 1
+        # multinomial's K class trees take softmax gradients in the engine
+        dist = None if K > 1 else distribution_from_params(dist_name, p)
 
         hist_type = st.resolve_histogram_type(p)
         binned = st.prepare_bins(di, int(p["nbins"]), int(p["nbins_cats"]),
@@ -115,34 +156,46 @@ class GBM(ModelBuilder):
                                                 or 1024))
         bins = binned.bins
         yv = di.response()
+        w = di.weights()
         active = di.valid_mask()
         R, C = bins.shape
-        w = torch.ones(R, dtype=torch.float32, device=dev)
+        # f0 on the link scale
         zero = torch.zeros((), dtype=torch.float32, device=dev)
         wa = torch.where(active, w, zero)
-        dist = get_distribution(dist_name)
-        if dist_name == "bernoulli":
-            f0 = dist.init_f0(torch.where(active, yv, zero), wa)[None]
+        if dist is None:
+            pri = torch.stack([torch.sum(wa * (yv == k)) for k in range(K)])
+            pri = pri / torch.clamp_min(torch.sum(pri), EPS)
+            f0 = torch.log(torch.clamp_min(pri, EPS))
         else:
-            f0 = dist.init_f0(torch.where(active, torch.nan_to_num(yv),
-                                          zero), wa)[None]
-        F = f0[None, :].expand(R, 1).to(torch.float32).contiguous()
+            y0 = torch.where(active, yv if dist_name == "bernoulli"
+                             else torch.nan_to_num(yv), zero)
+            f0 = dist.init_f0(y0, wa)[None]
+        F = f0[None, :].expand(R, K).to(torch.float32).contiguous()
+        offset = di.offset()
+        if offset is not None:
+            F = F + offset[:, None]
         depth = engine.clamp_depth(int(p["max_depth"]))
         k_cols = max(1, min(C, int(round(float(p["col_sample_rate"]) * C))))
+        mono = self._mono_array(p, di)
+        # XGBoost semantics under force_newton: Newton leaf values for
+        # every objective (squared error has unit hessian)
+        newton = dist_name not in FIRST_ORDER or bool(p.get("force_newton"))
         tf = engine.train_forest(
             bins, torch.nan_to_num(yv), w, active, F,
             torch.as_tensor(binned.is_cat, device=dev), self.rng_key(),
-            dist_name=dist_name, ntrees=int(p["ntrees"]), max_depth=depth,
-            nbins=binned.nbins, k_cols=k_cols,
-            newton=dist_name != "gaussian",
-            sample_rate=float(p["sample_rate"]),
+            dist=dist, K=K, ntrees=int(p["ntrees"]),
+            max_depth=depth, nbins=binned.nbins, k_cols=k_cols,
+            newton=newton, sample_rate=float(p["sample_rate"]),
             learn_rate=float(p["learn_rate"]),
             learn_rate_annealing=float(p["learn_rate_annealing"]),
             min_rows=float(p["min_rows"]),
             min_split_improvement=float(p["min_split_improvement"]),
             bf16=bool(p.get("bf16_histograms", False)),
+            reg_lambda=float(p.get("reg_lambda") or 0.0),
             col_sample_rate_per_tree=float(
                 p.get("col_sample_rate_per_tree") or 1.0),
+            mono=torch.as_tensor(mono, device=dev) if mono is not None
+            else None,
             kleaves=engine.plan_engine(depth),
             adaptive=binned.hist_type in ("UniformAdaptive", "Random"),
             fine_nbins=binned.fine_nbins,
@@ -151,7 +204,6 @@ class GBM(ModelBuilder):
         out = st.forest_output(
             di, binned, tf, depth,
             di.response_domain if nclass >= 2 else None)
-        out.update(f0=f0.cpu().numpy(), distribution_resolved=dist_name)
-        model = self.model_cls(dict(p), out, dev)
-        model.output["training_metrics"] = model.model_metrics(train)
-        return model
+        out.update(f0=f0.expand(K).cpu().numpy(),
+                   distribution_resolved=dist_name)
+        return self.model_cls(dict(p), out, dev)

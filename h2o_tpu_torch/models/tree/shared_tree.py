@@ -1,10 +1,11 @@
 """Shared tree machinery — port of ``h2o_tpu/models/tree/shared_tree.py``:
 binning (``BinnedData``, ``_quantile_split_points``, ``prepare_bins``
 :52-152; ``bin_matrix``, ``_bin_all``, ``_col_min_max``,
-``_uniform_split_points`` :155-224), split finding (``find_splits``
-:380-498) and forest scoring (``_go_left``, ``forest_score``,
-``forest_tree_values``, ``forest_score_out`` :531-625, with the
-child-pointer descent of ``jit_engine._tree_predict`` :708-773).
+``_uniform_split_points`` :155-224), split finding with monotone
+constraints (``find_splits`` :380-498) and forest scoring
+(``_go_left``, ``forest_score``, ``forest_tree_values``,
+``forest_score_out`` :531-625, with the child-pointer descent of
+``jit_engine._tree_predict`` :708-773).
 
 Rows are binned once: QuantilesGlobal against per-column quantiles
 (F == B), UniformAdaptive against a uniform fine grid of
@@ -64,29 +65,29 @@ HISTOGRAM_TYPES = ("AUTO", "UniformAdaptive", "QuantilesGlobal", "Random")
 
 
 def check_slice(algo: str, p: Dict) -> None:
-    """Reject, by name, what neither tree builder of this slice of the
-    port runs (weights and offsets, checkpoints, the blocked training
-    loop with early stopping, cross-validation)."""
+    """Reject, by name, what neither tree builder of the port runs yet:
+    checkpoints, the blocked training loop with scoring intervals and
+    early stopping, and cross-validation."""
     def out(what: str, later: str) -> None:
         raise NotImplementedError(
-            f"{algo}: {what} is not in this slice of the port; it comes "
-            f"with the {later} slice")
+            f"{algo}: {what} is not in the port yet; it comes with the "
+            f"{later}")
 
     if str(p.get("histogram_type") or "AUTO") not in HISTOGRAM_TYPES:
         raise ValueError(f"{algo}: unknown histogram_type "
                          f"{p.get('histogram_type')!r}")
-    if p.get("weights_column") or p.get("offset_column"):
-        out("a weights or offset column", "weights and offset")
     if p.get("checkpoint"):
-        out("checkpoint", "blocked training loop and recovery")
+        out("checkpoint", "blocked training loop and checkpoints (the rest "
+            "of P6)")
     if int(p.get("stopping_rounds") or 0) > 0 or \
             int(p.get("score_tree_interval") or 0) > 0 or \
             p.get("score_each_iteration") or \
             float(p.get("max_runtime_secs") or 0) > 0:
         out("early stopping / scoring intervals / max_runtime_secs",
-            "blocked training loop and early stopping")
+            "blocked training loop with ScoreKeeper early stopping (the "
+            "rest of P6)")
     if int(p.get("nfolds") or 0) > 1 or p.get("fold_column"):
-        out("cross-validation", "model orchestration")
+        out("cross-validation", "model orchestration slice (P13)")
     if int(p["ntrees"]) < 1:
         raise ValueError(f"{algo}: ntrees must be >= 1")
 
@@ -223,7 +224,8 @@ def forest_output(di: DataInfo, binned: BinnedData, tf, depth: int,
 def find_splits(hist: torch.Tensor, is_cat: torch.Tensor,
                 col_allowed: torch.Tensor, min_rows: float = 10.0,
                 min_split_improvement: float = 1e-5,
-                newton: bool = False) -> Dict:
+                mono: Optional[torch.Tensor] = None, use_mono: bool = False,
+                newton: bool = False, reg_lambda: float = 0.0) -> Dict:
     """Best split per leaf from (L, C, B+1, 4) float32 histograms.
 
     Returns per-leaf do_split, gain, col, bitset (B+1 left membership
@@ -232,7 +234,13 @@ def find_splits(hist: torch.Tensor, is_cat: torch.Tensor,
     order, categorical bins sort by mean gradient with a STABLE sort
     (empty bins last, ties in bin order) as ``jnp.argsort`` does, and the
     best of the (C, B, 2) candidates is the first maximum in that
-    flattening order.  Monotone constraints wait for a later slice."""
+    flattening order.
+
+    ``mono`` ((C,) int, +1/-1/0) with ``use_mono`` rejects candidates
+    whose child values go against the column's declared direction
+    (increasing: right >= left); the values are the Newton steps
+    wg / (wh + reg_lambda), or the means wg / w without ``newton``.  The
+    engine also clamps the child values to the parent's bounds."""
     if not hist.dtype.is_floating_point:
         raise TypeError("find_splits needs a float32 histogram table")
     L, C, B1, _ = hist.shape
@@ -275,6 +283,17 @@ def find_splits(hist: torch.Tensor, is_cat: torch.Tensor,
         rwgg = tot_wgg[..., None] - lwgg
         gain = se_parent[..., None] - se(lw, lwg, lwgg) - se(rw, rwg, rwgg)
         ok = (lw >= min_rows) & (rw >= min_rows)
+        if use_mono:
+            if newton:
+                lwh = cwh + nawh[..., None] if na_left else cwh
+                rwh = tot_wh[..., None] - lwh
+                lv = lwg / torch.clamp_min(lwh + reg_lambda, EPS)
+                rv = rwg / torch.clamp_min(rwh + reg_lambda, EPS)
+            else:
+                lv = lwg / torch.clamp_min(lw, EPS)
+                rv = rwg / torch.clamp_min(rw, EPS)
+            m = mono[None, :, None].to(hist.dtype)
+            ok = ok & ((m == 0) | (m * (rv - lv) >= 0))
         return torch.where(ok, gain, neg_inf)
 
     gains = torch.stack([side_gain(False), side_gain(True)], dim=-1)

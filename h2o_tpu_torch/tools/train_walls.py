@@ -11,8 +11,11 @@ The script imports TREE's ``chip_smoke.py`` helpers and TREE's
 times: the GBM of ``chip_smoke.py`` phase 4 (``default``) or phase 5
 (``qg``), 20 trees of depth 5, each wall ending in
 ``torch.cuda.synchronize()``.  One JSON line per timed training (wall,
-training AUC), then a summary with the median and the card's name and
-power limit.
+training AUC), then a summary with the median, the card's name and
+power limit, and the operations of one more training under
+``torch.profiler``: the ``aten::`` calls on the host (nested ones
+included) and the device operations.  Those counts do not vary between
+runs, so two checkouts that show the same ones do the same work a tree.
 
 Two checkouts are compared by running the script for both, in turns
 (parent, change, change, parent), in one call on one card.
@@ -55,9 +58,19 @@ def main() -> None:
         print(json.dumps(dict(tree=str(tree), config=args.config, run=i,
                               wall_s=wall, train_auc=m.output[
                                   "training_metrics"]["AUC"])), flush=True)
-    print(json.dumps(dict(tree=str(tree), config=args.config,
-                          median_wall_s=statistics.median(walls),
-                          walls_s=walls, device=smi)), flush=True)
+    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        cs.train(fr, **kw)
+    evs = prof.events()
+    print(json.dumps(dict(
+        tree=str(tree), config=args.config,
+        median_wall_s=statistics.median(walls), walls_s=walls, device=smi,
+        host_aten_ops=sum(ev.device_type == DeviceType.CPU
+                          and ev.name.startswith("aten::") for ev in evs),
+        device_ops=sum(ev.device_type == DeviceType.CUDA for ev in evs))),
+        flush=True)
 
 
 if __name__ == "__main__":

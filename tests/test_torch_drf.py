@@ -140,13 +140,11 @@ def test_stock_default_depth20_drf(cl):
 
 def test_out_of_slice_options_raise():
     _, pf = _frames(True)
-    multi = Frame(["a", "y"], [Vec(np.arange(9, dtype=np.float32)),
-                               Vec(np.arange(9) % 3, T_CAT,
-                                   domain=["p", "q", "r"])])
-    with pytest.raises(NotImplementedError):
-        DRF(device="cpu", ntrees=1).train(y="y", training_frame=multi)
-    for kw in (dict(stopping_rounds=2), dict(weights_column="a")):
+    for kw in (dict(stopping_rounds=2), dict(checkpoint="m"),
+               dict(nfolds=3)):
         with pytest.raises(NotImplementedError):
             DRF(device="cpu", ntrees=1, **kw).train(y="y", training_frame=pf)
     with pytest.raises(ValueError):
         DRF(device="cpu", ntrees=1, bogus=1)
+    with pytest.raises(ValueError, match="binomial_double_trees"):
+        DRF(device="cpu", ntrees=1, binomial_double_trees=True)

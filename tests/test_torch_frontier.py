@@ -27,6 +27,7 @@ import jax.numpy as jnp
 
 from h2o_tpu.models.tree import jit_engine as jeng
 
+from h2o_tpu_torch.models.distributions import get_distribution
 from h2o_tpu_torch.models.tree import engine
 from h2o_tpu_torch.models.tree.shared_tree import forest_score
 from h2o_tpu_torch.ops import prng
@@ -61,12 +62,13 @@ def _kwargs(kleaves, mode, **over):
     return kw
 
 
-def _port(bins, y, **kw):
+def _port(bins, y, dist_name, **kw):
     R, C = bins.shape
     return engine.train_forest(
         torch.from_numpy(bins), torch.from_numpy(y), torch.ones(R),
         torch.ones(R, dtype=torch.bool), torch.zeros((R, 1)),
-        torch.zeros(C, dtype=torch.bool), prng.key(3), **kw)
+        torch.zeros(C, dtype=torch.bool), prng.key(3),
+        dist=get_distribution(dist_name), **kw)
 
 
 def _reference(bins, y, **kw):

@@ -149,8 +149,8 @@ def test_bf16_histograms_reach_the_tables():
 def test_out_of_slice_options_raise():
     jf, pf = _frames(True)
     for kw in (dict(stopping_rounds=2), dict(score_tree_interval=1),
-               dict(weights_column="a"), dict(checkpoint="m"),
-               dict(nfolds=3), dict(monotone_constraints={"a": 1})):
+               dict(checkpoint="m"), dict(nfolds=3),
+               dict(distribution="custom")):
         with pytest.raises(NotImplementedError):
             GBM(device="cpu", ntrees=1, **kw).train(y="y", training_frame=pf)
     for kw in (dict(stats_dtype="int4"), dict(histogram_type="Exact"),
@@ -158,9 +158,7 @@ def test_out_of_slice_options_raise():
         with pytest.raises(ValueError):
             GBM(device="cpu", **{"ntrees": 1, **kw}).train(
                 y="y", training_frame=pf)
-    multi = Frame(["a", "y"], [Vec(np.arange(9, dtype=np.float32)),
-                               Vec(np.arange(9) % 3, T_CAT,
-                                   domain=["p", "q", "r"])])
-    with pytest.raises(NotImplementedError):
-        GBM(device="cpu", ntrees=1).train(y="y", training_frame=multi)
+    with pytest.raises(NotImplementedError, match="validation frames"):
+        GBM(device="cpu", ntrees=1).train(y="y", training_frame=pf,
+                                          validation_frame=pf)
     assert torch.get_default_dtype() == torch.float32
