@@ -68,6 +68,27 @@ exit code is not 0):
               1M x 28 with monotone_constraints {x0: 1, x1: -1} whose
               link-scale predictions are monotone along a 64-point grid of
               each constrained column over 1,000 sampled rows
+ 13 the training loop on the 1M rows of make_data(1,250,000, 28, seed 0)
+              with its last 250,000 rows as the validation frame:
+              13a a default GBM of up to 300 trees with stopping_rounds 3
+              (logloss), tolerance 1e-3 and score_tree_interval 5: K2 5
+              launches a tree, the last scoring-history row equal to a full
+              re-score of the validation frame to 1e-6; then 50 trees with
+              and without score_tree_interval 5 in turns, and one scoring
+              round timed alone: the cost of a round over 250,000 rows;
+              13b 20 trees (learn_rate_annealing 0.99) in one call and in
+              blocks of 3, and a default DRF of 10 trees in one call and in
+              blocks of 4: equal node arrays, values within 1e-6;
+              13c a 10-tree GBM saved, loaded (predict() bitwise the same)
+              and resumed from the file to 20 trees: equal to 13b's
+              uninterrupted forest; 13d a 20-tree GBM with 5 Modulo folds
+              (K2 600 launches): CV AUC mean and sd, wall against one
+              training; 13e a DRF (10 trees, stopping_rounds 2, interval 2)
+              and XGBoost gbtree (20 trees, score_each_iteration,
+              stopping_rounds 3) with the validation frame; 13f 6 trees
+              with score_tree_interval 2 on the first 100,000 training and
+              25,000 validation rows on the card and on the CPU: the same
+              first tree, every scoring-history value within 1e-5
   7 profile - torch.profiler over 2 default trees: device busy share and
               the kernels that take the device time; then 2 QuantilesGlobal
               trees: each histogram kernel's device ms per main-path launch
@@ -77,7 +98,7 @@ exit code is not 0):
               iteration (7 class trees)
 
 The kernels line's launches sum every main-path training above (phases
-4, 5, 8-12), each read from counters set to 0 just before it; the
+4, 5, 8-13), each read from counters set to 0 just before it; the
 launches phase lists them path by path.
 
 The line before the last holds every kernel's numbers; the last line is
@@ -85,10 +106,12 @@ the device summary.  Needs one CUDA card; exits non-zero without one.
 """
 
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -101,8 +124,12 @@ if not torch.cuda.is_available():
 from h2o_tpu_torch.core.frame import T_CAT, Frame, Vec  # noqa: E402
 from h2o_tpu_torch.models.metrics import (binomial_metrics,  # noqa: E402
                                           multinomial_metrics)
+from h2o_tpu_torch.models.model import Model  # noqa: E402
+from h2o_tpu_torch.models.tree import shared_tree as st  # noqa: E402
+from h2o_tpu_torch.models.tree.driver import IncrementalScorer  # noqa: E402
 from h2o_tpu_torch.models.tree.drf import DRF  # noqa: E402
-from h2o_tpu_torch.models.tree.gbm import GBM  # noqa: E402
+from h2o_tpu_torch.models.tree.engine import TrainedForest  # noqa: E402
+from h2o_tpu_torch.models.tree.gbm import GBM, raw_from_F  # noqa: E402
 from h2o_tpu_torch.models.tree.xgboost import XGBoost  # noqa: E402
 from h2o_tpu_torch.ops import hist_kernels as hk  # noqa: E402
 from h2o_tpu_torch.ops.histogram import hist_plain  # noqa: E402
@@ -139,6 +166,13 @@ FAMILIES = {"poisson": {}, "gamma": {}, "tweedie": dict(tweedie_power=1.3),
             "laplace": {}, "quantile": dict(quantile_alpha=0.25),
             "huber": dict(huber_alpha=0.8)}
 SUB_ROWS = 100_000
+#: phase 13: validation rows after the 1M training rows, and the
+#: early-stopped GBM of 13a
+VALID_ROWS = 250_000
+EARLY_STOP = dict(ntrees=300, stopping_rounds=3, stopping_metric="AUTO",
+                  stopping_tolerance=1e-3, score_tree_interval=5, seed=1)
+#: 13a's scoring-cost pair: trees, scoring interval, trainings of each
+COST_TREES, COST_INTERVAL, COST_REPEATS = 50, 5, 2
 
 
 def emit(obj) -> None:
@@ -495,11 +529,12 @@ def run_k2(bins, leaf, stats, L, B, bf16, fm):
                                  B, fine_na, bf16=bf16)
 
 
-def fit(cls, fr, **kw):
-    """(model, wall) of one training of builder ``cls`` on ``fr``."""
+def fit(cls, fr, valid=None, **kw):
+    """(model, wall) of one training of builder ``cls`` on ``fr``, with
+    ``valid`` as its validation frame."""
     sync()
     t0 = time.perf_counter()
-    m = cls(**kw).train(y="y", training_frame=fr)
+    m = cls(**kw).train(y="y", training_frame=fr, validation_frame=valid)
     sync()
     return m, time.perf_counter() - t0
 
@@ -699,6 +734,215 @@ def phase_families(X, y, fr: Frame, paths) -> None:
                              f"grid steps against the constraint {worst}")
 
 
+def history_rows(m) -> list:
+    """A model's scoring history without its timestamps."""
+    return [{k: v for k, v in row.items() if k != "timestamp"}
+            for row in m.output["scoring_history"]]
+
+
+def last_row_check(name: str, m, valid: Frame) -> dict:
+    """The last scoring-history row must equal a full re-score of the
+    model on the validation frame to 1e-6: the incremental scorer adds
+    each block's trees to a running F."""
+    full = m.model_metrics(valid)
+    last = m.output["scoring_history"][-1]
+    diff = {k: abs(last["validation_" + k.lower()] - full[k])
+            for k in ("logloss", "AUC", "mse")}
+    if last["number_of_trees"] != m.output["ntrees_actual"] or \
+            max(diff.values()) > 1e-6:
+        raise AssertionError(f"{name}: last scoring row {last} against "
+                             f"the re-score {diff}")
+    return diff
+
+
+def blocks_check(name: str, blk, one) -> dict:
+    """A forest trained in blocks must equal the one trained in one
+    call: node arrays equal, values within 1e-6."""
+    cmp_ = same_forest(blk.output, one.output)
+    if not all(cmp_["equal"].values()) or cmp_["value_max_abs_diff"] > 1e-6:
+        raise AssertionError(f"{name}: blocked and one-call forests "
+                             f"differ: {cmp_}")
+    return cmp_
+
+
+def scoring_round_ms(m, valid: Frame, trees: int, n: int = 10) -> float:
+    """Median host ms of one scoring round of ``trees`` trees over
+    ``valid``: the driver's ``IncrementalScorer.add`` and ``metrics``,
+    ending in a synchronize."""
+    out = m.output
+    bins = st.bin_matrix(valid.as_matrix(out["x"], DEV),
+                         out["split_points"], out["is_cat"],
+                         st.model_fine_na(out))
+
+    def first(k):
+        return torch.tensor(np.asarray(out[k])[:trees], device=DEV)
+
+    tf = TrainedForest(first("split_col"), first("bitset"), first("value"),
+                       None, first("thr_bin"), first("na_left"))
+    dom = out["response_domain"]
+
+    def to_metrics(F, _):
+        return m.metrics_from_raw(raw_from_F(F, dom, m.family()), valid)
+
+    f0 = torch.tensor(np.asarray(out["f0"], np.float32), device=DEV)
+    sc = IncrementalScorer(bins, f0[None, :].expand(valid.nrows, 1),
+                           int(out["max_depth"]), to_metrics, True,
+                           fine_na=st.model_fine_na(out))
+    ts = []
+    for _ in range(n + 2):
+        sync()
+        t0 = time.perf_counter()
+        sc.add(tf)
+        sc.metrics(trees)
+        sync()
+        ts.append(time.perf_counter() - t0)
+    return statistics.median(ts[2:]) * 1e3
+
+
+def phase_loop(paths) -> None:
+    """13: the training loop at full width, with a validation frame of
+    VALID_ROWS more rows of the same signal."""
+    Xa, ya = make_data(R + VALID_ROWS, C, seed=0)
+    tr, va = frame(Xa[:R], ya[:R]), frame(Xa[R:], ya[R:])
+
+    # 13a early stopping on the validation frame
+    m, wall, got = launched(fit, cls=GBM, fr=tr, valid=va, **EARLY_STOP)
+    n = m.output["ntrees_actual"]
+    paths["loop_gbm_early_stopping"] = got
+    diff = last_row_check("13a", m, va)
+    vm = m.output["validation_metrics"]
+    emit(dict(phase="loop_gbm_early_stopping", rows=R, valid_rows=VALID_ROWS,
+              **EARLY_STOP, ntrees_actual=n, wall_s=wall,
+              train_auc=m.output["training_metrics"]["AUC"],
+              valid_auc=vm["AUC"], valid_logloss=vm["logloss"],
+              last_row_vs_rescore=diff, scoring_history=history_rows(m),
+              k1_launches=got[0], k2_launches=got[1]))
+    if got != (0, 5 * n) or not 0.5 < vm["AUC"] <= 1.0:
+        raise AssertionError(f"13a: launches {got} for {n} trees, "
+                             f"validation AUC {vm['AUC']}")
+    # the cost of a scoring round: the same trees with and without a
+    # scoring interval, in turns, and one round timed alone
+    walls = {"plain": [], "scored": []}
+    for turn in ("plain", "scored", "scored", "plain")[:2 * COST_REPEATS]:
+        kw = dict(score_tree_interval=COST_INTERVAL) if turn == "scored" \
+            else {}
+        _, w, got = launched(fit, cls=GBM, fr=tr, valid=va, seed=1,
+                             ntrees=COST_TREES, **kw)
+        walls[turn].append(w)
+        if got != (0, 5 * COST_TREES):
+            raise AssertionError(f"13a cost pair: launches {got}")
+        key = "loop_gbm_cost_" + turn
+        old_ = paths.get(key, (0, 0))
+        paths[key] = (old_[0] + got[0], old_[1] + got[1])
+    rounds = COST_TREES // COST_INTERVAL
+    per_round = (statistics.median(walls["scored"]) -
+                 statistics.median(walls["plain"])) / rounds
+    emit(dict(phase="loop_scoring_round_cost", valid_rows=VALID_ROWS,
+              ntrees=COST_TREES, score_tree_interval=COST_INTERVAL,
+              walls_plain_s=walls["plain"], walls_scored_s=walls["scored"],
+              per_round_from_walls_ms=per_round * 1e3,
+              one_round_alone_ms=scoring_round_ms(m, va, COST_INTERVAL)))
+
+    # 13b blocks equal one dispatch
+    kw = dict(ntrees=20, learn_rate_annealing=0.99, seed=1)
+    one, w_one, got = launched(fit, cls=GBM, fr=tr, **kw)
+    paths["loop_gbm_one_call"] = got
+    blk, w_blk, got_b = launched(fit, cls=GBM, fr=tr, score_tree_interval=3,
+                                 **kw)
+    paths["loop_gbm_blocked"] = got_b
+    cmp_g = blocks_check("13b GBM", blk, one)
+    trees = [r["number_of_trees"] for r in blk.output["scoring_history"]]
+    d_one, wd_one, got_d = launched(fit, cls=DRF, fr=tr, ntrees=10, seed=1)
+    paths["loop_drf_one_call"] = got_d
+    d_blk, wd_blk, got_db = launched(fit, cls=DRF, fr=tr, ntrees=10, seed=1,
+                                     score_tree_interval=4)
+    paths["loop_drf_blocked"] = got_db
+    cmp_d = blocks_check("13b DRF", d_blk, d_one)
+    emit(dict(phase="loop_blocks_equal_one_call", rows=R,
+              gbm=dict(**kw, score_tree_interval=3, blocks_end_at=trees,
+                       wall_one_s=w_one, wall_blocked_s=w_blk, **cmp_g),
+              drf=dict(ntrees=10, score_tree_interval=4, wall_one_s=wd_one,
+                       wall_blocked_s=wd_blk, **cmp_d)))
+    if trees != [3, 6, 9, 12, 15, 18, 20] or got != got_b or \
+            got != (0, 100) or got_d != got_db or got_d != (0, 200):
+        raise AssertionError(f"13b: blocks {trees}, launches {got} / "
+                             f"{got_b}, DRF {got_d} / {got_db}")
+
+    # 13c save, load, resume
+    with tempfile.TemporaryDirectory() as d:
+        m10, _ = fit(GBM, tr, **dict(kw, ntrees=10))
+        path = m10.save(os.path.join(d, "gbm10.bin"))
+        size = os.path.getsize(path)
+        loaded = Model.load(path)
+        same_pred = bool(torch.equal(loaded.predict_raw(va),
+                                     m10.predict_raw(va)))
+        m20, w20, got = launched(fit, cls=GBM, fr=tr, checkpoint=path, **kw)
+    paths["loop_gbm_resumed"] = got
+    cmp_r = blocks_check("13c resume", m20, one)
+    emit(dict(phase="loop_checkpoint_resume", rows=R, saved_bytes=size,
+              loaded_predict_bitwise=same_pred, resumed_to=20,
+              wall_resume_s=w20, **cmp_r, k1_launches=got[0],
+              k2_launches=got[1]))
+    if not same_pred or got != (0, 50) or \
+            loaded.device != DEV or m20.output["ntrees_actual"] != 20:
+        raise AssertionError(f"13c: loaded predict bitwise {same_pred}, "
+                             f"launches {got}")
+
+    # 13d 5-fold cross-validation
+    m, w_cv, got = launched(fit, cls=GBM, fr=tr, ntrees=20, nfolds=5,
+                            fold_assignment="Modulo", seed=1)
+    paths["loop_gbm_cv5"] = got
+    auc_cv = m.output["cross_validation_metrics_summary"]["AUC"]
+    auc_main = m.output["training_metrics"]["AUC"]
+    emit(dict(phase="loop_gbm_cv", rows=R, nfolds=5, ntrees=20,
+              wall_s=w_cv, wall_over_one_training=w_cv / w_one,
+              cv_auc=m.output["cross_validation_metrics"]["AUC"],
+              cv_auc_mean=auc_cv["mean"], cv_auc_sd=auc_cv["sd"],
+              cv_auc_values=auc_cv["values"], main_auc=auc_main,
+              k1_launches=got[0], k2_launches=got[1]))
+    if got != (0, 6 * 100) or len(m.output["cross_validation_models"]) != 5 \
+            or not 0.5 < auc_cv["mean"] <= auc_main + 0.02:
+        raise AssertionError(f"13d: launches {got}, CV AUC {auc_cv}")
+
+    # 13e DRF and XGBoost with a validation frame
+    for name, cls, kw_, per_tree in (
+            ("loop_drf_validation", DRF,
+             dict(ntrees=10, stopping_rounds=2, score_tree_interval=2), 20),
+            ("loop_xgboost_validation", XGBoost,
+             dict(ntrees=20, score_each_iteration=True, stopping_rounds=3),
+             6)):
+        m, wall, got = launched(fit, cls=cls, fr=tr, valid=va, seed=1, **kw_)
+        paths[name] = got
+        n = m.output["ntrees_actual"]
+        diff = last_row_check(name, m, va)
+        vm = m.output["validation_metrics"]
+        emit(dict(phase=name, rows=R, valid_rows=VALID_ROWS, **kw_,
+                  ntrees_actual=n, wall_s=wall, valid_auc=vm["AUC"],
+                  valid_logloss=vm["logloss"], last_row_vs_rescore=diff,
+                  scoring_history=history_rows(m), k1_launches=got[0],
+                  k2_launches=got[1]))
+        if got != (0, per_tree * n) or not 0.5 < vm["AUC"] <= 1.0:
+            raise AssertionError(f"{name}: launches {got} for {n} trees, "
+                                 f"validation AUC {vm['AUC']}")
+
+    # 13f card against CPU, with a validation frame and blocks of 2
+    sub_tr = tr.slice_rows(slice(0, SUB_ROWS))
+    sub_va = va.slice_rows(slice(0, SUB_ROWS // 4))
+    kw = dict(ntrees=6, score_tree_interval=2, seed=1)
+    m_g, _ = fit(GBM, sub_tr, valid=sub_va, device="cuda", **kw)
+    m_c, _ = fit(GBM, sub_tr, valid=sub_va, device="cpu", **kw)
+    cmp_ = same_forest(m_g.output, m_c.output, trees=1)
+    hg, hc = history_rows(m_g), history_rows(m_c)
+    worst = max(abs(a[k] - b[k]) for a, b in zip(hg, hc) for k in a)
+    emit(dict(phase="loop_cuda_vs_cpu", rows=SUB_ROWS,
+              valid_rows=SUB_ROWS // 4, **kw, first_tree=cmp_,
+              history_max_abs_diff=worst, history_cuda=hg))
+    if not all(cmp_["equal"].values()) or len(hg) != 3 or \
+            [list(r) for r in hg] != [list(r) for r in hc] or worst > 1e-5:
+        raise AssertionError(f"13f: first tree {cmp_}, scoring histories "
+                             f"{hg} / {hc}")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # -- 0 device ------------------------------------------------------------
@@ -885,6 +1129,10 @@ def main() -> None:
     cov = make_covertype(seed=0)
     phase_multinomial(cov, paths)
     phase_families(X, y, fr, paths)
+    # -- 13 the training loop: validation, early stopping, blocks,
+    # checkpoints, cross-validation ------------------------------------------
+    torch.cuda.empty_cache()
+    phase_loop(paths)
     emit(dict(phase="launches", paths={k: dict(k1=v[0], k2=v[1])
                                        for k, v in paths.items()}))
     sync()

@@ -1,5 +1,5 @@
 """Columns and frames — a host-side port of ``h2o_tpu/core/frame.py``
-(``Vec`` :185, ``Frame`` :812, ``Frame.from_dict`` :839,
+(``Vec`` :185, ``Frame`` :812, ``Frame.from_dict`` :839, ``Frame.add`` :921,
 ``Frame.as_matrix`` :1003).
 
 Columns are numpy arrays: numeric ones float32 with NaN for NA,
@@ -106,6 +106,16 @@ class Frame:
 
     def vec(self, name: str) -> Vec:
         return self.vecs[self.names.index(name)]
+
+    def add(self, name: str, vec: Vec) -> "Frame":
+        """Append a column in place (``h2o_tpu`` ``Frame.add``)."""
+        if name in self.names:
+            raise ValueError(f"column {name!r} already exists")
+        if self.vecs and vec.nrows != self.nrows:
+            raise ValueError("ragged frame: columns differ in length")
+        self.names.append(name)
+        self.vecs.append(vec)
+        return self
 
     def slice_rows(self, sel) -> "Frame":
         """New frame of the selected rows (a slice, index array or mask)."""

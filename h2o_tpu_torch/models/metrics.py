@@ -1,14 +1,16 @@
 """Model metrics — port of ``h2o_tpu/models/metrics.py``
 (``_binomial_kernel`` :27-45, ``_auc_from_hist`` :48-69,
-``_regression_kernel`` :72-92, ``_multinomial_kernel`` :96-116,
+``_regression_kernel`` :72-92 with RMSLE, ``_multinomial_kernel`` :96-116,
 ``ModelMetrics`` :118-142, ``regression_metrics`` :145-166,
 ``binomial_metrics`` :258-280, ``multinomial_metrics`` :283-307).
 
 Binomial AUC comes from a fixed 1024-bin histogram of the scores (the
 reference's AUC2 analog), so it reduces in O(bins).  Reductions are
 float32 tensor code on the scores' device; the bin sweep runs in numpy
-on the host, copied from the reference.  The binomial threshold tables
-(a REST artifact) and RMSLE wait for the REST slice.
+on the host, copied from the reference.  Every metric a stopping metric
+can name (``models/score_keeper.py`` ``_KEYS``) is produced where the
+reference produces it; the binomial threshold tables (a REST artifact)
+wait for the REST slice.
 """
 
 from __future__ import annotations
@@ -134,10 +136,18 @@ def regression_metrics(pred: torch.Tensor, y: torch.Tensor,
     ymean = torch.sum(w * y) / wsum
     sstot = torch.sum(w * (y - ymean) ** 2) / wsum
     mean_dev = torch.sum(torch.where(valid, dev, zero)) / wsum
+    ok_log = (y > -1) & (pred > -1)
+    lo = torch.tensor(-1 + EPS, dtype=pred.dtype, device=pred.device)
+    rmsle2 = torch.sum(torch.where(ok_log, w, zero) *
+                       (torch.log1p(torch.maximum(y, lo)) -
+                        torch.log1p(torch.maximum(pred, lo))) ** 2) / wsum
+    rmsle_ok = bool(torch.all(ok_log | ~valid))
     data = dict(mse=mse.item(), rmse=float(np.sqrt(mse.item())),
                 mae=mae.item(),
                 r2=(1 - mse / torch.clamp_min(sstot, EPS)).item(),
-                mean_residual_deviance=mean_dev.item(), nobs=wsum.item())
+                mean_residual_deviance=mean_dev.item(), nobs=wsum.item(),
+                rmsle=float(np.sqrt(rmsle2.item())) if rmsle_ok
+                else float("nan"))
     return ModelMetrics("regression", data)
 
 

@@ -7,8 +7,11 @@ build the port's model, which scores the same forest on the port's
 device: dense-heap forests and sparse-frontier forests with their
 ``child`` pointers, one tree or K class trees an iteration, and
 XGBoost's gbtree and dart forests (dart's trees carry their rescaled
-values).  The reference's gblinear models are GLMs and wait for the GLM
-slice (P11).
+values).  A converted GBM or DRF carries what a checkpoint needs (tree
+count, f0, split points, fine grid, node arrays and importance), so it
+can be given to the port's builder as ``checkpoint`` and trained on.
+The reference's gblinear models are GLMs and wait for the GLM slice
+(P11).
 """
 
 from __future__ import annotations
@@ -24,9 +27,9 @@ from h2o_tpu_torch.models.tree.xgboost import XGBoostModel
 
 _KEYS = ("x", "split_points", "is_cat", "nbins", "fine_nbins", "hist_type",
          "split_col", "bitset", "value", "thr_bin", "na_left", "child",
-         "max_depth", "response_domain")
+         "max_depth", "response_domain", "ntrees_actual")
 _ARRAYS = ("split_points", "is_cat", "split_col", "bitset", "value",
-           "thr_bin", "na_left", "child", "f0")
+           "thr_bin", "na_left", "child", "f0", "varimp")
 
 
 def _port_output(output: Dict[str, Any], keys: Tuple[str, ...],
@@ -35,6 +38,8 @@ def _port_output(output: Dict[str, Any], keys: Tuple[str, ...],
     if missing:
         raise ValueError(f"h2o_tpu {what} output lacks {missing}")
     out = {k: output[k] for k in keys}
+    if output.get("varimp") is not None:
+        out["varimp"] = output["varimp"]
     for k in _ARRAYS:
         if out.get(k) is not None:
             out[k] = np.asarray(out[k])
@@ -42,6 +47,7 @@ def _port_output(output: Dict[str, Any], keys: Tuple[str, ...],
     out["nbins"] = int(out["nbins"])
     out["fine_nbins"] = int(out["fine_nbins"] or out["nbins"])
     out["max_depth"] = int(out["max_depth"])
+    out["ntrees_actual"] = int(out["ntrees_actual"])
     dom = out["response_domain"]
     out["response_domain"] = list(dom) if dom is not None else None
     return out
@@ -67,8 +73,7 @@ def drf_from_jax_output(output: Dict[str, Any], params: Dict[str, Any],
                         device: DeviceLike = None) -> DRFModel:
     """Port ``DRFModel`` from an ``h2o_tpu`` DRF's output dict, as
     ``gbm_from_jax_output`` does for a GBM."""
-    out = _port_output(output, _KEYS + ("ntrees_actual",), "DRF")
-    out["ntrees_actual"] = int(out["ntrees_actual"])
+    out = _port_output(output, _KEYS, "DRF")
     return DRFModel(dict(params), out, cloud(device))
 
 

@@ -1,6 +1,8 @@
 """DRF — port of ``h2o_tpu/models/tree/drf.py`` (``raw_from_votes``
-:27-39, ``DRFModel`` :42-60, ``DRF`` :63-247) with the single-dispatch
-path of ``driver.py:251-271`` inlined.
+:27-39, ``DRFModel`` :42-60, ``DRF`` :63-247), training through
+``driver.run_tree_driver``: validation frames, scoring intervals, early
+stopping, ``max_runtime_secs`` and checkpoints as in GBM, the
+incremental scorer's F a running sum of votes.
 
 Bagged trees fit on the response itself (no boosting): each tree sees
 a ``sample_rate`` row sample and ``mtries`` columns a split (sqrt(C)
@@ -24,6 +26,11 @@ from h2o_tpu_torch.core.frame import Frame
 from h2o_tpu_torch.models.model import DataInfo, Model, ModelBuilder
 from h2o_tpu_torch.models.tree import engine
 from h2o_tpu_torch.models.tree import shared_tree as st
+from h2o_tpu_torch.models.tree.driver import (IncrementalScorer,
+                                              check_checkpoint,
+                                              checkpoint_bins,
+                                              run_tree_driver, scoring_bins,
+                                              wants_scoring)
 
 EPS = 1e-10
 
@@ -79,16 +86,23 @@ class DRF(ModelBuilder):
                  stopping_tolerance=1e-3)
         return p
 
-    def _fit(self, x: List[str], y: str, train: Frame) -> DRFModel:
+    def _fit(self, x: List[str], y: str, train: Frame,
+             valid: Optional[Frame] = None) -> DRFModel:
         p = self.params
         st.check_slice("drf", p)
         dev = self.device
+        ckpt = self.checkpoint_model()
+        co = ckpt.output if ckpt is not None else None
         di = DataInfo(train, x, y, dev, weights=p.get("weights_column"))
+        if co is not None:
+            di.x = list(co["x"])
+            di.cat_names = [c for c in di.x if train.vec(c).is_categorical]
         nclass = di.nclasses
         K = nclass if nclass > 2 else 1
-        binned = st.prepare_bins(di, int(p["nbins"]), int(p["nbins_cats"]),
-                                 st.resolve_histogram_type(p),
-                                 int(p.get("nbins_top_level") or 1024))
+        binned = checkpoint_bins(di, co) if co is not None else \
+            st.prepare_bins(di, int(p["nbins"]), int(p["nbins_cats"]),
+                            st.resolve_histogram_type(p),
+                            int(p.get("nbins_top_level") or 1024))
         bins = binned.bins
         R, C = bins.shape
         # mtries default: sqrt(C) classification, C/3 regression
@@ -97,25 +111,55 @@ class DRF(ModelBuilder):
             mtries = max(1, int(np.sqrt(C))) if nclass >= 2 \
                 else max(1, C // 3)
         depth = engine.clamp_depth(int(p["max_depth"]))
-        tf = engine.train_forest(
-            bins, torch.nan_to_num(di.response()), di.weights(),
-            di.valid_mask(), torch.zeros((R, K), dtype=torch.float32,
-                                         device=dev),
-            torch.as_tensor(binned.is_cat, device=dev), self.rng_key(),
-            dist=None, K=K, ntrees=int(p["ntrees"]), max_depth=depth,
-            nbins=binned.nbins, k_cols=mtries, newton=False,
-            sample_rate=float(p["sample_rate"]), learn_rate=1.0,
-            learn_rate_annealing=1.0, min_rows=float(p["min_rows"]),
+        kleaves = engine.plan_engine(depth)
+        # DRF's stats do not depend on F, so a resume needs no F either
+        F0 = torch.zeros((R, K), dtype=torch.float32, device=dev)
+        prior = check_checkpoint(co, depth, depth, kleaves) \
+            if co is not None else 0
+        train_kwargs = dict(
+            bins=bins, yv=torch.nan_to_num(di.response()), w=di.weights(),
+            active=di.valid_mask(),
+            is_cat=torch.as_tensor(binned.is_cat, device=dev), dist=None,
+            K=K, max_depth=depth, nbins=binned.nbins, k_cols=mtries,
+            newton=False, sample_rate=float(p["sample_rate"]),
+            learn_rate=1.0, learn_rate_annealing=1.0,
+            min_rows=float(p["min_rows"]),
             min_split_improvement=float(p["min_split_improvement"]),
             mode="drf",
             col_sample_rate_per_tree=float(
                 p.get("col_sample_rate_per_tree") or 1.0),
-            kleaves=engine.plan_engine(depth),
+            kleaves=kleaves,
             adaptive=binned.hist_type in ("UniformAdaptive", "Random"),
             fine_nbins=binned.fine_nbins,
             hist_random=binned.hist_type == "Random")
-        out = st.forest_output(di, binned, tf, depth,
-                               di.response_domain if nclass >= 2 else None)
-        model = self.model_cls(dict(p), out, dev)
+        dom = di.response_domain if nclass >= 2 else None
+
+        def make_model(tf) -> DRFModel:
+            return self.model_cls(dict(p), st.forest_output(
+                di, binned, tf, depth, dom, prior=co), dev)
+
+        scorer = None
+        if wants_scoring(p):
+            score_frame = valid if valid is not None else train
+            bins_sc = scoring_bins(di, binned, valid)
+            F_sc = torch.zeros((bins_sc.shape[0], K), dtype=torch.float32,
+                               device=dev)
+            if prior:
+                F_sc = F_sc + st.forest_score_out(bins_sc, co, depth)
+            proto = self.model_cls(dict(p), dict(response_domain=dom), dev)
+
+            def to_metrics(Fv, ntot):
+                return proto.metrics_from_raw(
+                    raw_from_votes(Fv, ntot, dom), score_frame)
+
+            scorer = IncrementalScorer(bins_sc, F_sc, depth, to_metrics,
+                                       valid is not None,
+                                       fine_na=binned.fine_nbins)
+        kind = "binomial" if nclass == 2 else (
+            "multinomial" if nclass > 2 else "regression")
+        model = run_tree_driver(p, train_kwargs, F0, self.rng_key(),
+                                make_model, scorer, kind, prior_trees=prior)
         model.output["training_metrics"] = model.model_metrics(train)
+        if valid is not None:
+            model.output["validation_metrics"] = model.model_metrics(valid)
         return model

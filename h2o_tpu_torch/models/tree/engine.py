@@ -21,8 +21,9 @@ sit in a pool with an explicit left-child pointer (right = left + 1).
 Below the cap both build the same trees.
 
 Randomness follows the reference's key order exactly (``ops/prng.py``
-reproduces jax's threefry bits): iteration t takes ``fold_in(master,
-t)`` and splits it into (rows, class, tree-columns) keys; class k of the
+reproduces jax's threefry bits): iteration t, counted from the
+forest's first tree, takes ``fold_in(master, t)`` and splits it into
+(rows, class, tree-columns) keys; class k of the
 iteration splits the running class key into (next class key, tree key),
 in class order; each adaptive level splits the tree key once for its
 ``Random`` offsets (drawn or not), and a column-sampled level once more
@@ -502,6 +503,7 @@ class TrainedForest(NamedTuple):
     thr_bin: torch.Tensor     # (T, K, N)
     na_left: torch.Tensor     # (T, K, N)
     child: Optional[torch.Tensor] = None   # (T, K, N); None = dense heap
+    f_final: Optional[torch.Tensor] = None  # (R, K) F after the last tree
 
 
 def train_forest(bins: torch.Tensor, yv: torch.Tensor, w: torch.Tensor,
@@ -518,7 +520,7 @@ def train_forest(bins: torch.Tensor, yv: torch.Tensor, w: torch.Tensor,
                  mono: Optional[torch.Tensor] = None,
                  kleaves: int = 0, adaptive: bool = False,
                  fine_nbins: int = 0, hist_random: bool = False,
-                 stats_dtype: str = "f32") -> TrainedForest:
+                 stats_dtype: str = "f32", t0: int = 0) -> TrainedForest:
     """The forest loop of ``_train_forest_impl``: ``ntrees`` iterations
     of K trees each (ntrees >= 1; F0 is (R, K)).
 
@@ -531,10 +533,15 @@ def train_forest(bins: torch.Tensor, yv: torch.Tensor, w: torch.Tensor,
     indicator [y == k], scale 1, ``dist`` unused; F is not needed (the
     caller scores votes).  kleaves=0: dense heap engine; > 0: the
     sparse frontier with that cap.  ``key`` is the forest's
-    master key (``prng.key``).  ``stats_dtype`` "int16"/"int8" quantizes
-    each (tree, class) stats against its tree key, with qmax from this
-    call's row count.  ``mono`` ((C,) int), when given, imposes
-    monotone constraints; ``reg_lambda`` is added to every Newton
+    master key (``prng.key``); ``t0`` is the absolute index of the
+    first tree, so iteration t draws from ``fold_in(key, t0 + t)`` and
+    scales by ``annealing ** (t0 + t)``: a forest trained in blocks, or
+    resumed from a checkpoint, equals the one trained in one call.
+    ``f_final`` is F after the last iteration (GBM; DRF returns F0).
+    ``stats_dtype`` "int16"/"int8" quantizes each (tree, class) stats
+    against its tree key, with qmax from this call's row count padded to
+    the reference's row quantum.  ``mono`` ((C,) int), when given,
+    imposes monotone constraints; ``reg_lambda`` is added to every Newton
     denominator."""
     if mode not in ("gbm", "drf"):
         raise ValueError(f"train_forest: unknown mode {mode!r}")
@@ -550,8 +557,8 @@ def train_forest(bins: torch.Tensor, yv: torch.Tensor, w: torch.Tensor,
     wa = torch.where(active, w, torch.zeros_like(w))
     leaf_all = torch.where(active, 0, -1).to(torch.int32)
     fine_na = int(fine_nbins or nbins)
-    qmax = statpack.stats_qmax(R, stats_dtype) if stats_dtype != "f32" \
-        else 0
+    qmax = statpack.stats_qmax(statpack.padded_rows(R), stats_dtype) \
+        if stats_dtype != "f32" else 0
 
     def stats_for(kcls: int, F: torch.Tensor) -> torch.Tensor:
         if mode == "drf":
@@ -574,7 +581,7 @@ def train_forest(bins: torch.Tensor, yv: torch.Tensor, w: torch.Tensor,
     ann = torch.tensor(learn_rate_annealing, dtype=torch.float32, device=dev)
     F = F0
     trees = []
-    for t in range(ntrees):
+    for t in range(t0, t0 + ntrees):
         # iteration t's stream depends only on (master key, t)
         ks, kc, kcol = prng.split(prng.fold_in(key, t), 3)
         tree_cols = None
@@ -621,4 +628,4 @@ def train_forest(bins: torch.Tensor, yv: torch.Tensor, w: torch.Tensor,
     return TrainedForest(stack("split_col"), stack("bitset"), stack("value"),
                          stack("varimp").sum(dim=(0, 1)), stack("thr_bin"),
                          stack("na_left"),
-                         stack("child") if kleaves > 0 else None)
+                         stack("child") if kleaves > 0 else None, F)

@@ -1,6 +1,6 @@
 """GBM — port of ``h2o_tpu/models/tree/gbm.py`` (``raw_from_F`` :31-47,
-``GBMModel`` :50-82, ``GBM`` :85-386 with ``_mono_array`` :114-143) with
-the single-dispatch path of ``driver.py:251-271`` inlined.
+``GBMModel`` :50-82, ``GBM`` :85-386 with ``_mono_array`` :114-143 and
+``_fit`` :145-386), training through ``driver.run_tree_driver``.
 
 Binning, trees and scoring run on the device given to ``GBM``: ``cuda:0`` by
 default, where every histogram goes through the hand-written kernels,
@@ -11,8 +11,12 @@ and offset columns, monotone constraints, ``reg_lambda`` and
 ``force_newton`` (the XGBoost builder's), row and column sampling,
 ``Random`` histograms, int16/int8 stats and depths beyond the dense
 engine's frontier (the sparse-frontier engine, up to depth 30) run as in
-the reference.  Checkpoints, scoring intervals and early stopping raise
-``NotImplementedError`` naming the slice that brings them.
+the reference, and so do the training loop's options: a validation
+frame (binned with the training split points and scored incrementally),
+``score_tree_interval``/``score_each_iteration``, early stopping,
+``max_runtime_secs`` and ``checkpoint`` (a port model, or a path that
+``Model.save`` wrote, continued in its own bin space, distribution and
+f0).
 """
 
 from __future__ import annotations
@@ -29,6 +33,11 @@ from h2o_tpu_torch.models.distributions import (FIRST_ORDER, Distribution,
 from h2o_tpu_torch.models.model import DataInfo, Model, ModelBuilder
 from h2o_tpu_torch.models.tree import engine
 from h2o_tpu_torch.models.tree import shared_tree as st
+from h2o_tpu_torch.models.tree.driver import (IncrementalScorer,
+                                              check_checkpoint,
+                                              checkpoint_bins,
+                                              run_tree_driver, scoring_bins,
+                                              wants_scoring)
 from h2o_tpu_torch.ops import statpack
 
 EPS = 1e-10
@@ -129,19 +138,34 @@ class GBM(ModelBuilder):
             mono[di.x.index(name)] = d
         return mono if mono.any() else None
 
-    def _fit(self, x: List[str], y: str, train: Frame) -> GBMModel:
-        model = self._train_model(x, y, train)
+    def _fit(self, x: List[str], y: str, train: Frame,
+             valid: Optional[Frame] = None) -> GBMModel:
+        model = self._train_model(x, y, train, valid)
         model.output["training_metrics"] = model.model_metrics(train)
+        if valid is not None:
+            model.output["validation_metrics"] = model.model_metrics(valid)
         return model
 
-    def _train_model(self, x: List[str], y: str, train: Frame) -> GBMModel:
-        """The trained model, without its training metrics."""
+    def _train_model(self, x: List[str], y: str, train: Frame,
+                     valid: Optional[Frame] = None) -> GBMModel:
+        """The trained model, without its final training and validation
+        metrics (dart's one-tree fits skip them, as the reference's
+        ``_skip_final_metrics`` does)."""
         self._check_slice()
         p = self.params
         dev = self.device
+        ckpt = self.checkpoint_model()
+        co = ckpt.output if ckpt is not None else None
         di = DataInfo(train, x, y, dev, weights=p.get("weights_column"),
                       offset=p.get("offset_column"))
-        dist_name = self.resolve_distribution(di)
+        if co is not None:
+            # resume: the checkpoint's features, distribution and binning,
+            # so the new trees share its bin space
+            di.x = list(co["x"])
+            di.cat_names = [c for c in di.x if train.vec(c).is_categorical]
+            dist_name = co["distribution_resolved"]
+        else:
+            dist_name = self.resolve_distribution(di)
         nclass = di.nclasses if dist_name in ("bernoulli", "multinomial") \
             else 1
         if dist_name == "bernoulli" and nclass != 2:
@@ -150,10 +174,10 @@ class GBM(ModelBuilder):
         # multinomial's K class trees take softmax gradients in the engine
         dist = None if K > 1 else distribution_from_params(dist_name, p)
 
-        hist_type = st.resolve_histogram_type(p)
-        binned = st.prepare_bins(di, int(p["nbins"]), int(p["nbins_cats"]),
-                                 hist_type, int(p.get("nbins_top_level")
-                                                or 1024))
+        binned = checkpoint_bins(di, co) if co is not None else \
+            st.prepare_bins(di, int(p["nbins"]), int(p["nbins_cats"]),
+                            st.resolve_histogram_type(p),
+                            int(p.get("nbins_top_level") or 1024))
         bins = binned.bins
         yv = di.response()
         w = di.weights()
@@ -162,7 +186,10 @@ class GBM(ModelBuilder):
         # f0 on the link scale
         zero = torch.zeros((), dtype=torch.float32, device=dev)
         wa = torch.where(active, w, zero)
-        if dist is None:
+        if co is not None:
+            f0 = torch.tensor(np.asarray(co["f0"], np.float32)[:K],
+                              device=dev)
+        elif dist is None:
             pri = torch.stack([torch.sum(wa * (yv == k)) for k in range(K)])
             pri = pri / torch.clamp_min(torch.sum(pri), EPS)
             f0 = torch.log(torch.clamp_min(pri, EPS))
@@ -175,16 +202,21 @@ class GBM(ModelBuilder):
         if offset is not None:
             F = F + offset[:, None]
         depth = engine.clamp_depth(int(p["max_depth"]))
+        kleaves = engine.plan_engine(depth)
+        prior = 0
+        if co is not None:
+            prior = check_checkpoint(co, int(p["max_depth"]), depth,
+                                     kleaves)
+            F = st.forest_accumulate(F, bins, co, int(p["max_depth"]))
         k_cols = max(1, min(C, int(round(float(p["col_sample_rate"]) * C))))
         mono = self._mono_array(p, di)
         # XGBoost semantics under force_newton: Newton leaf values for
         # every objective (squared error has unit hessian)
         newton = dist_name not in FIRST_ORDER or bool(p.get("force_newton"))
-        tf = engine.train_forest(
-            bins, torch.nan_to_num(yv), w, active, F,
-            torch.as_tensor(binned.is_cat, device=dev), self.rng_key(),
-            dist=dist, K=K, ntrees=int(p["ntrees"]),
-            max_depth=depth, nbins=binned.nbins, k_cols=k_cols,
+        train_kwargs = dict(
+            bins=bins, yv=torch.nan_to_num(yv), w=w, active=active,
+            is_cat=torch.as_tensor(binned.is_cat, device=dev), dist=dist,
+            K=K, max_depth=depth, nbins=binned.nbins, k_cols=k_cols,
             newton=newton, sample_rate=float(p["sample_rate"]),
             learn_rate=float(p["learn_rate"]),
             learn_rate_annealing=float(p["learn_rate_annealing"]),
@@ -196,14 +228,43 @@ class GBM(ModelBuilder):
                 p.get("col_sample_rate_per_tree") or 1.0),
             mono=torch.as_tensor(mono, device=dev) if mono is not None
             else None,
-            kleaves=engine.plan_engine(depth),
+            kleaves=kleaves,
             adaptive=binned.hist_type in ("UniformAdaptive", "Random"),
             fine_nbins=binned.fine_nbins,
             hist_random=binned.hist_type == "Random",
             stats_dtype=str(p["stats_dtype"]))
-        out = st.forest_output(
-            di, binned, tf, depth,
-            di.response_domain if nclass >= 2 else None)
-        out.update(f0=f0.expand(K).cpu().numpy(),
-                   distribution_resolved=dist_name)
-        return self.model_cls(dict(p), out, dev)
+        dom = di.response_domain if nclass >= 2 else None
+        f0_out = f0.expand(K).cpu().numpy()
+
+        def make_model(tf) -> GBMModel:
+            out = st.forest_output(di, binned, tf, depth, dom, prior=co)
+            out.update(f0=f0_out, distribution_resolved=dist_name)
+            return self.model_cls(dict(p), out, dev)
+
+        scorer = None
+        if wants_scoring(p):
+            score_frame = valid if valid is not None else train
+            bins_sc = scoring_bins(di, binned, valid)
+            F_sc = f0[None, :].expand(bins_sc.shape[0], K).to(
+                torch.float32)
+            off_col = p.get("offset_column")
+            if off_col and off_col in score_frame.names:
+                F_sc = F_sc + torch.from_numpy(
+                    score_frame.vec(off_col).as_float()).to(dev)[:, None]
+            if prior:
+                F_sc = F_sc + st.forest_score_out(bins_sc, co, depth)
+            proto = self.model_cls(dict(p), dict(
+                response_domain=dom, distribution_resolved=dist_name), dev)
+            family = proto.family()
+
+            def to_metrics(Fv, ntot):
+                return proto.metrics_from_raw(
+                    raw_from_F(Fv, dom, family), score_frame)
+
+            scorer = IncrementalScorer(bins_sc, F_sc.contiguous(), depth,
+                                       to_metrics, valid is not None,
+                                       fine_na=binned.fine_nbins)
+        kind = "binomial" if nclass == 2 else (
+            "multinomial" if nclass > 2 else "regression")
+        return run_tree_driver(p, train_kwargs, F, self.rng_key(),
+                               make_model, scorer, kind, prior_trees=prior)

@@ -4,7 +4,8 @@ binning (``BinnedData``, ``_quantile_split_points``, ``prepare_bins``
 ``_uniform_split_points`` :155-224), split finding with monotone
 constraints (``find_splits`` :380-498) and forest scoring
 (``_go_left``, ``forest_score``, ``forest_tree_values``,
-``forest_score_out`` :531-625, with the child-pointer descent of
+``forest_score_out`` :531-625, and ``forest_accumulate``, which resumes
+a checkpoint's F in training's order, with the child-pointer descent of
 ``jit_engine._tree_predict`` :708-773).
 
 Rows are binned once: QuantilesGlobal against per-column quantiles
@@ -66,28 +67,20 @@ HISTOGRAM_TYPES = ("AUTO", "UniformAdaptive", "QuantilesGlobal", "Random")
 
 def check_slice(algo: str, p: Dict) -> None:
     """Reject, by name, what neither tree builder of the port runs yet:
-    checkpoints, the blocked training loop with scoring intervals and
-    early stopping, and cross-validation."""
-    def out(what: str, later: str) -> None:
-        raise NotImplementedError(
-            f"{algo}: {what} is not in the port yet; it comes with the "
-            f"{later}")
-
+    iteration-level recovery (P14) and custom metrics (P13)."""
     if str(p.get("histogram_type") or "AUTO") not in HISTOGRAM_TYPES:
         raise ValueError(f"{algo}: unknown histogram_type "
                          f"{p.get('histogram_type')!r}")
-    if p.get("checkpoint"):
-        out("checkpoint", "blocked training loop and checkpoints (the rest "
-            "of P6)")
-    if int(p.get("stopping_rounds") or 0) > 0 or \
-            int(p.get("score_tree_interval") or 0) > 0 or \
-            p.get("score_each_iteration") or \
-            float(p.get("max_runtime_secs") or 0) > 0:
-        out("early stopping / scoring intervals / max_runtime_secs",
-            "blocked training loop with ScoreKeeper early stopping (the "
-            "rest of P6)")
-    if int(p.get("nfolds") or 0) > 1 or p.get("fold_column"):
-        out("cross-validation", "model orchestration slice (P13)")
+    if p.get("recovery_dir") or int(p.get("checkpoint_interval") or 0):
+        raise NotImplementedError(
+            f"{algo}: recovery_dir/checkpoint_interval (iteration-level "
+            "recovery) is not in the port yet; it comes with the runtime "
+            "services (P14)")
+    if p.get("custom_metric_func"):
+        raise NotImplementedError(
+            f"{algo}: custom_metric_func is not in the port yet; it comes "
+            "with the REST and orchestration slice (P13), which brings the "
+            "UDF layer")
     if int(p["ntrees"]) < 1:
         raise ValueError(f"{algo}: ntrees must be >= 1")
 
@@ -199,24 +192,35 @@ def _bin_all(m: torch.Tensor, split_points: torch.Tensor,
 
 
 def forest_output(di: DataInfo, binned: BinnedData, tf, depth: int,
-                  response_domain) -> Dict:
+                  response_domain, prior: Optional[Dict] = None) -> Dict:
     """The model-output fields both tree builders write, as host arrays:
-    the binning, the forest's node arrays (``child`` None for the dense
-    heap) and the frame's domains."""
+    the binning, the forest's trees (``child`` None for the dense heap)
+    and the frame's domains.  With ``prior``, a checkpoint's output, its
+    trees come first and its ``varimp``, ``thr_bin`` and ``na_left`` are
+    carried; ``driver.run_tree_driver`` adds the new trees' importance
+    and node arrays."""
     def host(a):
         return a.cpu().numpy() if a is not None else None
 
     fr = di.frame
-    return dict(
+    out = dict(
         x=list(di.x), split_points=binned.split_points, is_cat=binned.is_cat,
         nbins=binned.nbins, fine_nbins=binned.fine_nbins,
         hist_type=binned.hist_type, split_col=host(tf.split_col),
-        bitset=host(tf.bitset), value=host(tf.value),
-        thr_bin=host(tf.thr_bin), na_left=host(tf.na_left),
-        child=host(tf.child), varimp=host(tf.varimp), max_depth=depth,
+        bitset=host(tf.bitset), value=host(tf.value), child=host(tf.child),
+        varimp=None, thr_bin=None, na_left=None, max_depth=depth,
         response_domain=response_domain,
         domains={c: list(fr.vec(c).domain) for c in di.cat_names},
         ntrees_actual=int(tf.split_col.shape[0]))
+    if prior is not None:
+        for k in ("split_col", "bitset", "value", "child"):
+            if out[k] is not None:
+                out[k] = np.concatenate([np.asarray(prior[k]), out[k]])
+        for k in ("varimp", "thr_bin", "na_left"):
+            if prior.get(k) is not None:
+                out[k] = np.asarray(prior[k])
+        out["ntrees_actual"] += int(prior["ntrees_actual"])
+    return out
 
 
 # -- split finding -------------------------------------------------------------
@@ -415,20 +419,38 @@ def model_fine_na(out: Dict) -> int:
     return int(out.get("fine_nbins") or out["nbins"])
 
 
+def _forest_args(out: Dict, dev, trees=slice(None)) -> Dict:
+    """A model-output dict's forest (the iterations ``trees``) as the
+    keyword arguments of ``forest_tree_values``, on ``dev``."""
+    def t(a):
+        return torch.tensor(np.asarray(a)[trees], device=dev)
+
+    thr, child = out.get("thr_bin"), out.get("child")
+    return dict(split_col=t(out["split_col"]), bitset=t(out["bitset"]),
+                value=t(out["value"]),
+                child=t(child) if child is not None else None,
+                thr=t(thr) if thr is not None else None,
+                na_l=t(out["na_left"]) if thr is not None else None,
+                fine_na=model_fine_na(out) if thr is not None else -1)
+
+
 def forest_score_out(bins: torch.Tensor, out: Dict,
                      depth: Optional[int] = None) -> torch.Tensor:
     """forest_score over a model-output dict of host arrays (dense heap,
     or pool layout when ``out["child"]`` is set)."""
-    dev = bins.device
+    return forest_score(bins, depth=int(depth if depth is not None
+                                        else out["max_depth"]),
+                        **_forest_args(out, bins.device))
 
-    def t(a):
-        return torch.tensor(np.asarray(a), device=dev)
 
-    thr, child = out.get("thr_bin"), out.get("child")
-    return forest_score(
-        bins, t(out["split_col"]), t(out["bitset"]), t(out["value"]),
-        int(depth if depth is not None else out["max_depth"]),
-        child=t(child) if child is not None else None,
-        thr=t(thr) if thr is not None else None,
-        na_l=t(out["na_left"]) if thr is not None else None,
-        fine_na=model_fine_na(out) if thr is not None else -1)
+def forest_accumulate(F: torch.Tensor, bins: torch.Tensor, out: Dict,
+                      depth: int) -> torch.Tensor:
+    """``F`` plus a model's trees added one iteration at a time in tree
+    order, as training adds them, so a build resumed from a checkpoint
+    carries bit for bit the F of the build that was not interrupted."""
+    for t in range(np.asarray(out["split_col"]).shape[0]):
+        vals = forest_tree_values(bins, depth=depth,
+                                  **_forest_args(out, bins.device,
+                                                 slice(t, t + 1)))
+        F = F + vals[0].T
+    return F

@@ -13,21 +13,24 @@ kernel (max_bins 256 over a 1024-bin fine grid).
 
 Boosters:
 
-- ``gbtree`` — GBM's forest loop;
+- ``gbtree`` — GBM's forest loop, with its validation frame, scoring
+  interval, early stopping and checkpoints;
 - ``dart`` — one single-tree GBM fit a round against the running
   ensemble without the dropped trees, passed in through the offset
   path; drops are drawn by numpy's ``default_rng(seed)``, and the new
   tree is scaled by 1/(k+1) and the k dropped ones by k/(k+1)
   (normalize_type "tree").  Every inner fit draws its master key from
   the same seed, so each round's tree is tree 0 of that key's stream, as
-  in the reference;
+  in the reference.  The one-tree fits run with no scoring interval and
+  no early stopping, and skip the final metrics (``_train_model``); a
+  ``checkpoint`` raises, as in the reference;
 - ``gblinear`` — the reference's elastic-net GLM; it raises until the
   GLM slice (P11).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -106,7 +109,8 @@ class XGBoost(GBM):
                 "booster='gblinear' on this engine; refusing to train "
                 "with a silently-ignored setting")
 
-    def _fit(self, x: List[str], y: str, train: Frame) -> XGBoostModel:
+    def _fit(self, x: List[str], y: str, train: Frame,
+             valid: Optional[Frame] = None) -> XGBoostModel:
         booster = self.params.get("booster", "gbtree")
         if booster == "gblinear":
             raise NotImplementedError(
@@ -115,8 +119,10 @@ class XGBoost(GBM):
         if booster == "dart":
             model = self._fit_dart(x, y, train)
         else:
-            model = self._train_model(x, y, train)
+            model = self._train_model(x, y, train, valid)
         model.output["training_metrics"] = model.model_metrics(train)
+        if valid is not None:
+            model.output["validation_metrics"] = model.model_metrics(valid)
         return model
 
     def _fit_dart(self, x: List[str], y: str, train: Frame) -> XGBoostModel:
@@ -134,6 +140,10 @@ class XGBoost(GBM):
         if self.params.get("offset_column"):
             raise ValueError("booster='dart' uses the offset path "
                              "internally; offset_column is unsupported")
+        if self.params.get("checkpoint"):
+            raise ValueError("booster='dart' does not support checkpoint "
+                             "resume (per-tree weights are rescaled "
+                             "during training)")
         p_all = dict(self.params)
         ntrees = int(p_all["ntrees"])
         rate_drop = float(p_all.get("rate_drop") or 0.0)
@@ -145,7 +155,9 @@ class XGBoost(GBM):
         preds: List[np.ndarray] = []
         scale: List[float] = []
         bins = None
-        self.params.update(ntrees=1, offset_column=_DART_OFFSET)
+        # one-tree fits: no scoring interval and no early stopping
+        self.params.update(ntrees=1, offset_column=_DART_OFFSET,
+                           score_tree_interval=0, stopping_rounds=0)
         try:
             for t in range(ntrees):
                 k_idx = np.array([], np.int64)

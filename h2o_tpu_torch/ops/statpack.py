@@ -14,11 +14,14 @@ and each level's table is dequantized once before split finding.
   ``fold_in(key, 0x51A7)``, so ``E[q] = stats * scale``;
 * ``dequant(q) = q * max|stats| / qmax``, off by less than one step.
 
-The reference computes ``qmax / m`` and ``stats * scale + u`` as XLA
-compiles them (on the CPU a multiply by the reciprocal, and a fused
-multiply-add); the port computes IEEE float32 division and separate
-rounding, as torch does on the CPU and on CUDA.  So a quantized value
-can differ from the reference's by one step, and ``1/scale`` by one ulp.
+The port computes what XLA compiles on the CPU for the reference:
+``qmax / m`` divides, ``m / qmax`` multiplies by the float32 reciprocal
+of the constant ``qmax``, and ``stats * scale + u`` is one fused
+multiply-add, which the port takes in float64 and rounds once to
+float32 (equal to the FMA except on a double-rounding tie).  The same
+arithmetic runs on every device.  ``qmax`` comes from the row count
+padded to the reference's row quantum (``padded_rows``), as the
+reference pads its frames before it quantizes.
 
 The reference's autotuner lever and the ``H2O_TPU_STATS_DTYPE``
 environment tri-state are not ported: the builders take an explicit
@@ -29,6 +32,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from h2o_tpu_torch.ops import prng
@@ -37,6 +41,9 @@ from h2o_tpu_torch.ops import prng
 STATS_DTYPES = ("f32", "int16", "int8")
 _CARRIER = {"int16": (torch.int16, 32767), "int8": (torch.int8, 127)}
 
+#: the reference pads a frame's rows to ``n_nodes * row_align``; on one
+#: device that is its default ``row_align`` of 128
+ROW_QUANTUM = 128
 _TINY = 1e-30
 _QKEY_SALT = 0x51A7  # fold_in tag of the quantization noise stream
 
@@ -49,6 +56,13 @@ def stats_qdtype(stats_dtype: str) -> torch.dtype:
     except KeyError:
         raise ValueError(f"unknown stats dtype {stats_dtype!r}; one of "
                          f"{STATS_DTYPES}") from None
+
+
+def padded_rows(rows: int, quantum: int = ROW_QUANTUM) -> int:
+    """``rows`` rounded up to a multiple of ``quantum``: the row count
+    the reference's ``stats_qmax`` sees."""
+    q = max(int(quantum), 1)
+    return -(-int(rows) // q) * q
 
 
 def stats_qmax(rows: int, stats_dtype: str) -> int:
@@ -65,11 +79,15 @@ def quantize_stats(stats: torch.Tensor, key, stats_dtype: str,
     ``key`` is the per-(tree, class) key; the noise comes from its
     ``fold_in`` with 0x51A7."""
     m = stats.abs().amax(dim=0).clamp_min(_TINY)
-    scale = qmax / m
+    # a true division: torch's ``int / tensor`` multiplies by reciprocal
+    scale = torch.full_like(m, float(qmax)) / m
     u = prng.uniform(prng.fold_in(key, _QKEY_SALT), stats.shape,
                      stats.device)
-    q = torch.floor(stats * scale[None, :] + u).clamp_(-qmax, qmax)
-    return q.to(stats_qdtype(stats_dtype)), m / qmax
+    # one rounding of stats * scale + u, as the fused multiply-add
+    fma = (stats.double() * scale.double()[None, :] + u.double()).float()
+    q = torch.floor(fma).clamp_(-qmax, qmax)
+    inv_qmax = float(np.float32(1) / np.float32(qmax))
+    return q.to(stats_qdtype(stats_dtype)), m * inv_qmax
 
 
 def dequant_table(table: torch.Tensor, inv_scale: torch.Tensor) -> torch.Tensor:

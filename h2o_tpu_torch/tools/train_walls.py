@@ -2,19 +2,20 @@
 """Wall time of a full-width GBM training for one checkout of the
 PyTorch/CUDA port on one GPU.
 
-    python3 h2o_tpu_torch/tools/train_walls.py TREE [--config default|qg] [--repeats 3]
+    python3 h2o_tpu_torch/tools/train_walls.py TREE [--config NAME]
+        [--repeats 3]
 
 TREE is the root of a checkout of this repository (``.`` for this one).
 The script imports TREE's ``chip_smoke.py`` helpers and TREE's
 ``h2o_tpu_torch``, builds its kernels, makes ``chip_smoke.py``'s seeded
 1,000,000 x 28 frame, trains once to warm up, then ``--repeats`` more
-times: the GBM of ``chip_smoke.py`` phase 4 (``default``) or phase 5
-(``qg``), 20 trees of depth 5, each wall ending in
-``torch.cuda.synchronize()``.  One JSON line per timed training (wall,
-training AUC), then a summary with the median, the card's name and
-power limit, and the operations of one more training under
-``torch.profiler``: the ``aten::`` calls on the host (nested ones
-included) and the device operations.  Those counts do not vary between
+times: the GBM of ``chip_smoke.py`` phase 4 (``default``), phase 5
+(``qg``) or phase 8 (``random_int16``, ``qg_int16``), 20 trees of depth
+5, each wall ending in ``torch.cuda.synchronize()``.  One JSON line
+per timed training (wall, training AUC), then a summary with the
+median, the card's name and power limit, and the operations of one more
+training under ``torch.profiler``: the ``aten::`` calls on the host
+(nested ones included) and the device operations.  Those counts do not vary between
 runs, so two checkouts that show the same ones do the same work a tree.
 
 Two checkouts are compared by running the script for both, in turns
@@ -28,8 +29,14 @@ import subprocess
 import sys
 from pathlib import Path
 
+#: phase 8's stochastic options with int16 stats
+_INT16 = dict(sample_rate=0.7, col_sample_rate=0.8,
+              col_sample_rate_per_tree=0.9, stats_dtype="int16")
 CONFIGS = {"default": {},
-           "qg": dict(histogram_type="QuantilesGlobal", nbins=64)}
+           "qg": dict(histogram_type="QuantilesGlobal", nbins=64),
+           "random_int16": dict(histogram_type="Random", **_INT16),
+           "qg_int16": dict(histogram_type="QuantilesGlobal", nbins=64,
+                            **_INT16)}
 
 
 def main() -> None:

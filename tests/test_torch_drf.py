@@ -140,10 +140,12 @@ def test_stock_default_depth20_drf(cl):
 
 def test_out_of_slice_options_raise():
     _, pf = _frames(True)
-    for kw in (dict(stopping_rounds=2), dict(checkpoint="m"),
-               dict(nfolds=3)):
+    for kw in (dict(recovery_dir="r"), dict(custom_metric_func="f")):
         with pytest.raises(NotImplementedError):
             DRF(device="cpu", ntrees=1, **kw).train(y="y", training_frame=pf)
+    with pytest.raises(ValueError, match="not found"):
+        DRF(device="cpu", ntrees=1, checkpoint="m").train(
+            y="y", training_frame=pf)
     with pytest.raises(ValueError):
         DRF(device="cpu", ntrees=1, bogus=1)
     with pytest.raises(ValueError, match="binomial_double_trees"):

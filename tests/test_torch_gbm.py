@@ -147,18 +147,17 @@ def test_bf16_histograms_reach_the_tables():
 
 
 def test_out_of_slice_options_raise():
+    """Iteration-level recovery (P14), custom metrics and distributions
+    (P13) raise by name; a checkpoint that names no saved model, an
+    unknown stats dtype or histogram type and ntrees 0 are errors."""
     jf, pf = _frames(True)
-    for kw in (dict(stopping_rounds=2), dict(score_tree_interval=1),
-               dict(checkpoint="m"), dict(nfolds=3),
-               dict(distribution="custom")):
+    for kw in (dict(recovery_dir="r"), dict(checkpoint_interval=2),
+               dict(custom_metric_func="f"), dict(distribution="custom")):
         with pytest.raises(NotImplementedError):
             GBM(device="cpu", ntrees=1, **kw).train(y="y", training_frame=pf)
     for kw in (dict(stats_dtype="int4"), dict(histogram_type="Exact"),
-               dict(ntrees=0)):
+               dict(ntrees=0), dict(checkpoint="m")):
         with pytest.raises(ValueError):
             GBM(device="cpu", **{"ntrees": 1, **kw}).train(
                 y="y", training_frame=pf)
-    with pytest.raises(NotImplementedError, match="validation frames"):
-        GBM(device="cpu", ntrees=1).train(y="y", training_frame=pf,
-                                          validation_frame=pf)
     assert torch.get_default_dtype() == torch.float32

@@ -79,6 +79,28 @@ def test_default_device_is_the_card(monkeypatch):
     assert GBM(device="cpu").device == torch.device("cpu")
 
 
+def test_loaded_models_take_the_card(monkeypatch, tmp_path):
+    """A saved model loads onto the card unless the caller names the CPU,
+    and a checkpoint given by path loads onto its builder's device."""
+    import numpy as np
+    from h2o_tpu_torch.core.frame import T_CAT, Frame, Vec
+    from h2o_tpu_torch.models.model import Model
+    from h2o_tpu_torch.models.tree.gbm import GBM
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=200).astype(np.float32)
+    fr = Frame(["x", "y"], [Vec(x), Vec((x > 0).astype(np.int32), T_CAT,
+                                        domain=["a", "b"])])
+    path = GBM(device="cpu", ntrees=1, max_depth=2).train(
+        y="y", training_frame=fr).save(str(tmp_path / "m.bin"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Model.load(path)
+    assert Model.load(path, device="cpu").device == torch.device("cpu")
+    m = GBM(device="cpu", ntrees=2, max_depth=2, checkpoint=path).train(
+        y="y", training_frame=fr)
+    assert m.device == torch.device("cpu")
+
+
 def test_kernel_dispatch_never_falls_back():
     bins = torch.zeros((8, 2), dtype=torch.uint8)
     leaf = torch.zeros(8, dtype=torch.int32)

@@ -1,13 +1,14 @@
 """The port's quantized stats held against ``h2o_tpu.ops.statpack``.
 
-``stats_qmax`` is equal.  ``quantize_stats`` draws the same noise (the
-PRNG is bitwise jax's), but XLA on the CPU compiles ``qmax / m`` into a
-multiply by a reciprocal and ``stats * scale + u`` into a fused
-multiply-add, where torch divides and rounds each step as IEEE float32
-does, on the CPU and on CUDA alike.  So the stated tolerance: every
-quantized value within one step of the reference's and at least
-99.99 % of them equal (200,000 x 4 normal stats, int16 carrier), and
-``1/scale`` within one float32 ulp.  ``dequant_table`` and
+``stats_qmax`` is equal, and so is the padded row count it is taken
+from: the reference pads rows to ``n_nodes * row_align`` (1,024 on the
+8-node test mesh with its default alignment of 128, 128 on one device).
+``quantize_stats`` draws the same noise (the PRNG is bitwise jax's) and
+computes what XLA compiles on the CPU: a true ``qmax / m``, ``m / qmax``
+as a multiply by the reciprocal, and ``stats * scale + u`` as one fused
+multiply-add (the port rounds the float64 result once).  So every
+quantized value and every ``1/scale`` is equal (200,000 x 4 normal
+stats, int16 carrier; 50,000 x 4, int8).  ``dequant_table`` and
 ``widen_stats`` are plain casts and must be equal.
 """
 
@@ -31,6 +32,18 @@ def test_stats_qmax_equal(rows, dt):
     assert psp.stats_qmax(rows, dt) == jsp.stats_qmax(rows, dt)
 
 
+@pytest.mark.parametrize("quantum,padded,qmax", [(1024, 1_000_448, 2146),
+                                                 (128, 1_000_064, 2147)])
+def test_stats_qmax_of_padded_rows(quantum, padded, qmax):
+    """1,000,000 rows: the 8-node mesh pads to 1,000,448 and takes
+    qmax 2,146; one device pads to 1,000,064 and takes 2,147."""
+    assert psp.padded_rows(1_000_000, quantum) == padded
+    assert psp.stats_qmax(psp.padded_rows(1_000_000, quantum), "int16") == \
+        jsp.stats_qmax(padded, "int16") == qmax
+    assert psp.padded_rows(1_000_000) == 1_000_064
+    assert psp.padded_rows(1024, quantum) == 1024
+
+
 def _ulps(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return np.abs(a.astype(np.float32).view(np.int32).astype(np.int64) -
                   b.astype(np.float32).view(np.int32).astype(np.int64))
@@ -48,12 +61,9 @@ def test_quantize_stats_within_one_step(dt, rows):
     pq, pinv = psp.quantize_stats(torch.from_numpy(stats), prng.key(7), dt,
                                   qmax)
     assert pq.dtype == psp.stats_qdtype(dt) and pinv.dtype == torch.float32
-    d = np.abs(np.asarray(jq).astype(np.int32) -
-               pq.numpy().astype(np.int32))
-    assert d.max() <= 1
-    assert (d == 0).mean() >= 0.9999
+    np.testing.assert_array_equal(pq.numpy(), np.asarray(jq))
     assert np.abs(pq.numpy()).max() <= qmax
-    assert _ulps(np.asarray(jinv), pinv.numpy()).max() <= 1
+    assert _ulps(np.asarray(jinv), pinv.numpy()).max() == 0
     # unbiased rounding: the dequantized stats sum close to the exact sums
     deq = pq.numpy().astype(np.float64) * pinv.numpy()
     step = pinv.numpy().astype(np.float64)
