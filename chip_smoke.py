@@ -89,16 +89,39 @@ exit code is not 0):
               with score_tree_interval 2 on the first 100,000 training and
               25,000 validation rows on the card and on the CPU: the same
               first tree, every scoring-history value within 1e-5
+  3u K1_uplift - hist_cuda at UpliftDRF's shapes (1M rows x 12 columns,
+              B = 20, L = 1, 64, 512: the frontier widths of depth-10 trees)
+              in f32 and int16, as phase 3f
+ 14 the rest of the tree family at full width:
+              14a DT at its defaults (one tree of depth 10 over every column)
+              on the 1M x 28 frame: K2 10 launches, training AUC reproduced
+              by predict(), the scoring wall; the first 100,000 rows grow the
+              same tree on the card and on the CPU;
+              14b IsolationForest at H2O-3's defaults (50 trees, sample_size
+              256, depth 8) on the same frame with 10,000 rows (1 %) shifted
+              by +4 in 3 columns: the AUC of the anomaly score against the
+              planted label; 10 trees on the first 100,000 rows equal on the
+              card and on the CPU (split columns and thresholds);
+              14c ExtendedIsolationForest (100 trees, sample_size 256) at
+              extension_level 0 and 27: the same, the card's and the CPU's
+              normals, points and values equal and the rows whose mean path
+              differs counted (projections within rounding of 0);
+              14d UpliftDRF on a Criteo-uplift-shaped frame (1M rows of
+              12 features, 85 % treated, ~4.7 % visits, +2 points of lift
+              where f0 > 0): KL with 50 trees of depth 10, then ChiSquared
+              and Euclidean with 10: K1 one launch a level, AUUC, ATE and
+              qini; 2 trees on the first 100,000 rows equal on the card and
+              on the CPU (rates to 1e-6)
   7 profile - torch.profiler over 2 default trees: device busy share and
               the kernels that take the device time; then 2 QuantilesGlobal
               trees: each histogram kernel's device ms per main-path launch
               (first pass + kernel + last pass, over the launch counter);
               the same for the two int16 stochastic GBMs, for one DRF tree
-              (where its time goes), one XGBoost tree and one multinomial
-              iteration (7 class trees)
+              (where its time goes), one XGBoost tree, one multinomial
+              iteration (7 class trees) and one UpliftDRF tree
 
 The kernels line's launches sum every main-path training above (phases
-4, 5, 8-13), each read from counters set to 0 just before it; the
+4, 5, 8-14), each read from counters set to 0 just before it; the
 launches phase lists them path by path.
 
 The line before the last holds every kernel's numbers; the last line is
@@ -128,8 +151,12 @@ from h2o_tpu_torch.models.model import Model  # noqa: E402
 from h2o_tpu_torch.models.tree import shared_tree as st  # noqa: E402
 from h2o_tpu_torch.models.tree.driver import IncrementalScorer  # noqa: E402
 from h2o_tpu_torch.models.tree.drf import DRF  # noqa: E402
+from h2o_tpu_torch.models.tree.dt import DT  # noqa: E402
 from h2o_tpu_torch.models.tree.engine import TrainedForest  # noqa: E402
 from h2o_tpu_torch.models.tree.gbm import GBM, raw_from_F  # noqa: E402
+from h2o_tpu_torch.models.tree.isofor import (  # noqa: E402
+    ExtendedIsolationForest, IsolationForest)
+from h2o_tpu_torch.models.tree.uplift import UpliftDRF  # noqa: E402
 from h2o_tpu_torch.models.tree.xgboost import XGBoost  # noqa: E402
 from h2o_tpu_torch.ops import hist_kernels as hk  # noqa: E402
 from h2o_tpu_torch.ops.histogram import hist_plain  # noqa: E402
@@ -173,6 +200,14 @@ EARLY_STOP = dict(ntrees=300, stopping_rounds=3, stopping_metric="AUTO",
                   stopping_tolerance=1e-3, score_tree_interval=5, seed=1)
 #: 13a's scoring-cost pair: trees, scoring interval, trainings of each
 COST_TREES, COST_INTERVAL, COST_REPEATS = 50, 5, 2
+#: phase 14: K1 at UpliftDRF's shapes (Criteo uplift v2.1's 12 features,
+#: nbins 20, frontier widths of depth-10 trees), the planted outliers of
+#: the anomaly frame, the uplift forests and EIF's extension levels
+UPLIFT_COLS = 12
+UPLIFT_SHAPES = [(1, 20), (64, 20), (512, 20)]
+OUTLIERS, OUTLIER_SHIFT, OUTLIER_COLS = 10_000, 4.0, 3
+UPLIFT_RUNS = (("KL", 50), ("ChiSquared", 10), ("Euclidean", 10))
+EIF_LEVELS = (0, C - 1)
 
 
 def emit(obj) -> None:
@@ -458,9 +493,9 @@ def kernel_phase(name: str, shapes, make_inputs, run_kernel, fine: bool,
     return tot
 
 
-def k1_inputs(rng):
+def k1_inputs(rng, cols: int = C):
     def make(L, B):
-        bins = torch.from_numpy(rng.integers(0, B + 1, size=(R, C),
+        bins = torch.from_numpy(rng.integers(0, B + 1, size=(R, cols),
                                              dtype=np.uint8)).to(DEV)
         leaf_np = rng.integers(0, L, size=R).astype(np.int32)
         leaf_np[rng.uniform(size=R) < 0.01] = -1
@@ -734,6 +769,166 @@ def phase_families(X, y, fr: Frame, paths) -> None:
                              f"grid steps against the constraint {worst}")
 
 
+def make_uplift(rows: int, seed: int = 0) -> Frame:
+    """A frame of Criteo uplift v2.1's shape (12 numeric features f0..f11,
+    ~85 % treated, a ~4.7 % visit rate) with a planted lift of +2 points
+    for treated rows where f0 > 0."""
+    rng = np.random.default_rng(seed)
+    F = rng.normal(size=(rows, UPLIFT_COLS)).astype(np.float32)
+    treat = (rng.uniform(size=rows) < 0.85).astype(np.int32)
+    p = 0.038 + 0.01 * np.tanh(F[:, 1]) + 0.02 * treat * (F[:, 0] > 0)
+    y = (rng.uniform(size=rows) < p).astype(np.int32)
+    names = [f"f{j}" for j in range(UPLIFT_COLS)] + ["treatment", "y"]
+    return Frame(names, [Vec(F[:, j]) for j in range(UPLIFT_COLS)] +
+                 [Vec(treat, T_CAT, domain=["0", "1"]),
+                  Vec(y, T_CAT, domain=["0", "1"])])
+
+
+def scored(m, fr: Frame):
+    """(prediction frame, wall) of ``m.predict`` over ``fr``."""
+    sync()
+    t0 = time.perf_counter()
+    pred = m.predict(fr)
+    sync()
+    return pred, time.perf_counter() - t0
+
+
+def label_auc(score: np.ndarray, label: np.ndarray) -> float:
+    return binomial_metrics(torch.from_numpy(score).to(DEV),
+                            torch.from_numpy(label).to(DEV))["AUC"]
+
+
+def phase_family(X, y, fr: Frame, paths) -> Frame:
+    """14: DT, IsolationForest, ExtendedIsolationForest and UpliftDRF at
+    full width; returns the uplift frame for the profile."""
+    sub = fr.slice_rows(slice(0, SUB_ROWS))
+    # 14a DT
+    m, wall, got = launched(fit, cls=DT, fr=fr, seed=1)
+    paths["dt"] = got
+    pred, s_wall = scored(m, fr)
+    auc = m.output["training_metrics"]["AUC"]
+    auc_pred = label_auc(pred.vec("s").data, y.astype(np.float32))
+    emit(dict(phase="dt", rows=R, cols=C, max_depth=10, min_rows=10,
+              wall_s=wall, score_wall_s=s_wall, train_auc=auc,
+              predict_auc=auc_pred, k1_launches=got[0], k2_launches=got[1]))
+    if got != (0, 10) or auc_pred != auc or not 0.5 < auc <= 1.0:
+        raise AssertionError(f"DT: launches {got}, AUC {auc} / predict() "
+                             f"{auc_pred}")
+    rec = first_tree_check("dt", DT, sub, seed=1)
+    if rec["value_max_abs_diff"] > 1e-6:
+        raise AssertionError("DT: card and CPU values differ")
+
+    # 14b / 14c the anomaly builders on planted outliers
+    rng = np.random.default_rng(14)
+    Xa = X.copy()
+    planted = rng.choice(R, OUTLIERS, replace=False)
+    Xa[planted, :OUTLIER_COLS] += OUTLIER_SHIFT
+    label = np.zeros(R, np.float32)
+    label[planted] = 1.0
+    fr_a = frame(Xa, y)
+    sub_a = fr_a.slice_rows(slice(0, SUB_ROWS))
+    m, wall, got = launched(fit, cls=IsolationForest, fr=fr_a, seed=1)
+    paths["isolationforest"] = got
+    pred, s_wall = scored(m, fr_a)
+    auc = label_auc(pred.vec("predict").data, label)
+    emit(dict(phase="isolationforest", rows=R, cols=C, ntrees=50,
+              sample_size=256, max_depth=8, outliers=OUTLIERS, wall_s=wall,
+              score_wall_s=s_wall, planted_auc=auc,
+              mean_score=m.output["training_metrics"]["mean_score"],
+              mean_length=m.output["training_metrics"]["mean_length"],
+              k1_launches=got[0], k2_launches=got[1]))
+    if got != (0, 0) or not 0.9 < auc <= 1.0:
+        raise AssertionError(f"IsolationForest: launches {got}, planted "
+                             f"AUC {auc}")
+    g, _ = fit(IsolationForest, sub_a, device="cuda", ntrees=10, seed=1)
+    c, _ = fit(IsolationForest, sub_a, device="cpu", ntrees=10, seed=1)
+    eq = {k: bool(np.array_equal(g.output[k], c.output[k]))
+          for k in ("split_col", "thresh")}
+    pg = g.predict_raw(sub_a).cpu().numpy()
+    pc = c.predict_raw(sub_a).cpu().numpy()
+    emit(dict(phase="isolationforest_cuda_vs_cpu", rows=SUB_ROWS, ntrees=10,
+              equal=eq, scores_equal=bool(np.array_equal(pg, pc))))
+    if not all(eq.values()) or not np.array_equal(pg, pc):
+        raise AssertionError(f"IsolationForest: card and CPU differ {eq}")
+    for ext in EIF_LEVELS:
+        name = f"eif_ext{ext}"
+        m, wall, got = launched(fit, cls=ExtendedIsolationForest, fr=fr_a,
+                                seed=1, extension_level=ext)
+        paths[name] = got
+        pred, s_wall = scored(m, fr_a)
+        auc = label_auc(pred.vec("anomaly_score").data, label)
+        emit(dict(phase=name, rows=R, cols=C, ntrees=100, sample_size=256,
+                  extension_level=ext, wall_s=wall, score_wall_s=s_wall,
+                  planted_auc=auc,
+                  mean_score=m.output["training_metrics"]["mean_score"],
+                  k1_launches=got[0], k2_launches=got[1]))
+        if got != (0, 0) or not 0.9 < auc <= 1.0:
+            raise AssertionError(f"{name}: launches {got}, planted AUC {auc}")
+        g, _ = fit(ExtendedIsolationForest, sub_a, device="cuda", ntrees=10,
+                   seed=1, extension_level=ext)
+        c, _ = fit(ExtendedIsolationForest, sub_a, device="cpu", ntrees=10,
+                   seed=1, extension_level=ext)
+        eq = {k: bool(np.array_equal(g.output[k], c.output[k]))
+              for k in ("normals", "points", "value", "is_split", "counts")}
+        pg = g.predict_raw(sub_a).cpu().numpy()
+        pc = c.predict_raw(sub_a).cpu().numpy()
+        rerouted = int((pg[:, 1] != pc[:, 1]).sum())
+        emit(dict(phase=name + "_cuda_vs_cpu", rows=SUB_ROWS, ntrees=10,
+                  equal=eq, rows_rerouted=rerouted,
+                  score_max_abs_diff=float(np.abs(pg[:, 0] - pc[:, 0]).max())))
+        # the card's projections sum in another order: a row whose
+        # projection lies within rounding of 0 may take the other side
+        if not all(eq.values()) or rerouted > SUB_ROWS // 1000:
+            raise AssertionError(f"{name}: card and CPU differ {eq}, "
+                                 f"{rerouted} rows rerouted")
+
+    # 14d UpliftDRF
+    fr_u = make_uplift(R)
+    yu = fr_u.vec("y").data
+    emit(dict(phase="uplift_frame", rows=R, cols=UPLIFT_COLS,
+              treated_share=float(fr_u.vec("treatment").data.mean()),
+              visit_rate=float(yu.mean())))
+    for metric, ntrees in UPLIFT_RUNS:
+        name = "upliftdrf_" + metric.lower()
+        m, wall, got = launched(fit, cls=UpliftDRF, fr=fr_u, seed=1,
+                                treatment_column="treatment",
+                                uplift_metric=metric, ntrees=ntrees)
+        paths[name] = got
+        pred, s_wall = scored(m, fr_u)
+        tm = m.output["training_metrics"]
+        u = pred.vec("uplift_predict").data
+        f0 = fr_u.vec("f0").data
+        # the planted lift: +0.02 where f0 > 0, none below
+        lift = float(u[f0 > 0.5].mean() - u[f0 < -0.5].mean())
+        emit(dict(phase=name, rows=R, cols=UPLIFT_COLS, ntrees=ntrees,
+                  max_depth=10, wall_s=wall, score_wall_s=s_wall,
+                  auuc=tm["auuc"], ate=tm["ate"], qini=tm["qini"],
+                  planted_lift_recovered=lift,
+                  splits=int((m.output["split_col"] >= 0).sum()),
+                  k1_launches=got[0], k2_launches=got[1]))
+        if got != (10 * ntrees, 0) or not tm["qini"] > 0 or \
+                not tm["auuc"] > 0 or not np.isfinite(tm["ate"]) or \
+                (metric == "KL" and not lift > 0.005) or \
+                pred.names != ["uplift_predict", "p_y1_ct1", "p_y1_ct0"]:
+            raise AssertionError(f"{name}: launches {got}, metrics {tm.data}"
+                                 f", planted lift {lift}")
+    sub_u = fr_u.slice_rows(slice(0, SUB_ROWS))
+    kw = dict(treatment_column="treatment", ntrees=2, seed=1)
+    g, _ = fit(UpliftDRF, sub_u, device="cuda", **kw)
+    c, _ = fit(UpliftDRF, sub_u, device="cpu", **kw)
+    eq = {k: bool(np.array_equal(g.output[k], c.output[k]))
+          for k in ("split_col", "bitset", "child")}
+    diff = max(float(np.abs(g.output[k] - c.output[k]).max())
+               for k in ("val_t", "val_c"))
+    emit(dict(phase="upliftdrf_cuda_vs_cpu", rows=SUB_ROWS, ntrees=2,
+              equal=eq, rates_max_abs_diff=diff,
+              splits=int((g.output["split_col"] >= 0).sum())))
+    if not all(eq.values()) or diff > 1e-6:
+        raise AssertionError(f"UpliftDRF: card and CPU differ {eq}, rates "
+                             f"{diff}")
+    return fr_u
+
+
 def history_rows(m) -> list:
     """A model's scoring history without its timestamps."""
     return [{k: v for k, v in row.items() if k != "timestamp"}
@@ -778,7 +973,8 @@ def scoring_round_ms(m, valid: Frame, trees: int, n: int = 10) -> float:
         return torch.tensor(np.asarray(out[k])[:trees], device=DEV)
 
     tf = TrainedForest(first("split_col"), first("bitset"), first("value"),
-                       None, first("thr_bin"), first("na_left"))
+                       None, first("thr_bin"), first("na_left"),
+                       first("node_gain"), first("node_w"))
     dom = out["response_domain"]
 
     def to_metrics(F, _):
@@ -997,6 +1193,12 @@ def main() -> None:
                         modes=("f32", "int16"))
     torch.cuda.empty_cache()
 
+    # -- 3u K1 at UpliftDRF's shapes ----------------------------------------
+    k1u = kernel_phase("K1_uplift", UPLIFT_SHAPES,
+                       k1_inputs(np.random.default_rng(6), UPLIFT_COLS),
+                       run_k1, fine=False, modes=("f32", "int16"))
+    torch.cuda.empty_cache()
+
     # -- 4 default GBM, full width -------------------------------------------
     X, y = make_data(R, C, seed=0)
     fr = frame(X, y)
@@ -1133,6 +1335,9 @@ def main() -> None:
     # checkpoints, cross-validation ------------------------------------------
     torch.cuda.empty_cache()
     phase_loop(paths)
+    # -- 14 DT, IsolationForest, ExtendedIsolationForest, UpliftDRF ---------
+    torch.cuda.empty_cache()
+    fr_u = phase_family(X, y, fr, paths)
     emit(dict(phase="launches", paths={k: dict(k1=v[0], k2=v[1])
                                        for k, v in paths.items()}))
     sync()
@@ -1219,6 +1424,16 @@ def main() -> None:
     emit(dict(phase="profile_multinomial_iteration", trees=7,
               **breakdown(per_m, wall_m, n_m),
               hist_cuda_adaptive=per_launch(per_m, pm_k2)))
+    per_u, wall_u, n_u, (pu_k1, pu_k2) = profiled(
+        lambda on, **kw: fit(UpliftDRF, on, seed=1,
+                             treatment_column="treatment", **kw),
+        ntrees=1, on=fr_u)
+    if (pu_k1, pu_k2) != (10, 0):
+        raise AssertionError(f"profiled UpliftDRF tree: (K1, K2) launched "
+                             f"{(pu_k1, pu_k2)}, want (10, 0)")
+    emit(dict(phase="profile_uplift_tree", ntrees=1,
+              **breakdown(per_u, wall_u, n_u),
+              hist_cuda=per_launch(per_u, pu_k1)))
 
     def block(tot, **shape):
         return dict(**shape, ms=tot["ms"], bound_ms=tot["bound_ms"],
@@ -1241,7 +1456,11 @@ def main() -> None:
     print(smi, flush=True)
     emit({"kernels": [
         entry("hist_cuda", "h2o_tpu/ops/hist_pallas.py:308",
-              sum(v[0] for v in paths.values()), k1, k1f),
+              sum(v[0] for v in paths.values()), k1, k1f,
+              uplift=dict(rows=R, cols=UPLIFT_COLS,
+                          **block(k1u, shapes=UPLIFT_SHAPES),
+                          launches=sum(v[0] for k, v in paths.items()
+                                       if k.startswith("upliftdrf")))),
         entry("hist_cuda_adaptive", "h2o_tpu/ops/hist_pallas.py:220",
               sum(v[1] for v in paths.values()), k2, k2f,
               xgb=block(k2x, shapes=XGB_SHAPES),

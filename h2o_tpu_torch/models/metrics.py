@@ -2,15 +2,20 @@
 (``_binomial_kernel`` :27-45, ``_auc_from_hist`` :48-69,
 ``_regression_kernel`` :72-92 with RMSLE, ``_multinomial_kernel`` :96-116,
 ``ModelMetrics`` :118-142, ``regression_metrics`` :145-166,
-``binomial_metrics`` :258-280, ``multinomial_metrics`` :283-307).
+``twodim_json`` :169-186, ``_threshold_tables`` :189-255,
+``binomial_metrics`` :258-280, ``multinomial_metrics`` :283-307), and of
+the anomaly metrics (``h2o_tpu/models/tree/isofor.py:147-151``) and the
+uplift metrics (``h2o_tpu/models/tree/uplift.py:272-292``).
 
 Binomial AUC comes from a fixed 1024-bin histogram of the scores (the
 reference's AUC2 analog), so it reduces in O(bins).  Reductions are
-float32 tensor code on the scores' device; the bin sweep runs in numpy
-on the host, copied from the reference.  Every metric a stopping metric
-can name (``models/score_keeper.py`` ``_KEYS``) is produced where the
-reference produces it; the binomial threshold tables (a REST artifact)
-wait for the REST slice.
+float32 tensor code on the scores' device; the bin sweep, the threshold
+tables (``thresholds_and_metric_scores`` and
+``max_criteria_and_metric_scores``, in the TwoDimTableV3 layout the
+clients read), the anomaly means and the uplift curve run in numpy on
+the host, copied from the reference.  Every metric a stopping metric can
+name (``models/score_keeper.py`` ``_KEYS``) is produced where the
+reference produces it.
 """
 
 from __future__ import annotations
@@ -66,6 +71,96 @@ def _auc_from_hist(pos: np.ndarray, neg: np.ndarray) -> Dict[str, float]:
                 max_f1=float(f1[k]), max_f1_threshold=thr, cm=cm)
 
 
+def twodim_json(name, col_header, col_types, rows, description=""):
+    """TwoDimTableV3 wire JSON (column-major ``data``, one column spec a
+    header), the layout h2o-py's ``two_dim_table.py`` parses."""
+    ncol = len(col_header)
+    data = [[r[j] for r in rows] for j in range(ncol)]
+    return {
+        "__meta": {"schema_version": 3, "schema_name": "TwoDimTableV3",
+                   "schema_type": "TwoDimTable"},
+        "name": name, "description": description,
+        "columns": [{"__meta": {"schema_version": -1,
+                                "schema_name": "ColumnSpecsBase",
+                                "schema_type": "Iced"},
+                     "name": n, "type": t, "format": "%s", "description": n}
+                    for n, t in zip(col_header, col_types)],
+        "rowcount": len(rows),
+        "data": data,
+    }
+
+
+# AUC2.ThresholdCriterion.VALUES order (hex/AUC2.java:43-95): clients
+# index a thresholds_and_metric_scores row by position
+_THRESHOLD_CRITERIA = (
+    "f1", "f2", "f0point5", "accuracy", "precision", "recall",
+    "specificity", "absolute_mcc", "min_per_class_accuracy",
+    "mean_per_class_accuracy", "tns", "fns", "fps", "tps",
+    "tnr", "fnr", "fpr", "tpr")
+_INT_CRITERIA = ("tns", "fns", "fps", "tps")
+
+
+def _threshold_tables(pos: np.ndarray, neg: np.ndarray):
+    """thresholds_and_metric_scores and max_criteria_and_metric_scores
+    from the AUC score histograms, one row a non-empty bin, thresholds
+    descending (ModelMetricsBinomialV3.java:70-120); (None, None) when
+    every bin is empty."""
+    nb = len(pos)
+    pos_d, neg_d = pos[::-1], neg[::-1]
+    keep = (pos_d + neg_d) > 0
+    tp = np.cumsum(pos_d)[keep]
+    fp = np.cumsum(neg_d)[keep]
+    ths = (1.0 - (np.arange(nb) + 1.0) / nb)[keep]
+    n = len(tp)
+    if n == 0:
+        return None, None
+    P = max(tp[-1], EPS)
+    N = max(fp[-1], EPS)
+    fn, tn = P - tp, N - fp
+    with np.errstate(divide="ignore", invalid="ignore"):
+        prec = tp / np.maximum(tp + fp, EPS)
+        tpr = tp / P
+        tnr = tn / N
+        vals = {
+            "f1": 2 * prec * tpr / np.maximum(prec + tpr, EPS),
+            "f2": 5 * prec * tpr / np.maximum(4 * prec + tpr, EPS),
+            "f0point5": 1.25 * prec * tpr / np.maximum(
+                0.25 * prec + tpr, EPS),
+            "accuracy": (tp + tn) / (P + N),
+            "precision": prec, "recall": tpr, "specificity": tnr,
+            "absolute_mcc": np.abs(
+                (tp * tn - fp * fn) / np.sqrt(np.maximum(
+                    (tp + fp) * (tp + fn) * (tn + fp) * (tn + fn), EPS))),
+            "min_per_class_accuracy": np.minimum(tpr, tnr),
+            "mean_per_class_accuracy": 0.5 * (tpr + tnr),
+            "tns": tn, "fns": fn, "fps": fp, "tps": tp,
+            "tnr": tnr, "fnr": fn / P, "fpr": fp / N, "tpr": tpr,
+        }
+    rows = []
+    for i in range(n):
+        row = [float(ths[i])]
+        for c in _THRESHOLD_CRITERIA:
+            v = vals[c][i]
+            row.append(int(v) if c in _INT_CRITERIA else float(v))
+        row.append(i)
+        rows.append(row)
+    thresh_tbl = twodim_json(
+        "Metrics for Thresholds",
+        ["threshold"] + list(_THRESHOLD_CRITERIA) + ["idx"],
+        ["double"] + ["long" if c in _INT_CRITERIA else "double"
+                      for c in _THRESHOLD_CRITERIA] + ["int"],
+        rows, "Binomial metrics as a function of classification thresholds")
+    max_rows = []
+    for c in _THRESHOLD_CRITERIA:
+        k = int(np.argmax(vals[c]))
+        max_rows.append([f"max {c}", float(ths[k]), float(vals[c][k]), k])
+    max_tbl = twodim_json(
+        "Maximum Metrics", ["metric", "threshold", "value", "idx"],
+        ["string", "double", "double", "long"], max_rows,
+        "Maximum metrics at their respective thresholds")
+    return thresh_tbl, max_tbl
+
+
 class ModelMetrics:
     """Host-side metrics bundle."""
 
@@ -105,6 +200,9 @@ def binomial_metrics(p1: torch.Tensor, y: torch.Tensor,
                     0.5 * (cm["fn"] / max(cm["fn"] + cm["tp"], EPS) +
                            cm["fp"] / max(cm["fp"] + cm["tn"], EPS))),
                 domain=list(domain) if domain else ["0", "1"], **sweep)
+    data["thresholds_and_metric_scores"], \
+        data["max_criteria_and_metric_scores"] = _threshold_tables(
+            r["pos"], r["neg"])
     return ModelMetrics("binomial", data)
 
 
@@ -193,3 +291,31 @@ def multinomial_metrics(probs: torch.Tensor, y: torch.Tensor,
                 domain=list(domain) if domain else
                 [str(i) for i in range(K)])
     return ModelMetrics("multinomial", data)
+
+
+def anomaly_metrics(raw: np.ndarray) -> ModelMetrics:
+    """Mean anomaly score and mean path length of (rows, 2) host
+    predictions [score, mean_length]."""
+    return ModelMetrics("anomaly", dict(
+        mean_score=float(raw[:, 0].mean()),
+        mean_length=float(raw[:, 1].mean())))
+
+
+def uplift_metrics(uplift: np.ndarray, y: np.ndarray,
+                   treat: np.ndarray) -> ModelMetrics:
+    """Qini-style uplift metrics over the rows ranked by predicted uplift
+    (ModelMetricsBinomialUplift analog): the Qini curve ``yt - yc * nt /
+    max(nc, 1)`` at every cut, its trapezoid area over the row count
+    (``auuc``), its last value (``qini``) and the mean predicted uplift
+    (``ate``).  Host numpy, as the reference computes it."""
+    order = np.argsort(-uplift)
+    y = np.asarray(y, np.float64)[order]
+    t = np.asarray(treat, np.float64)[order]
+    nt = np.cumsum(t)
+    nc = np.cumsum(1 - t)
+    yt = np.cumsum(y * t)
+    yc = np.cumsum(y * (1 - t))
+    qini = yt - yc * nt / np.maximum(nc, 1)
+    auuc = float(np.trapezoid(qini) / max(len(y), 1))
+    return ModelMetrics("uplift", dict(auuc=auuc, ate=float(uplift.mean()),
+                                       qini=float(qini[-1])))

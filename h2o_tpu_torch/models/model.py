@@ -212,6 +212,12 @@ _MODEL_CLASSES = {
     "gbm": ("h2o_tpu_torch.models.tree.gbm", "GBMModel"),
     "drf": ("h2o_tpu_torch.models.tree.drf", "DRFModel"),
     "xgboost": ("h2o_tpu_torch.models.tree.xgboost", "XGBoostModel"),
+    "dt": ("h2o_tpu_torch.models.tree.dt", "DTModel"),
+    "isolationforest": ("h2o_tpu_torch.models.tree.isofor",
+                        "IsolationForestModel"),
+    "extendedisolationforest": ("h2o_tpu_torch.models.tree.isofor",
+                                "ExtendedIsolationForestModel"),
+    "upliftdrf": ("h2o_tpu_torch.models.tree.uplift", "UpliftDRFModel"),
 }
 
 
@@ -220,6 +226,11 @@ class ModelBuilder:
 
     algo = "base"
     model_cls = Model
+    #: False for the anomaly builders, which train without a response
+    supervised = True
+    #: False where fold metrics do not apply (anomaly and uplift models):
+    #: nfolds or a fold_column then raises
+    supports_cv = True
     #: params the engine runs at given values only (param -> accepted
     #: values; strings compare case-insensitively with -_ collapsed):
     #: anything else raises instead of being ignored
@@ -274,9 +285,10 @@ class ModelBuilder:
         if training_frame is None:
             raise ValueError("training_frame is required")
         y = y or self.params.get("response_column")
-        if not y:
-            raise ValueError(f"{self.algo} requires a response column")
-        self.params["response_column"] = y
+        if self.supervised:
+            if not y:
+                raise ValueError(f"{self.algo} requires a response column")
+            self.params["response_column"] = y
         ignored = set(self.params.get("ignored_columns") or ())
         if self.params.get("fold_column"):
             ignored.add(self.params["fold_column"])
@@ -284,6 +296,9 @@ class ModelBuilder:
              if c != y and c not in ignored]
         if int(self.params.get("nfolds") or 0) > 1 or \
                 self.params.get("fold_column"):
+            if not self.supports_cv:
+                raise ValueError(f"{self.algo}: n-fold cross-validation is "
+                                 "not supported by this builder")
             return self._fit_cv(x, y, training_frame, validation_frame)
         return self._fit(x, y, training_frame, validation_frame)
 

@@ -48,13 +48,18 @@ def _set_node_array(model, name: str, new: np.ndarray) -> None:
     """Store a per-node array covering every tree of the model: a
     checkpoint's own values come first; a checkpoint without the array
     gets a prefix of -1 for ``thr_bin`` (bitset descent) and 0 else, so
-    indexing stays aligned with ``split_col``."""
+    indexing stays aligned with ``split_col`` — except ``node_w``, which
+    becomes None: made-up covers would make TreeSHAP silently wrong for
+    the checkpoint's trees."""
     sc_all = np.asarray(model.output["split_col"])
     prior = model.output.get(name)
     if prior is not None and \
             prior.shape[0] + new.shape[0] == sc_all.shape[0]:
         new = np.concatenate([np.asarray(prior), new])
     elif new.shape[0] != sc_all.shape[0]:
+        if name == "node_w":
+            model.output[name] = None
+            return
         fill = -1 if name == "thr_bin" else 0
         pad = np.full((sc_all.shape[0] - new.shape[0],) + new.shape[1:],
                       fill, new.dtype)
@@ -143,8 +148,9 @@ def _concat(blocks: List[TrainedForest]) -> TrainedForest:
     return TrainedForest(
         cat("split_col"), cat("bitset"), cat("value"),
         torch.stack([b.varimp for b in blocks]).sum(dim=0), cat("thr_bin"),
-        cat("na_left"), cat("child") if blocks[0].child is not None
-        else None, blocks[-1].f_final)
+        cat("na_left"), cat("node_gain"), cat("node_w"),
+        cat("child") if blocks[0].child is not None else None,
+        blocks[-1].f_final)
 
 
 def run_tree_driver(p: Dict, train_kwargs: Dict, F0: torch.Tensor, key,
@@ -159,9 +165,10 @@ def run_tree_driver(p: Dict, train_kwargs: Dict, F0: torch.Tensor, key,
     stop on ``ScoreKeeper.stop_early`` or the runtime budget.
 
     ``make_model(tf)`` -> Model gets the new trees only (the
-    builder prepends a checkpoint's trees and carries its ``varimp``,
-    ``thr_bin`` and ``na_left``); the driver then adds the new trees'
-    importance and node arrays and the scoring history."""
+    builder prepends a checkpoint's trees and carries its ``varimp`` and
+    node arrays); the driver then adds the new trees' importance and
+    node arrays (``thr_bin``, ``na_left``, ``node_gain``, ``node_w``)
+    and the scoring history."""
     ntrees = int(p["ntrees"]) - prior_trees
     if prior_trees and ntrees <= 0:
         raise ValueError(
@@ -211,6 +218,6 @@ def run_tree_driver(p: Dict, train_kwargs: Dict, F0: torch.Tensor, key,
     prior_vi = model.output.get("varimp")
     vi = tf.varimp.cpu().numpy()
     model.output["varimp"] = vi if prior_vi is None else prior_vi + vi
-    _set_node_array(model, "thr_bin", tf.thr_bin.cpu().numpy())
-    _set_node_array(model, "na_left", tf.na_left.cpu().numpy())
+    for name in ("thr_bin", "na_left", "node_gain", "node_w"):
+        _set_node_array(model, name, getattr(tf, name).cpu().numpy())
     return model

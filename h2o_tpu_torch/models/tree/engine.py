@@ -38,6 +38,11 @@ the 0/1 indicator.  Monotone constraints reject violating splits
 at the midpoint of its children's values; ``reg_lambda`` enters the
 Newton denominator.
 
+Every tree also carries its nodes' split gains (``node_gain``, clamped
+at 0; 0 where a node does not split) and training covers (``node_w``,
+the node's weight, children's covers pre-written from their parent's
+split), as the reference's engines emit them for TreeSHAP.
+
 Left out on purpose: the matmul router ``_mm_route_level``
 (``jit_engine.py:188-255``), which works around per-row gathers on the
 TPU — a GPU gathers natively.
@@ -91,6 +96,27 @@ def pool_size(depth: int, kleaves: int) -> int:
     if kleaves <= 0:
         return 2 ** (depth + 1) - 1
     return 1 + 2 * sum(frontier_plan(depth, kleaves))
+
+
+def select_frontier(ckey: torch.Tensor, L_next: int, base: int, N: int):
+    """The next level's live leaves from the 2L split children's keys
+    (-inf where no child is): all of them while they fit, else the
+    ``L_next`` largest in ``lax.top_k``'s order (ties to the lower
+    index).  Returns the selected children's pool ids (``base`` + child,
+    or the trash slot ``N`` where a slot stays empty), the selection, and
+    each child's next-level slot (-1 off the frontier)."""
+    dev = ckey.device
+    n = ckey.shape[0]
+    if n <= L_next:
+        sel = torch.arange(n, device=dev)            # identity: dense
+    else:
+        sel = torch.sort(ckey, descending=True, stable=True).indices[:L_next]
+    sel_valid = ckey[sel] > float("-inf")
+    frontier = torch.where(sel_valid, base + sel, torch.full_like(sel, N))
+    inv = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    inv[sel] = torch.where(sel_valid, torch.arange(
+        sel.shape[0], dtype=torch.int32, device=dev), -1).to(torch.int32)
+    return frontier, sel, inv
 
 
 def _floor_div(a: torch.Tensor, b) -> torch.Tensor:
@@ -337,6 +363,8 @@ class Tree(NamedTuple):
     varimp: torch.Tensor      # (C,) float32
     thr_bin: torch.Tensor     # (H,) int32 adaptive numeric threshold
     na_left: torch.Tensor     # (H,) bool NA direction of thr splits
+    node_gain: torch.Tensor   # (H,) float32 split gain, clamped at 0
+    node_w: torch.Tensor      # (H,) float32 training cover
     child: Optional[torch.Tensor] = None   # (H,) left-child pool ptrs
 
 
@@ -346,7 +374,19 @@ def _new_tree(H: int, B: int, C: int, dev) -> Tree:
                 torch.zeros(H, dtype=torch.float32, device=dev),
                 torch.zeros(C, dtype=torch.float32, device=dev),
                 torch.full((H,), -1, dtype=torch.int32, device=dev),
-                torch.zeros(H, dtype=torch.bool, device=dev))
+                torch.zeros(H, dtype=torch.bool, device=dev),
+                torch.zeros(H, dtype=torch.float32, device=dev),
+                torch.zeros(H, dtype=torch.float32, device=dev))
+
+
+def _covers(lv: _Level):
+    """A level's node covers (live leaves' w, else 0) and its split
+    children's, interleaved left/right (2L)."""
+    s = lv.s
+    live = s["leaf"]["w"] > 0
+    own = torch.where(live, s["leaf"]["w"], torch.zeros_like(s["leaf"]["w"]))
+    kids = torch.stack([s["left"]["w"], s["right"]["w"]], dim=1).reshape(-1)
+    return own, kids
 
 
 def _root_ranges(C: int, F: int, dev):
@@ -389,12 +429,18 @@ def build_tree(bins: torch.Tensor, stats: torch.Tensor, leaf0: torch.Tensor,
         t.bitset[off:off + L] = lv.bitset
         t.value[off:off + L] = torch.where(lv.term, lv.leaf_vals,
                                            torch.zeros_like(lv.leaf_vals))
-        # pre-write child values (interleaved left/right) at level d+1
+        own_w, kid_w = _covers(lv)
+        t.node_gain[off:off + L] = lv.gain_pos
+        t.node_w[off:off + L] = own_w
+        # pre-write child values and covers (interleaved left/right) at
+        # level d+1: the last level's nodes get theirs only here
         child_vals = torch.stack([lv.lvals, lv.rvals], dim=1).reshape(2 * L)
         coff = 2 * L - 1
+        cmask = lv.do_split.repeat_interleave(2)
         t.value[coff:coff + 2 * L] = torch.where(
-            lv.do_split.repeat_interleave(2), child_vals,
-            t.value[coff:coff + 2 * L])
+            cmask, child_vals, t.value[coff:coff + 2 * L])
+        t.node_w[coff:coff + 2 * L] = torch.where(
+            cmask, kid_w, t.node_w[coff:coff + 2 * L])
         active, lf, go_left, do_lf = _route(bins, leaf, lv, adaptive, F)
         child = (2 * lf + torch.where(go_left, 0, 1)).to(torch.int32)
         leaf = torch.where(active & do_lf, child,
@@ -446,14 +492,20 @@ def build_tree_frontier(bins: torch.Tensor, stats: torch.Tensor,
         t.bitset[frontier] = lv.bitset
         t.value[frontier] = torch.where(lv.term, lv.leaf_vals,
                                         torch.zeros_like(lv.leaf_vals))
+        own_w, kid_w = _covers(lv)
+        t.node_gain[frontier] = lv.gain_pos
+        t.node_w[frontier] = own_w
         ptr = base + 2 * torch.arange(L, dtype=torch.int32, device=dev)
         child[frontier] = torch.where(lv.do_split, ptr,
                                       torch.full_like(ptr, -1))
-        # pre-write child values at their fresh, contiguous pool slots
+        # pre-write child values and covers at their fresh, contiguous
+        # pool slots
         cvals = torch.stack([lv.lvals, lv.rvals], dim=1).reshape(2 * L)
         cmask = lv.do_split.repeat_interleave(2)
         t.value[base:base + 2 * L] = torch.where(cmask, cvals,
                                                  torch.zeros_like(cvals))
+        t.node_w[base:base + 2 * L] = torch.where(cmask, kid_w,
+                                                  torch.zeros_like(kid_w))
         if d + 1 < D:
             L_next = widths[d + 1]
             # best-first selection: the children with the most residual
@@ -462,19 +514,7 @@ def build_tree_frontier(bins: torch.Tensor, stats: torch.Tensor,
                   torch.clamp_min(s[k]["w"], EPS) for k in ("left", "right")]
             cse = torch.stack(se, dim=1).reshape(2 * L)
             ckey = torch.where(cmask, cse.clamp_min(0.0), neg_inf)
-            if 2 * L <= L_next:
-                sel = torch.arange(2 * L, device=dev)  # identity: dense
-            else:
-                # jax's top_k: largest first, ties to the lower index
-                sel = torch.sort(ckey, descending=True,
-                                 stable=True).indices[:L_next]
-            sel_valid = ckey[sel] > neg_inf
-            frontier = torch.where(sel_valid, base + sel,
-                                   torch.full_like(sel, N))
-            inv = torch.full((2 * L,), -1, dtype=torch.int32, device=dev)
-            inv[sel] = torch.where(
-                sel_valid, torch.arange(L_next, dtype=torch.int32,
-                                        device=dev), -1).to(torch.int32)
+            frontier, sel, inv = select_frontier(ckey, L_next, base, N)
             # split-parent rows follow the split to a child; rows whose
             # child fell off the frontier finish (-1)
             active, sl, go_left, do_sl = _route(bins, slot, lv, adaptive, F)
@@ -492,7 +532,8 @@ def build_tree_frontier(bins: torch.Tensor, stats: torch.Tensor,
             sibling = (lv.hist, lv.do_split) if L_next == 2 * L else None
         base += 2 * L
     return Tree(t.split_col[:N], t.bitset[:N], t.value[:N], t.varimp,
-                t.thr_bin[:N], t.na_left[:N], child[:N])
+                t.thr_bin[:N], t.na_left[:N], t.node_gain[:N], t.node_w[:N],
+                child[:N])
 
 
 class TrainedForest(NamedTuple):
@@ -502,6 +543,8 @@ class TrainedForest(NamedTuple):
     varimp: torch.Tensor      # (C,)
     thr_bin: torch.Tensor     # (T, K, N)
     na_left: torch.Tensor     # (T, K, N)
+    node_gain: torch.Tensor   # (T, K, N) split gain, clamped at 0
+    node_w: torch.Tensor      # (T, K, N) training cover (TreeSHAP)
     child: Optional[torch.Tensor] = None   # (T, K, N); None = dense heap
     f_final: Optional[torch.Tensor] = None  # (R, K) F after the last tree
 
@@ -627,5 +670,6 @@ def train_forest(bins: torch.Tensor, yv: torch.Tensor, w: torch.Tensor,
 
     return TrainedForest(stack("split_col"), stack("bitset"), stack("value"),
                          stack("varimp").sum(dim=(0, 1)), stack("thr_bin"),
-                         stack("na_left"),
+                         stack("na_left"), stack("node_gain"),
+                         stack("node_w"),
                          stack("child") if kleaves > 0 else None, F)

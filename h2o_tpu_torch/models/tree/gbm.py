@@ -86,7 +86,8 @@ class GBM(ModelBuilder):
     algo = "gbm"
     model_cls = GBMModel
     ENGINE_FIXED = {"histogram_type": st.HISTOGRAM_TYPES,
-                    "categorical_encoding": ("AUTO", "Enum")}
+                    "categorical_encoding": ("AUTO", "Enum"),
+                    "calibrate_model": (False,)}
 
     def default_params(self) -> Dict:
         p = super().default_params()
@@ -99,7 +100,10 @@ class GBM(ModelBuilder):
                  score_each_iteration=False, score_tree_interval=0,
                  stopping_rounds=0, stopping_metric="AUTO",
                  stopping_tolerance=1e-3, bf16_histograms=False,
-                 monotone_constraints=None)
+                 monotone_constraints=None,
+                 # one device: every tree builds on one node already
+                 build_tree_one_node=False, calibrate_model=False,
+                 custom_distribution_func=None)
         return p
 
     def _check_slice(self) -> None:

@@ -33,6 +33,7 @@ import torch
 
 from h2o_tpu_torch.models.model import DataInfo
 from h2o_tpu_torch.ops.binpack import cast_bins, widen_bins
+from h2o_tpu_torch.ops.xlamath import sum_leading
 
 EPS = 1e-10
 
@@ -66,8 +67,9 @@ HISTOGRAM_TYPES = ("AUTO", "UniformAdaptive", "QuantilesGlobal", "Random")
 
 
 def check_slice(algo: str, p: Dict) -> None:
-    """Reject, by name, what neither tree builder of the port runs yet:
-    iteration-level recovery (P14) and custom metrics (P13)."""
+    """Reject, by name, what no tree builder of the port runs yet:
+    iteration-level recovery (P14), custom metrics and custom
+    distribution functions (P13)."""
     if str(p.get("histogram_type") or "AUTO") not in HISTOGRAM_TYPES:
         raise ValueError(f"{algo}: unknown histogram_type "
                          f"{p.get('histogram_type')!r}")
@@ -76,11 +78,12 @@ def check_slice(algo: str, p: Dict) -> None:
             f"{algo}: recovery_dir/checkpoint_interval (iteration-level "
             "recovery) is not in the port yet; it comes with the runtime "
             "services (P14)")
-    if p.get("custom_metric_func"):
-        raise NotImplementedError(
-            f"{algo}: custom_metric_func is not in the port yet; it comes "
-            "with the REST and orchestration slice (P13), which brings the "
-            "UDF layer")
+    for udf in ("custom_metric_func", "custom_distribution_func"):
+        if p.get(udf) not in (None, ""):
+            raise NotImplementedError(
+                f"{algo}: {udf} is not in the port yet; it comes with the "
+                "REST and orchestration slice (P13), which brings the UDF "
+                "layer")
     if int(p["ntrees"]) < 1:
         raise ValueError(f"{algo}: ntrees must be >= 1")
 
@@ -196,9 +199,10 @@ def forest_output(di: DataInfo, binned: BinnedData, tf, depth: int,
     """The model-output fields both tree builders write, as host arrays:
     the binning, the forest's trees (``child`` None for the dense heap)
     and the frame's domains.  With ``prior``, a checkpoint's output, its
-    trees come first and its ``varimp``, ``thr_bin`` and ``na_left`` are
-    carried; ``driver.run_tree_driver`` adds the new trees' importance
-    and node arrays."""
+    trees come first and its ``varimp`` and per-node arrays (``thr_bin``,
+    ``na_left``, ``node_gain``, ``node_w``) are carried;
+    ``driver.run_tree_driver`` adds the new trees' importance and node
+    arrays."""
     def host(a):
         return a.cpu().numpy() if a is not None else None
 
@@ -208,7 +212,8 @@ def forest_output(di: DataInfo, binned: BinnedData, tf, depth: int,
         nbins=binned.nbins, fine_nbins=binned.fine_nbins,
         hist_type=binned.hist_type, split_col=host(tf.split_col),
         bitset=host(tf.bitset), value=host(tf.value), child=host(tf.child),
-        varimp=None, thr_bin=None, na_left=None, max_depth=depth,
+        varimp=None, thr_bin=None, na_left=None, node_gain=None,
+        node_w=None, max_depth=depth,
         response_domain=response_domain,
         domains={c: list(fr.vec(c).domain) for c in di.cat_names},
         ntrees_actual=int(tf.split_col.shape[0]))
@@ -216,7 +221,7 @@ def forest_output(di: DataInfo, binned: BinnedData, tf, depth: int,
         for k in ("split_col", "bitset", "value", "child"):
             if out[k] is not None:
                 out[k] = np.concatenate([np.asarray(prior[k]), out[k]])
-        for k in ("varimp", "thr_bin", "na_left"):
+        for k in ("varimp", "thr_bin", "na_left", "node_gain", "node_w"):
             if prior.get(k) is not None:
                 out[k] = np.asarray(prior[k])
         out["ntrees_actual"] += int(prior["ntrees_actual"])
@@ -407,11 +412,12 @@ def forest_score(bins, split_col, bitset, value, depth: int, child=None,
                  thr=None, na_l=None, fine_na: int = -1) -> torch.Tensor:
     """Sum of tree outputs per (row, k-slot): (R, K).  One descent
     implementation only (``forest_tree_values``), so scoring and staged
-    predictions cannot diverge."""
+    predictions cannot diverge; the trees are summed in the order the
+    reference's ``jnp.sum`` takes on the CPU (``xlamath.sum_leading``)."""
     vals = forest_tree_values(bins, split_col, bitset, value, depth,
                               child=child, thr=thr, na_l=na_l,
                               fine_na=fine_na)
-    return vals.sum(dim=0).T
+    return sum_leading(vals).T
 
 
 def model_fine_na(out: Dict) -> int:

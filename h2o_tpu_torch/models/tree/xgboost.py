@@ -192,9 +192,13 @@ class XGBoost(GBM):
         finally:
             self.params = p_all
         out = dict(fits[0])
-        for name in ("split_col", "bitset", "thr_bin", "na_left", "child"):
+        for name in ("split_col", "bitset", "thr_bin", "na_left", "child",
+                     "node_w"):
             out[name] = None if fits[0][name] is None else \
                 np.concatenate([f[name] for f in fits])
+        # dart rescales leaf values, not the routing: the covers stand,
+        # the gains do not (as in the reference)
+        out["node_gain"] = None
         out["value"] = np.concatenate(
             [f["value"] * np.float32(s) for f, s in zip(fits, scale)])
         out["ntrees_actual"] = ntrees

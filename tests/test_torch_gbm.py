@@ -161,3 +161,83 @@ def test_out_of_slice_options_raise():
             GBM(device="cpu", **{"ntrees": 1, **kw}).train(
                 y="y", training_frame=pf)
     assert torch.get_default_dtype() == torch.float32
+
+
+# -- nodes whose gain is float32 rounding -------------------------------------
+
+def _node_rows(bins: np.ndarray, out: dict, t: int) -> dict:
+    """Heap node -> row mask of tree ``t`` (one class) of a dense
+    UniformAdaptive forest."""
+    sc, th, na = (np.asarray(out[k])[t, 0] for k in
+                  ("split_col", "thr_bin", "na_left"))
+    fine_na = int(out["fine_nbins"])
+    n = bins.shape[0]
+    node = np.zeros(n, np.int64)
+    rows = {0: np.ones(n, bool)}
+    for _ in range(int(out["max_depth"])):
+        c = sc[node]
+        b = bins[np.arange(n), np.maximum(c, 0)]
+        go_left = np.where(b == fine_na, na[node], b < th[node])
+        node = np.where(c < 0, node, 2 * node + np.where(go_left, 1, 2))
+        for m in np.unique(node):
+            rows[int(m)] = node == m
+    return rows
+
+
+def test_pure_nodes_split_on_rounding(cl):
+    """A probe with pure nodes: 2,000 rows of 4 normal columns (seed 0),
+    ``y = [x0 + noise > 0]``, a 3-tree default GBM.  Both engines keep the
+    reference's rule and split when the best gain exceeds
+    ``max(min_split_improvement * se_parent, 1e-10)``; at a node of one
+    class every candidate's float32 gain is a cancellation residue of
+    ``wgg - wg^2/w``, and the two packages' residues differ.
+
+    Rule: a split is *rounding* when its gain is below 1e-6 of the node's
+    sum of squared gradients wgg (its exact SE is then 0, as here, or
+    within float32 rounding of it).  The first tree is equal node for
+    node except in the subtrees of rounding splits; after the first such
+    split the forests may differ, and predictions then hold p1 to atol
+    0.02 and the training AUC to 1e-4: room for a pure node of a first
+    tree split on another column."""
+    rng = np.random.default_rng(0)
+    n = 2000
+    X = rng.normal(size=(n, 4)).astype(np.float32)
+    y = (X[:, 0] + rng.normal(size=n) > 0).astype(np.int32)
+    names = ["x0", "x1", "x2", "x3", "y"]
+    jf = JFrame(names, [JVec(X[:, j]) for j in range(4)] +
+                [JVec(y, J_CAT, domain=["0", "1"])])
+    pf = Frame(names, [Vec(X[:, j]) for j in range(4)] +
+               [Vec(y, T_CAT, domain=["0", "1"])])
+    jm = JGBM(ntrees=3, seed=1).train(y="y", training_frame=jf)
+    pm = GBM(device="cpu", ntrees=3, seed=1).train(y="y", training_frame=pf)
+    jo, po = jm.output, pm.output
+    from h2o_tpu_torch.models.tree import shared_tree as st
+    bins = st.bin_matrix(torch.from_numpy(X), po["split_points"],
+                         po["is_cat"], st.model_fine_na(po)).numpy().astype(
+        np.int64)
+    p0 = 1 / (1 + np.exp(-np.float32(np.asarray(jo["f0"])[0])))
+    g = (y - p0).astype(np.float64)
+    rows = _node_rows(bins, jo, 0)
+    gain = np.asarray(jo["node_gain"])[0, 0]
+    sc = np.asarray(jo["split_col"])[0, 0]
+    rounding = [m for m in sorted(rows) if sc[m] >= 0 and
+                gain[m] < 1e-6 * float((g[rows[m]] ** 2).sum())]
+    assert rounding, "the probe has a pure node that splits"
+    H = sc.shape[0]
+
+    def under(m, r):
+        while m > r:
+            m = (m - 1) // 2
+        return m == r
+
+    cmp_nodes = [m for m in range(H) if not any(under(m, r) and m != r
+                                                for r in rounding)]
+    for k in ("split_col", "thr_bin", "na_left"):
+        a, b = po[k][0, 0], np.asarray(jo[k])[0, 0]
+        keep = [m for m in cmp_nodes if m not in rounding]
+        np.testing.assert_array_equal(a[keep], b[keep], err_msg=k)
+    p1 = pm.predict_raw(pf).numpy()[:, 2]
+    j1 = np.asarray(jm.predict_raw(jf))[:n, 2]
+    assert np.abs(p1 - j1).max() <= 0.02
+    assert abs(po["training_metrics"]["AUC"] -
+               jo["training_metrics"]["AUC"]) <= 1e-4

@@ -127,3 +127,34 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         hk.build()
     assert not (tmp_path / "build").exists()
+
+
+_BUILDERS = {
+    "gbm": ("h2o_tpu_torch.models.tree.gbm", "GBM"),
+    "drf": ("h2o_tpu_torch.models.tree.drf", "DRF"),
+    "xgboost": ("h2o_tpu_torch.models.tree.xgboost", "XGBoost"),
+    "dt": ("h2o_tpu_torch.models.tree.dt", "DT"),
+    "isolationforest": ("h2o_tpu_torch.models.tree.isofor",
+                        "IsolationForest"),
+    "extendedisolationforest": ("h2o_tpu_torch.models.tree.isofor",
+                                "ExtendedIsolationForest"),
+    "upliftdrf": ("h2o_tpu_torch.models.tree.uplift", "UpliftDRF"),
+}
+
+
+@pytest.mark.parametrize("algo", sorted(_BUILDERS))
+def test_every_builder_and_converter_takes_the_card(algo, monkeypatch):
+    """No device argument means cuda:0 for every builder and for the
+    converter of its models; without CUDA both raise and ask for the
+    CPU by name instead of computing there."""
+    import importlib
+    from h2o_tpu_torch.models.tree import convert
+    mod, name = _BUILDERS[algo]
+    cls = getattr(importlib.import_module(mod), name)
+    assert cls(device="cpu").device == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cls()
+    conv = getattr(convert, f"{algo}_from_jax_output")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        conv({}, {})

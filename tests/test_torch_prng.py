@@ -1,10 +1,14 @@
 """The port's threefry PRNG held against jax's bit for bit.
 
 ``key``/``fold_in``/``split`` give the same 32-bit words as
-``jax.random.key_data`` of jax's keys, and ``uniform`` the same float32
-bits as ``jax.random.uniform``, for several seeds and shapes (jax 0.9's
-default ``jax_threefry_partitionable``).  Draws are prefix-stable, which
-is why the reference's padded rows leave the real rows' draws alone.
+``jax.random.key_data`` of jax's keys, ``bits`` the same words as
+``jax.random.bits``, ``uniform`` (also with ``minval``/``maxval``) and
+``normal`` the same float32 bits as ``jax.random.uniform``/``normal``,
+and ``permutation``/``choice`` without replacement the same indices as
+jax's (colliding sort keys included), for several seeds and shapes (jax
+0.9's default ``jax_threefry_partitionable``).  Draws are prefix-stable,
+which is why the reference's padded rows leave the real rows' draws
+alone.
 Tolerance: none; every comparison is bitwise.
 """
 
@@ -74,3 +78,64 @@ def test_key_round_trip_and_builder_seed():
     assert drawn[0] == 0 and drawn[1] < 2 ** 31
     with pytest.raises(ValueError):
         prng.key(-3)
+
+
+# -- bits, uniform(minval, maxval), permutation, choice, normal ---------------
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_bits_words(seed):
+    jk, pk = jax.random.key(seed), prng.key(seed)
+    want = np.asarray(jax.random.bits(jk, (37, 5)))
+    got = prng.bits(pk, (37, 5), "cpu")
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy().astype(np.uint32), want)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("lo,hi", [(0.3, 1.7), (-2.5, 3.1), (-1.0, 1.0)])
+def test_uniform_range_bits(seed, lo, hi):
+    """XLA fuses ``floats * (hi - lo) + lo`` into one FMA on the CPU; the
+    port's float64 product rounded once gives the same bits."""
+    jk = jax.random.fold_in(jax.random.key(seed), 5)
+    want = np.asarray(jax.random.uniform(jk, (4000,), minval=lo, maxval=hi))
+    got = prng.uniform(prng.fold_in(prng.key(seed), 5), (4000,), "cpu",
+                       lo, hi).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("n", [1, 7, 256, 1625, 1626, 200_000])
+def test_permutation_and_choice(seed, n):
+    """jax's sort-based shuffle: one round up to n = 1,625, two above."""
+    jk, pk = jax.random.key(seed), prng.key(seed)
+    want = np.asarray(jax.random.permutation(jk, n))
+    got = prng.permutation(pk, n, "cpu").numpy()
+    np.testing.assert_array_equal(got, want)
+    s = min(n, 256)
+    np.testing.assert_array_equal(
+        prng.choice(pk, n, s, "cpu").numpy(),
+        np.asarray(jax.random.choice(jk, n, (s,), replace=False)))
+
+
+def test_permutation_keeps_colliding_keys_in_order():
+    """At n = 200,000 the 32-bit sort keys of a round collide; the stable
+    sort keeps colliding rows in their order, as ``lax.sort_key_val``."""
+    pk = prng.key(3)
+    _, sub = prng.split(pk)
+    keys = prng.bits(sub, (200_000,), "cpu").numpy()
+    assert len(np.unique(keys)) < keys.size          # collisions exist
+    np.testing.assert_array_equal(
+        prng.permutation(pk, 200_000, "cpu").numpy(),
+        np.asarray(jax.random.permutation(jax.random.key(3), 200_000)))
+    with pytest.raises(ValueError):
+        prng.choice(pk, 5, 6, "cpu")
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_normal_bits(seed):
+    """XLA's erf_inv on XLA's own log1p (``ops/xlamath.py``), each Horner
+    step fused, the square root correctly rounded.  Tolerance: none."""
+    jk, pk = jax.random.key(seed), prng.key(seed)
+    want = np.asarray(jax.random.normal(jk, (300, 40)))
+    got = prng.normal(pk, (300, 40), "cpu").numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
