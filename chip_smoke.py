@@ -5,8 +5,9 @@
 
 The main paths are GBM and DRF training followed by scoring, at the
 HIGGS-shaped width of 1,000,000 rows x 28 features the repository
-benchmarks.  Phases (each prints one JSON line; any failure raises and the
-exit code is not 0):
+benchmarks, and the path a user takes first: a CSV parsed, a GBM
+trained on it and explained.  Phases (each prints one JSON line; any
+failure raises and the exit code is not 0):
 
   0 device  - card name and power limit
   1 build   - nvcc builds the histogram kernels from h2o_tpu_torch/csrc
@@ -112,6 +113,21 @@ exit code is not 0):
               and Euclidean with 10: K1 one launch a level, AUUC, ATE and
               qini; 2 trees on the first 100,000 rows equal on the card and
               on the CPU (rates to 1e-6)
+ 15 ingest and explain: make_data(1,000,000, 28, seed 0) written as two
+              headed CSV files of 500,000 rows (9 significant digits, y as
+              b/s), then parse_setup and parse_files through the native
+              tokenizer (bytes, wall, MB/s; its build timed apart): the
+              parsed frame bitwise equal to the in-memory one; the default
+              GBM (20 trees) trained on it equal to phase 4's forest, AUC
+              0.783277007 (K2 100 launches); predict_contributions and
+              predict_leaf_node_assignment (Node_ID, Path) over its first
+              100,000 rows (walls, rows/s; Σφ + bias and the assigned
+              leaves' values within 1e-4 of the logit margin),
+              staged_predict_proba over the 1M rows (last stage = predict's
+              p0 within 1e-6); 3 trees on the first 100,000 rows on the card
+              and on the CPU: equal forests, contributions, staged
+              probabilities and varimp within 1e-6, leaf ids and paths
+              equal
   7 profile - torch.profiler over 2 default trees: device busy share and
               the kernels that take the device time; then 2 QuantilesGlobal
               trees: each histogram kernel's device ms per main-path launch
@@ -121,7 +137,7 @@ exit code is not 0):
               iteration (7 class trees) and one UpliftDRF tree
 
 The kernels line's launches sum every main-path training above (phases
-4, 5, 8-14), each read from counters set to 0 just before it; the
+4, 5, 8-15), each read from counters set to 0 just before it; the
 launches phase lists them path by path.
 
 The line before the last holds every kernel's numbers; the last line is
@@ -144,7 +160,10 @@ if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device available", file=sys.stderr)
     sys.exit(2)
 
+from h2o_tpu_torch import native  # noqa: E402
 from h2o_tpu_torch.core.frame import T_CAT, Frame, Vec  # noqa: E402
+from h2o_tpu_torch.core.parse import (parse_files,  # noqa: E402
+                                      parse_setup)
 from h2o_tpu_torch.models.metrics import (binomial_metrics,  # noqa: E402
                                           multinomial_metrics)
 from h2o_tpu_torch.models.model import Model  # noqa: E402
@@ -208,6 +227,11 @@ UPLIFT_SHAPES = [(1, 20), (64, 20), (512, 20)]
 OUTLIERS, OUTLIER_SHIFT, OUTLIER_COLS = 10_000, 4.0, 3
 UPLIFT_RUNS = (("KL", 50), ("ChiSquared", 10), ("Euclidean", 10))
 EIF_LEVELS = (0, C - 1)
+#: phase 15: the CSV files make_data(R) is written to, the rows explained
+#: and the training AUC of the default GBM on 1M x 28 (phase 4)
+CSV_FILES = 2
+EXPLAIN_ROWS = 100_000
+DEFAULT_GBM_AUC = 0.783277007
 
 
 def emit(obj) -> None:
@@ -929,6 +953,204 @@ def phase_family(X, y, fr: Frame, paths) -> Frame:
     return fr_u
 
 
+def format_g9(a: np.ndarray) -> np.ndarray:
+    """(n, c) float32 -> (n, c, 15) ASCII bytes: each value as
+    sign, d.dddddddd, e, sign and two exponent digits (9 significant
+    digits, through which every float32 round-trips), with numpy integer
+    arithmetic instead of a formatting loop."""
+    mag = np.abs(a.astype(np.float64))
+    nz = mag > 0
+    e = np.zeros(a.shape, np.int64)
+    e[nz] = np.floor(np.log10(mag[nz])).astype(np.int64)
+    for _ in range(2):      # log10's rounding and the mantissa's carry
+        m = np.rint(mag / 10.0 ** (e - 8)).astype(np.int64)
+        e += m >= 10 ** 9
+        e -= nz & (m < 10 ** 8)
+    m = np.rint(mag / 10.0 ** (e - 8)).astype(np.int64)
+    if not (((m >= 10 ** 8) & (m < 10 ** 9)) | ~nz).all():
+        raise AssertionError("format_g9: mantissa out of range")
+    out = np.empty(a.shape + (15,), np.uint8)
+    out[..., 0] = np.where(np.signbit(a), ord("-"), ord("+"))
+    out[..., 2] = ord(".")
+    for k in range(9):
+        out[..., 1 if k == 0 else k + 2] = (m // 10 ** (8 - k)) % 10 + 48
+    out[..., 11] = ord("e")
+    out[..., 12] = np.where(e < 0, ord("-"), ord("+"))
+    out[..., 13] = np.abs(e) // 10 + 48
+    out[..., 14] = np.abs(e) % 10 + 48
+    return out
+
+
+def write_csv(path: str, X, y, chunk: int = 100_000) -> int:
+    """A headed CSV of columns x0.. and y as b/s; returns its bytes."""
+    n, c = X.shape
+    with open(path, "wb") as f:
+        f.write((",".join([f"x{j}" for j in range(c)] + ["y"]) +
+                 "\n").encode())
+        for i in range(0, n, chunk):
+            xb = X[i: i + chunk]
+            row = np.empty((len(xb), c, 16), np.uint8)
+            row[..., :15] = format_g9(xb)
+            row[..., 15] = ord(",")
+            line = np.empty((len(xb), c * 16 + 2), np.uint8)
+            line[:, : c * 16] = row.reshape(len(xb), -1)
+            line[:, c * 16] = np.where(y[i: i + chunk] == 1, ord("s"),
+                                       ord("b"))
+            line[:, c * 16 + 1] = ord("\n")
+            f.write(line.tobytes())
+    return os.path.getsize(path)
+
+
+def explain_all(m, head: Frame, whole: Frame) -> dict:
+    """Contributions, leaf ids and paths over ``head``, staged
+    probabilities over ``whole``, varimp: the outputs and their walls."""
+    out = {}
+
+    def timed(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        out[name] = fn()
+        sync()
+        out[name + "_s"] = time.perf_counter() - t0
+
+    timed("contrib", lambda: m.predict_contributions(head))
+    timed("node_id", lambda: m.predict_leaf_node_assignment(head, "Node_ID"))
+    timed("path", lambda: m.predict_leaf_node_assignment(head, "Path"))
+    timed("staged", lambda: m.staged_predict_proba(whole))
+    out["varimp"] = m.varimp()
+    return out
+
+
+def columns(fr: Frame) -> np.ndarray:
+    return np.stack([v.data for v in fr.vecs], axis=1)
+
+
+def phase_ingest_explain(X, y, fr: Frame, m_def, paths) -> None:
+    """15: make_data's frame written as CSV files, parsed, trained on and
+    explained; the parsed frame and its GBM equal the in-memory ones."""
+    # 15a the files
+    n_part = R // CSV_FILES
+    with tempfile.TemporaryDirectory(prefix="h2o_ingest_") as tmp:
+        t0 = time.perf_counter()
+        files = [os.path.join(tmp, f"part{i}.csv") for i in range(CSV_FILES)]
+        nbytes = sum(write_csv(f, X[i * n_part:(i + 1) * n_part],
+                               y[i * n_part:(i + 1) * n_part])
+                     for i, f in enumerate(files))
+        write_s = time.perf_counter() - t0
+        # 15b the parse, the tokenizer's build timed apart
+        tok = native.load("csv_tokenizer")
+        t0 = time.perf_counter()
+        setup = parse_setup(files)
+        pf = parse_files(files, setup)
+        parse_s = time.perf_counter() - t0
+    emit(dict(phase="ingest", files=CSV_FILES, rows=pf.nrows,
+              cols=pf.ncols, bytes=nbytes, write_s=write_s, parse_s=parse_s,
+              parse_mb_per_s=nbytes / parse_s / 1e6,
+              tokenizer_build_s=tok.seconds, separator=setup.separator,
+              header=setup.header))
+    same = pf.names == fr.names and pf.types() == fr.types() and \
+        pf.vec("y").domain == ["b", "s"] == fr.vec("y").domain
+    unequal = [n for n in fr.names if not np.array_equal(
+        pf.vec(n).data.view(np.uint32), fr.vec(n).data.view(np.uint32))]
+    if not same or unequal:
+        raise AssertionError(f"ingest: the parsed frame differs from the "
+                             f"in-memory one (names/types/domain equal: "
+                             f"{same}; unequal columns {unequal})")
+
+    # 15c the default GBM on the parsed frame
+    m, wall, got = launched(train, fr=pf)
+    paths["ingest_gbm"] = got
+    auc = m.output["training_metrics"]["AUC"]
+    eq = {k: bool(np.array_equal(m.output[k], m_def.output[k]))
+          for k in ("split_col", "thr_bin", "na_left", "bitset", "value",
+                    "f0")}
+    emit(dict(phase="ingest_gbm", rows=R, ntrees=20, wall_s=wall,
+              train_auc=auc, forest_equal=eq, k1_launches=got[0],
+              k2_launches=got[1]))
+    if got != (0, 100) or not all(eq.values()) or \
+            round(auc, 9) != DEFAULT_GBM_AUC:
+        raise AssertionError(f"ingest GBM: launches {got}, forest equal "
+                             f"{eq}, AUC {auc}")
+
+    # 15d explain on the card's model
+    shap = native.load("treeshap")
+    head = pf.slice_rows(slice(0, EXPLAIN_ROWS))
+    ex = explain_all(m, head, pf)
+    phi = columns(ex["contrib"]).astype(np.float64)
+    margin = m._forest_F(head.as_matrix(m.output["x"], DEV))[:, 0].double()
+    margin = margin.cpu().numpy()
+    local = float(np.abs(phi.sum(axis=1) - margin).max())
+    ids = columns(ex["node_id"]).astype(np.int64)
+    vl = m.output["value"][:, 0]
+    leaf_sum = sum(vl[t][ids[:, t]].astype(np.float64)
+                   for t in range(ids.shape[1])) + float(m.output["f0"][0])
+    leaf_err = float(np.abs(leaf_sum - margin).max())
+    path_leaves = all(len(v.domain) == len(np.unique(ids[:, t]))
+                      for t, v in enumerate(ex["path"].vecs))
+    p0 = m.predict(pf).vec("b").data
+    staged_err = float(np.abs(ex["staged"].vecs[-1].data - p0).max())
+    emit(dict(phase="explain", rows=EXPLAIN_ROWS, ntrees=20,
+              treeshap_build_s=shap.seconds,
+              contributions_s=ex["contrib_s"],
+              contributions_rows_per_s=EXPLAIN_ROWS / ex["contrib_s"],
+              local_accuracy_max_err=local, leaf_node_id_s=ex["node_id_s"],
+              leaf_path_s=ex["path_s"],
+              leaf_rows_per_s=EXPLAIN_ROWS / ex["node_id_s"],
+              leaf_sum_max_err=leaf_err, staged_rows=R,
+              staged_s=ex["staged_s"], staged_rows_per_s=R / ex["staged_s"],
+              staged_last_vs_p0_max_err=staged_err,
+              varimp_top=ex["varimp"][:3]))
+    if not (local <= 1e-4 and leaf_err <= 1e-4 and staged_err <= 1e-6 and
+            path_leaves and ex["contrib"].names == fr.names[:-1] +
+            ["BiasTerm"]):
+        raise AssertionError(f"explain: local accuracy {local}, leaf sums "
+                             f"{leaf_err}, staged {staged_err}, paths one "
+                             f"a leaf {path_leaves}")
+
+    # 15e card against CPU
+    sub = pf.slice_rows(slice(0, SUB_ROWS))
+    m_gpu, _ = train(sub, ntrees=3, device="cuda")
+    m_cpu, _ = train(sub, ntrees=3, device="cpu")
+    cmp_ = same_forest(m_gpu.output, m_cpu.output)
+    eg, ec = explain_all(m_gpu, sub, sub), explain_all(m_cpu, sub, sub)
+
+    def max_diff(k):
+        return float(np.abs(columns(eg[k]).astype(np.float64) -
+                            columns(ec[k]).astype(np.float64)).max())
+
+    # varimp: relative importances (squared-error reductions, float32
+    # differences of large sums) against the largest, scaled importances
+    # and percentages as they are; each variable's own relative
+    # difference is reported beside them
+    vg = {r[0]: np.array(r[1:]) for r in eg["varimp"]}
+    vc = {r[0]: np.array(r[1:]) for r in ec["varimp"]}
+    top = max(v[0] for v in vc.values())
+    vi_top = max(float(abs(vg[k][0] - vc[k][0])) for k in vc) / top
+    vi_abs = max(float(np.abs(vg[k][1:] - vc[k][1:]).max()) for k in vc)
+    vi_own = max(float(abs(vg[k][0] - vc[k][0]) / max(vc[k][0], 1e-30))
+                 for k in vc)
+    rec = dict(phase="explain_cuda_vs_cpu", rows=SUB_ROWS, ntrees=3,
+               forest=cmp_, contributions_max_abs_diff=max_diff("contrib"),
+               leaf_ids_equal=bool(np.array_equal(columns(eg["node_id"]),
+                                                  columns(ec["node_id"]))),
+               paths_equal=bool(np.array_equal(columns(eg["path"]),
+                                               columns(ec["path"]))),
+               staged_max_abs_diff=max_diff("staged"),
+               varimp_relative_max_diff_over_top=vi_top,
+               varimp_scaled_pct_max_abs_diff=vi_abs,
+               varimp_relative_max_own_rel_diff=vi_own,
+               contributions_s=dict(cuda=eg["contrib_s"],
+                                    cpu=ec["contrib_s"]),
+               staged_s=dict(cuda=eg["staged_s"], cpu=ec["staged_s"]))
+    emit(rec)
+    if not all(cmp_["equal"].values()) or \
+            rec["contributions_max_abs_diff"] > 1e-6 or \
+            not rec["leaf_ids_equal"] or not rec["paths_equal"] or \
+            rec["staged_max_abs_diff"] > 1e-6 or set(vg) != set(vc) or \
+            vi_top > 1e-6 or vi_abs > 1e-6:
+        raise AssertionError(f"explain: card and CPU differ: {rec}")
+
+
 def history_rows(m) -> list:
     """A model's scoring history without its timestamps."""
     return [{k: v for k, v in row.items() if k != "timestamp"}
@@ -1338,6 +1560,9 @@ def main() -> None:
     # -- 14 DT, IsolationForest, ExtendedIsolationForest, UpliftDRF ---------
     torch.cuda.empty_cache()
     fr_u = phase_family(X, y, fr, paths)
+    # -- 15 ingest and explain ----------------------------------------------
+    torch.cuda.empty_cache()
+    phase_ingest_explain(X, y, fr, m_def, paths)
     emit(dict(phase="launches", paths={k: dict(k1=v[0], k2=v[1])
                                        for k, v in paths.items()}))
     sync()

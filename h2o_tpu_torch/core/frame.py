@@ -1,14 +1,19 @@
 """Columns and frames — a host-side port of ``h2o_tpu/core/frame.py``
-(``Vec`` :185, ``Frame`` :812, ``Frame.from_dict`` :839, ``Frame.add`` :921,
-``Frame.as_matrix`` :1003).
+(the column types :55-60, ``_merge_domains`` :78-92, ``Vec`` :185 with
+``is_numeric`` :383, ``Frame`` :812 with ``from_numpy`` :828,
+``from_dict`` :839, ``ncols`` :860, ``__getitem__``/``__contains__``/
+``subframe``/``drop``/``add``/``cbind`` :902-932, ``as_matrix`` :1003 and
+``types`` :1061).
 
 Columns are numpy arrays: numeric ones float32 with NaN for NA,
 categorical ones (``T_CAT``) int32 codes with -1 for NA and a host
-domain.  There is no DKV, no row padding and no sharding: a frame of
-``n`` rows holds exactly ``n`` rows, and ``as_matrix`` lands them on
-the device the caller names.  (The JAX frame pads rows and masks them;
-padded rows never reach a histogram there, so no result depends on
-them.)
+domain, time ones (``T_TIME``) a float32 payload of milliseconds since
+the epoch (UTC) with an exact float64 copy (``host_f64``), string and
+uuid ones (``T_STR``, ``T_UUID``) host lists with None for NA.  There is
+no DKV, no row padding and no sharding: a frame of ``n`` rows holds
+exactly ``n`` rows, and ``as_matrix`` lands them on the device the
+caller names.  (The JAX frame pads rows and masks them; padded rows
+never reach a histogram there, so no result depends on them.)
 """
 
 from __future__ import annotations
@@ -20,6 +25,27 @@ import torch
 
 T_NUM = "real"     # numeric: float32, NaN = NA
 T_CAT = "enum"     # categorical: int32 codes, -1 = NA, host domain
+T_TIME = "time"    # ms since the epoch: float32 payload + exact float64
+T_STR = "string"   # host list of str, None = NA
+T_UUID = "uuid"    # host list, None = NA
+_TYPES = (T_NUM, T_CAT, T_TIME, T_STR, T_UUID)
+
+
+def _merge_domains(base: Optional[List], new: Optional[List]):
+    """Union categorical domain (base levels keep their codes, new levels
+    append in first-seen order — the multi-file domain merge,
+    ParseDataset.java:356-535) plus the remap array taking ``new``-local
+    codes into the union space; its last entry maps -1 (NA) to -1."""
+    union = list(base or [])
+    seen = {d: i for i, d in enumerate(union)}
+    remap = np.empty(len(new or []) + 1, np.int32)
+    remap[-1] = -1
+    for j, d in enumerate(new or []):
+        if d not in seen:
+            seen[d] = len(union)
+            union.append(d)
+        remap[j] = seen[d]
+    return union, remap
 
 
 class Vec:
@@ -27,22 +53,35 @@ class Vec:
 
     def __init__(self, data, vtype: str = T_NUM,
                  domain: Optional[List[str]] = None):
-        if vtype not in (T_NUM, T_CAT):
+        if vtype not in _TYPES:
             raise ValueError(f"unsupported column type {vtype!r}")
+        self.type = vtype
+        self.domain = list(domain) if domain is not None else None
+        self.host_data: Optional[List] = None
+        self.host_f64: Optional[np.ndarray] = None
+        if vtype in (T_STR, T_UUID):
+            self.host_data = list(data)
+            self.data = None
+            return
         arr = np.asarray(data)
         if arr.ndim != 1:
             raise ValueError("a Vec holds one column (1-d data)")
-        self.type = vtype
-        self.domain = list(domain) if domain is not None else None
         if vtype == T_CAT:
             if self.domain is None:
                 raise ValueError("a categorical Vec needs a domain")
             self.data = arr.astype(np.int32)
         else:
+            if vtype == T_TIME:
+                # ms since the epoch exceed float32's precision (~131 s
+                # apart at today's dates): an exact host copy stays
+                # beside the float32 payload that binning reads
+                self.host_f64 = arr.astype(np.float64)
             self.data = arr.astype(np.float32)
 
     @property
     def nrows(self) -> int:
+        if self.host_data is not None:
+            return len(self.host_data)
         return int(self.data.shape[0])
 
     @property
@@ -50,15 +89,38 @@ class Vec:
         return self.type == T_CAT
 
     @property
+    def is_numeric(self) -> bool:
+        return self.type in (T_NUM, T_TIME)
+
+    @property
     def cardinality(self) -> int:
         return len(self.domain) if self.domain is not None else -1
 
     def as_float(self) -> np.ndarray:
-        """float32 with NaN NAs (categorical codes -1 -> NaN)."""
+        """float32 with NaN NAs (categorical codes -1 -> NaN; time the
+        float32 payload)."""
+        if self.data is None:
+            raise ValueError(f"a {self.type} column has no numeric payload")
         if self.is_categorical:
             return np.where(self.data < 0, np.nan,
                             self.data.astype(np.float32)).astype(np.float32)
         return self.data
+
+    def to_numpy(self) -> np.ndarray:
+        """Host values: float32 numerics, int32 codes, the exact float64
+        milliseconds of a time column, an object array of strings."""
+        if self.host_data is not None:
+            return np.asarray(self.host_data, dtype=object)
+        if self.host_f64 is not None:
+            return self.host_f64
+        return self.data
+
+    def take(self, sel) -> "Vec":
+        """The selected rows (a slice, index array or mask) as a new Vec."""
+        if self.host_data is not None:
+            idx = np.arange(self.nrows)[sel]
+            return Vec([self.host_data[i] for i in idx], self.type)
+        return Vec(self.to_numpy()[sel], self.type, self.domain)
 
     def is_constant(self) -> bool:
         """The ``ignore_const_cols`` test DataInfo applies
@@ -84,6 +146,18 @@ class Frame:
                 raise ValueError("ragged frame: columns differ in length")
 
     @classmethod
+    def from_numpy(cls, array: np.ndarray,
+                   names: Optional[Sequence[str]] = None) -> "Frame":
+        """float32 numeric columns of a 1-d or 2-d array, named C1.. unless
+        ``names`` are given."""
+        array = np.asarray(array, dtype=np.float32)
+        if array.ndim == 1:
+            array = array[:, None]
+        names = list(names) if names else [f"C{i + 1}" for i in
+                                           range(array.shape[1])]
+        return cls(names, [Vec(array[:, j]) for j in range(array.shape[1])])
+
+    @classmethod
     def from_dict(cls, cols: Dict[str, Union[np.ndarray, list]]) -> "Frame":
         """String columns become categoricals (sorted domain), the rest
         float32 numerics — as ``h2o_tpu`` ``Frame.from_dict``."""
@@ -104,8 +178,30 @@ class Frame:
     def nrows(self) -> int:
         return self.vecs[0].nrows if self.vecs else 0
 
+    @property
+    def ncols(self) -> int:
+        return len(self.vecs)
+
     def vec(self, name: str) -> Vec:
         return self.vecs[self.names.index(name)]
+
+    def __getitem__(self, name):
+        if isinstance(name, str):
+            return self.vec(name)
+        if isinstance(name, (list, tuple)):
+            return self.subframe(name)
+        raise TypeError(name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self.names
+
+    def subframe(self, names: Sequence[str]) -> "Frame":
+        return Frame(list(names), [self.vec(n) for n in names])
+
+    def drop(self, names: Union[str, Sequence[str]]) -> "Frame":
+        if isinstance(names, str):
+            names = [names]
+        return self.subframe([n for n in self.names if n not in names])
 
     def add(self, name: str, vec: Vec) -> "Frame":
         """Append a column in place (``h2o_tpu`` ``Frame.add``)."""
@@ -117,16 +213,22 @@ class Frame:
         self.vecs.append(vec)
         return self
 
+    def cbind(self, other: "Frame") -> "Frame":
+        return Frame(self.names + other.names, self.vecs + other.vecs)
+
+    def types(self) -> List[str]:
+        return [v.type for v in self.vecs]
+
     def slice_rows(self, sel) -> "Frame":
         """New frame of the selected rows (a slice, index array or mask)."""
-        return Frame(self.names,
-                     [Vec(v.data[sel], v.type, v.domain) for v in self.vecs])
+        return Frame(self.names, [v.take(sel) for v in self.vecs])
 
     def as_matrix(self, names: Optional[Sequence[str]],
                   device: Union[str, torch.device]) -> torch.Tensor:
         """(nrows, ncols) float32 matrix of the named columns (every
         column when ``names`` is None) on ``device``, which the caller
-        names; categoricals appear as float codes, NA as NaN."""
+        names; categoricals appear as float codes, time as its float32
+        milliseconds, NA as NaN."""
         names = list(names) if names is not None else self.names
         m = np.stack([self.vec(n).as_float() for n in names], axis=1) \
             if names else np.zeros((self.nrows, 0), np.float32)

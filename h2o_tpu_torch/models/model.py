@@ -1,6 +1,7 @@
 """Model / ModelBuilder lifecycle — port of ``h2o_tpu/models/model.py``
 (``DataInfo`` :34-106 in tree mode, ``_raw_to_frame`` :156-166,
-``Model`` :169-380 with ``metrics_from_raw`` :270-303 and ``save``/``load``
+``Model`` :169-380 with the explain options :229-265,
+``metrics_from_raw`` :270-303, ``varimp`` :303 and ``save``/``load``
 :338-380, ``ModelBuilder`` :383-696 with ``_validate_fixed`` :397-416,
 ``train`` :447-470, ``_fold_assignment`` :545-572, ``_fit_cv`` :574-666,
 ``checkpoint_model`` :668-679 and ``rng_key`` :691-696).
@@ -29,7 +30,7 @@ import numpy as np
 import torch
 
 from h2o_tpu_torch.core.device import DeviceLike, cloud
-from h2o_tpu_torch.core.frame import T_CAT, Frame, Vec
+from h2o_tpu_torch.core.frame import T_CAT, T_STR, T_UUID, Frame, Vec
 from h2o_tpu_torch.models import metrics as mm
 from h2o_tpu_torch.models.distributions import (Distribution,
                                                 distribution_from_params)
@@ -38,9 +39,11 @@ from h2o_tpu_torch.ops import prng
 
 class DataInfo:
     """Tree-mode feature extraction (reference hex/DataInfo.java):
-    categoricals stay integer codes, NAs stay NaN, constant columns are
-    dropped (``ignore_const_cols``, ``model.py:58-69``), and the
-    response, weights and offset columns are never features."""
+    categoricals stay integer codes, time columns are numeric features
+    (their float32 milliseconds), NAs stay NaN; string and uuid columns
+    and constant columns are dropped (``ignore_const_cols``,
+    ``model.py:58-69``), and the response, weights and offset columns
+    are never features."""
 
     def __init__(self, frame: Frame, x: Sequence[str], y: Optional[str],
                  device: torch.device, weights: Optional[str] = None,
@@ -51,6 +54,7 @@ class DataInfo:
         self.weights_name = weights
         self.offset_name = offset
         self.x = [c for c in x if c not in (y, weights, offset)
+                  and frame.vec(c).type not in (T_STR, T_UUID)
                   and not frame.vec(c).is_constant()]
         self.cat_names = [c for c in self.x if frame.vec(c).is_categorical]
 
@@ -126,6 +130,75 @@ class Model:
 
     def model_metrics(self, frame: Frame) -> mm.ModelMetrics:
         return self.metrics_from_raw(self.predict_raw(frame), frame)
+
+    # -- the tree family's explain options (hex/Model.java scoring
+    # flags); binning and staged values on the model's device, TreeSHAP
+    # and leaf assignment in the host library (models/tree/contributions)
+
+    def _require_forest(self, what: str) -> None:
+        if self.output.get("split_col") is None:
+            raise NotImplementedError(
+                f"{what} is only supported for tree-based models "
+                f"(this model is {self.algo})")
+
+    def predict_contributions(self, frame: Frame, top_n: int = 0,
+                              bottom_n: int = 0, compare_abs: bool = False,
+                              output_format: str = "Original") -> Frame:
+        """TreeSHAP feature contributions and BiasTerm
+        (SharedTreeModelWithContributions.scoreContributions); with
+        ``top_n``/``bottom_n``, each row's largest and smallest ones."""
+        self._require_forest("predict_contributions")
+        from h2o_tpu_torch.models.tree.contributions import \
+            contributions_frame
+        return contributions_frame(self, frame, top_n=top_n,
+                                   bottom_n=bottom_n,
+                                   compare_abs=compare_abs,
+                                   output_format=output_format)
+
+    def predict_leaf_node_assignment(self, frame: Frame,
+                                     assign_type: str = "Path") -> Frame:
+        """Terminal node per tree, as a path ("Path") or a node id
+        ("Node_ID") (hex/tree/AssignLeafNodeTask)."""
+        self._require_forest("predict_leaf_node_assignment")
+        from h2o_tpu_torch.models.tree.contributions import \
+            leaf_assignment_frame
+        return leaf_assignment_frame(self, frame, assign_type=assign_type)
+
+    def staged_predict_proba(self, frame: Frame) -> Frame:
+        """Cumulative probabilities after each tree
+        (GBMModel.StagedPredictionsTask)."""
+        if self.algo not in ("gbm", "xgboost"):
+            raise NotImplementedError(
+                "staged_predict_proba is only supported for GBM models")
+        self._require_forest("staged_predict_proba")
+        from h2o_tpu_torch.models.tree.contributions import \
+            staged_proba_frame
+        return staged_proba_frame(self, frame)
+
+    def varimp(self, use_pandas: bool = False):
+        """Variable importance as rows (variable, relative, scaled,
+        percentage), most important first: the relative importances, the
+        same over the largest, and their shares of the total (the
+        reference's SharedTreeModel convention).  None without
+        importances; a pandas DataFrame with ``use_pandas``."""
+        vi = self.output.get("varimp")
+        if vi is None:
+            return None
+        vi = np.asarray(vi, np.float64)
+        names = list(self.output.get("x") or
+                     [f"C{i}" for i in range(len(vi))])
+        order = np.argsort(-vi)
+        rel = vi[order]
+        scaled = rel / rel[0] if len(rel) and rel[0] > 0 else rel
+        pct = rel / rel.sum() if rel.sum() > 0 else rel
+        rows = [(names[i], float(r), float(s), float(p))
+                for i, r, s, p in zip(order, rel, scaled, pct)]
+        if use_pandas:
+            import pandas as pd
+            return pd.DataFrame(rows, columns=[
+                "variable", "relative_importance", "scaled_importance",
+                "percentage"])
+        return rows
 
     def family(self) -> Optional[Distribution]:
         """The distribution the model was fitted under: its resolved name

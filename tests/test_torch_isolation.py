@@ -1,6 +1,8 @@
-"""The port stands alone: h2o_tpu_torch imports neither JAX nor h2o_tpu,
-picks the card unless told otherwise, and never hands a kernel's work to
-the plain PyTorch version behind the caller's back."""
+"""The port stands alone: h2o_tpu_torch imports neither JAX nor h2o_tpu
+(nor pandas, which the card's machine lacks), builds its host libraries
+from its own sources, picks the card unless told otherwise, and never
+hands a kernel's work to the plain PyTorch version behind the caller's
+back."""
 
 import ast
 import os
@@ -39,7 +41,7 @@ def test_importing_every_module_pulls_in_no_jax():
             f"for m in {mods!r}:\n"
             "    __import__(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'h2o_tpu'))\n"
+            "('jax', 'jaxlib', 'h2o_tpu', 'pandas'))\n"
             "assert not bad, bad\n"
             "print(len(sys.modules))\n")
     env = dict(os.environ)
@@ -64,6 +66,20 @@ def test_no_source_imports_jax_or_reference(path):
             continue
         assert not any(_forbidden(n) for n in names), \
             f"{path.name}:{node.lineno} imports {names}"
+
+
+def test_host_libraries_build_from_the_port_sources():
+    """Both C++ libraries come from the port's own copies, built by g++
+    into h2o_tpu_torch/_build/, never from h2o_tpu/native."""
+    from h2o_tpu_torch import native
+    for name in ("csv_tokenizer", "treeshap"):
+        src = PKG / "native" / f"{name}.cpp"
+        assert src.is_file()
+        built = native.load(name)
+        assert built.path == PKG / "_build" / f"lib{name}.so"
+        assert built.path.stat().st_mtime >= src.stat().st_mtime
+    assert native.BUILD_DIR == PKG / "_build"
+    assert native._DIR == PKG / "native"
 
 
 def test_default_device_is_the_card(monkeypatch):
