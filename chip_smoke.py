@@ -5,9 +5,9 @@
 
 The main paths are GBM and DRF training followed by scoring, at the
 HIGGS-shaped width of 1,000,000 rows x 28 features the repository
-benchmarks, and the path a user takes first: a CSV parsed, a GBM
-trained on it and explained.  Phases (each prints one JSON line; any
-failure raises and the exit code is not 0):
+benchmarks, the path a user takes first: a CSV parsed, a GBM trained on
+it and explained, and GLM with every family and solver.  Phases (each
+prints one JSON line; any failure raises and the exit code is not 0):
 
   0 device  - card name and power limit
   1 build   - nvcc builds the histogram kernels from h2o_tpu_torch/csrc
@@ -128,6 +128,33 @@ failure raises and the exit code is not 0):
               and on the CPU: equal forests, contributions, staged
               probabilities and varimp within 1e-6, leaf ids and paths
               equal
+ 16 GLM and XGBoost gblinear (no histogram kernel: the counters must
+              read 0 over the phase; every pass over the rows on the
+              card, the (P+1) x (P+1) solves on the host):
+              16a the default binomial GLM (IRLSM with COD inside) on the
+              1M x 28 frame: iterations, lambda, device ms per data pass
+              beside its bytes bound, host ms per solve, the training AUC
+              reproduced by predict(), two trainings with bitwise-equal
+              coefficients; the first 100,000 rows on the card and on the
+              CPU: equal iterations, coefficients and predictions within
+              1e-4;
+              16b lambda search with phase 13's 250,000 validation rows:
+              the lambdas walked, the best, its validation deviance;
+              16c compute_p_values at lambda 0 (card vs CPU std errors
+              within 1e-4 relative);
+              16d the covertype-shaped frame with wild and soil as 4- and
+              40-level categoricals (52 predictors): multinomial at its
+              defaults (7 one-vs-rest IRLSM passes an iteration), the
+              joint-softmax L_BFGS at alpha 0, lambda 0, and ordinal
+              (10,000 Adam steps): logloss reproduced by predict();
+              16e gaussian, poisson, gamma, tweedie, quasibinomial,
+              fractionalbinomial and negativebinomial on 100,000 rows,
+              and beta_constraints and non_negative (bounds hold), each
+              card vs CPU as 16a;
+              16f XGBoost gblinear at its defaults: AUC, card vs CPU;
+              16g one IRLSM iteration under torch.profiler: device busy
+              share, top operations, the Gram GEMM's ms beside its bound,
+              the host solve
   7 profile - torch.profiler over 2 default trees: device busy share and
               the kernels that take the device time; then 2 QuantilesGlobal
               trees: each histogram kernel's device ms per main-path launch
@@ -137,8 +164,8 @@ failure raises and the exit code is not 0):
               iteration (7 class trees) and one UpliftDRF tree
 
 The kernels line's launches sum every main-path training above (phases
-4, 5, 8-15), each read from counters set to 0 just before it; the
-launches phase lists them path by path.
+4, 5, 8-16), each read from counters set to 0 just before it; the
+launches phase lists them path by path (phase 16 as "glm", 0 and 0).
 
 The line before the last holds every kernel's numbers; the last line is
 the device summary.  Needs one CUDA card; exits non-zero without one.
@@ -164,9 +191,11 @@ from h2o_tpu_torch import native  # noqa: E402
 from h2o_tpu_torch.core.frame import T_CAT, Frame, Vec  # noqa: E402
 from h2o_tpu_torch.core.parse import (parse_files,  # noqa: E402
                                       parse_setup)
+from h2o_tpu_torch.models import glm as glm_mod  # noqa: E402
+from h2o_tpu_torch.models.glm import GLM  # noqa: E402
 from h2o_tpu_torch.models.metrics import (binomial_metrics,  # noqa: E402
                                           multinomial_metrics)
-from h2o_tpu_torch.models.model import Model  # noqa: E402
+from h2o_tpu_torch.models.model import DataInfo, Model  # noqa: E402
 from h2o_tpu_torch.models.tree import shared_tree as st  # noqa: E402
 from h2o_tpu_torch.models.tree.driver import IncrementalScorer  # noqa: E402
 from h2o_tpu_torch.models.tree.drf import DRF  # noqa: E402
@@ -321,13 +350,15 @@ def frame(X, y, extra=()) -> Frame:
     return Frame(names, vecs)
 
 
-def make_covertype(seed: int = 0) -> Frame:
+def make_covertype(seed: int = 0, categorical: bool = False) -> Frame:
     """A covertype-shaped frame: 10 normal columns, a 4-way and a 40-way
-    one-hot block (0/1 numeric columns) and 7 classes with covertype's
-    class counts.  Class scores are a seeded linear signal over three
-    numeric columns and both blocks; with Gumbel noise on each score, the
-    rarest class takes its count of the unassigned rows that score it
-    highest, then the next rarest, so the counts are exact."""
+    one-hot block (0/1 numeric columns; with ``categorical``, the same
+    draws as two categorical columns ``wild`` and ``soil`` of 4 and 40
+    levels instead) and 7 classes with covertype's class counts.  Class
+    scores are a seeded linear signal over three numeric columns and
+    both blocks; with Gumbel noise on each score, the rarest class takes
+    its count of the unassigned rows that score it highest, then the
+    next rarest, so the counts are exact."""
     rng = np.random.default_rng(seed)
     n, K = sum(COV_COUNTS), len(COV_COUNTS)
     X = rng.normal(size=(n, 10)).astype(np.float32)
@@ -344,13 +375,22 @@ def make_covertype(seed: int = 0) -> Frame:
         top = np.argpartition(-score[free, k], COV_COUNTS[k] - 1)[
             :COV_COUNTS[k]]
         y[free[top]] = k
+    ydom = [f"c{k}" for k in range(K)]
+    if categorical:
+        names = [f"elev{j}" for j in range(10)] + ["wild", "soil", "y"]
+        return Frame(names, [Vec(X[:, j]) for j in range(10)] + [
+            Vec(wild.astype(np.int32), T_CAT,
+                domain=[f"w{j}" for j in range(4)]),
+            Vec(soil.astype(np.int32), T_CAT,
+                domain=[f"s{j:02d}" for j in range(40)]),
+            Vec(y, T_CAT, domain=ydom)])
     cols = [X] + [(wild[:, None] == np.arange(4)).astype(np.float32),
                   (soil[:, None] == np.arange(40)).astype(np.float32)]
     M = np.concatenate(cols, axis=1)
     names = ([f"elev{j}" for j in range(10)] + [f"wild{j}" for j in range(4)]
              + [f"soil{j}" for j in range(40)] + ["y"])
     vecs = [Vec(M[:, j]) for j in range(M.shape[1])] + \
-        [Vec(y, T_CAT, domain=[f"c{k}" for k in range(K)])]
+        [Vec(y, T_CAT, domain=ydom)]
     return Frame(names, vecs)
 
 
@@ -1361,6 +1401,321 @@ def phase_loop(paths) -> None:
                              f"{hg} / {hc}")
 
 
+#: phase 16: GLM.  Card against CPU on SUB_ROWS rows: IRLSM/COD iteration
+#: counts equal, coefficients and predictions within GLM_ATOL, std
+#: errors within GLM_SE_RTOL relative (the Gram's float32 sums run in
+#: cuBLAS's order on the card and in the CPU BLAS's order here)
+GLM_ATOL = 1e-4
+GLM_SE_RTOL = 1e-4
+#: 16e: the families held card against CPU, with their parameters
+GLM_FAMILIES = {"gaussian": {}, "poisson": {}, "gamma": {},
+                "tweedie": dict(tweedie_power=1.3), "quasibinomial": {},
+                "fractionalbinomial": {},
+                "negativebinomial": dict(theta=0.5)}
+#: 16e: the coefficient bounds held (raw coefficient space)
+GLM_BOUNDS = {"x0": (-0.5, 0.2), "x1": (0.0, None), "x2": (-0.1, 0.1)}
+
+
+class GlmProbe:
+    """While installed, records the device of every GLM pass over the
+    rows (the IRLSM pass, the deviance at a beta, the L-BFGS objective,
+    the ordinal Adam loop), the device time of each IRLSM pass (CUDA
+    events around it: launch to the Gram's copy to the host) and the
+    host time of each (P+1) x (P+1) solve."""
+
+    _PASSES = ("_irlsm_pass", "_deviance_at", "_glm_objective_fn",
+               "_ordinal_gd")
+    _SOLVES = ("_cod_solve", "_chol_solve")
+
+    def __enter__(self):
+        self.devices, self.pass_ms, self.solve_ms = set(), [], []
+        self.passes = 0
+        self._orig = {n: getattr(glm_mod, n)
+                      for n in self._PASSES + self._SOLVES}
+        for n in self._PASSES:
+            setattr(glm_mod, n, self._pass(n, self._orig[n]))
+        for n in self._SOLVES:
+            setattr(glm_mod, n, self._solve(self._orig[n]))
+        return self
+
+    def __exit__(self, *exc):
+        for n, f in self._orig.items():
+            setattr(glm_mod, n, f)
+
+    def _pass(self, name, f):
+        def run(*a, **k):
+            X = a[1] if name == "_ordinal_gd" else a[0]
+            self.devices.add(str(X.device))
+            if name != "_irlsm_pass":
+                return f(*a, **k)
+            self.passes += 1
+            if X.device.type != "cuda":
+                return f(*a, **k)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = f(*a, **k)
+            ev[1].record()
+            ev[1].synchronize()
+            self.pass_ms.append(ev[0].elapsed_time(ev[1]))
+            return out
+        return run
+
+    def _solve(self, f):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            out = f(*a, **k)
+            self.solve_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    def summary(self) -> dict:
+        med = (lambda v: statistics.median(v) if v else None)
+        return dict(devices=sorted(self.devices), irlsm_passes=self.passes,
+                    pass_ms_median=med(self.pass_ms),
+                    solves=len(self.solve_ms),
+                    solve_host_ms_median=med(self.solve_ms),
+                    solve_host_ms_total=sum(self.solve_ms))
+
+
+def fit_glm(fr, cls=GLM, valid=None, **kw):
+    """(model, wall, builder, probe summary) of one GLM training on
+    ``fr``; every pass over the rows must have run on ``kw``'s device
+    (the card unless ``device`` is given)."""
+    want = str(torch.device(kw.get("device") or DEV))
+    b = cls(**kw)
+    with GlmProbe() as pr:
+        sync()
+        t0 = time.perf_counter()
+        m = b.train(y="y", training_frame=fr, validation_frame=valid)
+        sync()
+        wall = time.perf_counter() - t0
+    if pr.devices and pr.devices != {want}:
+        raise AssertionError(f"GLM passes ran on {pr.devices}, not {want}")
+    return m, wall, b, pr.summary()
+
+
+def glm_pass_bound(rows: int, P: int):
+    """(ms, bound_by) of one IRLSM pass: X read once (rows x P float32),
+    y, w and the mask read once; 2 rows P^2 operations of the Gram."""
+    return bound(rows * (P * 4 + 4 + 4 + 1) + (P + 1) * (P + 2) * 4,
+                 2 * rows * P * P)
+
+
+def glm_card_vs_cpu(name: str, sub: Frame, cls=GLM, **kw) -> dict:
+    """The same GLM on ``sub`` on the card and on the CPU: iteration
+    counts equal, coefficients and predictions within GLM_ATOL."""
+    m_g, _, _, _ = fit_glm(sub, cls, **kw)
+    m_c, _, _, _ = fit_glm(sub, cls, device="cpu", **kw)
+    key = "beta_multinomial" if m_g.output.get("is_multinomial") else "beta"
+    d_beta = float(np.abs(m_g.output[key] - m_c.output[key]).max())
+    d_pred = float(np.abs(m_g.predict_raw(sub).cpu().numpy() -
+                          m_c.predict_raw(sub).numpy()).max())
+    rec = dict(phase=name + "_cuda_vs_cpu", rows=sub.nrows,
+               iterations=(m_g.output.get("iterations"),
+                           m_c.output.get("iterations")),
+               beta_max_abs_diff=d_beta, predict_max_abs_diff=d_pred)
+    emit(rec)
+    if m_g.output.get("iterations") != m_c.output.get("iterations") or \
+            d_beta > GLM_ATOL or d_pred > GLM_ATOL or \
+            not np.isfinite(m_g.output[key]).all():
+        raise AssertionError(f"{name}: the card's and the CPU's GLMs "
+                             f"differ: {rec}")
+    return dict(rec, models=(m_g, m_c))
+
+
+def glm_probs(m, fr: Frame) -> torch.Tensor:
+    pred = m.predict(fr)
+    dom = m.output["response_domain"]
+    return torch.stack([torch.from_numpy(pred.vec(d).data) for d in dom],
+                       dim=1).to(DEV)
+
+
+def phase_glm(X, y, fr: Frame, paths) -> None:
+    """16: GLM and XGBoost gblinear at full width."""
+    hk.reset_launches()
+    sub = fr.slice_rows(slice(0, SUB_ROWS))
+    yt = torch.from_numpy(fr.vec("y").as_float()).to(DEV)
+
+    # 16a the default binomial GLM: IRLSM with COD inside
+    m, wall, _, pr = fit_glm(fr)
+    P = len(m.output["coef_names"])
+    tm = m.output["training_metrics"]
+    auc_pred = binomial_metrics(
+        torch.from_numpy(m.predict(fr).vec("s").data).to(DEV), yt)["AUC"]
+    m2, wall2, _, _ = fit_glm(fr)
+    same = bool(np.array_equal(m.output["beta"], m2.output["beta"]))
+    pb_ms, pb_by = glm_pass_bound(R, P)
+    emit(dict(phase="glm_binomial_default", rows=R, predictors=P,
+              solver=m.params["_solver_resolved"],
+              iterations=m.output["iterations"],
+              lambda_used=m.output["lambda_used"], wall_s=wall,
+              wall_second_run_s=wall2, train_auc=tm["AUC"],
+              predict_auc=auc_pred, logloss=tm["logloss"],
+              pass_bound_ms=pb_ms, pass_bound_by=pb_by,
+              betas_bitwise_equal_over_two_runs=same, **pr))
+    if auc_pred != tm["AUC"] or not same or not 0.5 < tm["AUC"] <= 1 or \
+            pr["irlsm_passes"] < 1:
+        raise AssertionError(f"16a: AUC {tm['AUC']} / predict() "
+                             f"{auc_pred}, two runs bitwise {same}")
+    glm_card_vs_cpu("glm_binomial_default", sub)
+
+    # 16b lambda search, validation-deviance selection
+    Xa, ya = make_data(R + VALID_ROWS, C, seed=0)
+    tr, va = frame(Xa[:R], ya[:R]), frame(Xa[R:], ya[R:])
+    del Xa, ya
+    m, wall, _, pr = fit_glm(tr, valid=va, lambda_search=True)
+    rp, vm = m.output["reg_path"], m.output["validation_metrics"]
+    emit(dict(phase="glm_lambda_search", rows=R, valid_rows=VALID_ROWS,
+              lambdas_walked=len(rp["lambdas"]),
+              lambda_max=m.output["lambda_max"],
+              lambda_best=m.output["lambda_best"],
+              best_index=rp["lambdas"].index(m.output["lambda_best"]),
+              iterations=m.output["iterations"],
+              valid_logloss=vm["logloss"],
+              valid_deviance=2 * vm["logloss"] * vm["nobs"],
+              valid_auc=vm["AUC"], wall_s=wall, **pr))
+    if not np.isfinite(vm["logloss"]) or not 0.5 < vm["AUC"] <= 1:
+        raise AssertionError(f"16b: validation {vm['logloss']}")
+    del tr, va
+
+    # 16c p-values at lambda 0
+    m, wall, _, pr = fit_glm(fr, lambda_=0.0, compute_p_values=True)
+    se = np.asarray(m.output["std_errs"])
+    cmp_ = glm_card_vs_cpu("glm_p_values", sub, lambda_=0.0,
+                           compute_p_values=True)
+    mg, mc = cmp_["models"]
+    se_rel = float(np.max(np.abs(mg.output["std_errs"] -
+                                 mc.output["std_errs"]) /
+                          mc.output["std_errs"]))
+    emit(dict(phase="glm_p_values", rows=R, wall_s=wall,
+              iterations=m.output["iterations"], std_errs=se.tolist(),
+              p_values_below_1e_3=int((m.output["p_values"] < 1e-3).sum()),
+              std_err_rel_diff_cuda_vs_cpu=se_rel, **pr))
+    if se_rel > GLM_SE_RTOL or not np.isfinite(se).all():
+        raise AssertionError(f"16c: std errors card vs CPU {se_rel}")
+
+    # 16d the covertype-shaped frame with categorical wild and soil
+    cov = make_covertype(seed=0, categorical=True)
+    ycov = torch.from_numpy(cov.vec("y").as_float()).to(DEV)
+    for name, kw in (("glm_multinomial", {}),
+                     ("glm_multinomial_lbfgs",
+                      dict(solver="L_BFGS", alpha=0.0, lambda_=0.0)),
+                     ("glm_ordinal", dict(family="ordinal"))):
+        m, wall, b, pr = fit_glm(cov, **kw)
+        tm = m.output["training_metrics"]
+        pm = multinomial_metrics(glm_probs(m, cov), ycov)
+        P = len(m.output["coef_names"])
+        emit(dict(phase=name, rows=cov.nrows, predictors=P,
+                  classes=len(COV_COUNTS), params=kw,
+                  solver=m.params["_solver_resolved"],
+                  iterations=getattr(b, "_last_iters", None),
+                  adam_steps=200 * 50 if name == "glm_ordinal" else None,
+                  wall_s=wall, logloss=tm["logloss"], err=tm["err"],
+                  mean_per_class_error=tm["mean_per_class_error"],
+                  predict_logloss=pm["logloss"], **pr))
+        if P != 10 + 3 + 39 or abs(pm["logloss"] - tm["logloss"]) > 1e-6 \
+                or not np.isfinite(tm["logloss"]) or tm["err"] >= 0.7:
+            raise AssertionError(f"{name}: {P} predictors, logloss "
+                                 f"{tm['logloss']} / {pm['logloss']}")
+    del cov
+
+    # 16e the other families, bounds and non_negative on SUB_ROWS rows
+    Xs = X[:SUB_ROWS]
+    eta = 0.6 * Xs[:, 0] - 0.4 * Xs[:, 1]
+    for fam, extra in GLM_FAMILIES.items():
+        if fam in ("quasibinomial",):
+            ys = y[:SUB_ROWS].astype(np.float32)
+        elif fam == "fractionalbinomial":
+            ys = (1 / (1 + np.exp(-eta))).astype(np.float32)
+        elif fam == "negativebinomial":
+            ys = family_response("poisson", Xs)
+        else:
+            ys = family_response(fam, Xs)
+        rec = glm_card_vs_cpu("glm_" + fam, frame(Xs, ys), family=fam,
+                              **extra)
+        mg = rec["models"][0]
+        emit(dict(phase="glm_" + fam, rows=SUB_ROWS, **extra,
+                  iterations=mg.output["iterations"],
+                  residual_deviance=mg.output["residual_deviance"],
+                  mean_residual_deviance=mg.output["training_metrics"][
+                      "mean_residual_deviance"]))
+    for name, kw in (("glm_beta_constraints",
+                      dict(beta_constraints=GLM_BOUNDS)),
+                     ("glm_non_negative", dict(non_negative=True))):
+        rec = glm_card_vs_cpu(name, sub, **kw)
+        co = rec["models"][0].coef()
+        if "beta_constraints" in kw:
+            bad = {c: co[c] for c, (lo, hi) in GLM_BOUNDS.items()
+                   if co[c] < lo - 1e-6 or (hi is not None and
+                                            co[c] > hi + 1e-6)}
+        else:
+            bad = {c: v for c, v in co.items()
+                   if c != "Intercept" and v < -1e-6}
+        emit(dict(phase=name, rows=SUB_ROWS, coef=co, outside_bounds=bad))
+        if bad:
+            raise AssertionError(f"{name}: coefficients outside their "
+                                 f"bounds: {bad}")
+
+    # 16f XGBoost gblinear at its defaults
+    m, wall, _, pr = fit_glm(fr, cls=XGBoost, booster="gblinear")
+    tm = m.output["training_metrics"]
+    emit(dict(phase="xgboost_gblinear", rows=R, wall_s=wall,
+              solver=m.params["_solver_resolved"],
+              iterations=m.output["iterations"], train_auc=tm["AUC"],
+              **pr))
+    if not 0.5 < tm["AUC"] <= 1:
+        raise AssertionError(f"16f: gblinear AUC {tm['AUC']}")
+    glm_card_vs_cpu("xgboost_gblinear", sub, cls=XGBoost,
+                    booster="gblinear")
+
+    # 16g one IRLSM iteration under the profiler
+    from torch.profiler import ProfilerActivity, profile
+    m_def = fit_glm(fr, max_iterations=1)[0]
+    di = DataInfo(fr, [f"x{j}" for j in range(C)], "y", DEV,
+                  mode="expanded", standardize=True, impute_missing=True)
+    Xd, yv, w, vm_ = di.matrix(), di.response(), di.weights(), \
+        di.valid_mask()
+    P = Xd.shape[1]
+    fam = glm_mod._family("binomial")
+    beta = np.asarray(m_def.output["beta"], np.float32)
+    lam = m_def.output["lambda_used"]
+    glm_mod._irlsm_pass(Xd, yv, w, vm_, beta, fam)           # warm
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        G, q, _ = glm_mod._irlsm_pass(Xd, yv, w, vm_, beta, fam)
+        t1 = time.perf_counter()
+        glm_mod._cod_solve(G, q, beta, lam * 0.5 * R, lam * 0.5 * R)
+        t2 = time.perf_counter()
+    per = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            per[ev.name] = per.get(ev.name, 0.0) + ev.device_time_total / 1e3
+    busy = sum(per.values())
+    gemm = sum(v for k, v in per.items()
+               if re.search(r"gemm|xmma|cutlass", k, re.I) and
+               not re.search(r"gemv", k, re.I))
+    g_ms, g_by = bound(2 * R * P * 4 + P * P * 4, 2 * R * P * P)
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
+    emit(dict(phase="profile_glm_iteration", rows=R, predictors=P,
+              pass_wall_ms=(t1 - t0) * 1e3, solve_host_ms=(t2 - t1) * 1e3,
+              device_busy_ms=busy,
+              device_busy_share=busy / ((t2 - t0) * 1e3),
+              device_ops=len([e for e in prof.events() if e.device_type ==
+                              torch.autograd.DeviceType.CUDA]),
+              gram_gemm_ms=gemm, gram_gemm_bound_ms=g_ms,
+              gram_gemm_bound_by=g_by,
+              top_device_ms={k[:60]: v for k, v in top}))
+    if busy <= 0:
+        raise AssertionError("16g: the profiler saw no device time")
+    got = (hk.hist_cuda.launches, hk.hist_cuda_adaptive.launches)
+    paths["glm"] = got
+    if got != (0, 0):
+        raise AssertionError(f"phase 16 launched the histogram kernels "
+                             f"{got} times")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # -- 0 device ------------------------------------------------------------
@@ -1563,6 +1918,9 @@ def main() -> None:
     # -- 15 ingest and explain ----------------------------------------------
     torch.cuda.empty_cache()
     phase_ingest_explain(X, y, fr, m_def, paths)
+    # -- 16 GLM and XGBoost gblinear ------------------------------------------
+    torch.cuda.empty_cache()
+    phase_glm(X, y, fr, paths)
     emit(dict(phase="launches", paths={k: dict(k1=v[0], k2=v[1])
                                        for k, v in paths.items()}))
     sync()

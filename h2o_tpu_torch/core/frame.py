@@ -1,9 +1,10 @@
 """Columns and frames — a host-side port of ``h2o_tpu/core/frame.py``
-(the column types :55-60, ``_merge_domains`` :78-92, ``Vec`` :185 with
-``is_numeric`` :383, ``Frame`` :812 with ``from_numpy`` :828,
-``from_dict`` :839, ``ncols`` :860, ``__getitem__``/``__contains__``/
-``subframe``/``drop``/``add``/``cbind`` :902-932, ``as_matrix`` :1003 and
-``types`` :1061).
+(the column types :55-60, ``_merge_domains`` :78-92, the rollups
+``_rollups_matrix_kernel`` :124-153 and ``RollupStats`` :167-183,
+``Vec`` :185 with ``is_numeric`` :383, ``Frame`` :812 with
+``from_numpy`` :828, ``from_dict`` :839, ``ncols`` :860,
+``__getitem__``/``__contains__``/``subframe``/``drop``/``add``/``cbind``
+:902-932, ``as_matrix`` :1003 and ``types`` :1061).
 
 Columns are numpy arrays: numeric ones float32 with NaN for NA,
 categorical ones (``T_CAT``) int32 codes with -1 for NA and a host
@@ -48,6 +49,34 @@ def _merge_domains(base: Optional[List], new: Optional[List]):
     return union, remap
 
 
+class RollupStats:
+    """A column's rollups (water/fvec/RollupStats.java): the non-NA
+    count ``cnt``, ``nacnt``, ``mean`` = sum / cnt and ``sigma`` = the
+    square root of the sum of squared deviations over cnt - 1, both in
+    float32 as the reference computes them, ``min``, ``max`` (+inf and
+    -inf without a value), ``zeros`` and ``isint``.  Categorical columns
+    roll up their codes, NA codes counting as NA."""
+
+    __slots__ = ("cnt", "nacnt", "mean", "sigma", "min", "max", "zeros",
+                 "isint")
+
+    def __init__(self, x: np.ndarray):
+        isna = np.isnan(x)
+        self.nacnt = int(np.count_nonzero(isna))
+        ok = x[~isna] if self.nacnt else x
+        cnt = ok.size
+        self.cnt = int(cnt)
+        mean = np.float32(ok.sum(dtype=np.float32)) / np.float32(max(cnt, 1))
+        dev = ok - mean
+        var = np.float32(np.dot(dev, dev)) / np.float32(max(cnt - 1, 1))
+        self.mean = float(mean)
+        self.sigma = float(np.sqrt(var))
+        self.min = float(ok.min()) if cnt else float("inf")
+        self.max = float(ok.max()) if cnt else float("-inf")
+        self.zeros = int(np.count_nonzero(ok == 0))
+        self.isint = bool(np.array_equal(ok, np.rint(ok)))
+
+
 class Vec:
     """One column, held on the host."""
 
@@ -59,6 +88,7 @@ class Vec:
         self.domain = list(domain) if domain is not None else None
         self.host_data: Optional[List] = None
         self.host_f64: Optional[np.ndarray] = None
+        self._rollups: Optional[RollupStats] = None
         if vtype in (T_STR, T_UUID):
             self.host_data = list(data)
             self.data = None
@@ -122,15 +152,22 @@ class Vec:
             return Vec([self.host_data[i] for i in idx], self.type)
         return Vec(self.to_numpy()[sel], self.type, self.domain)
 
+    @property
+    def rollups(self) -> RollupStats:
+        """The column's rollups, computed once (the payload of a Vec is
+        never replaced)."""
+        if self._rollups is None:
+            self._rollups = RollupStats(self.as_float())
+        return self._rollups
+
     def is_constant(self) -> bool:
-        """The ``ignore_const_cols`` test DataInfo applies
+        """The ``ignore_const_cols`` test DataInfo applies in both modes
         (``h2o_tpu/models/model.py:58-69``): a categorical column with at
-        most one level, or a numeric column whose non-NA values are all
-        equal (rollup sigma == 0; an all-NA column counts too)."""
+        most one level, or a numeric column whose rollup sigma is 0 (an
+        all-NA column counts too)."""
         if self.is_categorical:
             return self.cardinality <= 1
-        v = self.data[~np.isnan(self.data)]
-        return v.size == 0 or bool(v.min() == v.max())
+        return self.rollups.sigma == 0
 
 
 class Frame:

@@ -1,6 +1,6 @@
 """Model / ModelBuilder lifecycle — port of ``h2o_tpu/models/model.py``
-(``DataInfo`` :34-106 in tree mode, ``_raw_to_frame`` :156-166,
-``Model`` :169-380 with the explain options :229-265,
+(``DataInfo`` :34-153 in tree and expanded modes, ``_raw_to_frame``
+:156-166, ``Model`` :169-380 with the explain options :229-265,
 ``metrics_from_raw`` :270-303, ``varimp`` :303 and ``save``/``load``
 :338-380, ``ModelBuilder`` :383-696 with ``_validate_fixed`` :397-416,
 ``train`` :447-470, ``_fold_assignment`` :545-572, ``_fit_cv`` :574-666,
@@ -38,18 +38,33 @@ from h2o_tpu_torch.ops import prng
 
 
 class DataInfo:
-    """Tree-mode feature extraction (reference hex/DataInfo.java):
-    categoricals stay integer codes, time columns are numeric features
-    (their float32 milliseconds), NAs stay NaN; string and uuid columns
-    and constant columns are dropped (``ignore_const_cols``,
-    ``model.py:58-69``), and the response, weights and offset columns
-    are never features."""
+    """Feature extraction (reference hex/DataInfo.java:23,112-115).
+    String and uuid columns and constant columns are dropped
+    (``ignore_const_cols``, ``model.py:58-69``: a categorical with at
+    most one level, a numeric with rollup sigma 0), and the response,
+    weights and offset columns are never features.  Two modes:
+
+    - ``"tree"``: categoricals stay integer codes, time columns are
+      numeric features (their float32 milliseconds), NAs stay NaN;
+    - ``"expanded"`` (GLM): categoricals first, one-hot from level 1 (from
+      level 0 with ``use_all_factor_levels``), an NA code one-hot to all
+      zeros; then the numerics, NaN imputed with the rollup mean
+      (``impute_missing``) and standardized by the rollup mean and sigma
+      (``standardize``).  ``expanded_names`` names the columns.
+
+    The matrix lives on ``device``."""
 
     def __init__(self, frame: Frame, x: Sequence[str], y: Optional[str],
                  device: torch.device, weights: Optional[str] = None,
-                 offset: Optional[str] = None):
+                 offset: Optional[str] = None, mode: str = "tree",
+                 standardize: bool = False,
+                 use_all_factor_levels: bool = False,
+                 impute_missing: bool = False):
+        if mode not in ("tree", "expanded"):
+            raise ValueError(f"unknown DataInfo mode {mode!r}")
         self.frame = frame
         self.device = device
+        self.mode = mode
         self.response_name = y
         self.weights_name = weights
         self.offset_name = offset
@@ -57,6 +72,13 @@ class DataInfo:
                   and frame.vec(c).type not in (T_STR, T_UUID)
                   and not frame.vec(c).is_constant()]
         self.cat_names = [c for c in self.x if frame.vec(c).is_categorical]
+        self.num_names = [c for c in self.x
+                          if not frame.vec(c).is_categorical]
+        self.standardize = standardize
+        self.use_all_factor_levels = use_all_factor_levels
+        self.impute_missing = impute_missing
+        self._matrix: Optional[torch.Tensor] = None
+        self._names_expanded: Optional[List[str]] = None
 
     def response(self) -> torch.Tensor:
         """float32 response on the device; NaN where missing."""
@@ -93,7 +115,81 @@ class DataInfo:
         return ~torch.isnan(self.response())
 
     def matrix(self) -> torch.Tensor:
-        return self.frame.as_matrix(self.x, self.device)
+        """The feature matrix on the device (built once in expanded
+        mode)."""
+        if self.mode == "tree":
+            return self.frame.as_matrix(self.x, self.device)
+        if self._matrix is None:
+            names = []
+            for c in self.cat_names:
+                v = self.frame.vec(c)
+                lo = 0 if self.use_all_factor_levels else 1
+                names += [f"{c}.{v.domain[k]}" for k in range(lo,
+                                                               v.cardinality)]
+            names += self.num_names
+            self._matrix = expand_columns(
+                self.frame, self.cat_names,
+                [self.frame.vec(c).cardinality for c in self.cat_names],
+                self.num_names,
+                [self.frame.vec(c).rollups.mean for c in self.num_names],
+                [self.frame.vec(c).rollups.sigma for c in self.num_names],
+                self.standardize, self.use_all_factor_levels, self.device,
+                impute=self.impute_missing)
+            self._names_expanded = names
+        return self._matrix
+
+    @property
+    def expanded_names(self) -> List[str]:
+        if self.mode == "tree":
+            return list(self.x)
+        if self._names_expanded is None:
+            self.matrix()
+        return self._names_expanded
+
+
+def expand_columns(frame: Frame, cat_names: Sequence[str],
+                   cat_cards: Sequence[int], num_names: Sequence[str],
+                   means: Sequence[float], sigmas: Sequence[float],
+                   standardize: bool, use_all_factor_levels: bool,
+                   device: torch.device, impute: bool = True
+                   ) -> torch.Tensor:
+    """The expanded float32 matrix of ``frame`` on ``device``: each
+    categorical's codes one-hot over levels 1..card-1 (0..card-1 with
+    ``use_all_factor_levels``; an NA code and a code outside the domain
+    one-hot to all zeros), then each numeric with NaN replaced by its
+    mean (``impute``) and, with ``standardize``, (x - mean) / sigma (a
+    sigma of 0 divides by 1).  DataInfo's expansion and the scoring
+    expansion of a trained model (``glm.expand_for_scoring``) are this
+    one function, so training and scoring rows expand alike."""
+    cols = []
+    lo = 0 if use_all_factor_levels else 1
+    for c, card in zip(cat_names, cat_cards):
+        codes = torch.from_numpy(frame.vec(c).data).to(device)
+        levels = torch.arange(lo, card, dtype=codes.dtype, device=device)
+        cols.append((codes[:, None] == levels[None, :]).to(torch.float32))
+    for c, mean, sigma in zip(num_names, means, sigmas):
+        d = torch.from_numpy(frame.vec(c).as_float()).to(device)
+        cols.append(expand_numeric(d, mean, sigma, standardize, impute)[:,
+                                                                         None])
+    if not cols:
+        return torch.zeros((frame.nrows, 0), dtype=torch.float32,
+                           device=device)
+    return torch.cat(cols, dim=1)
+
+
+def expand_numeric(d: torch.Tensor, mean: float, sigma: float,
+                   standardize: bool, impute: bool = True) -> torch.Tensor:
+    """One numeric column as the expansion writes it: NaN -> mean, then
+    (d - mean) / (sigma or 1).  The divisor is a float32 tensor, not a
+    Python number: a CUDA tensor divided by a number is multiplied by
+    the number's float32 reciprocal, which the CPU does not do."""
+    if impute:
+        d = torch.nan_to_num(d, nan=float(np.float32(mean)))
+    if standardize:
+        m = torch.full_like(d, float(np.float32(mean)))
+        sd = torch.full_like(d, float(np.float32(sigma or 1.0)))
+        d = (d - m) / sd
+    return d
 
 
 def _raw_to_frame(raw, dom: Optional[List[str]]) -> Frame:
@@ -275,7 +371,10 @@ class Model:
                                  f"{desc.get('framework')!r}, not by "
                                  "h2o-tpu-torch")
             blob = pickle.load(f)
-        mod, name = _MODEL_CLASSES[blob["algo"]]
+        algo = blob["algo"]
+        if algo == "xgboost" and blob["params"].get("booster") == "gblinear":
+            algo = "xgboost_gblinear"
+        mod, name = _MODEL_CLASSES[algo]
         cls = getattr(importlib.import_module(mod), name)
         return cls(blob["params"], blob["output"], cloud(device))
 
@@ -291,6 +390,9 @@ _MODEL_CLASSES = {
     "extendedisolationforest": ("h2o_tpu_torch.models.tree.isofor",
                                 "ExtendedIsolationForestModel"),
     "upliftdrf": ("h2o_tpu_torch.models.tree.uplift", "UpliftDRFModel"),
+    "glm": ("h2o_tpu_torch.models.glm", "GLMModel"),
+    "xgboost_gblinear": ("h2o_tpu_torch.models.tree.xgboost",
+                         "XGBoostLinearModel"),
 }
 
 

@@ -13,9 +13,9 @@ XGBoost's gbtree and dart forests (dart's trees carry their rescaled
 values).  A converted GBM or DRF carries what a checkpoint needs (tree
 count, f0, split points, fine grid, node arrays and importance) and the
 per-node gains and covers (``node_gain``, ``node_w``), so it can be
-given to the port's builder as ``checkpoint`` and trained on.
-The reference's gblinear models are GLMs and wait for the GLM slice
-(P11).
+given to the port's builder as ``checkpoint`` and trained on.  An
+XGBoost gblinear model is a GLM and goes through
+``models.glm.glm_from_jax_output``.
 """
 
 from __future__ import annotations
@@ -25,13 +25,15 @@ from typing import Any, Dict, Tuple
 import numpy as np
 
 from h2o_tpu_torch.core.device import DeviceLike, cloud
+from h2o_tpu_torch.models.glm import glm_from_jax_output
 from h2o_tpu_torch.models.tree.drf import DRFModel
 from h2o_tpu_torch.models.tree.dt import DTModel
 from h2o_tpu_torch.models.tree.gbm import GBMModel
 from h2o_tpu_torch.models.tree.isofor import (ExtendedIsolationForestModel,
                                               IsolationForestModel)
 from h2o_tpu_torch.models.tree.uplift import UpliftDRFModel
-from h2o_tpu_torch.models.tree.xgboost import XGBoostModel
+from h2o_tpu_torch.models.tree.xgboost import (XGBoostLinearModel,
+                                               XGBoostModel)
 
 _KEYS = ("x", "split_points", "is_cat", "nbins", "fine_nbins", "hist_type",
          "split_col", "bitset", "value", "thr_bin", "na_left", "child",
@@ -92,12 +94,12 @@ def drf_from_jax_output(output: Dict[str, Any], params: Dict[str, Any],
 
 def xgboost_from_jax_output(output: Dict[str, Any], params: Dict[str, Any],
                             device: DeviceLike = None) -> XGBoostModel:
-    """Port ``XGBoostModel`` (booster gbtree or dart) from an
-    ``h2o_tpu`` XGBoost's output dict."""
+    """Port ``XGBoostModel`` (booster gbtree or dart) or
+    ``XGBoostLinearModel`` (gblinear, a GLM) from an ``h2o_tpu``
+    XGBoost's output dict."""
     if str(params.get("booster", "gbtree")) == "gblinear":
-        raise NotImplementedError(
-            "an XGBoost gblinear model is a GLM; it comes with the GLM "
-            "slice (P11)")
+        return glm_from_jax_output(output, params, device,
+                                   cls=XGBoostLinearModel)
     return _boosted(XGBoostModel, "XGBoost", output, params, device)
 
 

@@ -1,5 +1,6 @@
 """XGBoost — port of ``h2o_tpu/models/tree/xgboost.py`` (``_PARAM_MAP``,
-``_XGB_DEFAULTS``, ``ENGINE_FIXED`` and the ``reg_alpha`` guard :42-124;
+``_XGB_DEFAULTS``, ``XGBoostLinearModel`` :68-84, ``ENGINE_FIXED`` and the
+``reg_alpha`` guard :87-124, ``booster="gblinear"`` :136-158,
 ``booster="dart"`` :162-295).
 
 The builder is GBM's histogram engine under XGBoost's names: eta ->
@@ -24,8 +25,10 @@ Boosters:
   in the reference.  The one-tree fits run with no scoring interval and
   no early stopping, and skip the final metrics (``_train_model``); a
   ``checkpoint`` raises, as in the reference;
-- ``gblinear`` — the reference's elastic-net GLM; it raises until the
-  GLM slice (P11).
+- ``gblinear`` — the elastic-net GLM (``models/glm.py``): reg_alpha is
+  the L1 and reg_lambda the L2 strength, alpha = a / (a + l) and lambda =
+  (a + l) / rows in GLM's per-row convention; binomial, multinomial or
+  gaussian by the response; scored as a linear model.
 """
 
 from __future__ import annotations
@@ -36,11 +39,17 @@ import numpy as np
 
 from h2o_tpu_torch.core.device import DeviceLike
 from h2o_tpu_torch.core.frame import Frame, Vec
+from h2o_tpu_torch.models.glm import GLM, GLMModel
 from h2o_tpu_torch.models.tree import shared_tree as st
 from h2o_tpu_torch.models.tree.gbm import GBM, GBMModel
 
 
 class XGBoostModel(GBMModel):
+    algo = "xgboost"
+
+
+class XGBoostLinearModel(GLMModel):
+    """booster="gblinear": a GLM, scored by its linear predictor."""
     algo = "xgboost"
 
 
@@ -113,9 +122,7 @@ class XGBoost(GBM):
              valid: Optional[Frame] = None) -> XGBoostModel:
         booster = self.params.get("booster", "gbtree")
         if booster == "gblinear":
-            raise NotImplementedError(
-                "xgboost: booster='gblinear' is the reference's elastic-net "
-                "GLM; it comes with the GLM slice (P11)")
+            return self._fit_gblinear(x, y, train, valid)
         if booster == "dart":
             model = self._fit_dart(x, y, train)
         else:
@@ -124,6 +131,26 @@ class XGBoost(GBM):
         if valid is not None:
             model.output["validation_metrics"] = model.model_metrics(valid)
         return model
+
+    def _fit_gblinear(self, x: List[str], y: str, train: Frame,
+                      valid: Optional[Frame]) -> XGBoostLinearModel:
+        """gblinear as GLM's elastic net: reg_alpha -> L1, reg_lambda ->
+        L2 (alpha = a / (a + l), lambda = (a + l) / rows)."""
+        a = float(self.params.get("reg_alpha") or 0.0)
+        l2 = float(self.params.get("reg_lambda") or 0.0)
+        tot = a + l2
+        yv = train.vec(y)
+        fam = "binomial" if yv.is_categorical and \
+            len(yv.domain or []) == 2 else \
+            ("multinomial" if yv.is_categorical else "gaussian")
+        g = GLM(device=self.device, family=fam,
+                alpha=(a / tot) if tot > 0 else 0.0,
+                lambda_=tot / max(train.nrows, 1),
+                seed=self.params.get("seed", -1))
+        g.model_cls = XGBoostLinearModel
+        m = g._fit(x, y, train, valid)
+        m.params.update(booster="gblinear", reg_alpha=a, reg_lambda=l2)
+        return m
 
     def _fit_dart(self, x: List[str], y: str, train: Frame) -> XGBoostModel:
         """DART: each round drops a random subset of the earlier trees,

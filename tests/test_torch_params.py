@@ -2,11 +2,11 @@
 param set, as a client that sends all params does.
 
 For each of GBM, DRF, XGBoost, DT, IsolationForest,
-ExtendedIsolationForest and UpliftDRF the port's builder is constructed
-with ``h2o_tpu``'s ``default_params()`` passed explicitly (nothing may be
-"unknown", no accepted default may be refused, and every param resolves
-to the value the reference builder resolves it to), and trains a small
-frame with them (ntrees cut to 2).  ``custom_distribution_func`` other
+ExtendedIsolationForest, UpliftDRF and GLM the port's builder is
+constructed with ``h2o_tpu``'s ``default_params()`` passed explicitly
+(nothing may be "unknown", no accepted default may be refused, and every
+param resolves to the value the reference builder resolves it to), and
+trains a small frame with them (the tree builders' ntrees cut to 2).  ``custom_distribution_func`` other
 than None raises NotImplementedError naming P13, as
 ``distribution="custom"`` does; ``calibrate_model=True`` is refused by
 name.
@@ -15,6 +15,7 @@ name.
 import numpy as np
 import pytest
 
+from h2o_tpu.models.glm import GLM as JGLM
 from h2o_tpu.models.tree.drf import DRF as JDRF
 from h2o_tpu.models.tree.dt import DT as JDT
 from h2o_tpu.models.tree.gbm import GBM as JGBM
@@ -24,6 +25,7 @@ from h2o_tpu.models.tree.uplift import UpliftDRF as JUplift
 from h2o_tpu.models.tree.xgboost import XGBoost as JXGB
 
 from h2o_tpu_torch.core.frame import T_CAT, Frame, Vec
+from h2o_tpu_torch.models.glm import GLM
 from h2o_tpu_torch.models.tree.drf import DRF
 from h2o_tpu_torch.models.tree.dt import DT
 from h2o_tpu_torch.models.tree.gbm import GBM
@@ -35,7 +37,7 @@ from h2o_tpu_torch.models.tree.xgboost import XGBoost
 PAIRS = {"gbm": (JGBM, GBM), "drf": (JDRF, DRF), "xgboost": (JXGB, XGBoost),
          "dt": (JDT, DT), "isolationforest": (JIF, IsolationForest),
          "extendedisolationforest": (JEIF, ExtendedIsolationForest),
-         "upliftdrf": (JUplift, UpliftDRF)}
+         "upliftdrf": (JUplift, UpliftDRF), "glm": (JGLM, GLM)}
 
 
 def _frame(n=300):
@@ -66,14 +68,20 @@ def test_reference_defaults_are_accepted(algo):
 @pytest.mark.parametrize("algo", sorted(PAIRS))
 def test_reference_defaults_train(algo):
     jcls, pcls = PAIRS[algo]
-    params = dict(jcls().default_params(), ntrees=2)
+    params = jcls().default_params()
+    if "ntrees" in params:
+        params["ntrees"] = 2
     fr = _frame()
     b = pcls(device="cpu", **params)
     if b.supervised:
         m = b.train(x=["a", "b", "c"], y="y", training_frame=fr)
     else:
         m = b.train(x=["a", "b", "c"], training_frame=fr)
-    assert m.output["ntrees_actual"] == (1 if algo == "dt" else 2)
+    if algo == "glm":
+        assert m.params["_solver_resolved"] == "IRLSM"
+        assert np.isfinite(m.output["beta"]).all()
+    else:
+        assert m.output["ntrees_actual"] == (1 if algo == "dt" else 2)
     assert m.output["training_metrics"] is not None
 
 

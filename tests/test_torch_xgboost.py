@@ -10,7 +10,12 @@ columns, 8 trees of depth 3, ``rate_drop=0.3``, seed 7), where the drops
 come from numpy's ``default_rng(7)`` in both packages and every round's
 tree is tree 0 of the seed's key stream.  A JAX-trained dart forest
 carried across by the converter scores like the JAX model.  The
-``reg_alpha`` guard and gblinear (the GLM slice) raise.
+``reg_alpha`` guard raises.  gblinear (a GLM) trains, and on the
+reference's own case (``tests/test_xgb_extras.py::
+test_xgboost_gblinear``: 800 rows, 3 normal columns, reg_lambda 1,
+seed 1; and once with reg_alpha 0.5 for the elastic net) its
+coefficients are within 1e-5 of the reference's and its predictions
+within 1e-5; a JAX gblinear model carried across predicts within 1e-6.
 
 Tolerances: split columns, thresholds, NA directions and bitsets equal;
 node values rtol 1e-4 / atol 1e-6; predictions atol 1e-5; training AUC
@@ -25,6 +30,7 @@ from h2o_tpu.core.frame import Frame as JFrame, T_CAT as J_CAT, Vec as JVec
 from h2o_tpu.models.tree.xgboost import XGBoost as JXGBoost
 
 from h2o_tpu_torch.core.frame import T_CAT, Frame, Vec
+from h2o_tpu_torch.models.model import Model
 from h2o_tpu_torch.models.tree.convert import xgboost_from_jax_output
 from h2o_tpu_torch.models.tree.xgboost import XGBoost
 
@@ -150,9 +156,11 @@ def test_xgboost_guards():
         XGBoost(device="cpu", booster="gbtree", reg_alpha=0.5)
     with pytest.raises(ValueError, match="tree_method"):
         XGBoost(device="cpu", tree_method="exact")
-    with pytest.raises(NotImplementedError, match="GLM slice"):
-        XGBoost(device="cpu", booster="gblinear", ntrees=1).train(
-            y="y", training_frame=pf)
+    # gblinear is a GLM: it trains
+    m = XGBoost(device="cpu", booster="gblinear", ntrees=1).train(
+        y="y", training_frame=pf)
+    assert m.params["booster"] == "gblinear" and \
+        np.isfinite(m.output["beta"]).all()
     with pytest.raises(ValueError, match="offset_column"):
         XGBoost(device="cpu", booster="dart", ntrees=1,
                 offset_column="a").train(y="y", training_frame=pf)
@@ -161,3 +169,48 @@ def test_xgboost_guards():
                 min_child_weight=3.0)
     assert (m.params["learn_rate"], m.params["sample_rate"],
             m.params["nbins"], m.params["min_rows"]) == (0.1, 0.9, 64, 3.0)
+
+
+def _gblinear_frames(n=800, seed=42):
+    """``test_xgb_extras.py::test_xgboost_gblinear``'s frame (its ``rng``
+    fixture is ``default_rng(42)``)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, 3)).astype(np.float32)
+    logits = 1.5 * x[:, 0] - x[:, 1]
+    y = (rng.uniform(size=n) < 1 / (1 + np.exp(-logits))).astype(np.int32)
+    return _frames(["a", "b", "c", "y"], [(x[:, j], None) for j in range(3)]
+                   + [(y, ["n", "p"])])
+
+
+@pytest.mark.parametrize("reg", [dict(reg_lambda=1.0),
+                                 dict(reg_lambda=1.0, reg_alpha=0.5)],
+                         ids=["ridge", "elastic_net"])
+def test_gblinear_matches_reference(cl, reg, tmp_path):
+    jf, pf = _gblinear_frames()
+    jm = JXGBoost(booster="gblinear", seed=1, **reg).train(
+        y="y", training_frame=jf)
+    pm = XGBoost(device="cpu", booster="gblinear", seed=1, **reg).train(
+        y="y", training_frame=pf)
+    assert pm.params["booster"] == "gblinear"
+    assert pm.params["_solver_resolved"] == jm.params["_solver_resolved"]
+    assert pm.output["iterations"] == jm.output["iterations"]
+    np.testing.assert_allclose(pm.output["beta"],
+                               np.asarray(jm.output["beta"]), atol=1e-5)
+    np.testing.assert_allclose(pm.predict_raw(pf).numpy(),
+                               np.asarray(jm.predict_raw(jf))[:pf.nrows],
+                               atol=1e-5)
+    jt, pt = jm.output["training_metrics"], pm.output["training_metrics"]
+    assert abs(pt["AUC"] - jt["AUC"]) <= 1e-6 and pt["AUC"] > 0.8
+    beta = pm.output["beta"]
+    assert abs(beta[0]) > abs(beta[2])
+    out = {k: (np.asarray(v) if hasattr(v, "shape") else v)
+           for k, v in jm.output.items()}
+    cm = xgboost_from_jax_output(out, jm.params, device="cpu")
+    np.testing.assert_allclose(cm.predict_raw(pf).numpy(),
+                               np.asarray(jm.predict_raw(jf))[:pf.nrows],
+                               rtol=1e-6, atol=1e-6)
+    # a saved gblinear model loads as the linear model it is
+    m2 = Model.load(pm.save(str(tmp_path / "lin.bin")), device="cpu")
+    assert type(m2) is type(pm)
+    np.testing.assert_array_equal(m2.predict_raw(pf).numpy(),
+                                  pm.predict_raw(pf).numpy())
