@@ -6,7 +6,8 @@
 The main paths are GBM and DRF training followed by scoring, at the
 HIGGS-shaped width of 1,000,000 rows x 28 features the repository
 benchmarks, the path a user takes first: a CSV parsed, a GBM trained on
-it and explained, and GLM with every family and solver.  Phases (each
+it and explained, GLM with every family and solver, then KMeans,
+DeepLearning, GAM and RuleFit.  Phases (each
 prints one JSON line; any failure raises and the exit code is not 0):
 
   0 device  - card name and power limit
@@ -155,6 +156,36 @@ prints one JSON line; any failure raises and the exit code is not 0):
               16g one IRLSM iteration under torch.profiler: device busy
               share, top operations, the Gram GEMM's ms beside its bound,
               the host solve
+  3r K1_rulefit - hist_cuda at RuleFit's shapes (1M x 28 uint8 bins,
+              B = 20, L = 1, 2, 4: the levels of depth-3 rule trees) in f32
+              and int16, as phase 3f
+ 17 KMeans, DeepLearning, GAM and RuleFit (the first three launch no
+              histogram kernel: their counters must read 0):
+              17a KMeans at k = 10, standardized, 10 iterations, PlusPlus
+              and Furthest on the 1M x 28 frame (wall, init wall,
+              iterations), one Lloyd step's device ms beside its bytes
+              bound, k = 7 on the covertype frame with wild and soil as
+              categoricals; the first 100,000 rows on the card and on the
+              CPU: equal iterations and assignments, centers within 1e-5;
+              17b DeepLearning at H2O-3's defaults (hidden [200, 200],
+              Rectifier, ADADELTA, 10 epochs: 9,765 steps of 1,024 rows):
+              wall, ms a step, training AUC reproduced by predict(); rate/
+              momentum and RectifierWithDropout for 1 epoch; an autoencoder
+              (hidden [20], 1 epoch) and anomaly() over the 1M rows; card
+              against CPU on 100,000 rows after one step of ADADELTA,
+              rate/momentum and dropout at full width (weights within
+              1e-6 relative, probabilities 1e-3), and the drift after one
+              block of 200 steps reported (training amplifies rounding:
+              ~1e-2 there between the reference and the port on one CPU);
+              17c a binomial GAM over x0 (cr), x1 (I-spline) and x4
+              (M-spline) at 10 knots, standardized with ridge 0.1: wall;
+              card against CPU on 100,000 rows: equal iterations,
+              coefficients and probabilities within 1e-4;
+              17d RuleFit at its defaults (50 DRF trees of depth 3,
+              QuantilesGlobal, L1 GLM at lambda 1e-3): K1 150 launches
+              (trees x levels), rule count, wall and the GLM's share of it;
+              card against CPU on 100,000 rows: equal rule sets and
+              descriptions, coefficients within 1e-4
   7 profile - torch.profiler over 2 default trees: device busy share and
               the kernels that take the device time; then 2 QuantilesGlobal
               trees: each histogram kernel's device ms per main-path launch
@@ -164,8 +195,10 @@ prints one JSON line; any failure raises and the exit code is not 0):
               iteration (7 class trees) and one UpliftDRF tree
 
 The kernels line's launches sum every main-path training above (phases
-4, 5, 8-16), each read from counters set to 0 just before it; the
-launches phase lists them path by path (phase 16 as "glm", 0 and 0).
+4, 5, 8-17), each read from counters set to 0 just before it; the
+launches phase lists them path by path (phase 16 as "glm", 0 and 0;
+phase 17's KMeans, DeepLearning and GAM paths 0 and 0, "rulefit" 150
+and 0).
 
 The line before the last holds every kernel's numbers; the last line is
 the device summary.  Needs one CUDA card; exits non-zero without one.
@@ -192,6 +225,13 @@ from h2o_tpu_torch.core.frame import T_CAT, Frame, Vec  # noqa: E402
 from h2o_tpu_torch.core.parse import (parse_files,  # noqa: E402
                                       parse_setup)
 from h2o_tpu_torch.models import glm as glm_mod  # noqa: E402
+from h2o_tpu_torch.models import kmeans as km_mod  # noqa: E402
+from h2o_tpu_torch.models import rulefit as rulefit_mod  # noqa: E402
+from h2o_tpu_torch.models.deeplearning import DeepLearning  # noqa: E402
+from h2o_tpu_torch.models.gam import GAM  # noqa: E402
+from h2o_tpu_torch.models.glm import expand_for_scoring  # noqa: E402
+from h2o_tpu_torch.models.kmeans import KMeans  # noqa: E402
+from h2o_tpu_torch.models.rulefit import RuleFit  # noqa: E402
 from h2o_tpu_torch.models.glm import GLM  # noqa: E402
 from h2o_tpu_torch.models.metrics import (binomial_metrics,  # noqa: E402
                                           multinomial_metrics)
@@ -1716,6 +1756,333 @@ def phase_glm(X, y, fr: Frame, paths) -> None:
                              f"{got} times")
 
 
+# -- 17: KMeans, DeepLearning, GAM and RuleFit -------------------------------
+
+#: 17a: KMeans's k and iterations on the 1M x 28 frame, k on covertype
+KM_K, KM_ITERS, KM_COV_K = 10, 10, 7
+#: 17b: DeepLearning at H2O-3's defaults (hidden [200, 200], Rectifier,
+#: ADADELTA, 10 epochs = 9,765 steps of 1,024 rows); the 1-epoch variants
+DL_EPOCHS = 10.0
+DL_VARIANTS = {"momentum": dict(adaptive_rate=False, rate=0.005,
+                                momentum_start=0.5, momentum_stable=0.99,
+                                momentum_ramp=1e6),
+               "dropout": dict(activation="RectifierWithDropout")}
+#: the CPU test's tolerances: weights after one step (relative, atol
+#: 1e-8), predictions (absolute)
+DL_STEP_RTOL, DL_BLOCK_ATOL = 1e-6, 1e-3
+#: 17c: the smoothers (column, bs: cr, I-spline, M-spline) at 10 knots,
+#: standardized, ridge 0.1: the Gram the float32 solve determines (at
+#: lambda 0 cr's Gram has a condition number of ~1e6-1e7, tests/
+#: test_torch_gam.py, and two float32 solves differ by more than 1e-4)
+GAM_KW = dict(gam_columns=["x0", "x1", "x4"], bs=[0, 2, 3], num_knots=10,
+              family="binomial", standardize=True, lambda_=0.1, seed=1)
+GAM_ATOL = 1e-4
+#: 17d / 3r: RuleFit's defaults (50 DRF trees of depth 3, QuantilesGlobal
+#: with 20 bins, L1 GLM at lambda 1e-3); K1's shapes a level: L = 1, 2, 4
+RULEFIT_TREES, RULEFIT_DEPTH = 50, 3
+RULEFIT_SHAPES = [(1, 20), (2, 20), (4, 20)]
+RULEFIT_ATOL = 1e-4
+
+
+def hist_launches():
+    return (hk.hist_cuda.launches, hk.hist_cuda_adaptive.launches)
+
+
+def no_hist(name: str, got) -> None:
+    if got != (0, 0):
+        raise AssertionError(f"{name} launched the histogram kernels {got} "
+                             "times; it reaches no Pallas kernel")
+
+
+def phase_kmeans(X, fr: Frame, paths) -> None:
+    """17a: KMeans at full width, on covertype, card against CPU (the
+    unsupervised builders leave the response column out)."""
+    starts = []
+    orig = km_mod._lloyd_step
+
+    def lloyd(*a, **k):                 # the host clock at each step
+        sync()
+        starts.append(time.perf_counter())
+        return orig(*a, **k)
+
+    km_mod._lloyd_step = lloyd
+    try:
+        for init in ("PlusPlus", "Furthest"):
+            hk.reset_launches()
+            starts.clear()
+            sync()
+            t0 = time.perf_counter()
+            m, wall = fit(KMeans, fr, k=KM_K, init=init,
+                          max_iterations=KM_ITERS, seed=1)
+            got = hist_launches()
+            paths[f"kmeans_{init.lower()}"] = got
+            no_hist("KMeans", got)
+            tm = m.output["training_metrics"]
+            emit(dict(phase=f"kmeans_{init.lower()}", rows=R, cols=C, k=KM_K,
+                      standardize=True, wall_s=wall,
+                      init_wall_s=starts[0] - t0,
+                      iterations=m.output["iterations"],
+                      tot_withinss=tm["tot_withinss"], totss=tm["totss"],
+                      betweenss_share=tm["betweenss"] / tm["totss"],
+                      sizes=tm["size"]))
+            if not np.isfinite(m.output["centers"]).all() or \
+                    sum(tm["size"]) != R or not 0 < tm["betweenss"]:
+                raise AssertionError(f"KMeans {init}: implausible {tm.data}")
+    finally:
+        km_mod._lloyd_step = orig
+    # one Lloyd step, device time beside its bound
+    Xd = expand_for_scoring(fr, m.output["expansion_spec"], DEV)
+    cen = torch.tensor(m.output["centers_std"], device=DEV)
+    ms = time_ms(lambda: km_mod._lloyd_step(Xd, cen, KM_K))
+    b_ms, b_by = bound(R * C * 4 + KM_K * C * 8, 4 * R * KM_K * C)
+    emit(dict(phase="kmeans_lloyd_step", rows=R, cols=C, k=KM_K, ms=ms,
+              bound_ms=b_ms, bound_by=b_by))
+    del Xd
+    # covertype with wild and soil as categoricals (one-hot, every level)
+    cov = make_covertype(seed=0, categorical=True)
+    hk.reset_launches()
+    m, wall = fit(KMeans, cov, k=KM_COV_K, init="PlusPlus",
+                  max_iterations=KM_ITERS, seed=1)
+    got = hist_launches()
+    paths["kmeans_covertype"] = got
+    no_hist("KMeans covertype", got)
+    tm = m.output["training_metrics"]
+    emit(dict(phase="kmeans_covertype", rows=cov.nrows,
+              expanded_cols=len(m.output["coef_names"]), k=KM_COV_K,
+              wall_s=wall, iterations=m.output["iterations"],
+              betweenss_share=tm["betweenss"] / tm["totss"]))
+    # card against CPU on the first 100,000 rows
+    sub = fr.slice_rows(slice(0, SUB_ROWS))
+    for init in ("PlusPlus", "Furthest"):
+        kw = dict(k=KM_K, init=init, max_iterations=KM_ITERS, seed=1)
+        g, _ = fit(KMeans, sub, device="cuda", **kw)
+        c, _ = fit(KMeans, sub, device="cpu", **kw)
+        same = int((g.predict_raw(sub).cpu() == c.predict_raw(sub)).sum())
+        d_c = float(np.abs(g.output["centers_std"] -
+                           c.output["centers_std"]).max())
+        rec = dict(phase=f"kmeans_{init.lower()}_cuda_vs_cpu", rows=SUB_ROWS,
+                   iterations=(g.output["iterations"],
+                               c.output["iterations"]),
+                   assignments_equal=same, centers_max_abs_diff=d_c)
+        emit(rec)
+        if g.output["iterations"] != c.output["iterations"] or \
+                same != SUB_ROWS or d_c > 1e-5:
+            raise AssertionError(f"KMeans: card and CPU differ {rec}")
+
+
+def dl_probs(m, fr: Frame) -> torch.Tensor:
+    return torch.from_numpy(m.predict(fr).vec("s").data).to(DEV)
+
+
+def phase_deeplearning(fr: Frame, yt: torch.Tensor, paths) -> None:
+    """17b: DeepLearning at H2O-3's defaults, its variants and the
+    autoencoder; card against CPU."""
+    hk.reset_launches()
+    m, wall = fit(DeepLearning, fr, seed=1, epochs=DL_EPOCHS)
+    got = hist_launches()
+    paths["deeplearning"] = got
+    no_hist("DeepLearning", got)
+    steps = m.output["steps"]
+    auc = m.output["training_metrics"]["AUC"]
+    pred, s_wall = scored(m, fr)
+    auc_pred = binomial_metrics(
+        torch.from_numpy(pred.vec("s").data).to(DEV), yt)["AUC"]
+    emit(dict(phase="deeplearning", rows=R, cols=C, hidden=[200, 200],
+              epochs=DL_EPOCHS, steps=steps, batch=m.output["batch"],
+              wall_s=wall, ms_per_step=wall / steps * 1e3,
+              train_auc=auc, predict_auc=auc_pred, score_wall_s=s_wall,
+              k1_launches=got[0], k2_launches=got[1]))
+    if steps != int(DL_EPOCHS * R / 1024) or auc_pred != auc or \
+            not 0.5 < auc <= 1.0:
+        raise AssertionError(f"DeepLearning: {steps} steps, AUC {auc} / "
+                             f"predict() {auc_pred}")
+    for name, kw in DL_VARIANTS.items():
+        hk.reset_launches()
+        mv, wall = fit(DeepLearning, fr, seed=1, epochs=1.0, **kw)
+        got = hist_launches()
+        paths[f"deeplearning_{name}"] = got
+        no_hist(f"DeepLearning {name}", got)
+        a = mv.output["training_metrics"]["AUC"]
+        emit(dict(phase=f"deeplearning_{name}", rows=R, epochs=1.0, **kw,
+                  steps=mv.output["steps"], wall_s=wall,
+                  ms_per_step=wall / mv.output["steps"] * 1e3,
+                  train_auc=a))
+        if not 0.5 < a <= 1.0:
+            raise AssertionError(f"DeepLearning {name}: AUC {a}")
+    hk.reset_launches()
+    ae, wall = fit(DeepLearning, fr, seed=1, epochs=1.0, hidden=[20],
+                   autoencoder=True)
+    sync()
+    t0 = time.perf_counter()
+    an = ae.anomaly(fr)
+    a_wall = time.perf_counter() - t0
+    got = hist_launches()
+    paths["deeplearning_autoencoder"] = got
+    no_hist("DeepLearning autoencoder", got)
+    mse = an.vec("Reconstruction.MSE").data
+    emit(dict(phase="deeplearning_autoencoder", rows=R, hidden=[20],
+              epochs=1.0, steps=ae.output["steps"], wall_s=wall,
+              anomaly_wall_s=a_wall, mean_reconstruction_mse=float(
+                  mse.mean()), train_mse=ae.output["training_metrics"]["MSE"]))
+    if an.nrows != R or not np.isfinite(mse).all() or \
+            abs(float(mse.mean()) - ae.output["training_metrics"]["MSE"]) > \
+            1e-4 * ae.output["training_metrics"]["MSE"]:
+        raise AssertionError("autoencoder: anomaly() disagrees with its MSE")
+    # card against CPU on the first 100,000 rows: one step of each
+    # optimizer path at full width (held), then one block of 200 steps
+    # (reported): training amplifies float rounding — at [200, 200]
+    # ADADELTA's predictions drift from ~1e-7 after 20 steps to ~1e-2
+    # after 200 between the reference and the port on one CPU
+    # (tools/torch_port_probes.py dl), so only the first step is held
+    sub = fr.slice_rows(slice(0, SUB_ROWS))
+    for name, steps_, kw in (("adadelta", 1, {}),
+                             ("momentum", 1, DL_VARIANTS["momentum"]),
+                             ("dropout", 1, DL_VARIANTS["dropout"]),
+                             ("adadelta", 200, {})):
+        kw = dict(kw, seed=1, epochs=steps_ * 1024 / SUB_ROWS)
+        g, _ = fit(DeepLearning, sub, device="cuda", **kw)
+        c, _ = fit(DeepLearning, sub, device="cpu", **kw)
+        # |card - CPU| over the CPU test's allowance 1e-8 + 1e-6 |CPU|
+        rel = max(float(np.max(np.abs(gl[k] - cl[k]) /
+                               (1e-8 + DL_STEP_RTOL * np.abs(cl[k]))))
+                  for gl, cl in zip(g.output["weights"], c.output["weights"])
+                  for k in ("W", "b"))
+        # the probabilities (a label may flip where p1 is within
+        # rounding of the threshold)
+        d_pred = float(np.abs(g.predict_raw(sub).cpu().numpy()[:, 1:] -
+                              c.predict_raw(sub).numpy()[:, 1:]).max())
+        held = steps_ == 1
+        rec = dict(phase=f"deeplearning_{name}_cuda_vs_cpu_{steps_}_steps",
+                   rows=SUB_ROWS, held=held,
+                   steps=(g.output["steps"], c.output["steps"]),
+                   weights_diff_over_allowance=rel,
+                   predict_max_abs_diff=d_pred)
+        emit(rec)
+        if g.output["steps"] != steps_ or \
+                (held and (rel > 1.0 or d_pred > DL_BLOCK_ATOL)):
+            raise AssertionError(f"DeepLearning: card and CPU differ {rec}")
+
+
+def phase_gam(fr: Frame, yt: torch.Tensor, paths) -> None:
+    """17c: a binomial GAM with three smoothers at full width; card
+    against CPU."""
+    hk.reset_launches()
+    m, wall = fit(GAM, fr, **GAM_KW)
+    got = hist_launches()
+    paths["gam"] = got
+    no_hist("GAM", got)
+    auc = m.output["training_metrics"]["AUC"]
+    emit(dict(phase="gam", rows=R, cols=C, **GAM_KW, wall_s=wall,
+              basis_cols=len(m.output["basis_names"]),
+              iterations=m.output["glm_output"]["iterations"],
+              train_auc=auc))
+    if not 0.5 < auc <= 1.0 or \
+            not np.isfinite(m.output["glm_output"]["beta"]).all():
+        raise AssertionError(f"GAM: implausible model (AUC {auc})")
+    sub = fr.slice_rows(slice(0, SUB_ROWS))
+    g, _ = fit(GAM, sub, device="cuda", **GAM_KW)
+    c, _ = fit(GAM, sub, device="cpu", **GAM_KW)
+    gc, cc = g.coef(), c.coef()
+    d_beta = max(abs(gc[k] - cc[k]) for k in cc)
+    d_pred = float(np.abs(g.predict_raw(sub).cpu().numpy()[:, 1:] -
+                          c.predict_raw(sub).numpy()[:, 1:]).max())
+    rec = dict(phase="gam_cuda_vs_cpu", rows=SUB_ROWS,
+               iterations=(g.output["glm_output"]["iterations"],
+                           c.output["glm_output"]["iterations"]),
+               coef_max_abs_diff=d_beta, proba_max_abs_diff=d_pred)
+    emit(rec)
+    if list(gc) != list(cc) or d_beta > GAM_ATOL or d_pred > GAM_ATOL or \
+            rec["iterations"][0] != rec["iterations"][1]:
+        raise AssertionError(f"GAM: card and CPU differ {rec}")
+
+
+def phase_rulefit(fr: Frame, paths) -> None:
+    """17d: RuleFit at its defaults: K1 carries every level of the rule
+    trees; where the wall goes (the rule trees, the rule frame, the L1
+    GLM); card against CPU."""
+    walls = {"trees": 0.0, "rule_frame": 0.0, "glm": 0.0}
+    orig = rulefit_mod.GLM
+
+    def timed(key, f):
+        def run(*a, **k):
+            sync()
+            t0 = time.perf_counter()
+            out = f(*a, **k)
+            sync()
+            walls[key] += time.perf_counter() - t0
+            return out
+        return run
+
+    class TimedGLM(orig):
+        _fit = timed("glm", orig._fit)
+
+    rulefit_mod.GLM = TimedGLM
+    forest = RuleFit._rule_forest
+    frame_fn = rulefit_mod.RuleFitModel._rule_frame
+    RuleFit._rule_forest = timed("trees", forest)
+    rulefit_mod.RuleFitModel._rule_frame = timed("rule_frame", frame_fn)
+    try:
+        hk.reset_launches()
+        m, wall = fit(RuleFit, fr, seed=1)
+        got = hist_launches()
+    finally:
+        rulefit_mod.GLM = orig
+        RuleFit._rule_forest = forest
+        rulefit_mod.RuleFitModel._rule_frame = frame_fn
+    glm_walls = [walls["glm"]]
+    paths["rulefit"] = got
+    rules = m.rule_importance()
+    n_rules = sum(len(f["rule_names"]) for f in m.output["forests"])
+    auc = m.output["training_metrics"]["AUC"]
+    emit(dict(phase="rulefit", rows=R, cols=C, trees=RULEFIT_TREES,
+              depth=RULEFIT_DEPTH, rule_columns=n_rules,
+              linear_columns=len(m.output["linear_names"]),
+              nonzero_rules=len(rules), wall_s=wall, glm_wall_s=glm_walls[0],
+              glm_share=glm_walls[0] / wall, trees_wall_s=walls["trees"],
+              rule_frame_wall_s=walls["rule_frame"],
+              glm_iterations=m.output["glm_output"]["iterations"],
+              train_auc=auc, top_rules=[r[3] for r in rules[:3]],
+              k1_launches=got[0], k2_launches=got[1]))
+    if got != (RULEFIT_TREES * RULEFIT_DEPTH, 0) or not 0.5 < auc <= 1.0:
+        raise AssertionError(f"RuleFit: (K1, K2) launched {got}, want "
+                             f"({RULEFIT_TREES * RULEFIT_DEPTH}, 0); AUC "
+                             f"{auc}")
+    sub = fr.slice_rows(slice(0, SUB_ROWS))
+    g, _ = fit(RuleFit, sub, device="cuda", seed=1)
+    c, _ = fit(RuleFit, sub, device="cpu", seed=1)
+    names_g = [n for f in g.output["forests"] for n in f["rule_names"]]
+    names_c = [n for f in c.output["forests"] for n in f["rule_names"]]
+    gc, cc = g._inner().coef(), c._inner().coef()
+    d_beta = max(abs(gc[k] - cc[k]) for k in cc)
+    rec = dict(phase="rulefit_cuda_vs_cpu", rows=SUB_ROWS,
+               rules=(len(names_g), len(names_c)),
+               rules_equal=names_g == names_c,
+               descriptions_equal=[r[3] for r in g.rule_importance()] ==
+               [r[3] for r in c.rule_importance()],
+               coef_max_abs_diff=d_beta)
+    emit(rec)
+    if names_g != names_c or not rec["descriptions_equal"] or \
+            d_beta > RULEFIT_ATOL:
+        raise AssertionError(f"RuleFit: card and CPU differ {rec}")
+
+
+def phase_more(X, fr: Frame, paths) -> None:
+    """17: KMeans, DeepLearning, GAM and RuleFit."""
+    yt = torch.from_numpy(fr.vec("y").as_float()).to(DEV)
+    t0 = time.perf_counter()
+    phase_kmeans(X, fr, paths)
+    t1 = time.perf_counter()
+    phase_deeplearning(fr, yt, paths)
+    t2 = time.perf_counter()
+    phase_gam(fr, yt, paths)
+    t3 = time.perf_counter()
+    phase_rulefit(fr, paths)
+    t4 = time.perf_counter()
+    emit(dict(phase="phase17_walls", kmeans_s=t1 - t0,
+              deeplearning_s=t2 - t1, gam_s=t3 - t2, rulefit_s=t4 - t3,
+              total_s=t4 - t0))
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # -- 0 device ------------------------------------------------------------
@@ -1774,6 +2141,12 @@ def main() -> None:
     k1u = kernel_phase("K1_uplift", UPLIFT_SHAPES,
                        k1_inputs(np.random.default_rng(6), UPLIFT_COLS),
                        run_k1, fine=False, modes=("f32", "int16"))
+    torch.cuda.empty_cache()
+
+    # -- 3r K1 at RuleFit's shapes ------------------------------------------
+    k1r = kernel_phase("K1_rulefit", RULEFIT_SHAPES,
+                       k1_inputs(np.random.default_rng(7)), run_k1,
+                       fine=False, modes=("f32", "int16"))
     torch.cuda.empty_cache()
 
     # -- 4 default GBM, full width -------------------------------------------
@@ -1921,6 +2294,9 @@ def main() -> None:
     # -- 16 GLM and XGBoost gblinear ------------------------------------------
     torch.cuda.empty_cache()
     phase_glm(X, y, fr, paths)
+    # -- 17 KMeans, DeepLearning, GAM, RuleFit --------------------------------
+    torch.cuda.empty_cache()
+    phase_more(X, fr, paths)
     emit(dict(phase="launches", paths={k: dict(k1=v[0], k2=v[1])
                                        for k, v in paths.items()}))
     sync()
@@ -2043,7 +2419,10 @@ def main() -> None:
               uplift=dict(rows=R, cols=UPLIFT_COLS,
                           **block(k1u, shapes=UPLIFT_SHAPES),
                           launches=sum(v[0] for k, v in paths.items()
-                                       if k.startswith("upliftdrf")))),
+                                       if k.startswith("upliftdrf"))),
+              rulefit=dict(rows=R, cols=C,
+                           **block(k1r, shapes=RULEFIT_SHAPES),
+                           launches=paths["rulefit"][0])),
         entry("hist_cuda_adaptive", "h2o_tpu/ops/hist_pallas.py:220",
               sum(v[1] for v in paths.values()), k2, k2f,
               xgb=block(k2x, shapes=XGB_SHAPES),

@@ -4,8 +4,11 @@
 ``ModelMetrics`` :118-142, ``regression_metrics`` :145-166,
 ``twodim_json`` :169-186, ``_threshold_tables`` :189-255,
 ``binomial_metrics`` :258-280, ``multinomial_metrics`` :283-307), and of
-the anomaly metrics (``h2o_tpu/models/tree/isofor.py:147-151``) and the
-uplift metrics (``h2o_tpu/models/tree/uplift.py:272-292``).
+the anomaly metrics (``h2o_tpu/models/tree/isofor.py:147-151``), the
+uplift metrics (``h2o_tpu/models/tree/uplift.py:272-292``), KMeans's
+clustering metrics (``h2o_tpu/models/kmeans.py:79-100``) and the
+autoencoder's reconstruction metrics
+(``h2o_tpu/models/deeplearning.py:287-294``).
 
 Binomial AUC comes from a fixed 1024-bin histogram of the scores (the
 reference's AUC2 analog), so it reduces in O(bins).  Reductions are
@@ -299,6 +302,19 @@ def anomaly_metrics(raw: np.ndarray) -> ModelMetrics:
     return ModelMetrics("anomaly", dict(
         mean_score=float(raw[:, 0].mean()),
         mean_length=float(raw[:, 1].mean())))
+
+
+def clustering_metrics(data: Dict) -> ModelMetrics:
+    """KMeans's metrics: ``k``, ``tot_withinss``, ``totss``,
+    ``betweenss`` and the per-cluster ``withinss`` and ``size``."""
+    keys = ("k", "tot_withinss", "totss", "betweenss", "withinss", "size")
+    return ModelMetrics("clustering", {k: data[k] for k in keys})
+
+
+def autoencoder_metrics(mse: float) -> ModelMetrics:
+    """An autoencoder's mean reconstruction MSE and its root."""
+    return ModelMetrics("autoencoder", dict(MSE=float(mse),
+                                            RMSE=float(mse) ** 0.5))
 
 
 def uplift_metrics(uplift: np.ndarray, y: np.ndarray,

@@ -393,6 +393,11 @@ _MODEL_CLASSES = {
     "glm": ("h2o_tpu_torch.models.glm", "GLMModel"),
     "xgboost_gblinear": ("h2o_tpu_torch.models.tree.xgboost",
                          "XGBoostLinearModel"),
+    "kmeans": ("h2o_tpu_torch.models.kmeans", "KMeansModel"),
+    "deeplearning": ("h2o_tpu_torch.models.deeplearning",
+                     "DeepLearningModel"),
+    "gam": ("h2o_tpu_torch.models.gam", "GAMModel"),
+    "rulefit": ("h2o_tpu_torch.models.rulefit", "RuleFitModel"),
 }
 
 

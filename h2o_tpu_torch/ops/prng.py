@@ -1,7 +1,8 @@
 """jax's threefry2x32 PRNG, bit for bit — the counterpart of
 ``jax.random.key``/``fold_in``/``split``/``bits``/``uniform``/
-``permutation``/``choice`` (without replacement) and ``normal`` as the
-reference uses them (``jax_threefry_partitionable`` on, jax's default;
+``randint``/``bernoulli``/``permutation``/``choice`` (without
+replacement, and with replacement under weights ``p``) and ``normal`` as
+the reference uses them (``jax_threefry_partitionable`` on, jax's default;
 jax 0.9's ``jax/_src/random.py``), plus
 ``rng_key_to_np``/``rng_key_from_np`` (``h2o_tpu/models/tree/
 shared_tree.py:362-371``).
@@ -17,6 +18,15 @@ shared_tree.py:362-371``).
   with ``minval``/``maxval`` the float is ``max(minval, floats *
   (maxval - minval) + minval)``, which XLA compiles on the CPU to one
   fused multiply-add: the port takes it in float64 and rounds once;
+* ``randint(k, shape, lo, hi)`` is jax's ``_randint``: the words ``hi_w``
+  and ``lo_w`` of ``bits`` under the two keys of ``split(k)``, ``span =
+  hi - lo`` (1 when ``hi <= lo``), ``m = ((2^16 % span)^2 mod 2^32) %
+  span`` and ``lo + ((hi_w % span) m + lo_w % span) % span``, every
+  product and sum wrapped at 32 bits as uint32 arithmetic wraps;
+* ``bernoulli(k, p, shape)`` is ``uniform(k, shape) < float32(p)``;
+* ``choice(k, n, size, p=p)`` (with replacement) is ``searchsorted(c, c[-1]
+  * (1 - uniform(k, (size,))), side="left")`` over ``c = cumsum(p)`` in
+  XLA's CPU order (``xlamath.cumsum``), the same on every device;
 * ``permutation(k, n)`` is jax's ``_shuffle``: ``ceil(3 ln n / ln(2^32 -
   1))`` rounds, each splitting the key and sorting by 32-bit ``bits``
   with a STABLE sort, so colliding sort keys keep their order;
@@ -99,11 +109,67 @@ def bits(k, shape: Sequence[int], device) -> torch.Tensor:
     return (x0 ^ x1).reshape(shape)
 
 
+def bits_rows(keys, n: int, device) -> torch.Tensor:
+    """``bits(k, (n,))`` for each key of ``keys`` ((S, 2) uint32 words),
+    as one (S, n) draw: the keys ride the threefry as tensors, so S
+    draws cost the launches of one."""
+    kw = torch.as_tensor(np.asarray(keys, np.uint32).reshape(-1, 2).astype(
+        np.int64), device=device)
+    i = torch.arange(int(n), dtype=torch.int64, device=device)
+    x0, x1 = threefry2x32(kw[:, :1], kw[:, 1:], i >> 32, i & _MASK)
+    return x0 ^ x1
+
+
+def _randint_words(hi_w, lo_w, minval: int, maxval: int) -> torch.Tensor:
+    minval, maxval = int(minval), int(maxval)
+    if not (-2 ** 31 <= minval and maxval < 2 ** 31):
+        raise ValueError("randint: bounds must lie in the int32 range")
+    span = (maxval - minval) & _MASK if maxval > minval else 1
+    mult = ((2 ** 16 % span) ** 2 & _MASK) % span
+    off = (((hi_w % span) * mult & _MASK) + lo_w % span) & _MASK
+    return minval + off % span
+
+
+def randint(k, shape: Sequence[int], minval: int, maxval: int,
+            device) -> torch.Tensor:
+    """``jax.random.randint(k, shape, minval, maxval)`` (int32 bounds):
+    int64 draws in [minval, maxval) on ``device``."""
+    k1, k2 = split(k)
+    return _randint_words(bits(k1, shape, device), bits(k2, shape, device),
+                          minval, maxval)
+
+
+def randint_rows(keys, n: int, minval: int, maxval: int,
+                 device) -> torch.Tensor:
+    """``randint(k, (n,), minval, maxval)`` for each key of ``keys``, as
+    one (S, n) draw (a block of minibatches in one go)."""
+    pairs = [split(k) for k in keys]
+    return _randint_words(bits_rows([a for a, _ in pairs], n, device),
+                          bits_rows([b for _, b in pairs], n, device),
+                          minval, maxval)
+
+
+def bernoulli(k, p: float, shape: Sequence[int], device) -> torch.Tensor:
+    """``jax.random.bernoulli(k, p, shape)``: True with probability p."""
+    return uniform(k, shape, device) < float(np.float32(p))
+
+
+def bernoulli_rows(keys, p: float, n: int, device) -> torch.Tensor:
+    """``bernoulli(k, p, (n,))`` for each key of ``keys``, as one (S, n)
+    draw."""
+    return _unit_floats(bits_rows(keys, n, device)) < float(np.float32(p))
+
+
+def _unit_floats(words: torch.Tensor) -> torch.Tensor:
+    """32-bit words -> float32 in [0, 1): the top 23 bits as mantissa."""
+    word = (words >> 9) | 0x3F800000
+    return word.to(torch.int32).view(torch.float32) - 1.0
+
+
 def uniform(k, shape: Sequence[int], device, minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """float32 draws in [minval, maxval) of ``shape`` on ``device``."""
-    word = (bits(k, shape, device) >> 9) | 0x3F800000
-    floats = word.to(torch.int32).view(torch.float32) - 1.0
+    floats = _unit_floats(bits(k, shape, device))
     if minval == 0.0 and maxval == 1.0:
         return floats                   # floats * 1 + 0, exactly
     lo = float(np.float32(minval))
@@ -124,8 +190,18 @@ def permutation(k, n: int, device) -> torch.Tensor:
     return x
 
 
-def choice(k, n: int, size: int, device) -> torch.Tensor:
-    """``jax.random.choice(k, n, (size,), replace=False)``."""
+def choice(k, n: int, size, device, p: torch.Tensor = None) -> torch.Tensor:
+    """``jax.random.choice(k, n, (size,), replace=False)``; with weights
+    ``p`` ((n,) float32 on ``device``), ``choice(k, n, size, p=p)`` with
+    replacement (``size`` () for one index, as a 0-d tensor)."""
+    if p is not None:
+        if tuple(p.shape) != (int(n),):
+            raise ValueError(f"choice: p must have shape ({n},)")
+        c = xlamath.cumsum(p.to(torch.float32))
+        shape = () if size == () else (int(size),)
+        r = c[-1] * (1.0 - uniform(k, shape, device))
+        return torch.searchsorted(c, r.reshape(-1), right=False).reshape(
+            shape)
     if size > n:
         raise ValueError(f"choice: cannot take {size} of {n} without "
                          "replacement")

@@ -23,7 +23,12 @@ expressions the way XLA does:
 * ``sum_leading(x)`` is XLA's CPU float32 sum over the leading axis: the
   axis padded with zeros to a multiple of 32 (half the padding in front),
   each window of 32 summed in order, then the windows in order — the
-  order a forest's per-tree predictions are summed in.
+  order a forest's per-tree predictions are summed in;
+* ``cumsum(x)`` is XLA's CPU float32 prefix sum of a vector (its
+  reduce-window rewrite at base 16): each block of 16 summed in order,
+  the block totals scanned the same way (recursively), and each block's
+  exclusive prefix added to its in-block sums.  From about the 17th term
+  on it differs from a sequential ``np.cumsum``/``torch.cumsum``.
 
 All of it is plain tensor code, the same on every device.
 """
@@ -135,3 +140,27 @@ def sum_leading(x: torch.Tensor) -> torch.Tensor:
     parts = torch.stack([_in_order(list(x[max(s, 0):s + _REDUCE_WINDOW]))
                          for s in starts])
     return sum_leading(parts)
+
+
+_SCAN_BASE = 16
+
+
+def cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Prefix sum of a 1-d tensor in XLA's CPU order (see the module
+    docstring)."""
+    n = x.shape[0]
+    if n <= _SCAN_BASE:
+        out = x.clone()
+        for i in range(1, n):
+            out[i] = out[i - 1] + x[i]
+        return out
+    nb = -(-n // _SCAN_BASE)
+    blk = torch.zeros(nb * _SCAN_BASE, dtype=x.dtype, device=x.device)
+    blk[:n] = x
+    blk = blk.reshape(nb, _SCAN_BASE)
+    for j in range(1, _SCAN_BASE):
+        blk[:, j] = blk[:, j - 1] + blk[:, j]
+    pre = cumsum(blk[:, -1].contiguous())
+    excl = torch.cat([torch.zeros(1, dtype=x.dtype, device=x.device),
+                      pre[:-1]])
+    return (blk + excl[:, None]).reshape(-1)[:n]

@@ -2,20 +2,30 @@
 param set, as a client that sends all params does.
 
 For each of GBM, DRF, XGBoost, DT, IsolationForest,
-ExtendedIsolationForest, UpliftDRF and GLM the port's builder is
+ExtendedIsolationForest, UpliftDRF, GLM, KMeans, DeepLearning, GAM and
+RuleFit the port's builder is
 constructed with ``h2o_tpu``'s ``default_params()`` passed explicitly
 (nothing may be "unknown", no accepted default may be refused, and every
 param resolves to the value the reference builder resolves it to), and
-trains a small frame with them (the tree builders' ntrees cut to 2).  ``custom_distribution_func`` other
-than None raises NotImplementedError naming P13, as
+trains a small frame with them (the tree builders' ntrees cut to 2,
+RuleFit's rule trees to 4, GAM given one gam column).
+``custom_distribution_func`` other than None raises NotImplementedError naming P13, as
 ``distribution="custom"`` does; ``calibrate_model=True`` is refused by
-name.
+name.  What the port refuses by name instead of dropping: DKV frames
+(DeepLearning's ``export_weights_and_biases``, GAM's ``keep_gam_cols``:
+P13), iteration checkpoints (``recovery_dir`` for KMeans, DeepLearning,
+GAM and RuleFit: P14) and DeepLearning's ``model_parallel`` over
+several cards (P8).
 """
 
 import numpy as np
 import pytest
 
+from h2o_tpu.models.deeplearning import DeepLearning as JDL
+from h2o_tpu.models.gam import GAM as JGAM
 from h2o_tpu.models.glm import GLM as JGLM
+from h2o_tpu.models.kmeans import KMeans as JKMeans
+from h2o_tpu.models.rulefit import RuleFit as JRuleFit
 from h2o_tpu.models.tree.drf import DRF as JDRF
 from h2o_tpu.models.tree.dt import DT as JDT
 from h2o_tpu.models.tree.gbm import GBM as JGBM
@@ -25,7 +35,11 @@ from h2o_tpu.models.tree.uplift import UpliftDRF as JUplift
 from h2o_tpu.models.tree.xgboost import XGBoost as JXGB
 
 from h2o_tpu_torch.core.frame import T_CAT, Frame, Vec
+from h2o_tpu_torch.models.deeplearning import DeepLearning
+from h2o_tpu_torch.models.gam import GAM
 from h2o_tpu_torch.models.glm import GLM
+from h2o_tpu_torch.models.kmeans import KMeans
+from h2o_tpu_torch.models.rulefit import RuleFit
 from h2o_tpu_torch.models.tree.drf import DRF
 from h2o_tpu_torch.models.tree.dt import DT
 from h2o_tpu_torch.models.tree.gbm import GBM
@@ -37,7 +51,12 @@ from h2o_tpu_torch.models.tree.xgboost import XGBoost
 PAIRS = {"gbm": (JGBM, GBM), "drf": (JDRF, DRF), "xgboost": (JXGB, XGBoost),
          "dt": (JDT, DT), "isolationforest": (JIF, IsolationForest),
          "extendedisolationforest": (JEIF, ExtendedIsolationForest),
-         "upliftdrf": (JUplift, UpliftDRF), "glm": (JGLM, GLM)}
+         "upliftdrf": (JUplift, UpliftDRF), "glm": (JGLM, GLM),
+         "kmeans": (JKMeans, KMeans), "deeplearning": (JDL, DeepLearning),
+         "gam": (JGAM, GAM), "rulefit": (JRuleFit, RuleFit)}
+#: what a small training needs beyond the reference defaults
+_TRAIN_KW = {"gam": dict(gam_columns=["a"]),
+             "rulefit": dict(rule_generation_ntrees=4)}
 
 
 def _frame(n=300):
@@ -71,6 +90,7 @@ def test_reference_defaults_train(algo):
     params = jcls().default_params()
     if "ntrees" in params:
         params["ntrees"] = 2
+    params.update(_TRAIN_KW.get(algo, {}))
     fr = _frame()
     b = pcls(device="cpu", **params)
     if b.supervised:
@@ -80,6 +100,13 @@ def test_reference_defaults_train(algo):
     if algo == "glm":
         assert m.params["_solver_resolved"] == "IRLSM"
         assert np.isfinite(m.output["beta"]).all()
+    elif algo == "kmeans":
+        assert m.output["k"] == 1 and m.output["iterations"] >= 1
+    elif algo == "deeplearning":
+        # 10 epochs of 300 rows in batches of the padded 384
+        assert m.output["steps"] == 7 and m.output["batch"] == 384
+    elif algo in ("gam", "rulefit"):
+        assert np.isfinite(m.output["glm_output"]["beta"]).all()
     else:
         assert m.output["ntrees_actual"] == (1 if algo == "dt" else 2)
     assert m.output["training_metrics"] is not None
@@ -97,3 +124,40 @@ def test_custom_distribution_func_names_p13(algo):
     # a single device builds every tree on one node already
     assert pcls(device="cpu", build_tree_one_node=True).params[
         "build_tree_one_node"] is True
+
+
+_SMALL = {"kmeans": dict(k=2), "deeplearning": dict(hidden=[4], epochs=1.0),
+          "gam": dict(gam_columns=["a"]),
+          "rulefit": dict(rule_generation_ntrees=2)}
+
+
+@pytest.mark.parametrize("algo,kw,match", [
+    ("deeplearning", dict(export_weights_and_biases=True), "P13"),
+    ("gam", dict(keep_gam_cols=True), "P13"),
+    ("kmeans", dict(recovery_dir="ck"), "P14"),
+    ("deeplearning", dict(recovery_dir="ck"), "P14"),
+    ("deeplearning", dict(checkpoint_interval=1), "P14"),
+    ("gam", dict(recovery_dir="ck"), "P14"),
+    ("rulefit", dict(recovery_dir="ck"), "P14"),
+], ids=["dl_export", "gam_keep_cols", "kmeans_recovery", "dl_recovery",
+        "dl_checkpoint_interval", "gam_recovery", "rulefit_recovery"])
+def test_refused_by_name(algo, kw, match):
+    _, pcls = PAIRS[algo]
+    b = pcls(device="cpu", **_SMALL[algo], **kw)
+    with pytest.raises(NotImplementedError, match=match):
+        if b.supervised:
+            b.train(x=["a", "b", "c"], y="y", training_frame=_frame())
+        else:
+            b.train(x=["a", "b", "c"], training_frame=_frame())
+
+
+def test_dl_model_parallel_over_several_cards_names_p8(monkeypatch):
+    """model_parallel on one device is the identity (the reference's
+    one-wide model axis); on a machine with several cards it raises
+    instead of training unsharded."""
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    b = DeepLearning(device="cuda:0", hidden=[4], model_parallel=True)
+    with pytest.raises(NotImplementedError, match="P8"):
+        b.train(x=["a", "b", "c"], y="y", training_frame=_frame())

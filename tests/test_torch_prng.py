@@ -5,8 +5,12 @@
 ``jax.random.bits``, ``uniform`` (also with ``minval``/``maxval``) and
 ``normal`` the same float32 bits as ``jax.random.uniform``/``normal``,
 and ``permutation``/``choice`` without replacement the same indices as
-jax's (colliding sort keys included), for several seeds and shapes (jax
-0.9's default ``jax_threefry_partitionable``).  Draws are prefix-stable,
+jax's (colliding sort keys included), ``randint`` the same integers
+(spans 1, 2, 3, 1,000, 1,000,000 and 2^31 - 1, negative and empty
+ranges), ``bernoulli`` the same masks and ``choice`` with weights ``p``
+the same indices (lengths 1 to 65,536, trailing zero weights), for
+several seeds and shapes (jax 0.9's default
+``jax_threefry_partitionable``).  Draws are prefix-stable,
 which is why the reference's padded rows leave the real rows' draws
 alone.
 Tolerance: none; every comparison is bitwise.
@@ -17,6 +21,7 @@ import pytest
 import torch
 
 import jax
+import jax.numpy as jnp
 
 from h2o_tpu.models.tree.shared_tree import rng_key_to_np as j_key_to_np
 
@@ -139,3 +144,68 @@ def test_normal_bits(seed):
     want = np.asarray(jax.random.normal(jk, (300, 40)))
     got = prng.normal(pk, (300, 40), "cpu").numpy()
     np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+# -- randint, bernoulli, weighted choice --------------------------------------
+
+SPANS = [(0, 1), (0, 2), (0, 3), (0, 1000), (0, 1_000_000), (0, 2 ** 31 - 1),
+         (-7, 5), (5, 5), (9, 3)]
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("lo,hi", SPANS)
+def test_randint_bits(seed, lo, hi):
+    """jax's _randint: two words a draw, every product and sum wrapped at
+    32 bits (spans above 2^16 need the wrapped multiplier)."""
+    jk, pk = jax.random.key(seed), prng.key(seed)
+    for shape in [(), (1,), (1024,), (33, 7)]:
+        want = np.asarray(jax.random.randint(jk, shape, lo, hi))
+        got = prng.randint(pk, shape, lo, hi, "cpu")
+        assert tuple(got.shape) == shape
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_randint_rows_is_one_randint_a_key(seed):
+    keys = prng.split(prng.key(seed), 5)
+    got = prng.randint_rows(keys, 1024, 0, 2_000, "cpu").numpy()
+    for i, k in enumerate(keys):
+        np.testing.assert_array_equal(
+            got[i], prng.randint(k, (1024,), 0, 2_000, "cpu").numpy())
+        np.testing.assert_array_equal(
+            prng.bits_rows(keys, 9, "cpu")[i].numpy(),
+            prng.bits(k, (9,), "cpu").numpy())
+    with pytest.raises(ValueError):
+        prng.randint(keys[0], (3,), 0, 2 ** 31, "cpu")
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("p", [0.0, 0.1, 0.5, 0.9, 1.0])
+def test_bernoulli_bits(seed, p):
+    jk, pk = jax.random.key(seed), prng.key(seed)
+    want = np.asarray(jax.random.bernoulli(jk, p, (64, 200)))
+    np.testing.assert_array_equal(
+        prng.bernoulli(pk, p, (64, 200), "cpu").numpy(), want)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("n", [1, 2, 15, 16, 17, 64, 100, 960, 1024, 4096,
+                               65_536])
+def test_weighted_choice_bits(seed, n):
+    """choice with p, with replacement: jax's blocked float32 cumsum, a
+    uniform draw and searchsorted; trailing zero weights (the
+    reference's padded rows) included."""
+    rng = np.random.default_rng(seed % 1000 + n)
+    p = rng.uniform(0, 1, n).astype(np.float32) ** 3
+    p[-(n // 8):] = 0.0 if n >= 8 else p[-(n // 8):]
+    p = (p / p.sum()).astype(np.float32)
+    for sub in prng.split(prng.key(seed), 4):
+        jsub = jax.random.wrap_key_data(jnp.asarray(sub))
+        want = int(jax.random.choice(jsub, n, p=jnp.asarray(p)))
+        got = prng.choice(sub, n, (), "cpu", p=torch.from_numpy(p))
+        assert got.shape == () and int(got) == want
+        want_v = np.asarray(jax.random.choice(jsub, n, (50,),
+                                              p=jnp.asarray(p)))
+        np.testing.assert_array_equal(
+            prng.choice(sub, n, 50, "cpu", p=torch.from_numpy(p)).numpy(),
+            want_v)

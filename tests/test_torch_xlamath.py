@@ -2,7 +2,8 @@
 the CPU: ``log`` and ``log1p`` equal ``jax.numpy.log``/``log1p`` bit for
 bit, ``fma`` equals XLA's fused ``a * b + c``, and ``sum_leading`` sums
 a leading axis in the order ``jnp.sum(axis=0)`` does, for 1 to 1,500
-terms.  Tolerance: none; every comparison is bitwise."""
+terms, and ``cumsum`` is ``jnp.cumsum``'s blocked float32 scan for 1 to
+4,096 terms and longer padded lengths.  Tolerance: none; every comparison is bitwise."""
 
 import numpy as np
 import pytest
@@ -53,3 +54,16 @@ def test_sum_leading_order(T):
     _bits_equal(xm.sum_leading(torch.from_numpy(v)),
                 jax.jit(lambda a: jnp.sum(a, axis=0))(v))
     assert xm.sum_leading(torch.zeros((0, 3))).shape == (3,)
+
+
+@pytest.mark.parametrize("n", list(range(1, 70)) + [255, 256, 257, 960,
+                                                    1000, 1024, 4095, 4096,
+                                                    4097, 65_536, 1_048_576])
+def test_cumsum_order(n):
+    """jax's CPU cumsum is XLA's reduce-window scan rewritten at base 16:
+    it differs from a sequential prefix sum from about the 17th term."""
+    x = np.random.default_rng(n).uniform(0, 1, n).astype(np.float32)
+    _bits_equal(xm.cumsum(torch.from_numpy(x)), jax.jit(jnp.cumsum)(x))
+    if n > 40:
+        assert not np.array_equal(np.cumsum(x), np.asarray(
+            jax.jit(jnp.cumsum)(x)))

@@ -1,0 +1,139 @@
+"""CPU probes behind three tolerances of the port's tests: where the
+reference (``h2o_tpu``) and the port (``h2o_tpu_torch``) cannot agree
+closer, because float32 rounding decides and both packages round.
+
+    JAX_PLATFORMS=cpu python tools/torch_port_probes.py [dl|gam|rulefit ...]
+
+Prints one JSON line per case:
+
+- ``dl``: DeepLearning on HIGGS-like data (20,480 x 28, seed 0) after
+  20 ... 200 ADADELTA steps at hidden [200, 200] and [16, 16]: the max
+  |p(reference) - p(port)| over the rows, and the port against itself
+  (0: the drift is the two packages' rounding, amplified by training);
+- ``gam``: the wiggly curve of ``tests/test_gam_bases.py`` at lambda 0
+  per basis: the condition number of the penalized Gram and each
+  package's max |beta - beta_float64|;
+- ``rulefit``: ``tests/test_rules_selection.py``'s separable data and
+  the same with 15 % of labels flipped: the GLM's iterations and the
+  largest |coefficient| and |difference| between the packages.
+"""
+
+import json
+import os
+import sys
+
+os.environ.setdefault("XLA_FLAGS",
+                      "--xla_force_host_platform_device_count=8")
+os.environ.setdefault("H2O_TPU_ROW_ALIGN", "8")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+import jax  # noqa: E402
+
+jax.config.update("jax_platforms", "cpu")
+
+import numpy as np  # noqa: E402
+
+from h2o_tpu.core.cloud import Cloud  # noqa: E402
+from h2o_tpu.core.frame import Frame as JFrame, T_CAT as J_CAT  # noqa: E402
+from h2o_tpu.core.frame import Vec as JVec  # noqa: E402
+
+from h2o_tpu_torch.core.frame import T_CAT, Frame, Vec  # noqa: E402
+
+
+def _pair(X, y, dom=None):
+    names = [f"x{j}" for j in range(X.shape[1])] + ["y"]
+    jv = [JVec(X[:, j]) for j in range(X.shape[1])]
+    pv = [Vec(X[:, j]) for j in range(X.shape[1])]
+    jv.append(JVec(y, J_CAT, domain=dom) if dom else JVec(y))
+    pv.append(Vec(y, T_CAT, domain=dom) if dom else Vec(y))
+    return JFrame(names, jv), Frame(names, pv)
+
+
+def probe_dl():
+    from h2o_tpu.models.deeplearning import DeepLearning as JDL
+    from h2o_tpu_torch.models.deeplearning import DeepLearning
+    n = 20480
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(n, 28)).astype(np.float32)
+    logit = (1.2 * X[:, 0] - 0.8 * X[:, 1] + X[:, 2] * X[:, 3]
+             + 0.5 * np.sin(3 * X[:, 4]))
+    y = (rng.uniform(size=n) < 1 / (1 + np.exp(-logit))).astype(np.int32)
+    jf, pf = _pair(X, y, ["b", "s"])
+    for hidden, steps in (([200, 200], 20), ([200, 200], 50),
+                          ([200, 200], 100), ([200, 200], 200),
+                          ([16, 16], 200)):
+        kw = dict(seed=1, epochs=steps * 1024 / n, hidden=hidden)
+        jm = JDL(**kw).train(y="y", training_frame=jf)
+        pm = DeepLearning(device="cpu", **kw).train(y="y", training_frame=pf)
+        pm2 = DeepLearning(device="cpu", **kw).train(y="y",
+                                                    training_frame=pf)
+        pp = pm.predict_raw(pf).numpy()[:, 1:]
+        print(json.dumps(dict(
+            probe="dl", hidden=hidden, steps=steps,
+            reference_vs_port=float(np.abs(
+                np.asarray(jm.predict_raw(jf))[:n, 1:] - pp).max()),
+            port_vs_port=float(np.abs(
+                pm2.predict_raw(pf).numpy()[:, 1:] - pp).max()))),
+            flush=True)
+
+
+def probe_gam():
+    import h2o_tpu.models.gam as jg
+    import h2o_tpu_torch.models.gam as pg
+    rng = np.random.default_rng(0)
+    x = np.sort(rng.uniform(-3, 3, size=1600)).astype(np.float32)
+    y = (np.sin(2.0 * x) + 0.3 * x +
+         rng.normal(scale=0.25, size=1600)).astype(np.float32)
+    jf = JFrame(["x", "y"], [JVec(x), JVec(y)])
+    pf = Frame(["x", "y"], [Vec(x), Vec(y)])
+    for bs in (0, 1, 2, 3):
+        kw = dict(gam_columns=["x"], num_knots=10, lambda_=0.0, seed=1,
+                  bs=[bs])
+        jm = jg.GAM(**kw).train(y="y", training_frame=jf)
+        pm = pg.GAM(device="cpu", **kw).train(y="y", training_frame=pf)
+        ef = pm.expand(pf)
+        names = pm.output["glm_output"]["coef_names"]
+        X1 = np.stack([ef.vec(c).data.astype(np.float64) for c in names] +
+                      [np.ones(pf.nrows)], axis=1)
+        G = X1.T @ X1 + pm.output["glm_params"]["_penalty"] + \
+            1e-8 * np.eye(X1.shape[1])
+        exact = np.linalg.solve(G, X1.T @ y.astype(np.float64))
+        print(json.dumps(dict(
+            probe="gam", bs=bs, gram_condition=float(np.linalg.cond(G)),
+            port_err=float(np.abs(pm.output["glm_output"]["beta"] -
+                                  exact).max()),
+            reference_err=float(np.abs(np.asarray(
+                jm.output["glm_output"]["beta"]) - exact).max()))),
+            flush=True)
+
+
+def probe_rulefit():
+    import h2o_tpu.models.rulefit as jrf
+    import h2o_tpu_torch.models.rulefit as prf
+    rng = np.random.default_rng(42)
+    n = 2500
+    X = rng.normal(size=(n, 4)).astype(np.float32)
+    y = ((X[:, 0] > 0.5) & (X[:, 1] < 0)).astype(np.int32)
+    flip = np.random.default_rng(5).uniform(size=n) < 0.15
+    kw = dict(min_rule_length=2, max_rule_length=3,
+              rule_generation_ntrees=20, seed=2)
+    for name, labels in (("separable", y), ("flipped_15pct", y ^ flip)):
+        jf, pf = _pair(X, labels.astype(np.int32), ["0", "1"])
+        jm = jrf.RuleFit(**kw).train(y="y", training_frame=jf)
+        pm = prf.RuleFit(device="cpu", **kw).train(y="y", training_frame=pf)
+        jc, pc = jm._inner().coef(), pm._inner().coef()
+        print(json.dumps(dict(
+            probe="rulefit", data=name,
+            iterations=(jm.output["glm_output"]["iterations"],
+                        pm.output["glm_output"]["iterations"]),
+            max_abs_coef=float(max(abs(v) for v in jc.values())),
+            max_coef_diff=float(max(abs(jc[k] - pc[k]) for k in jc)))),
+            flush=True)
+
+
+if __name__ == "__main__":
+    Cloud.boot()
+    probes = {"dl": probe_dl, "gam": probe_gam, "rulefit": probe_rulefit}
+    for name in sys.argv[1:] or list(probes):
+        probes[name]()
