@@ -7,7 +7,8 @@ The main paths are GBM and DRF training followed by scoring, at the
 HIGGS-shaped width of 1,000,000 rows x 28 features the repository
 benchmarks, the path a user takes first: a CSV parsed, a GBM trained on
 it and explained, GLM with every family and solver, then KMeans,
-DeepLearning, GAM and RuleFit.  Phases (each
+DeepLearning, GAM and RuleFit, then PCA, SVD, GLRM, Word2Vec,
+NaiveBayes and CoxPH.  Phases (each
 prints one JSON line; any failure raises and the exit code is not 0):
 
   0 device  - card name and power limit
@@ -186,6 +187,43 @@ prints one JSON line; any failure raises and the exit code is not 0):
               (trees x levels), rule count, wall and the GLM's share of it;
               card against CPU on 100,000 rows: equal rule sets and
               descriptions, coefficients within 1e-4
+ 18 PCA, SVD, GLRM, Word2Vec, NaiveBayes and CoxPH (no histogram kernel:
+              each run's counters and the phase's total must read 0):
+              18a PCA k = 10 standardized on the 1M x 28 frame, k = 7 on
+              the categorical covertype frame, SVD GramSVD nv = 10 with
+              keep_u (U orthonormal) and Randomized nv = 10 (10 power
+              iterations; its values within 2 % below GramSVD's); the
+              Gram GEMM's device ms beside its bytes bound, the host
+              eigendecomposition's ms;
+              18b GLRM k = 10 (Quadratic, 500 iterations at most) on the
+              1M x 28 frame with 10 % of its cells NaN: wall, iterations,
+              ms an iteration, objective, numerr, predict()'s wall (the
+              30-iteration X solve over 1M rows);
+              18c Word2Vec at the reference's defaults (vec_size 100,
+              window 5, 5 negatives, batches of 4,096, min_word_freq 5)
+              on a seeded Zipf corpus of 1,000,000 tokens over 30,000
+              types in sentences of 20, 2 epochs of the default 5: wall,
+              pairs/s, a device step's ms, the host's share;
+              18d NaiveBayes on the 1M x 28 frame and on covertype (7
+              classes, wild and soil categorical): walls, predict() walls;
+              18e CoxPH, Efron and Breslow, on the 1M x 28 frame with
+              exponential times from a seeded linear predictor, ~30 %
+              censored, rounded up to whole days: wall, Newton
+              iterations, ms an iteration, concordance, a Newton state's
+              (likelihood, gradient, Hessian) device ms.
+              Card against CPU on 100,000 rows (100,000 tokens) at the
+              CPU tests' tolerances: eigenvalues 1e-5 relative,
+              eigenvectors 1e-5 (Randomized 1e-4) up to sign plus the
+              Davis-Kahan bound of their gaps; Omega bitwise; GLRM's
+              first 20 accepted objectives 1e-5 relative; Word2Vec's
+              vocabulary, pairs and negatives equal, Win and Wout after
+              each of the first two steps 1e-6 relative plus 1e-6 of the
+              largest |value| (the card's scatter order); NaiveBayes's
+              tables 1e-6, probabilities 1e-5, labels equal where
+              decided; CoxPH's first two Newton
+              iterates 1e-5, log-likelihood 1e-6 relative, iterations
+              within 1, coefficients within the region the float32
+              likelihood cannot resolve, concordance 1e-4
   7 profile - torch.profiler over 2 default trees: device busy share and
               the kernels that take the device time; then 2 QuantilesGlobal
               trees: each histogram kernel's device ms per main-path launch
@@ -195,9 +233,10 @@ prints one JSON line; any failure raises and the exit code is not 0):
               iteration (7 class trees) and one UpliftDRF tree
 
 The kernels line's launches sum every main-path training above (phases
-4, 5, 8-17), each read from counters set to 0 just before it; the
+4, 5, 8-18), each read from counters set to 0 just before it; the
 launches phase lists them path by path (phase 16 as "glm", 0 and 0;
 phase 17's KMeans, DeepLearning and GAM paths 0 and 0, "rulefit" 150
+and 0; phase 18's PCA, SVD, GLRM, Word2Vec, NaiveBayes and CoxPH runs 0
 and 0).
 
 The line before the last holds every kernel's numbers; the last line is
@@ -212,6 +251,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -221,14 +261,19 @@ if not torch.cuda.is_available():
     sys.exit(2)
 
 from h2o_tpu_torch import native  # noqa: E402
-from h2o_tpu_torch.core.frame import T_CAT, Frame, Vec  # noqa: E402
+from h2o_tpu_torch.core.frame import T_CAT, T_STR, Frame, Vec  # noqa: E402
 from h2o_tpu_torch.core.parse import (parse_files,  # noqa: E402
                                       parse_setup)
+from h2o_tpu_torch.models import coxph as cox_mod  # noqa: E402
 from h2o_tpu_torch.models import glm as glm_mod  # noqa: E402
+from h2o_tpu_torch.models import glrm as glrm_mod  # noqa: E402
 from h2o_tpu_torch.models import kmeans as km_mod  # noqa: E402
 from h2o_tpu_torch.models import rulefit as rulefit_mod  # noqa: E402
+from h2o_tpu_torch.models import word2vec as w2v_mod  # noqa: E402
+from h2o_tpu_torch.models.coxph import CoxPH  # noqa: E402
 from h2o_tpu_torch.models.deeplearning import DeepLearning  # noqa: E402
 from h2o_tpu_torch.models.gam import GAM  # noqa: E402
+from h2o_tpu_torch.models.glrm import GLRM  # noqa: E402
 from h2o_tpu_torch.models.glm import expand_for_scoring  # noqa: E402
 from h2o_tpu_torch.models.kmeans import KMeans  # noqa: E402
 from h2o_tpu_torch.models.rulefit import RuleFit  # noqa: E402
@@ -236,6 +281,9 @@ from h2o_tpu_torch.models.glm import GLM  # noqa: E402
 from h2o_tpu_torch.models.metrics import (binomial_metrics,  # noqa: E402
                                           multinomial_metrics)
 from h2o_tpu_torch.models.model import DataInfo, Model  # noqa: E402
+from h2o_tpu_torch.models.naive_bayes import NaiveBayes  # noqa: E402
+from h2o_tpu_torch.models.pca import PCA  # noqa: E402
+from h2o_tpu_torch.models.svd import SVD  # noqa: E402
 from h2o_tpu_torch.models.tree import shared_tree as st  # noqa: E402
 from h2o_tpu_torch.models.tree.driver import IncrementalScorer  # noqa: E402
 from h2o_tpu_torch.models.tree.drf import DRF  # noqa: E402
@@ -246,8 +294,11 @@ from h2o_tpu_torch.models.tree.isofor import (  # noqa: E402
     ExtendedIsolationForest, IsolationForest)
 from h2o_tpu_torch.models.tree.uplift import UpliftDRF  # noqa: E402
 from h2o_tpu_torch.models.tree.xgboost import XGBoost  # noqa: E402
+from h2o_tpu_torch.models.word2vec import Word2Vec  # noqa: E402
 from h2o_tpu_torch.ops import hist_kernels as hk  # noqa: E402
+from h2o_tpu_torch.ops import prng  # noqa: E402
 from h2o_tpu_torch.ops.histogram import hist_plain  # noqa: E402
+from h2o_tpu_torch.ops.linalg import eigh_desc  # noqa: E402
 
 DEV = torch.device("cuda:0")
 R, C = 1_000_000, 28
@@ -2083,6 +2134,557 @@ def phase_more(X, fr: Frame, paths) -> None:
               total_s=t4 - t0))
 
 
+#: 18: the decompositions, GLRM, Word2Vec, NaiveBayes and CoxPH.  PCA's
+#: and SVD's k, GLRM's rank and the share of its cells set to NaN
+DECOMP_K, GLRM_K, GLRM_NAN = 10, 10, 0.10
+#: 18c: the seeded Zipf corpus (tokens, types, tokens a sentence) and the
+#: epochs run (the reference's default is 5: cut, the host pair loop is
+#: the reference's own Python loop)
+W2V_TOKENS, W2V_TYPES, W2V_SENTENCE, W2V_EPOCHS = 1_000_000, 30_000, 20, 2
+W2V_SUB_TOKENS = 100_000
+#: 18e: the share of censored rows the censoring rate aims at
+COX_CENSORED = 0.3
+#: the CPU tests' tolerances (tests/test_torch_{pca_svd,glrm,word2vec,
+#: naive_bayes,coxph}.py), held card against CPU on SUB_ROWS rows
+EIG_RTOL, VEC_ATOL, RAND_VEC_ATOL = 1e-5, 1e-5, 1e-4
+GLRM_OBJ_RTOL, W2V_STEP_RTOL, NB_TABLE_TOL, NB_PROB_ATOL = 1e-5, 1e-6, \
+    1e-6, 1e-5
+COX_STEP_ATOL, COX_LL_RTOL = 1e-5, 1e-6
+
+
+def glrm_steps(rows: int) -> dict:
+    """GLRM's step sizes for ``rows`` rows.  One step size serves X and
+    Y, and Y's gradient sums every row: at the reference's defaults
+    (init_step_size 1, min_step_size 1e-4) a fit over more than ~10,000
+    rows halves its step below the minimum before one step is accepted
+    (20,000 rows: 9 iterations, none accepted, in h2o_tpu and the port
+    alike, on the CPU).  Starting near 1 / (2 rows) keeps Y's step
+    stable, and the step then grows by 1.05 on each accepted one."""
+    return dict(init_step_size=10.0 / rows, min_step_size=1e-12)
+
+
+def eig_check(name, got_vals, want_vals, got_vecs, want_vecs, G_diff,
+              vec_atol) -> dict:
+    """Eigenvalues within EIG_RTOL (plus EIG_RTOL/10 of the largest, the
+    Gram's float32 rounding, Weyl); each vector aligned to the CPU's
+    sign within ``vec_atol`` plus the Davis-Kahan bound 2 ||E|| / gap of
+    its eigenvalue, E the two Grams' difference plus each float32
+    eigensolver's backward error (P eps ||G||).  The 1M x 28 frame's 28
+    iid columns put every eigenvalue within a few % of the others, so
+    the vectors are determined only that far."""
+    gv, wv = np.asarray(got_vals, np.float64), np.asarray(want_vals,
+                                                          np.float64)
+    val_err = float(np.max(np.abs(gv - wv) / (EIG_RTOL * np.abs(wv) +
+                                              EIG_RTOL / 10 * wv.max())))
+    gaps = np.array([np.min(np.abs(np.delete(wv, i) - wv[i]))
+                     if len(wv) > 1 else np.inf for i in range(len(wv))])
+    k = got_vecs.shape[1]
+    signs = np.sign(np.sum(got_vecs * want_vecs, axis=0))
+    diff = np.abs(got_vecs * signs[None, :] - want_vecs).max(axis=0)
+    E = G_diff + 2 * len(wv) * np.finfo(np.float32).eps * wv.max()
+    allowed = vec_atol + 2 * E / gaps[:k]
+    rec = dict(eigenvalue_err_over_tol=val_err,
+               vector_max_abs_diff=float(diff.max()),
+               vector_err_over_bound=float(np.max(diff / allowed)),
+               signs_flipped=int(np.sum(signs < 0)),
+               min_gap=float(gaps[:k].min()))
+    if val_err > 1.0 or rec["vector_err_over_bound"] > 1.0:
+        raise AssertionError(f"{name}: card and CPU differ {rec}")
+    return rec
+
+
+def phase_decompositions(fr: Frame, cov: Frame, paths) -> None:
+    """18a: PCA and SVD at full width; the Gram GEMM's device ms, the
+    host eigendecomposition; card against CPU."""
+    runs = (("pca", PCA, fr, dict(k=DECOMP_K, transform="STANDARDIZE")),
+            ("pca_covertype", PCA, cov, dict(k=7)),
+            ("svd_gram", SVD, fr, dict(nv=DECOMP_K, svd_method="GramSVD",
+                                       keep_u=True)),
+            ("svd_randomized", SVD, fr, dict(nv=DECOMP_K, seed=1,
+                                             svd_method="Randomized",
+                                             max_iterations=10,
+                                             keep_u=False)))
+    models = {}
+    for name, cls, data, kw in runs:
+        hk.reset_launches()
+        m, wall = fit(cls, data, device=DEV, **kw)
+        got = hist_launches()
+        paths[name] = got
+        no_hist(name, got)
+        models[name] = m
+        o = m.output
+        vals = o["std_deviation"] ** 2 if cls is PCA else o["d"]
+        rec = dict(phase=name, rows=data.nrows,
+                   expanded_cols=len(o.get("coef_names", o.get("v_names"))),
+                   **kw, wall_s=wall)
+        rec.update({"pct_variance": o["pct_variance"].tolist()} if cls is PCA
+                   else {"d": o["d"].tolist()})
+        if name == "svd_gram":
+            U = np.stack([o["u_frame"].vec(c).data
+                          for c in o["u_frame"].names], axis=1)
+            rec["u_orthonormality_err"] = float(np.abs(
+                U.T.astype(np.float64) @ U - np.eye(U.shape[1])).max())
+            if rec["u_orthonormality_err"] > 1e-3:
+                raise AssertionError(f"SVD U not orthonormal: {rec}")
+        emit(rec)
+        if not np.isfinite(vals).all() or (cls is PCA and not 0.0 < float(
+                np.sum(o["pct_variance"])) <= 1.0 + 1e-6):
+            raise AssertionError(f"{name}: implausible output {rec}")
+    # Ritz values of a subspace lie below the eigenvalues (interlacing)
+    dg, dr = models["svd_gram"].output["d"], models["svd_randomized"].output[
+        "d"]
+    if np.any(dr > dg * (1 + 1e-5)) or np.any(dr < 0.98 * dg):
+        raise AssertionError(f"Randomized d {dr} not within 2 % below "
+                             f"GramSVD's {dg}")
+    # the Gram GEMM (device) and the eigendecomposition (host)
+    Xd = expand_for_scoring(fr, models["pca"].output["expansion_spec"], DEV)
+    gram_ms = time_ms(lambda: Xd.T @ Xd)
+    G = (Xd.T @ Xd).cpu()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        eigh_desc(G)
+    eigh_ms = (time.perf_counter() - t0) / 20 * 1e3
+    b_ms, b_by = bound(R * C * 4 + C * C * 4, 2 * R * C * C)
+    emit(dict(phase="decomposition_gram", rows=R, cols=C, gram_ms=gram_ms,
+              bound_ms=b_ms, bound_by=b_by, host_eigh_ms=eigh_ms))
+    del Xd
+    # card against CPU on the first SUB_ROWS rows of each run's frame
+    for name, cls, data, kw in runs:
+        sub = data.slice_rows(slice(0, SUB_ROWS))
+        kw = dict(kw, keep_u=False) if cls is SVD else kw
+        g, _ = fit(cls, sub, device=DEV, **kw)
+        c, _ = fit(cls, sub, **dict(kw, device="cpu"))
+        Xg = expand_for_scoring(sub, g.output["expansion_spec"], DEV)
+        Xc = expand_for_scoring(sub, c.output["expansion_spec"], "cpu")
+        scale = float(max(sub.nrows - 1, 1)) if cls is PCA else 1.0
+        G_diff = float(torch.linalg.matrix_norm(
+            (Xg.T @ Xg).cpu().double() - (Xc.T @ Xc).double(), ord=2)) / \
+            scale
+        if cls is PCA:
+            rec = eig_check(name, g.output["std_deviation"] ** 2,
+                            c.output["std_deviation"] ** 2,
+                            g.output["eigenvectors"],
+                            c.output["eigenvectors"], G_diff, VEC_ATOL)
+        else:
+            randomized = kw["svd_method"] == "Randomized"
+            rec = eig_check(name, g.output["d"] ** 2, c.output["d"] ** 2,
+                            g.output["v"], c.output["v"], G_diff,
+                            RAND_VEC_ATOL if randomized else VEC_ATOL)
+        emit(dict(phase=name + "_cuda_vs_cpu", rows=SUB_ROWS,
+                  gram_diff_norm=G_diff, **rec))
+    om_equal = torch.equal(prng.normal(prng.key(1), (C, DECOMP_K), DEV).cpu(),
+                           prng.normal(prng.key(1), (C, DECOMP_K), "cpu"))
+    emit(dict(phase="svd_randomized_omega", shape=[C, DECOMP_K],
+              bitwise_equal=om_equal))
+    if not om_equal:
+        raise AssertionError("Randomized SVD: Omega differs card vs CPU")
+
+
+def glrm_frame(X, seed: int = 3) -> Frame:
+    """``X`` with GLRM_NAN of its cells set to NaN (seeded)."""
+    A = X.copy()
+    A[np.random.default_rng(seed).uniform(size=A.shape) < GLRM_NAN] = np.nan
+    return Frame([f"x{j}" for j in range(A.shape[1])],
+                 [Vec(A[:, j]) for j in range(A.shape[1])])
+
+
+def phase_glrm(X, paths) -> None:
+    """18b: GLRM k = 10, Quadratic, 500 iterations at most, over 1M x 28
+    with 10 % of the cells missing; one step and one objective timed;
+    predict()'s 30-iteration X solve over the 1M rows; card against
+    CPU."""
+    fr_g = glrm_frame(X)
+    kw = dict(k=GLRM_K, loss="Quadratic", seed=1)
+    hk.reset_launches()
+    m, wall = fit(GLRM, fr_g, device=DEV, **kw, **glrm_steps(R))
+    got = hist_launches()
+    paths["glrm"] = got
+    no_hist("GLRM", got)
+    o = m.output
+    sync()
+    t0 = time.perf_counter()
+    pred = m.predict(fr_g)
+    p_wall = time.perf_counter() - t0
+    emit(dict(phase="glrm", rows=R, cols=C, k=GLRM_K, nan_share=GLRM_NAN,
+              max_iterations=500, **glrm_steps(R), wall_s=wall,
+              iterations=o["iterations"], accepted=len(o["history"]) - 1,
+              ms_per_iteration=wall / o["iterations"] * 1e3,
+              objective=o["objective"], numerr=o["numerr"],
+              initial_objective=o["history"][0], predict_wall_s=p_wall))
+    recon = pred.vec("reconstr_x0").data
+    if pred.nrows != R or not np.isfinite(recon).all() or \
+            not o["objective"] < o["history"][0]:
+        raise AssertionError("GLRM: implausible fit or reconstruction")
+    # one step and one objective, device-timed, at the fitted factors
+    A = DataInfo(fr_g, fr_g.names, None, DEV, mode="expanded",
+                 use_all_factor_levels=True, impute_missing=False).matrix()
+    prob = glrm_mod._Problem(A, ~torch.isnan(A), "Quadratic", "None",
+                             "None", 0.0, 0.0)
+    Xf = torch.from_numpy(np.stack(
+        [o["representation_frame"].vec(c).data
+         for c in o["representation_frame"].names], axis=1)).to(DEV)
+    Yf = torch.from_numpy(o["archetypes"]).to(DEV)
+    alpha = torch.tensor(o["step_size"], dtype=torch.float32, device=DEV)
+    step_ms = time_ms(lambda: prob.step(Xf, Yf, alpha))
+    obj_ms = time_ms(lambda: prob.objective(Xf, Yf))
+    # A (float32) and its mask (bool) read once, X read and written once
+    # (a row's new X needs only its own row), four (R, C, k) products
+    b_ms, b_by = bound(R * C * 5 + 2 * R * GLRM_K * 4, 8 * R * C * GLRM_K)
+    emit(dict(phase="glrm_iteration", rows=R, cols=C, k=GLRM_K,
+              step_ms=step_ms, objective_ms=obj_ms, bound_ms=b_ms,
+              bound_by=b_by))
+    del A, prob
+    sub = glrm_frame(X[:SUB_ROWS])
+    kw.update(glrm_steps(SUB_ROWS))
+    g, _ = fit(GLRM, sub, device=DEV, **kw)
+    c, _ = fit(GLRM, sub, **dict(kw, device="cpu"))
+    gh, ch = np.asarray(g.output["history"]), np.asarray(c.output["history"])
+    n = min(20, len(gh), len(ch))
+    first = float(np.max(np.abs(gh[:n] - ch[:n]) / np.abs(ch[:n])))
+    rec = dict(phase="glrm_cuda_vs_cpu", rows=SUB_ROWS,
+               iterations=(g.output["iterations"], c.output["iterations"]),
+               accepted=(len(gh) - 1, len(ch) - 1),
+               first20_max_rel=first,
+               objective_rel=abs(g.output["objective"] -
+                                 c.output["objective"]) /
+               abs(c.output["objective"]),
+               numerr_rel=abs(g.output["numerr"] - c.output["numerr"]) /
+               abs(c.output["numerr"]))
+    emit(rec)
+    # the final values are reported: the accept decisions on float32
+    # noise part the trajectories (tests/test_torch_glrm.py)
+    if first > GLRM_OBJ_RTOL:
+        raise AssertionError(f"GLRM: card and CPU differ {rec}")
+
+
+def zipf_tokens(n: int, types: int, sentence: int, seed: int = 0) -> list:
+    """``n`` tokens ``w<rank>`` drawn with probability ~ 1 / rank over
+    ``types`` types, an NA after every ``sentence`` tokens."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, types + 1)
+    ranks = rng.choice(types, size=n, p=p / p.sum())
+    names = np.array([f"w{r}" for r in range(types)], dtype=object)
+    toks = names[ranks].reshape(-1, sentence)
+    out = np.full((toks.shape[0], sentence + 1), None, dtype=object)
+    out[:, :sentence] = toks
+    return out.reshape(-1).tolist()
+
+
+class W2VProbe:
+    """While installed, records every Word2Vec step's host inputs and
+    copies of (Win, Wout) after each of the first two steps (Wout starts
+    at 0, so the first step moves Wout alone)."""
+
+    def __enter__(self):
+        self.inputs, self.snaps = [], []
+        self._orig = w2v_mod.sgns_step
+
+        def run(Win, Wout, c, t, labels, lr):
+            self.inputs.append((c.cpu().numpy().copy(),
+                                t.cpu().numpy().copy(), float(lr)))
+            self._orig(Win, Wout, c, t, labels, lr)
+            if len(self.snaps) < 2:
+                self.snaps.append((Win.cpu().numpy().copy(),
+                                   Wout.cpu().numpy().copy()))
+        w2v_mod.sgns_step = run
+        return self
+
+    def __exit__(self, *exc):
+        w2v_mod.sgns_step = self._orig
+
+
+def phase_word2vec(paths) -> None:
+    """18c: Word2Vec at the reference's defaults on a 1M-token Zipf
+    corpus, 2 epochs; one device step timed; card against CPU."""
+    fr_w = Frame(["tokens"], [Vec(zipf_tokens(W2V_TOKENS, W2V_TYPES,
+                                              W2V_SENTENCE), T_STR)])
+    kw = dict(epochs=W2V_EPOCHS, seed=1)
+    hk.reset_launches()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with W2VProbe() as pr:
+            m, wall = fit(Word2Vec, fr_w, device=DEV, **kw)
+    got = hist_launches()
+    paths["word2vec"] = got
+    no_hist("Word2Vec", got)
+    steps = len(pr.inputs)
+    pairs = sum(len(c) for c, _, _ in pr.inputs)
+    c, t, lr = pr.inputs[-1]
+    Win = torch.from_numpy(m.output["vectors"]).to(DEV)
+    Wout = torch.zeros_like(Win)
+    labels = torch.zeros(t.shape, dtype=torch.float32, device=DEV)
+    labels[:, 0] = 1.0
+    cd, td = torch.from_numpy(c).to(DEV), torch.from_numpy(t).to(DEV)
+    lrd = torch.tensor(lr, dtype=torch.float32, device=DEV)
+    step_ms = time_ms(lambda: w2v_mod.sgns_step(Win, Wout, cd, td, labels,
+                                                lrd))
+    syn = m.find_synonyms("w0", 5)
+    emit(dict(phase="word2vec", tokens=W2V_TOKENS, types=W2V_TYPES,
+              vocab=len(m.output["words"]), vec_size=100, window_size=5,
+              negative_samples=5, batch_size=4096, epochs=W2V_EPOCHS,
+              wall_s=wall, steps=steps, pairs=pairs, pairs_per_s=pairs / wall,
+              device_step_ms=step_ms,
+              host_share=1.0 - steps * step_ms / 1e3 / wall,
+              synonyms_w0=list(syn)))
+    if not np.isfinite(m.output["vectors"]).all() or len(syn) != 5:
+        raise AssertionError("Word2Vec: implausible embeddings")
+    sub = Frame(["tokens"], [Vec(zipf_tokens(W2V_SUB_TOKENS, W2V_TYPES,
+                                             W2V_SENTENCE, seed=2), T_STR)])
+    runs = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for dev in (DEV, "cpu"):
+            with W2VProbe() as pr:
+                mm_, _ = fit(Word2Vec, sub, **dict(kw, device=dev))
+            runs[str(dev)] = (mm_, pr)
+    (g, pg), (cm, pc) = runs[str(DEV)], runs["cpu"]
+    same_inputs = len(pg.inputs) == len(pc.inputs) and all(
+        np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]) and
+        np.float32(a[2]) == np.float32(b[2])
+        for a, b in zip(pg.inputs, pc.inputs))
+    # the CPU tests' 1e-6 relative, plus 1e-6 of the matrix's largest
+    # |value|: on the card index_add_ adds a frequent word's hundreds of
+    # terms a batch in no fixed order
+    first = max(float(np.max(np.abs(a - b) / (W2V_STEP_RTOL * (
+        np.abs(b) + np.abs(b).max())))) for sg, sc in zip(pg.snaps, pc.snaps)
+        for a, b in zip(sg, sc))
+    drift = float(np.abs(g.output["vectors"] - cm.output["vectors"]).max() /
+                  np.abs(cm.output["vectors"]).max())
+    rec = dict(phase="word2vec_cuda_vs_cpu", tokens=W2V_SUB_TOKENS,
+               steps=(len(pg.inputs), len(pc.inputs)),
+               vocab_equal=g.output["words"] == cm.output["words"],
+               pairs_and_negatives_equal=same_inputs,
+               first_steps_err_over_tol=first, final_drift=drift)
+    emit(rec)
+    if not (rec["vocab_equal"] and same_inputs) or first > 1.0:
+        raise AssertionError(f"Word2Vec: card and CPU differ {rec}")
+
+
+def label_check(name, g_raw, c_raw) -> dict:
+    """Labels equal where the top two probabilities are more than
+    NB_PROB_ATOL apart; probabilities within NB_PROB_ATOL."""
+    gp, cp = g_raw[:, 1:], c_raw[:, 1:]
+    top2 = np.sort(cp, axis=1)[:, -2:]
+    decided = top2[:, 1] - top2[:, 0] > NB_PROB_ATOL
+    rec = dict(label_diffs=int(np.sum(g_raw[:, 0] != c_raw[:, 0])),
+               label_diffs_decided=int(np.sum((g_raw[:, 0] != c_raw[:, 0])
+                                              & decided)),
+               proba_max_abs_diff=float(np.abs(gp - cp).max()))
+    if rec["label_diffs_decided"] or rec["proba_max_abs_diff"] > \
+            NB_PROB_ATOL:
+        raise AssertionError(f"{name}: card and CPU differ {rec}")
+    return rec
+
+
+def phase_naive_bayes(fr: Frame, cov: Frame, paths) -> None:
+    """18d: NaiveBayes on 1M x 28 (binomial) and on covertype (7
+    classes, two categoricals); predict() walls; card against CPU."""
+    for name, data in (("naivebayes", fr), ("naivebayes_covertype", cov)):
+        hk.reset_launches()
+        m, wall = fit(NaiveBayes, data, device=DEV)
+        got = hist_launches()
+        paths[name] = got
+        no_hist(name, got)
+        tm = m.output["training_metrics"]
+        sync()
+        t0 = time.perf_counter()
+        pred = m.predict(data)
+        p_wall = time.perf_counter() - t0
+        emit(dict(phase=name, rows=data.nrows, classes=len(
+            m.output["response_domain"]), wall_s=wall, predict_wall_s=p_wall,
+            logloss=tm["logloss"], auc=tm.get("AUC"),
+            mean_per_class_error=tm.get("mean_per_class_error")))
+        if pred.nrows != data.nrows or not np.isfinite(tm["logloss"]):
+            raise AssertionError(f"{name}: implausible model")
+        sub = data.slice_rows(slice(0, SUB_ROWS))
+        g, _ = fit(NaiveBayes, sub, device=DEV)
+        c, _ = fit(NaiveBayes, sub, device="cpu")
+        tab = max([float(np.max(np.abs(g.output["apriori"] -
+                                       c.output["apriori"])))] +
+                  [float(np.max(np.abs(g.output["pcond_cat"][k] - v)))
+                   for k, v in c.output["pcond_cat"].items()] +
+                  [float(np.max(np.abs(g.output[k] - c.output[k]) /
+                                np.maximum(np.abs(c.output[k]), 1.0)))
+                   for k in ("num_mean", "num_sd")])
+        rec = dict(phase=name + "_cuda_vs_cpu", rows=SUB_ROWS,
+                   tables_max_diff=tab, **label_check(
+                       name, g.predict_raw(sub).cpu().numpy(),
+                       c.predict_raw(sub).numpy()))
+        emit(rec)
+        if tab > NB_TABLE_TOL:
+            raise AssertionError(f"{name}: card and CPU tables differ {rec}")
+
+
+def cox_frame(X, seed: int = 4) -> Frame:
+    """``X`` with event times drawn from an exponential whose rate is a
+    seeded linear predictor's exp (median ~1 year), about COX_CENSORED of
+    the rows censored by an exponential censoring time, both rounded up
+    to whole days (so Efron sees ties)."""
+    rng = np.random.default_rng(seed)
+    beta = rng.normal(0.0, 0.2, X.shape[1])
+    rate = np.exp(X.astype(np.float64) @ beta) / 365.0
+    t_event = rng.exponential(1.0 / rate)
+    # the censoring rate c with mean(c / (c + rate)) = COX_CENSORED
+    lo, hi = 0.0, float(rate.max())
+    for _ in range(60):
+        c = (lo + hi) / 2
+        lo, hi = (c, hi) if np.mean(c / (c + rate)) < COX_CENSORED \
+            else (lo, c)
+    t_cens = rng.exponential(1.0 / c, size=len(rate))
+    time_ = np.ceil(np.minimum(t_event, t_cens)).astype(np.float32)
+    event = (t_event <= t_cens).astype(np.int32)
+    return Frame([f"x{j}" for j in range(X.shape[1])] + ["time", "event"],
+                 [Vec(X[:, j]) for j in range(X.shape[1])] +
+                 [Vec(time_), Vec(event, T_CAT, domain=["0", "1"])])
+
+
+class CoxProbe:
+    """While installed, the betas the likelihood is evaluated at and the
+    host clock around each Newton state (nll, gradient, Hessian)."""
+
+    def __enter__(self):
+        self.betas, self.state_s = [], []
+        self._orig = (cox_mod.RiskSets.state, cox_mod.RiskSets.nll)
+        st, nl = self._orig
+
+        def state(rs, b):
+            self.betas.append(np.asarray(b).copy())
+            t0 = time.perf_counter()
+            out = st(rs, b)
+            self.state_s.append(time.perf_counter() - t0)
+            self.rs = rs
+            return out
+
+        def nll(rs, b):
+            self.betas.append(np.asarray(b).copy())
+            return nl(rs, b)
+        cox_mod.RiskSets.state, cox_mod.RiskSets.nll = state, nll
+        return self
+
+    def __exit__(self, *exc):
+        cox_mod.RiskSets.state, cox_mod.RiskSets.nll = self._orig
+
+    def distinct(self):
+        out = []
+        for b in self.betas:
+            if not out or not np.array_equal(out[-1], b):
+                out.append(b)
+        return out
+
+
+def fit_cox(fr, **kw):
+    kw.setdefault("device", DEV)
+    sync()
+    t0 = time.perf_counter()
+    m = CoxPH(stop_column="time", **kw).train(
+        x=[n for n in fr.names if n not in ("time", "event")], y="event",
+        training_frame=fr)
+    sync()
+    return m, time.perf_counter() - t0
+
+
+def phase_coxph(X, paths) -> None:
+    """18e: CoxPH, Efron and Breslow, at 1M x 28 with whole-day ties;
+    the Hessian's device ms; card against CPU."""
+    fr_c = cox_frame(X)
+    t_ = fr_c.vec("time").data
+    for ties in ("efron", "breslow"):
+        hk.reset_launches()
+        with CoxProbe() as pr:
+            m, wall = fit_cox(fr_c, ties=ties)
+        got = hist_launches()
+        paths[f"coxph_{ties}"] = got
+        no_hist("CoxPH", got)
+        o = m.output
+        rs = pr.rs
+
+        def grad_hessian():         # forward, gradient, batched Hessian
+            return rs.state(o["coef"])
+        h_ms = time_ms(grad_hessian, n=3, warm=1)
+        emit(dict(phase=f"coxph_{ties}", rows=R, cols=C, wall_s=wall,
+                  iterations=o["iterations"],
+                  ms_per_iteration=wall / o["iterations"] * 1e3,
+                  state_host_ms_median=statistics.median(pr.state_s) * 1e3,
+                  grad_hessian_device_ms=h_ms, tie_groups=rs.n_groups,
+                  max_ties=rs.max_ties, n_events=o["n_events"],
+                  censored_share=1 - o["n_events"] / R,
+                  distinct_times=int(len(np.unique(t_))),
+                  loglik=o["loglik"], null_loglik=o["null_loglik"],
+                  concordance=o["concordance"]))
+        if not np.isfinite(o["coef"]).all() or \
+                not o["loglik"] > o["null_loglik"] or \
+                not 0.5 < o["concordance"] <= 1.0:
+            raise AssertionError(f"CoxPH {ties}: implausible model")
+        sub = cox_frame(X[:SUB_ROWS], seed=5)
+        with CoxProbe() as pg:
+            g, _ = fit_cox(sub, ties=ties)
+        with CoxProbe() as pc:
+            c, _ = fit_cox(sub, ties=ties, device="cpu")
+        steps = max(float(np.abs(a - b).max())
+                    for a, b in zip(pg.distinct()[:3], pc.distinct()[:3]))
+        go, co = g.output, c.output
+        rec = dict(phase=f"coxph_{ties}_cuda_vs_cpu", rows=SUB_ROWS,
+                   iterations=(go["iterations"], co["iterations"]),
+                   first_iterates_max_abs_diff=steps,
+                   loglik_rel=abs(go["loglik"] - co["loglik"]) /
+                   abs(co["loglik"]),
+                   coef_max_abs_diff=float(np.abs(go["coef"] -
+                                                  co["coef"]).max()),
+                   # the region the float32 likelihood cannot resolve
+                   # (tests/test_torch_coxph.py)
+                   coef_unresolved=float(np.sqrt(
+                       8 * np.spacing(np.float32(abs(co["loglik"]))) *
+                       np.sum(co["se_coef"] ** 2))),
+                   concordance=(go["concordance"], co["concordance"]))
+        emit(rec)
+        # the tests' tolerances (tests/test_torch_coxph.py); the
+        # concordance over 4,000 rows moves with the coefficients' last
+        # places (ties of the linear predictor): within 1e-4
+        if steps > COX_STEP_ATOL or rec["loglik_rel"] > COX_LL_RTOL or \
+                abs(go["iterations"] - co["iterations"]) > 1 or \
+                rec["coef_max_abs_diff"] > rec["coef_unresolved"] or \
+                abs(go["concordance"] - co["concordance"]) > 1e-4:
+            raise AssertionError(f"CoxPH {ties}: card and CPU differ {rec}")
+
+
+def phase_slice10(X, fr: Frame, paths) -> None:
+    """18: PCA, SVD, GLRM, Word2Vec, NaiveBayes and CoxPH (no histogram
+    kernel: each run's counters and the phase's total must read 0)."""
+    cov = make_covertype(seed=0, categorical=True)
+    total = list(hist_launches())
+    reset = hk.reset_launches
+
+    def counted_reset():            # keep the phase's total across resets
+        got = hist_launches()
+        total[0] += got[0]
+        total[1] += got[1]
+        reset()
+
+    hk.reset_launches = counted_reset
+    hk.reset_launches()
+    total[:] = [0, 0]
+    t = [time.perf_counter()]
+    try:
+        phase_decompositions(fr, cov, paths)
+        t.append(time.perf_counter())
+        phase_glrm(X, paths)
+        t.append(time.perf_counter())
+        phase_word2vec(paths)
+        t.append(time.perf_counter())
+        phase_naive_bayes(fr, cov, paths)
+        t.append(time.perf_counter())
+        phase_coxph(X, paths)
+        t.append(time.perf_counter())
+        hk.reset_launches()
+    finally:
+        hk.reset_launches = reset
+    got = tuple(total)
+    no_hist("phase 18", got)
+    emit(dict(phase="phase18_walls", decompositions_s=t[1] - t[0],
+              glrm_s=t[2] - t[1], word2vec_s=t[3] - t[2],
+              naivebayes_s=t[4] - t[3], coxph_s=t[5] - t[4],
+              total_s=t[5] - t[0], k1_launches=got[0], k2_launches=got[1]))
+
 def main() -> None:
     t_start = time.perf_counter()
     # -- 0 device ------------------------------------------------------------
@@ -2297,6 +2899,9 @@ def main() -> None:
     # -- 17 KMeans, DeepLearning, GAM, RuleFit --------------------------------
     torch.cuda.empty_cache()
     phase_more(X, fr, paths)
+    # -- 18 PCA, SVD, GLRM, Word2Vec, NaiveBayes, CoxPH -----------------------
+    torch.cuda.empty_cache()
+    phase_slice10(X, fr, paths)
     emit(dict(phase="launches", paths={k: dict(k1=v[0], k2=v[1])
                                        for k, v in paths.items()}))
     sync()

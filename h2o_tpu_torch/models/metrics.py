@@ -6,9 +6,11 @@
 ``binomial_metrics`` :258-280, ``multinomial_metrics`` :283-307), and of
 the anomaly metrics (``h2o_tpu/models/tree/isofor.py:147-151``), the
 uplift metrics (``h2o_tpu/models/tree/uplift.py:272-292``), KMeans's
-clustering metrics (``h2o_tpu/models/kmeans.py:79-100``) and the
+clustering metrics (``h2o_tpu/models/kmeans.py:79-100``), the
 autoencoder's reconstruction metrics
-(``h2o_tpu/models/deeplearning.py:287-294``).
+(``h2o_tpu/models/deeplearning.py:287-294``), and the metrics of PCA and
+SVD (``pca.py:54-57``, ``svd.py:75-77``), GLRM (``glrm.py:197-201``),
+Word2Vec (``word2vec.py:153-156``) and CoxPH (``coxph.py:110-115``).
 
 Binomial AUC comes from a fixed 1024-bin histogram of the scores (the
 reference's AUC2 analog), so it reduces in O(bins).  Reductions are
@@ -335,3 +337,32 @@ def uplift_metrics(uplift: np.ndarray, y: np.ndarray,
     auuc = float(np.trapezoid(qini) / max(len(y), 1))
     return ModelMetrics("uplift", dict(auuc=auuc, ate=float(uplift.mean()),
                                        qini=float(qini[-1])))
+
+
+def dimreduction_metrics(**data) -> ModelMetrics:
+    """PCA's ``std_deviation`` and ``pct_variance``, or SVD's ``d``, as
+    lists."""
+    return ModelMetrics("dimreduction", {
+        k: np.asarray(v).tolist() for k, v in data.items()})
+
+
+def glrm_metrics(objective: float, numerr: float,
+                 iterations: int) -> ModelMetrics:
+    """GLRM's final objective, squared reconstruction error over the
+    observed cells and iteration count."""
+    return ModelMetrics("glrm", dict(objective=float(objective),
+                                     numerr=float(numerr),
+                                     iterations=int(iterations)))
+
+
+def word2vec_metrics(vocab_size: int, vec_size: int) -> ModelMetrics:
+    return ModelMetrics("word2vec", dict(vocab_size=int(vocab_size),
+                                         vec_size=int(vec_size)))
+
+
+def coxph_metrics(out: Dict) -> ModelMetrics:
+    """CoxPH's ``loglik``, ``null_loglik``, ``concordance``,
+    ``n_events`` and ``iterations`` from its output."""
+    keys = ("loglik", "null_loglik", "concordance", "n_events",
+            "iterations")
+    return ModelMetrics("coxph", {k: out[k] for k in keys})

@@ -398,6 +398,12 @@ _MODEL_CLASSES = {
                      "DeepLearningModel"),
     "gam": ("h2o_tpu_torch.models.gam", "GAMModel"),
     "rulefit": ("h2o_tpu_torch.models.rulefit", "RuleFitModel"),
+    "pca": ("h2o_tpu_torch.models.pca", "PCAModel"),
+    "svd": ("h2o_tpu_torch.models.svd", "SVDModel"),
+    "glrm": ("h2o_tpu_torch.models.glrm", "GLRMModel"),
+    "word2vec": ("h2o_tpu_torch.models.word2vec", "Word2VecModel"),
+    "naivebayes": ("h2o_tpu_torch.models.naive_bayes", "NaiveBayesModel"),
+    "coxph": ("h2o_tpu_torch.models.coxph", "CoxPHModel"),
 }
 
 
@@ -586,6 +592,16 @@ class ModelBuilder:
             model.output["cross_validation_fold_assignment_frame"] = Frame(
                 ["fold_assignment"], [Vec(fold.astype(np.float32))])
         return model
+
+    def refuse_iteration_checkpoints(self) -> None:
+        """Iteration checkpoints (``recovery_dir``,
+        ``checkpoint_interval``) come with the runtime services (P14): a
+        builder without them raises instead of training without them."""
+        p = self.params
+        if p.get("recovery_dir") or int(p.get("checkpoint_interval") or 0):
+            raise NotImplementedError(
+                f"{self.algo}: recovery_dir/checkpoint_interval comes with "
+                "the runtime services (P14)")
 
     def checkpoint_model(self) -> Optional[Model]:
         """The ``checkpoint`` param as a Model: a port model as given, or

@@ -2,30 +2,41 @@
 param set, as a client that sends all params does.
 
 For each of GBM, DRF, XGBoost, DT, IsolationForest,
-ExtendedIsolationForest, UpliftDRF, GLM, KMeans, DeepLearning, GAM and
-RuleFit the port's builder is
+ExtendedIsolationForest, UpliftDRF, GLM, KMeans, DeepLearning, GAM,
+RuleFit, PCA, SVD, GLRM, Word2Vec, NaiveBayes and CoxPH the port's
+builder is
 constructed with ``h2o_tpu``'s ``default_params()`` passed explicitly
 (nothing may be "unknown", no accepted default may be refused, and every
 param resolves to the value the reference builder resolves it to), and
 trains a small frame with them (the tree builders' ntrees cut to 2,
-RuleFit's rule trees to 4, GAM given one gam column).
+RuleFit's rule trees to 4, GAM given one gam column, CoxPH a stop
+column, Word2Vec a token column).  Word2Vec's reference refuses its own
+default ``norm_model="NegSampling"`` (its ENGINE_FIXED accepts HSM
+only), so its resolved params are compared with the reference's
+defaults instead.
 ``custom_distribution_func`` other than None raises NotImplementedError naming P13, as
 ``distribution="custom"`` does; ``calibrate_model=True`` is refused by
 name.  What the port refuses by name instead of dropping: DKV frames
 (DeepLearning's ``export_weights_and_biases``, GAM's ``keep_gam_cols``:
-P13), iteration checkpoints (``recovery_dir`` for KMeans, DeepLearning,
-GAM and RuleFit: P14) and DeepLearning's ``model_parallel`` over
+P13), iteration checkpoints (``recovery_dir`` or ``checkpoint_interval``
+for KMeans, DeepLearning, GAM, RuleFit and the six builders of PCA to
+CoxPH: P14) and DeepLearning's ``model_parallel`` over
 several cards (P8).
 """
 
 import numpy as np
 import pytest
 
+from h2o_tpu.models.coxph import CoxPH as JCoxPH
 from h2o_tpu.models.deeplearning import DeepLearning as JDL
 from h2o_tpu.models.gam import GAM as JGAM
 from h2o_tpu.models.glm import GLM as JGLM
+from h2o_tpu.models.glrm import GLRM as JGLRM
 from h2o_tpu.models.kmeans import KMeans as JKMeans
+from h2o_tpu.models.naive_bayes import NaiveBayes as JNB
+from h2o_tpu.models.pca import PCA as JPCA
 from h2o_tpu.models.rulefit import RuleFit as JRuleFit
+from h2o_tpu.models.svd import SVD as JSVD
 from h2o_tpu.models.tree.drf import DRF as JDRF
 from h2o_tpu.models.tree.dt import DT as JDT
 from h2o_tpu.models.tree.gbm import GBM as JGBM
@@ -33,13 +44,19 @@ from h2o_tpu.models.tree.isofor import (ExtendedIsolationForest as JEIF,
                                         IsolationForest as JIF)
 from h2o_tpu.models.tree.uplift import UpliftDRF as JUplift
 from h2o_tpu.models.tree.xgboost import XGBoost as JXGB
+from h2o_tpu.models.word2vec import Word2Vec as JW2V
 
-from h2o_tpu_torch.core.frame import T_CAT, Frame, Vec
+from h2o_tpu_torch.core.frame import T_CAT, T_STR, Frame, Vec
+from h2o_tpu_torch.models.coxph import CoxPH
 from h2o_tpu_torch.models.deeplearning import DeepLearning
 from h2o_tpu_torch.models.gam import GAM
 from h2o_tpu_torch.models.glm import GLM
+from h2o_tpu_torch.models.glrm import GLRM
 from h2o_tpu_torch.models.kmeans import KMeans
+from h2o_tpu_torch.models.naive_bayes import NaiveBayes
+from h2o_tpu_torch.models.pca import PCA
 from h2o_tpu_torch.models.rulefit import RuleFit
+from h2o_tpu_torch.models.svd import SVD
 from h2o_tpu_torch.models.tree.drf import DRF
 from h2o_tpu_torch.models.tree.dt import DT
 from h2o_tpu_torch.models.tree.gbm import GBM
@@ -47,16 +64,21 @@ from h2o_tpu_torch.models.tree.isofor import (ExtendedIsolationForest,
                                               IsolationForest)
 from h2o_tpu_torch.models.tree.uplift import UpliftDRF
 from h2o_tpu_torch.models.tree.xgboost import XGBoost
+from h2o_tpu_torch.models.word2vec import Word2Vec
 
 PAIRS = {"gbm": (JGBM, GBM), "drf": (JDRF, DRF), "xgboost": (JXGB, XGBoost),
          "dt": (JDT, DT), "isolationforest": (JIF, IsolationForest),
          "extendedisolationforest": (JEIF, ExtendedIsolationForest),
          "upliftdrf": (JUplift, UpliftDRF), "glm": (JGLM, GLM),
          "kmeans": (JKMeans, KMeans), "deeplearning": (JDL, DeepLearning),
-         "gam": (JGAM, GAM), "rulefit": (JRuleFit, RuleFit)}
+         "gam": (JGAM, GAM), "rulefit": (JRuleFit, RuleFit),
+         "pca": (JPCA, PCA), "svd": (JSVD, SVD), "glrm": (JGLRM, GLRM),
+         "word2vec": (JW2V, Word2Vec), "naivebayes": (JNB, NaiveBayes),
+         "coxph": (JCoxPH, CoxPH)}
 #: what a small training needs beyond the reference defaults
 _TRAIN_KW = {"gam": dict(gam_columns=["a"]),
-             "rulefit": dict(rule_generation_ntrees=4)}
+             "rulefit": dict(rule_generation_ntrees=4),
+             "coxph": dict(stop_column="a")}
 
 
 def _frame(n=300):
@@ -78,7 +100,7 @@ def test_reference_defaults_are_accepted(algo):
     b = pcls(device="cpu", **ref)
     # resolved as the reference resolves them (XGBoost maps its names
     # onto the engine's)
-    want = jcls(**ref).params
+    want = (jcls() if algo == "word2vec" else jcls(**ref)).params
     assert set(want) <= set(b.params)
     for k, v in want.items():
         assert b.params[k] == v, k
@@ -93,7 +115,10 @@ def test_reference_defaults_train(algo):
     params.update(_TRAIN_KW.get(algo, {}))
     fr = _frame()
     b = pcls(device="cpu", **params)
-    if b.supervised:
+    if algo == "word2vec":
+        words = [w for _ in range(60) for w in ("ab", "cd", "ef", None)]
+        m = b.train(training_frame=Frame(["t"], [Vec(words, T_STR)]))
+    elif b.supervised:
         m = b.train(x=["a", "b", "c"], y="y", training_frame=fr)
     else:
         m = b.train(x=["a", "b", "c"], training_frame=fr)
@@ -107,6 +132,19 @@ def test_reference_defaults_train(algo):
         assert m.output["steps"] == 7 and m.output["batch"] == 384
     elif algo in ("gam", "rulefit"):
         assert np.isfinite(m.output["glm_output"]["beta"]).all()
+    elif algo == "pca":
+        assert m.output["eigenvectors"].shape == (3, 1)
+    elif algo == "svd":                     # keep_u is on by default
+        assert m.output["u_frame"].nrows == fr.nrows
+    elif algo == "glrm":
+        assert m.output["iterations"] >= 1 and m.output["k"] == 1
+    elif algo == "word2vec":
+        assert m.output["words"] == ["ab", "cd", "ef"]
+    elif algo == "naivebayes":
+        assert 0.5 < m.output["training_metrics"]["AUC"] <= 1.0
+    elif algo == "coxph":
+        assert m.output["coef_names"] == ["b", "c"] and \
+            m.output["iterations"] >= 1
     else:
         assert m.output["ntrees_actual"] == (1 if algo == "dt" else 2)
     assert m.output["training_metrics"] is not None
@@ -128,7 +166,9 @@ def test_custom_distribution_func_names_p13(algo):
 
 _SMALL = {"kmeans": dict(k=2), "deeplearning": dict(hidden=[4], epochs=1.0),
           "gam": dict(gam_columns=["a"]),
-          "rulefit": dict(rule_generation_ntrees=2)}
+          "rulefit": dict(rule_generation_ntrees=2), "pca": {}, "svd": {},
+          "glrm": {}, "word2vec": {}, "naivebayes": {},
+          "coxph": dict(stop_column="a")}
 
 
 @pytest.mark.parametrize("algo,kw,match", [
@@ -139,8 +179,17 @@ _SMALL = {"kmeans": dict(k=2), "deeplearning": dict(hidden=[4], epochs=1.0),
     ("deeplearning", dict(checkpoint_interval=1), "P14"),
     ("gam", dict(recovery_dir="ck"), "P14"),
     ("rulefit", dict(recovery_dir="ck"), "P14"),
+    ("pca", dict(recovery_dir="ck"), "P14"),
+    ("svd", dict(checkpoint_interval=1), "P14"),
+    ("glrm", dict(recovery_dir="ck"), "P14"),
+    ("word2vec", dict(recovery_dir="ck"), "P14"),
+    ("naivebayes", dict(checkpoint_interval=2), "P14"),
+    ("coxph", dict(recovery_dir="ck"), "P14"),
 ], ids=["dl_export", "gam_keep_cols", "kmeans_recovery", "dl_recovery",
-        "dl_checkpoint_interval", "gam_recovery", "rulefit_recovery"])
+        "dl_checkpoint_interval", "gam_recovery", "rulefit_recovery",
+        "pca_recovery", "svd_checkpoint_interval", "glrm_recovery",
+        "word2vec_recovery", "naivebayes_checkpoint_interval",
+        "coxph_recovery"])
 def test_refused_by_name(algo, kw, match):
     _, pcls = PAIRS[algo]
     b = pcls(device="cpu", **_SMALL[algo], **kw)

@@ -1,8 +1,9 @@
-"""CPU probes behind three tolerances of the port's tests: where the
+"""CPU probes behind the tolerances of the port's tests: where the
 reference (``h2o_tpu``) and the port (``h2o_tpu_torch``) cannot agree
 closer, because float32 rounding decides and both packages round.
 
-    JAX_PLATFORMS=cpu python tools/torch_port_probes.py [dl|gam|rulefit ...]
+    JAX_PLATFORMS=cpu python tools/torch_port_probes.py \
+        [dl|gam|rulefit|glrm|word2vec|coxph ...]
 
 Prints one JSON line per case:
 
@@ -15,7 +16,19 @@ Prints one JSON line per case:
   package's max |beta - beta_float64|;
 - ``rulefit``: ``tests/test_rules_selection.py``'s separable data and
   the same with 15 % of labels flipped: the GLM's iterations and the
-  largest |coefficient| and |difference| between the packages.
+  largest |coefficient| and |difference| between the packages;
+- ``glrm``: ``tests/test_torch_glrm.py``'s cases: each package's
+  iterations and accepted steps, the largest relative gap over the
+  first 20 accepted objectives, and the final objective's and numerr's
+  relative gaps;
+- ``word2vec``: ``tests/test_torch_word2vec.py``'s topic corpus: the
+  largest |Win| gap over the largest |Win| after the second step (the
+  first moves Wout alone) and after all 8 epochs, and each package's
+  three synonyms of "cat";
+- ``coxph``: ``tests/test_torch_coxph.py``'s cases: iterations, the
+  largest coefficient gap beside the region the float32 likelihood
+  cannot resolve (``unresolved``), the log-likelihood's relative gap
+  and both concordances.
 """
 
 import json
@@ -132,8 +145,93 @@ def probe_rulefit():
             flush=True)
 
 
+def probe_glrm():
+    from h2o_tpu.models.glrm import GLRM as JGLRM
+    from h2o_tpu_torch.models.glrm import GLRM
+    from h2o_tpu_torch.ops import statpack
+    from tests.test_torch_glrm import CASES, _pair as glrm_pair
+    statpack.ROW_QUANTUM = 64           # the test mesh's padding
+    for case, (make, kw, _) in CASES.items():
+        A, cat = make()
+        jf, pf = glrm_pair(A, cat)
+        jo = JGLRM(**kw).train(training_frame=jf).output
+        po = GLRM(device="cpu", **kw).train(training_frame=pf).output
+        jh, ph = np.asarray(jo["history"]), np.asarray(po["history"])
+        m = min(20, len(jh), len(ph))
+        print(json.dumps(dict(
+            probe="glrm", case=case,
+            iterations=(jo["iterations"], po["iterations"]),
+            accepted=(len(jh) - 1, len(ph) - 1),
+            first20_max_rel=float(np.max(np.abs(ph[:m] - jh[:m]) /
+                                         np.abs(jh[:m]))),
+            objective_rel=abs(po["objective"] - jo["objective"]) /
+            abs(jo["objective"]),
+            numerr_rel=abs(po["numerr"] - jo["numerr"]) /
+            abs(jo["numerr"]))), flush=True)
+
+
+def probe_word2vec():
+    import h2o_tpu.models.word2vec as jw2v
+    import h2o_tpu_torch.models.word2vec as pw2v
+    from tests.test_torch_word2vec import SYN, _pair as w2v_pair, _topics
+    firsts = {}
+
+    def first(module, name, jax_side):
+        """Win after the second step (the first moves Wout alone)."""
+        orig = getattr(module, name)
+
+        def wrap(Win, Wout, *a):
+            out = orig(Win, Wout, *a)
+            seen = firsts.setdefault(name, [])
+            if len(seen) < 2:
+                seen.append(np.array(out[0] if jax_side else Win))
+            return out
+        setattr(module, name, wrap)
+
+    first(jw2v, "_sgns_step", True)
+    first(pw2v, "sgns_step", False)
+    jf, pf = w2v_pair(_topics())
+    jm = jw2v.Word2Vec(**SYN).train(training_frame=jf)
+    pm = pw2v.Word2Vec(device="cpu", **SYN).train(training_frame=pf)
+    jv, pv = np.asarray(jm.output["vectors"]), pm.output["vectors"]
+    f_j, f_p = firsts["_sgns_step"][1], firsts["sgns_step"][1]
+    print(json.dumps(dict(
+        probe="word2vec", steps=8,
+        second_step_drift=float(np.abs(f_p - f_j).max() / np.abs(f_j).max()),
+        final_drift=float(np.abs(pv - jv).max() / np.abs(jv).max()),
+        synonyms_reference=list(jm.find_synonyms("cat", 3)),
+        synonyms_port=list(pm.find_synonyms("cat", 3)))), flush=True)
+
+
+def probe_coxph():
+    import h2o_tpu.models.coxph as jcox
+    from h2o_tpu_torch.models.coxph import CoxPH
+    from tests.test_torch_coxph import CASES
+    for case, (make, kw) in CASES.items():
+        jf, pf = make()
+        x = [c for c in pf.names if c not in ("time", "start", "stop",
+                                              "event", "w")]
+        jo = jcox.CoxPH(**kw).train(x=x, y="event",
+                                    training_frame=jf).output
+        po = CoxPH(device="cpu", **kw).train(x=x, y="event",
+                                             training_frame=pf).output
+        print(json.dumps(dict(
+            probe="coxph", case=case,
+            iterations=(jo["iterations"], po["iterations"]),
+            max_coef_diff=float(np.abs(po["coef"] -
+                                       np.asarray(jo["coef"])).max()),
+            unresolved=float(np.sqrt(
+                8 * np.spacing(np.float32(abs(jo["loglik"]))) *
+                np.sum(np.asarray(jo["se_coef"]) ** 2))),
+            loglik_rel=abs(po["loglik"] - jo["loglik"]) / abs(jo["loglik"]),
+            concordance=(jo["concordance"], po["concordance"]))),
+            flush=True)
+
+
 if __name__ == "__main__":
     Cloud.boot()
-    probes = {"dl": probe_dl, "gam": probe_gam, "rulefit": probe_rulefit}
+    probes = {"dl": probe_dl, "gam": probe_gam, "rulefit": probe_rulefit,
+              "glrm": probe_glrm, "word2vec": probe_word2vec,
+              "coxph": probe_coxph}
     for name in sys.argv[1:] or list(probes):
         probes[name]()
