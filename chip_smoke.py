@@ -8,7 +8,9 @@ HIGGS-shaped width of 1,000,000 rows x 28 features the repository
 benchmarks, the path a user takes first: a CSV parsed, a GBM trained on
 it and explained, GLM with every family and solver, then KMeans,
 DeepLearning, GAM and RuleFit, then PCA, SVD, GLRM, Word2Vec,
-NaiveBayes and CoxPH.  Phases (each
+NaiveBayes and CoxPH, then IsotonicRegression, Aggregator,
+TargetEncoder, ModelSelection, AnovaGLM, PSVM, Infogram,
+StackedEnsemble and Grep.  Phases (each
 prints one JSON line; any failure raises and the exit code is not 0):
 
   0 device  - card name and power limit
@@ -121,7 +123,7 @@ prints one JSON line; any failure raises and the exit code is not 0):
               tokenizer (bytes, wall, MB/s; its build timed apart): the
               parsed frame bitwise equal to the in-memory one; the default
               GBM (20 trees) trained on it equal to phase 4's forest, AUC
-              0.783277007 (K2 100 launches); predict_contributions and
+              0.783277011 (K2 100 launches); predict_contributions and
               predict_leaf_node_assignment (Node_ID, Path) over its first
               100,000 rows (walls, rows/s; Σφ + bias and the assigned
               leaves' values within 1e-4 of the logit margin),
@@ -149,6 +151,8 @@ prints one JSON line; any failure raises and the exit code is not 0):
               defaults (7 one-vs-rest IRLSM passes an iteration), the
               joint-softmax L_BFGS at alpha 0, lambda 0, and ordinal
               (10,000 Adam steps): logloss reproduced by predict();
+              the ordinal thresholds' increments as one CUDA graph
+              bitwise the CPU's arithmetic, ms a call beside eager;
               16e gaussian, poisson, gamma, tweedie, quasibinomial,
               fractionalbinomial and negativebinomial on 100,000 rows,
               and beta_constraints and non_negative (bounds hold), each
@@ -224,6 +228,66 @@ prints one JSON line; any failure raises and the exit code is not 0):
               iterates 1e-5, log-likelihood 1e-6 relative, iterations
               within 1, coefficients within the region the float32
               likelihood cannot resolve, concordance 1e-4
+ 19 IsotonicRegression, Aggregator, TargetEncoder, ModelSelection,
+              AnovaGLM, PSVM, Infogram, StackedEnsemble and Grep (K2
+              carries Infogram's and the ensemble's GBMs; every other run's
+              counters must read 0):
+              19a IsotonicRegression of y on x0 over the 1M rows (a score's
+              calibration): wall, PAV's host share, thresholds, predict()'s
+              wall, predictions monotone in x0;
+              19b Aggregator at its defaults (5,000 exemplars, rel_tol 0.5,
+              NORMALIZE) on the first AGG_ROWS rows of the 28 columns,
+              `reduced` from 1M: on iid 28-d rows the radius search never
+              reaches the nearest-neighbour distance, every trial keeps
+              every row, and the host loop (the reference's sequential
+              rule) is O(rows x 2,048 x 28) a trial: trials, exemplars, s a
+              trial, the host share, the distance product's device ms
+              beside its bound;
+              19c TargetEncoder (KFold 5, blending, noise 0.01) on
+              covertype's wild and soil (the most frequent class against
+              the rest) and on a 2,000-level Zipf key beside the 1M x 28
+              frame: fit and transform(as_training=True) walls;
+              19d ModelSelection maxr up to 2 predictors and 19e AnovaGLM
+              at its defaults (29 GLMs) on 1M x 28: GLM fits, walls, the
+              chosen predictors and the table;
+              19f PSVM at its defaults (256 Fourier features, 200
+              subgradient steps): wall, a step's device ms beside its
+              bound (Z, 1.02 GB, read twice), Platt's wall, the training
+              AUC and the decision values' AUC (Platt's Newton steps
+              diverge on these margins, in the reference too, and the
+              sign of its slope follows rounding);
+              19g Infogram at its defaults (seed 1): K2 940 launches (20
+              trees x 5 levels + 28 GBMs x 10 trees x 3 levels), the
+              admissible features;
+              19h StackedEnsemble over a 5-fold GBM (20 trees, depth 5: K2
+              600) and a 5-fold binomial GLM, in CV mode and with a
+              250,000-row blending frame (make_data seed 1): the bases'
+              walls apart from the ensemble's, predict()'s wall, the AUCs;
+              19i Grep over the first CSV file of phase 15 (written again):
+              matches and offsets equal to an independent re.finditer
+              pass, MB/s.
+              Card against CPU on 100,000 rows at the CPU tests'
+              tolerances: Isotonic thresholds equal and predictions
+              bitwise; Aggregator on clustered rows (no distance within
+              rounding of the radius there): counts and frames equal,
+              exemplars 1e-6, predict()'s labels equal where the two
+              nearest exemplars' squared distances are more than 1e-5 of
+              |b|^2 + |e|^2 apart (the expanded product's rounding);
+              TargetEncoder aggregates and encodings 1e-6;
+              ModelSelection's predictors equal, scores 1e-5; AnovaGLM
+              deviances 1e-5 and the statistic within 1e-4 or its
+              cancellation bound; PSVM W and b bitwise, Z within
+              its rounding bound, beta 1e-4 (or the step where the hinge
+              masks part, and the decision values' AUCs 1e-3); Infogram's
+              admissible set equal, every relevance index 1e-5, each
+              column's information index 1e-5 and their order where
+              its 10 trees are equal on both devices (every admissible
+              column's must be), and where they part, the first node
+              that differs a tie (gains within 1e-6 of its cover);
+              the ensemble's metalearner 1e-5 relative and probabilities
+              1e-5 over the card's base models loaded onto the CPU, and
+              the saved ensemble loaded onto the CPU scoring as on the
+              card
   7 profile - torch.profiler over 2 default trees: device busy share and
               the kernels that take the device time; then 2 QuantilesGlobal
               trees: each histogram kernel's device ms per main-path launch
@@ -233,11 +297,12 @@ prints one JSON line; any failure raises and the exit code is not 0):
               iteration (7 class trees) and one UpliftDRF tree
 
 The kernels line's launches sum every main-path training above (phases
-4, 5, 8-18), each read from counters set to 0 just before it; the
+4, 5, 8-19), each read from counters set to 0 just before it; the
 launches phase lists them path by path (phase 16 as "glm", 0 and 0;
 phase 17's KMeans, DeepLearning and GAM paths 0 and 0, "rulefit" 150
 and 0; phase 18's PCA, SVD, GLRM, Word2Vec, NaiveBayes and CoxPH runs 0
-and 0).
+and 0; phase 19's "infogram" 0 and 940, "stackedensemble_bases" 0 and
+600, its other runs 0 and 0).
 
 The line before the last holds every kernel's numbers; the last line is
 the device summary.  Needs one CUDA card; exits non-zero without one.
@@ -264,13 +329,28 @@ from h2o_tpu_torch import native  # noqa: E402
 from h2o_tpu_torch.core.frame import T_CAT, T_STR, Frame, Vec  # noqa: E402
 from h2o_tpu_torch.core.parse import (parse_files,  # noqa: E402
                                       parse_setup)
+from h2o_tpu_torch.models import aggregator as agg_mod  # noqa: E402
+from h2o_tpu_torch.models import anovaglm as anova_mod  # noqa: E402
 from h2o_tpu_torch.models import coxph as cox_mod  # noqa: E402
+from h2o_tpu_torch.models import infogram as infogram_mod  # noqa: E402
+from h2o_tpu_torch.models import isotonic as iso_mod  # noqa: E402
+from h2o_tpu_torch.models import modelselection as ms_mod  # noqa: E402
+from h2o_tpu_torch.models import psvm as psvm_mod  # noqa: E402
 from h2o_tpu_torch.models import glm as glm_mod  # noqa: E402
 from h2o_tpu_torch.models import glrm as glrm_mod  # noqa: E402
 from h2o_tpu_torch.models import kmeans as km_mod  # noqa: E402
 from h2o_tpu_torch.models import rulefit as rulefit_mod  # noqa: E402
 from h2o_tpu_torch.models import word2vec as w2v_mod  # noqa: E402
+from h2o_tpu_torch.models.aggregator import Aggregator  # noqa: E402
+from h2o_tpu_torch.models.anovaglm import AnovaGLM  # noqa: E402
 from h2o_tpu_torch.models.coxph import CoxPH  # noqa: E402
+from h2o_tpu_torch.models.ensemble import StackedEnsemble  # noqa: E402
+from h2o_tpu_torch.models.grep import Grep  # noqa: E402
+from h2o_tpu_torch.models.infogram import Infogram  # noqa: E402
+from h2o_tpu_torch.models.isotonic import IsotonicRegression  # noqa: E402
+from h2o_tpu_torch.models.modelselection import ModelSelection  # noqa: E402
+from h2o_tpu_torch.models.psvm import PSVM  # noqa: E402
+from h2o_tpu_torch.models.target_encoder import TargetEncoder  # noqa: E402
 from h2o_tpu_torch.models.deeplearning import DeepLearning  # noqa: E402
 from h2o_tpu_torch.models.gam import GAM  # noqa: E402
 from h2o_tpu_torch.models.glrm import GLRM  # noqa: E402
@@ -351,7 +431,7 @@ EIF_LEVELS = (0, C - 1)
 #: and the training AUC of the default GBM on 1M x 28 (phase 4)
 CSV_FILES = 2
 EXPLAIN_ROWS = 100_000
-DEFAULT_GBM_AUC = 0.783277007
+DEFAULT_GBM_AUC = 0.783277011
 
 
 def emit(obj) -> None:
@@ -1507,6 +1587,33 @@ GLM_FAMILIES = {"gaussian": {}, "poisson": {}, "gamma": {},
 GLM_BOUNDS = {"x0": (-0.5, 0.2), "x1": (0.0, None), "x2": (-0.1, 0.1)}
 
 
+def ordinal_increments_check(n: int, calls: int = 200) -> None:
+    """16d: the ordinal thresholds' increments (XLA's softplus and
+    prefix sum, ~260 small operations) as the Adam loop takes them on
+    the card, one CUDA graph replayed, held bitwise against the same
+    arithmetic on the CPU; host ms a call, graph and eager (synced)."""
+    gen = torch.Generator().manual_seed(5)
+    xs = [torch.randn(n, generator=gen) * 4.0 for _ in range(calls)]
+    graph = glm_mod._Increments(n, DEV)
+    got = [graph(x.to(DEV)).cpu() for x in xs]
+    bitwise = all(torch.equal(a, glm_mod._xla_increments(x))
+                  for a, x in zip(got, xs))
+    ms = {}
+    for name, f in (("graph", graph), ("eager", glm_mod._xla_increments)):
+        xd = [x.to(DEV) for x in xs]
+        sync()
+        t0 = time.perf_counter()
+        for x in xd:
+            f(x)
+        sync()
+        ms[name] = (time.perf_counter() - t0) * 1e3 / calls
+    emit(dict(phase="glm_ordinal_increments", n=n, calls=calls,
+              bitwise_cuda_graph_vs_cpu=bitwise, graph_ms_a_call=ms["graph"],
+              eager_ms_a_call=ms["eager"]))
+    if not bitwise:
+        raise AssertionError("16d: ordinal increments differ on the card")
+
+
 class GlmProbe:
     """While installed, records the device of every GLM pass over the
     rows (the IRLSM pass, the deviance at a beta, the L-BFGS objective,
@@ -1709,6 +1816,7 @@ def phase_glm(X, y, fr: Frame, paths) -> None:
             raise AssertionError(f"{name}: {P} predictors, logloss "
                                  f"{tm['logloss']} / {pm['logloss']}")
     del cov
+    ordinal_increments_check(len(COV_COUNTS) - 2)
 
     # 16e the other families, bounds and non_negative on SUB_ROWS rows
     Xs = X[:SUB_ROWS]
@@ -2685,6 +2793,618 @@ def phase_slice10(X, fr: Frame, paths) -> None:
               naivebayes_s=t[4] - t[3], coxph_s=t[5] - t[4],
               total_s=t[5] - t[0], k1_launches=got[0], k2_launches=got[1]))
 
+
+#: 19: IsotonicRegression, Aggregator, TargetEncoder, ModelSelection,
+#: AnovaGLM, PSVM, Infogram, StackedEnsemble and Grep.  Aggregator's
+#: rows (cut: see phase19's docstring), the Zipf key's levels, the
+#: blending frame's rows, the clustered frame of the card-vs-CPU
+#: Aggregator check (centers, spread) and Grep's pattern (x0 in
+#: (-2.5, -2.0], some 8,000 lines of the first CSV file)
+AGG_ROWS = 20_000
+TE_LEVELS, TE_ZIPF = 2_000, 1.1
+BLEND_ROWS = 250_000
+AGG_CENTERS, AGG_SPREAD = 50, 6.0
+GREP_REGEX = r"(?m)^-2\.[0-4]\d{7}e\+00,"
+#: the CPU tests' tolerances (tests/test_torch_{isotonic_aggregator,
+#: target_encoder,modelselection_anova,psvm,infogram,ensemble_grep}.py)
+AGG_STD_ATOL, TE_RTOL, MS_RTOL, DEV_RTOL = 1e-6, 1e-6, 1e-5, 1e-5
+PSVM_RTOL, INFO_ATOL, SE_RTOL = 1e-4, 1e-5, 1e-5
+
+
+def run19(name: str, paths, fn, want=(0, 0)):
+    """(result, wall) of one run of phase 19 with the launch counters set
+    to 0 just before it; its (K1, K2) launches must be ``want``."""
+    hk.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    wall = time.perf_counter() - t0
+    got = hist_launches()
+    paths[name] = got
+    if got != want:
+        raise AssertionError(f"{name}: (K1, K2) launched {got}, want {want}")
+    return out, wall
+
+
+def wrap_timed(mod, name: str):
+    """Wrap ``mod.name`` to count its calls and add up their seconds (on
+    the host clock, the device synchronized around each); returns the
+    tally and the restore function."""
+    orig = getattr(mod, name)
+    tally = dict(calls=0, s=0.0)
+
+    def timed(*a, **k):
+        sync()
+        t0 = time.perf_counter()
+        out = orig(*a, **k)
+        sync()
+        tally["calls"] += 1
+        tally["s"] += time.perf_counter() - t0
+        return out
+
+    setattr(mod, name, timed)
+    return tally, lambda: setattr(mod, name, orig)
+
+
+def card_cpu(name: str, rec: dict, ok: bool) -> None:
+    rec = dict(phase=name + "_cuda_vs_cpu", **rec)
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"{name}: card and CPU differ: {rec}")
+
+
+def phase_isotonic(fr: Frame, paths) -> None:
+    """19a: IsotonicRegression of the binary label on x0 (a score's
+    calibration); PAV's host share, predict() over the rows."""
+    xy = fr.subframe(["x0", "y"])
+    pav, restore = wrap_timed(iso_mod, "_pav")
+    try:
+        m, wall = run19("isotonicregression", paths,
+                        lambda: IsotonicRegression(device=DEV).train(
+                            x=["x0"], y="y", training_frame=xy))
+    finally:
+        restore()
+    sync()
+    t0 = time.perf_counter()
+    pred = m.predict(xy)
+    p_wall = time.perf_counter() - t0
+    p = pred.vec("predict").to_numpy()
+    order = np.argsort(xy.vec("x0").to_numpy(), kind="stable")
+    emit(dict(phase="isotonic", rows=R, wall_s=wall, pav_s=pav["s"],
+              pav_share=pav["s"] / wall,
+              thresholds=len(m.output["thresholds_x"]),
+              predict_wall_s=p_wall, mse=m.output["training_metrics"]["mse"]))
+    if pred.nrows != R or not np.isfinite(p).all() or \
+            (np.diff(p[order]) < 0).any():
+        raise AssertionError("isotonic: predictions not monotone in x0")
+    sub = xy.slice_rows(slice(0, SUB_ROWS))
+    g = IsotonicRegression(device=DEV).train(x=["x0"], y="y",
+                                             training_frame=sub)
+    c = IsotonicRegression(device="cpu").train(x=["x0"], y="y",
+                                               training_frame=sub)
+    eq_thr = all(np.array_equal(g.output[k], c.output[k])
+                 for k in ("thresholds_x", "thresholds_y"))
+    gp, cp = g.predict_raw(sub).cpu().numpy(), c.predict_raw(sub).numpy()
+    card_cpu("isotonic", dict(rows=SUB_ROWS, thresholds_equal=eq_thr,
+                              predict_bitwise=bool(np.array_equal(gp, cp))),
+             eq_thr and np.array_equal(gp, cp))
+
+
+def clustered_frame(rows: int, seed: int = 9) -> Frame:
+    """``rows`` rows of C columns around AGG_CENTERS seeded centers."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(AGG_CENTERS, C)) * AGG_SPREAD
+    Xc = (centers[rng.integers(0, AGG_CENTERS, rows)] +
+          rng.normal(size=(rows, C)) * 0.3).astype(np.float32)
+    return Frame([f"x{j}" for j in range(C)],
+                 [Vec(Xc[:, j]) for j in range(C)])
+
+
+def phase_aggregator(X, paths) -> None:
+    """19b: Aggregator at its defaults on AGG_ROWS rows of the 28
+    columns; trials, exemplars, the host share, the distance product's
+    device ms against its bound."""
+    fa = Frame([f"x{j}" for j in range(C)],
+               [Vec(X[:AGG_ROWS, j]) for j in range(C)])
+    trials, restore_a = wrap_timed(agg_mod, "aggregate")
+    near, restore_n = wrap_timed(agg_mod, "nearest")
+    try:
+        m, wall = run19("aggregator", paths, lambda: Aggregator(
+            device=DEV).train(training_frame=fa))
+    finally:
+        restore_n()
+        restore_a()
+    ex = torch.from_numpy(np.asarray(m.output["exemplars_std"],
+                                     np.float32)).to(DEV)
+    Xb = expand_for_scoring(fa, m.output["expansion_spec"], DEV)[
+        :agg_mod.BATCH]
+    gemm_ms = time_ms(lambda: agg_mod.nearest(Xb, ex))
+    nb, ne = Xb.shape[0], ex.shape[0]
+    g_bound, g_by = bound((nb + ne) * C * 4 + nb * 12, 2 * nb * ne * C)
+    emit(dict(phase="aggregator", rows=AGG_ROWS, cols=C, wall_s=wall,
+              trials=trials["calls"], s_per_trial=trials["s"] /
+              max(trials["calls"], 1), exemplars=m.output["num_exemplars"],
+              radius_scale=m.output["radius_scale"],
+              distance_device_s=near["s"],
+              host_share=(trials["s"] - near["s"]) / wall,
+              gemm_ms=gemm_ms, gemm_bound_ms=g_bound, gemm_bound_by=g_by,
+              gemm_shape=[nb, ne, C],
+              reduced=dict(rows=[R, AGG_ROWS], s_per_trial=trials["s"] /
+                           max(trials["calls"], 1))))
+    agg = m.aggregated_frame()
+    if agg.nrows != m.output["num_exemplars"] or \
+            int(agg.vec("counts").to_numpy().sum()) != AGG_ROWS:
+        raise AssertionError("aggregator: the aggregated frame's counts "
+                             "do not cover the rows")
+    # card against CPU where the radius decides every row: clusters
+    cf = clustered_frame(SUB_ROWS)
+    kw = dict(target_num_exemplars=100, rel_tol_num_exemplars=0.7)
+    g = Aggregator(device=DEV, **kw).train(training_frame=cf)
+    c = Aggregator(device="cpu", **kw).train(training_frame=cf)
+    go, co = g.output, c.output
+    # predict()'s labels: equal wherever the two nearest exemplars'
+    # squared distances (float64 here) differ by more than the rounding
+    # of the expanded product |b|^2 - 2 b.e + |e|^2 in float32 (28 terms:
+    # ~1e-6 of |b|^2 + |e|^2, which inside a cluster exceeds d^2 itself)
+    gl, cl = g.predict_raw(cf).cpu().numpy(), c.predict_raw(cf).numpy()
+    rows = np.flatnonzero(gl != cl)
+    Xs = expand_for_scoring(cf, co["expansion_spec"], "cpu").numpy()[
+        rows].astype(np.float64)
+    E = co["exemplars_std"].astype(np.float64)
+    d2 = ((Xs[:, None, :] - E[None, :, :]) ** 2).sum(axis=2)
+    near = np.argsort(d2, axis=1)[:, :2]
+    gap = np.take_along_axis(d2, near[:, 1:], 1)[:, 0] - \
+        np.take_along_axis(d2, near[:, :1], 1)[:, 0]
+    scale = (Xs ** 2).sum(axis=1) + (E ** 2).sum(axis=1)[near].max(axis=1)
+    decided = int(np.sum(gap > 1e-5 * scale))
+    rec = dict(rows=SUB_ROWS, exemplars=(go["num_exemplars"],
+                                         co["num_exemplars"]),
+               counts_equal=bool(np.array_equal(go["counts"], co["counts"])),
+               exemplars_std_max_diff=float(np.abs(
+                   go["exemplars_std"] - co["exemplars_std"]).max()),
+               frames_equal=all(np.array_equal(
+                   g.aggregated_frame().vec(n).to_numpy(),
+                   c.aggregated_frame().vec(n).to_numpy())
+                   for n in g.aggregated_frame().names),
+               label_diffs=len(rows), label_diffs_decided=decided)
+    card_cpu("aggregator", rec, rec["counts_equal"] and rec["frames_equal"]
+             and not decided
+             and rec["exemplars_std_max_diff"] <= AGG_STD_ATOL)
+
+
+def zipf_codes(rows: int, levels: int, seed: int = 11) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, levels + 1) ** TE_ZIPF
+    return rng.choice(levels, size=rows, p=p / p.sum()).astype(np.int32)
+
+
+TE_KW = dict(data_leakage_handling="KFold", nfolds=5, blending=True,
+             noise=0.01, seed=1)
+
+
+def te_check(name: str, sub: Frame, x, y: str) -> None:
+    g = TargetEncoder(device=DEV, **TE_KW).train(x=x, y=y,
+                                                 training_frame=sub)
+    c = TargetEncoder(device="cpu", **TE_KW).train(x=x, y=y,
+                                                   training_frame=sub)
+    agg = max(float(np.max(np.abs(g.output["enc"][k][s] -
+                                  c.output["enc"][k][s]) /
+                           np.maximum(np.abs(c.output["enc"][k][s]), 1.0)))
+              for k in x for s in ("cnt", "sum"))
+    enc = 0.0
+    for as_training in (True, False):
+        tg = g.transform(sub, as_training=as_training)
+        tc = c.transform(sub, as_training=as_training)
+        enc = max([enc] + [float(np.abs(tg.vec(f"{k}_te").to_numpy() -
+                                        tc.vec(f"{k}_te").to_numpy()).max())
+                           for k in x])
+    card_cpu(name, dict(rows=sub.nrows, aggregates_max_rel_diff=agg,
+                        encodings_max_diff=enc),
+             agg <= TE_RTOL and enc <= TE_RTOL)
+
+
+def phase_target_encoder(fr: Frame, cov: Frame, paths) -> None:
+    """19c: TargetEncoder on covertype's wild and soil (the most frequent
+    class against the rest) and on a 2,000-level Zipf key beside the
+    1M x 28 frame: KFold 5, blending, noise 0.01; fit and transform
+    walls."""
+    yc = cov.vec("y").data
+    top = int(np.argmax(np.bincount(yc)))
+    cv = Frame(["wild", "soil", "top"],
+               [cov.vec("wild"), cov.vec("soil"),
+                Vec((yc == top).astype(np.int32), T_CAT,
+                    domain=["rest", "top"])])
+    fk = Frame(list(fr.names), list(fr.vecs))
+    fk.add("key", Vec(zipf_codes(R, TE_LEVELS), T_CAT,
+                      domain=[f"k{i}" for i in range(TE_LEVELS)]))
+    for name, data, x, y in (("targetencoder_covertype", cv,
+                              ["wild", "soil"], "top"),
+                             ("targetencoder_zipf", fk, ["key"], "y")):
+        m, wall = run19(name, paths, lambda: TargetEncoder(
+            device=DEV, **TE_KW).train(x=x, y=y, training_frame=data))
+        sync()
+        t0 = time.perf_counter()
+        t = m.transform(data, as_training=True)
+        t_wall = time.perf_counter() - t0
+        enc = np.stack([t.vec(f"{k}_te").to_numpy() for k in x])
+        emit(dict(phase=name, rows=data.nrows, columns=x,
+                  levels=[data.vec(k).cardinality for k in x],
+                  fit_wall_s=wall, transform_wall_s=t_wall,
+                  prior=m.output["prior"]))
+        if not np.isfinite(enc).all():
+            raise AssertionError(f"{name}: encodings not finite")
+        te_check(name, data.slice_rows(slice(0, SUB_ROWS)), x, y)
+
+
+def phase_selection(fr: Frame, paths) -> None:
+    """19d ModelSelection maxr up to 2 predictors and 19e AnovaGLM at its
+    defaults on 1M x 28 (the port's GLM: passes on the card)."""
+    glm_fits, restore = wrap_timed(ms_mod, "_fit_glm")
+    try:
+        m, wall = run19("modelselection", paths, lambda: ModelSelection(
+            device=DEV, mode="maxr", max_predictor_number=2, seed=1).train(
+                y="y", training_frame=fr))
+    finally:
+        restore()
+    best = m.best_model_per_size()
+    emit(dict(phase="modelselection", rows=R, cols=C, mode="maxr",
+              wall_s=wall, glm_fits=glm_fits["calls"],
+              s_per_fit=glm_fits["s"] / glm_fits["calls"],
+              predictors={s: b["predictors"] for s, b in best.items()},
+              scores={s: b["score"] for s, b in best.items()}))
+    if sorted(best) != [1, 2] or best[1]["score"] >= best[2]["score"]:
+        raise AssertionError("modelselection: implausible best subsets")
+    sub = fr.slice_rows(slice(0, SUB_ROWS))
+    kw = dict(mode="maxr", max_predictor_number=2, seed=1)
+    g = ModelSelection(device=DEV, **kw).train(y="y", training_frame=sub)
+    c = ModelSelection(device="cpu", **kw).train(y="y", training_frame=sub)
+    gb, cb = g.best_model_per_size(), c.best_model_per_size()
+    same = all(gb[s]["predictors"] == cb[s]["predictors"] for s in cb)
+    rel = max(abs(gb[s]["score"] - cb[s]["score"]) / abs(cb[s]["score"])
+              for s in cb)
+    card_cpu("modelselection", dict(rows=SUB_ROWS, predictors_equal=same,
+                                    score_max_rel_diff=rel),
+             same and rel <= MS_RTOL)
+
+    m, wall = run19("anovaglm", paths, lambda: AnovaGLM(
+        device=DEV, seed=1).train(y="y", training_frame=fr))
+    table = m.result()
+    emit(dict(phase="anovaglm", rows=R, cols=C, wall_s=wall,
+              glm_fits=m.output["glm_fits"],
+              s_per_fit=wall / m.output["glm_fits"],
+              table=[[t, df, float(d), float(p)] for t, df, d, p in table]))
+    if len(table) != C or not all(np.isfinite([r[2] for r in table])):
+        raise AssertionError("anovaglm: implausible table")
+    g = AnovaGLM(device=DEV, seed=1).train(y="y", training_frame=sub)
+    c = AnovaGLM(device="cpu", seed=1).train(y="y", training_frame=sub)
+    go, co = g.output, c.output
+    dev_rel = max([abs(go["full_deviance"] - co["full_deviance"]) /
+                   co["full_deviance"]] +
+                  [abs(a - b) / b for a, b in zip(go["term_deviances"],
+                                                  co["term_deviances"])])
+    ok = dev_rel <= DEV_RTOL
+    for a, b, dsub in zip(g.result(), c.result(), co["term_deviances"]):
+        bnd = 1e-4 * abs(b[2]) + DEV_RTOL * (dsub + co["full_deviance"]) / \
+            co["dispersion"]
+        ok = ok and a[:2] == b[:2] and abs(a[2] - b[2]) <= bnd and (
+            abs(a[3] - b[3]) <= 1e-4 or
+            anova_mod._chi2_sf(b[2] + bnd, b[1]) <= a[3] <=
+            anova_mod._chi2_sf(max(b[2] - bnd, 0.0), b[1]))
+    card_cpu("anovaglm", dict(rows=SUB_ROWS, deviance_max_rel_diff=dev_rel,
+                              statistic_max_diff=max(
+                                  abs(a[2] - b[2]) for a, b in
+                                  zip(g.result(), c.result()))), ok)
+
+
+def rank_auc(score: np.ndarray, label: np.ndarray) -> float:
+    """The AUC of an unbounded score (Mann-Whitney over its ranks)."""
+    ranks = np.empty(len(score))
+    ranks[np.argsort(score, kind="stable")] = np.arange(1, len(score) + 1)
+    pos = label == 1
+    n1 = int(pos.sum())
+    return float((ranks[pos].sum() - n1 * (n1 + 1) / 2) /
+                 (n1 * (len(label) - n1)))
+
+
+def phase_psvm(fr: Frame, paths) -> None:
+    """19f: PSVM at its defaults (256 Fourier features, 200 iterations):
+    a step's device ms against its bound (Z read twice), Platt's wall,
+    the training AUC."""
+    fit_t, restore_f = wrap_timed(psvm_mod, "svm_fit")
+    platt_t, restore_p = wrap_timed(psvm_mod, "platt")
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            m, wall = run19("psvm", paths, lambda: PSVM(
+                device=DEV, seed=1).train(y="y", training_frame=fr))
+    finally:
+        restore_p()
+        restore_f()
+    out = m.output
+    X = expand_for_scoring(fr, out["expansion_spec"], DEV)
+    W = torch.from_numpy(out["rff_w"]).to(DEV)
+    b = torch.from_numpy(out["rff_b"]).to(DEV)
+    Z = psvm_mod.fourier_features(X, W, b)
+    del X
+    beta = torch.from_numpy(out["beta"]).to(DEV)
+    ysign = torch.where(torch.from_numpy(fr.vec("y").as_float()).to(DEV) >
+                        0, 1.0, -1.0)
+    w = torch.ones_like(ysign)
+    c = torch.tensor(1.0, device=DEV)
+
+    def step():
+        marg = ysign * (Z @ beta[:-1] + beta[-1])
+        gy = torch.where(marg < 1.0, w, torch.zeros_like(w)) * ysign
+        return torch.cat([beta[:-1] - c * (Z.T @ gy), (-c * gy.sum())[None]])
+
+    step_ms = time_ms(step)
+    s_bound, s_by = bound(2 * Z.numel() * 4, 4 * Z.numel())
+    iters = int(m.params["max_iterations"])
+    del Z
+    torch.cuda.empty_cache()
+    auc = out["training_metrics"]["AUC"]
+    # the decision values' own ranking: Platt's host Newton steps diverge
+    # on these margins in both packages (|a| > 1e8), and the sign of a,
+    # hence the training AUC, then follows rounding
+    dec_auc = rank_auc(m.decision(fr).cpu().numpy(), fr.vec("y").data)
+    emit(dict(phase="psvm", rows=R, cols=C, features=out["feature_dim"],
+              iterations=iters, wall_s=wall, fit_s=fit_t["s"],
+              ms_per_iteration=fit_t["s"] * 1e3 / iters,
+              step_device_ms=step_ms, step_bound_ms=s_bound,
+              step_bound_by=s_by, platt_s=platt_t["s"], train_auc=auc,
+              decision_auc=dec_auc, platt_a=out["platt_a"],
+              z_gb=R * out["feature_dim"] * 4 / 1e9))
+    if not (0.0 <= auc <= 1.0 and 0.5 < dec_auc <= 1.0):
+        raise AssertionError(f"psvm: AUC {auc}, decision AUC {dec_auc}")
+    sub = fr.slice_rows(slice(0, SUB_ROWS))
+    masks = {}
+
+    def fit_on(device):
+        hook = []
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            mm_ = PSVM(device=device, seed=1)._fit(
+                [n for n in sub.names if n != "y"], "y", sub, None,
+                step_hook=lambda t, bt, mk: hook.append(mk.cpu().numpy()))
+        masks[str(device)] = hook
+        return mm_
+
+    g, cpu_m = fit_on(DEV), fit_on("cpu")
+    go, co = g.output, cpu_m.output
+    Xc = expand_for_scoring(sub, co["expansion_spec"], "cpu")
+    Xg = expand_for_scoring(sub, go["expansion_spec"], DEV)
+    Wc, bc = torch.from_numpy(co["rff_w"]), torch.from_numpy(co["rff_b"])
+    Zc = psvm_mod.fourier_features(Xc, Wc, bc).numpy()
+    Zg = psvm_mod.fourier_features(Xg, Wc.to(DEV), bc.to(DEV)).cpu().numpy()
+    P, D = Wc.shape
+    absW = np.abs(co["rff_w"]).astype(np.float64)
+    Xn = Xc.numpy()
+    zbound = np.sqrt(2.0 / D) * ((P + 2) * 2.0 ** -24 *
+                                 (np.abs(Xn) @ absW + np.abs(co["rff_b"])) +
+                                 np.abs(Xg.cpu().numpy() - Xn) @ absW +
+                                 2.0 ** -23) + np.spacing(
+        np.abs(Zc).astype(np.float32))
+    parted = next((t for t, (a, b2) in enumerate(zip(
+        masks[str(DEV)], masks["cpu"])) if not np.array_equal(a, b2)), None)
+    beta_rel = float(np.abs(go["beta"] - co["beta"]).max() /
+                     np.abs(co["beta"]).max())
+    rec = dict(rows=SUB_ROWS, w_b_bitwise=bool(
+        np.array_equal(go["rff_w"], co["rff_w"]) and
+        np.array_equal(go["rff_b"], co["rff_b"])),
+        z_within_bound=bool(np.all(np.abs(Zg - Zc) <= zbound)),
+        z_max_diff=float(np.abs(Zg - Zc).max()),
+        beta_max_rel_diff=beta_rel, masks_part_at_step=parted,
+        decision_auc=tuple(rank_auc(mm_.decision(sub).cpu().numpy(),
+                                    sub.vec("y").data)
+                           for mm_ in (g, cpu_m)))
+    held = beta_rel <= PSVM_RTOL or (
+        parted is not None and
+        abs(rec["decision_auc"][0] - rec["decision_auc"][1]) <= 1e-3)
+    card_cpu("psvm", rec, rec["w_b_bitwise"] and rec["z_within_bound"]
+             and held)
+
+
+def phase_infogram(fr: Frame, paths) -> None:
+    """19g: Infogram at its defaults (seed 1): 1 + 28 GBMs whose every
+    level K2 carries (20 x 5 + 28 x 10 x 3 = 940 launches)."""
+    m, wall = run19("infogram", paths, lambda: Infogram(
+        device=DEV, seed=1).train(y="y", training_frame=fr),
+        want=(0, 20 * 5 + C * 10 * 3))
+    emit(dict(phase="infogram", rows=R, cols=C, wall_s=wall,
+              admissible=m.admissible_features(),
+              table=[[r[0], r[1], r[2], r[3]] for r in m.result()],
+              k2_launches=paths["infogram"][1]))
+    if not m.admissible_features():
+        raise AssertionError("infogram: no admissible feature")
+    sub = fr.slice_rows(slice(0, SUB_ROWS))
+    g, g_gbms = infogram_and_gbms(sub, DEV)
+    c, c_gbms = infogram_and_gbms(sub, "cpu")
+    gt = {r[0]: r for r in g.result()}
+    ct = {r[0]: r for r in c.result()}
+    adm = c.admissible_features()
+    # a predictor's information index is held where its 10 trees are the
+    # same on both devices; where they part, the first node that differs
+    # (its ancestors and the earlier trees equal) must be a tie: the two
+    # devices' gains there within 1e-6 of the node's wgg, which is at
+    # most its cover (a binomial residual is below 1 in size)
+    held, parted = [], {}
+    for col, a, b in zip(c.output["x"], g_gbms[1:], c_gbms[1:]):
+        first = first_split_difference(a.output, b.output)
+        if first is None:
+            held.append(col)
+            continue
+        t, k, n = first
+        ga, gb = (float(o["node_gain"][t, k, n]) for o in (a.output,
+                                                           b.output))
+        parted[col] = dict(tree=t, node=n, gains=(ga, gb),
+                           cover=float(b.output["node_w"][t, k, n]),
+                           information=(gt[col][2], ct[col][2]))
+    rel = max(abs(gt[k][1] - ct[k][1]) for k in ct)
+    info = max(abs(gt[k][2] - ct[k][2]) for k in held)
+    ties = all(abs(v["gains"][0] - v["gains"][1]) <= 1e-6 * v["cover"]
+               for v in parted.values())
+    order = [r[0] for r in g.result() if r[0] in held] == \
+        [r[0] for r in c.result() if r[0] in held]
+    card_cpu("infogram", dict(rows=SUB_ROWS, admissible=adm,
+                              relevance_max_diff=rel,
+                              relevance_trees_equal=first_split_difference(
+                                  g_gbms[0].output, c_gbms[0].output) is None,
+                              columns_trees_equal=len(held),
+                              held_information_max_diff=info,
+                              held_order_equal=order, parted=parted),
+             g.admissible_features() == adm and set(adm) <= set(held) and
+             rel <= INFO_ATOL and info <= INFO_ATOL and ties and order)
+
+
+_SPLIT_KEYS = ("split_col", "thr_bin", "na_left", "bitset")
+
+
+def first_split_difference(a: dict, b: dict):
+    """(tree, class, node) of the first node, in tree and heap order,
+    where two GBM outputs' splits differ; None when every tree is equal."""
+    diff = np.zeros(a["split_col"].shape, bool)
+    for k in _SPLIT_KEYS:
+        diff |= (np.asarray(a[k]) != np.asarray(b[k])).reshape(
+            diff.shape + (-1,)).any(axis=-1)
+    hit = np.argwhere(diff)
+    return tuple(int(v) for v in hit[0]) if len(hit) else None
+
+
+def infogram_and_gbms(fr: Frame, device):
+    """An Infogram (seed 1) on ``fr`` and the GBMs it fitted, in its
+    order: the relevance model, then one per predictor."""
+    fitted = []
+
+    class Kept(GBM):
+        def _fit(self, *a, **k):
+            fitted.append(super()._fit(*a, **k))
+            return fitted[-1]
+
+    infogram_mod.GBM = Kept
+    try:
+        m = Infogram(device=device, seed=1).train(y="y", training_frame=fr)
+    finally:
+        infogram_mod.GBM = GBM
+    return m, fitted
+
+
+def se_bases(fr: Frame, device):
+    common = dict(device=device, nfolds=5, seed=1,
+                  keep_cross_validation_predictions=True)
+    gbm = GBM(ntrees=20, max_depth=5, **common).train(y="y",
+                                                      training_frame=fr)
+    glm = GLM(family="binomial", **common).train(y="y", training_frame=fr)
+    return gbm, glm
+
+
+def phase_ensemble(fr: Frame, paths) -> None:
+    """19h: StackedEnsemble over a 5-fold GBM (K2 600) and a 5-fold
+    binomial GLM on 1M x 28, in CV mode and with a 250,000-row blending
+    frame; base walls apart from the ensemble's."""
+    (gbm, glm), base_wall = run19("stackedensemble_bases", paths,
+                                  lambda: se_bases(fr, DEV),
+                                  want=(0, 6 * 20 * 5))
+    se, se_wall = run19("stackedensemble", paths, lambda: StackedEnsemble(
+        device=DEV, base_models=[gbm, glm], seed=1).train(
+            y="y", training_frame=fr))
+    sync()
+    t0 = time.perf_counter()
+    pred = se.predict(fr)
+    p_wall = time.perf_counter() - t0
+    Xb, yb = make_data(BLEND_ROWS, C, seed=1)
+    fb = frame(Xb, yb)
+    bl, bl_wall = run19("stackedensemble_blending", paths,
+                        lambda: StackedEnsemble(
+                            device=DEV, base_models=[gbm, glm],
+                            blending_frame=fb, seed=1).train(
+                                y="y", training_frame=fr))
+    aucs = dict(ensemble=se.output["training_metrics"]["AUC"],
+                ensemble_cv=se.output["cross_validation_metrics"]["AUC"],
+                blending=bl.output["training_metrics"]["AUC"],
+                blending_holdout=bl.output["validation_metrics"]["AUC"],
+                gbm=gbm.output["training_metrics"]["AUC"],
+                gbm_cv=gbm.output["cross_validation_metrics"]["AUC"],
+                glm=glm.output["training_metrics"]["AUC"],
+                glm_cv=glm.output["cross_validation_metrics"]["AUC"])
+    emit(dict(phase="stackedensemble", rows=R, cols=C, folds=5,
+              bases_wall_s=base_wall, ensemble_wall_s=se_wall,
+              blending_rows=BLEND_ROWS, blending_wall_s=bl_wall,
+              predict_wall_s=p_wall, aucs=aucs,
+              metalearner_coef=se.output["metalearner"].coef()))
+    if pred.nrows != R or aucs["ensemble_cv"] < aucs["glm_cv"] - 0.01:
+        raise AssertionError(f"stackedensemble: implausible AUCs {aucs}")
+    # card against CPU: the same base models (trained on the card, loaded
+    # onto the CPU from their files), the metalearner trained on each
+    sub = fr.slice_rows(slice(0, SUB_ROWS))
+    bases = se_bases(sub, DEV)
+    with tempfile.TemporaryDirectory() as d:
+        cpu_bases = [Model.load(b.save(os.path.join(d, f"b{i}.bin")),
+                                device="cpu") for i, b in enumerate(bases)]
+        g = StackedEnsemble(device=DEV, base_models=list(bases),
+                            seed=1).train(y="y", training_frame=sub)
+        c = StackedEnsemble(device="cpu", base_models=cpu_bases,
+                            seed=1).train(y="y", training_frame=sub)
+        back = Model.load(g.save(os.path.join(d, "se.bin")), device="cpu")
+    gc, cc = g.output["metalearner"].coef(), c.output["metalearner"].coef()
+    coef = max(abs(gc[k] - v) / max(1.0, abs(v)) for k, v in cc.items())
+    gp = g.predict_raw(sub).cpu().numpy()
+    prob = float(np.abs(gp[:, 1:] - c.predict_raw(sub).numpy()[:, 1:]).max())
+    loaded = float(np.abs(gp[:, 1:] - back.predict_raw(sub).numpy()[:, 1:])
+                   .max())
+    card_cpu("stackedensemble", dict(
+        rows=SUB_ROWS, metalearner_coef_max_rel_diff=coef,
+        proba_max_diff=prob, loaded_on_cpu_proba_max_diff=loaded,
+        loaded_devices=sorted({str(m_.device) for m_ in
+                               back.output["base_models"] +
+                               [back.output["metalearner"]]})),
+        coef <= SE_RTOL and prob <= SE_RTOL and loaded <= SE_RTOL)
+
+
+def phase_grep(X, y, paths) -> None:
+    """19i: Grep over phase 15's first CSV file (written again), held
+    against an independent ``re.finditer`` pass."""
+    n_part = R // CSV_FILES
+    with tempfile.TemporaryDirectory(prefix="h2o_grep_") as tmp:
+        path = os.path.join(tmp, "part0.csv")
+        nbytes = write_csv(path, X[:n_part], y[:n_part])
+        m, wall = run19("grep", paths, lambda: Grep(
+            device=DEV, regex=GREP_REGEX).train(training_frame=path))
+        with open(path, "r") as f:
+            text = f.read()
+    want = [(mt.start(), mt.group(0)) for mt in re.finditer(GREP_REGEX,
+                                                            text)]
+    got = list(zip(m.output["offsets"], m.output["matches"]))
+    emit(dict(phase="grep", bytes=nbytes, matches=len(got), wall_s=wall,
+              mb_per_s=nbytes / wall / 1e6, regex=GREP_REGEX))
+    if got != want or not 1_000 <= len(got) <= 100_000:
+        raise AssertionError(f"grep: {len(got)} matches, the independent "
+                             f"pass {len(want)}, equal: {got == want}")
+
+
+def phase_slice11(X, y, fr: Frame, paths) -> None:
+    """19: IsotonicRegression, Aggregator, TargetEncoder, ModelSelection,
+    AnovaGLM, PSVM, Infogram, StackedEnsemble and Grep (see the module
+    docstring)."""
+    cov = make_covertype(seed=0, categorical=True)
+    t = [time.perf_counter()]
+    for run in (lambda: phase_isotonic(fr, paths),
+                lambda: phase_aggregator(X, paths),
+                lambda: phase_target_encoder(fr, cov, paths),
+                lambda: phase_selection(fr, paths),
+                lambda: phase_psvm(fr, paths),
+                lambda: phase_infogram(fr, paths),
+                lambda: phase_ensemble(fr, paths),
+                lambda: phase_grep(X, y, paths)):
+        run()
+        torch.cuda.empty_cache()
+        t.append(time.perf_counter())
+    names = ("isotonic", "aggregator", "targetencoder", "selection", "psvm",
+             "infogram", "stackedensemble", "grep")
+    emit(dict(phase="phase19_walls", total_s=t[-1] - t[0],
+              **{f"{n}_s": b - a for n, a, b in zip(names, t, t[1:])}))
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # -- 0 device ------------------------------------------------------------
@@ -2902,6 +3622,9 @@ def main() -> None:
     # -- 18 PCA, SVD, GLRM, Word2Vec, NaiveBayes, CoxPH -----------------------
     torch.cuda.empty_cache()
     phase_slice10(X, fr, paths)
+    # -- 19 IsotonicRegression .. Grep ----------------------------------------
+    torch.cuda.empty_cache()
+    phase_slice11(X, y, fr, paths)
     emit(dict(phase="launches", paths={k: dict(k1=v[0], k2=v[1])
                                        for k, v in paths.items()}))
     sync()

@@ -48,6 +48,7 @@ from h2o_tpu_torch.core.frame import Frame
 from h2o_tpu_torch.models.metrics import twodim_json
 from h2o_tpu_torch.models.model import (DataInfo, Model, ModelBuilder,
                                         expand_columns, expand_numeric)
+from h2o_tpu_torch.ops.xlamath import cumsum, softplus
 
 EPS = 1e-10
 _F32 = np.float32
@@ -434,15 +435,56 @@ def _glm_objective_fn(X, yv, w, valid_m, fam_name: str, tweedie_power,
 # ordinal: full-batch Adam on the device
 # ---------------------------------------------------------------------------
 
-def _ordinal_unpack(params, P: int, K: int):
+def _xla_increments(x: torch.Tensor) -> torch.Tensor:
+    """cumsum(softplus(x)) as XLA computes both on the CPU (~260 small
+    operations), detached."""
+    return cumsum(softplus(x))
+
+
+class _Increments:
+    """``_xla_increments`` of an Adam run's (n,) increment params.  On
+    the card its small operations are one CUDA graph, captured once and
+    replayed each step, so the launch-bound loop pays two launches for
+    them instead of ~260."""
+
+    def __init__(self, n: int, device: torch.device):
+        self.graph = None
+        if device.type != "cuda":
+            return
+        self.inp = torch.zeros(n, dtype=torch.float32, device=device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            _xla_increments(self.inp)                        # warm-up
+        torch.cuda.current_stream(device).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.out = _xla_increments(self.inp)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if self.graph is None:
+            return _xla_increments(x)
+        self.inp.copy_(x.detach())
+        self.graph.replay()
+        return self.out.clone()
+
+
+def _ordinal_unpack(params, P: int, K: int, increments=_xla_increments):
     """(beta, monotone thresholds) from the flat ordinal params: the
     softplus-increment parametrization keeps them strictly increasing."""
     beta = params[:P]
     t0 = params[P]
     if K > 2:
-        inc = torch.logaddexp(params[P + 1:], torch.zeros_like(
-            params[P + 1:]))                                  # softplus
-        thr = torch.cat([t0[None], t0 + torch.cumsum(inc, dim=0)])
+        # softplus increments summed in order, both as XLA computes them
+        # on the CPU: the thresholds are the reference's bit for bit.  The
+        # gradient flows through torch's softplus (the sigmoid) and the
+        # same scan, added as a term whose value is exactly 0.
+        inc = params[P + 1:]
+        c = increments(inc)
+        if inc.requires_grad:
+            s = cumsum(torch.nn.functional.softplus(inc))
+            c = c + (s - s.detach())
+        thr = torch.cat([t0[None], t0 + c])
     else:
         thr = t0[None]
     return beta, thr
@@ -469,8 +511,10 @@ def _ordinal_gd(params0, X, yk, wa, n_obs, l1, l2, pen_dev, proj_mask, *,
     tsteps = c(steps // 4)
     yk = yk.long()[:, None]
 
+    increments = _Increments(K - 2, dev) if K > 2 else _xla_increments
+
     def nll(params):
-        beta, thr = _ordinal_unpack(params, P, K)
+        beta, thr = _ordinal_unpack(params, P, K, increments)
         eta = X @ beta
         cc = torch.sigmoid(thr[None, :] - eta[:, None])       # (R, K-1)
         cc = torch.cat([torch.zeros_like(cc[:, :1]), cc,

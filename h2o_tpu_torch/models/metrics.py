@@ -10,7 +10,11 @@ clustering metrics (``h2o_tpu/models/kmeans.py:79-100``), the
 autoencoder's reconstruction metrics
 (``h2o_tpu/models/deeplearning.py:287-294``), and the metrics of PCA and
 SVD (``pca.py:54-57``, ``svd.py:75-77``), GLRM (``glrm.py:197-201``),
-Word2Vec (``word2vec.py:153-156``) and CoxPH (``coxph.py:110-115``).
+Word2Vec (``word2vec.py:153-156``), CoxPH (``coxph.py:110-115``),
+Aggregator (``aggregator.py:83-86``), TargetEncoder
+(``target_encoder.py:97-100``), ModelSelection
+(``modelselection.py:55-58``), AnovaGLM (``anovaglm.py:92-94``),
+Infogram (``infogram.py:67-69``) and Grep (``grep.py:34-36``).
 
 Binomial AUC comes from a fixed 1024-bin histogram of the scores (the
 reference's AUC2 analog), so it reduces in O(bins).  Reductions are
@@ -366,3 +370,31 @@ def coxph_metrics(out: Dict) -> ModelMetrics:
     keys = ("loglik", "null_loglik", "concordance", "n_events",
             "iterations")
     return ModelMetrics("coxph", {k: out[k] for k in keys})
+
+
+def aggregator_metrics(num_exemplars: int,
+                       radius_scale: float) -> ModelMetrics:
+    return ModelMetrics("aggregator", dict(
+        num_exemplars=int(num_exemplars), radius_scale=float(radius_scale)))
+
+
+def targetencoder_metrics(columns, prior: float) -> ModelMetrics:
+    return ModelMetrics("targetencoder", dict(
+        encoded_columns=list(columns), prior=float(prior)))
+
+
+def modelselection_metrics(mode: str, sizes) -> ModelMetrics:
+    return ModelMetrics("modelselection", dict(mode=mode,
+                                               sizes=sorted(sizes)))
+
+
+def anovaglm_metrics(terms) -> ModelMetrics:
+    return ModelMetrics("anovaglm", dict(terms=list(terms)))
+
+
+def infogram_metrics(admissible) -> ModelMetrics:
+    return ModelMetrics("infogram", dict(admissible_features=list(admissible)))
+
+
+def grep_metrics(n_matches: int) -> ModelMetrics:
+    return ModelMetrics("grep", dict(n_matches=int(n_matches)))

@@ -24,6 +24,7 @@ import importlib
 import json
 import os
 import pickle
+import uuid
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -214,6 +215,14 @@ class Model:
         self.params = params
         self.output = output
         self.device = device
+        # the reference's model key: the builder's ``model_id``, else
+        # the algo and a random suffix; kept in params, so saved with them
+        if not params.get("model_id"):
+            params["model_id"] = f"{self.algo}_{uuid.uuid4().hex[:12]}"
+
+    @property
+    def model_id(self) -> str:
+        return str(self.params["model_id"])
 
     def predict_raw(self, frame: Frame) -> torch.Tensor:
         """(rows,) regression values or (rows, 1+K) [label, p0..] on
@@ -376,7 +385,24 @@ class Model:
             algo = "xgboost_gblinear"
         mod, name = _MODEL_CLASSES[algo]
         cls = getattr(importlib.import_module(mod), name)
-        return cls(blob["params"], blob["output"], cloud(device))
+        dev = cloud(device)
+        _rehome(blob["output"], dev)
+        return cls(blob["params"], blob["output"], dev)
+
+
+def _rehome(obj, device: torch.device) -> None:
+    """Point every model held in a loaded output (CV models, an
+    ensemble's base models and metalearner, ModelSelection's GLMs) at
+    ``device``, through nested dicts and lists."""
+    if isinstance(obj, Model):
+        obj.device = device
+        _rehome(obj.output, device)
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            _rehome(v, device)
+    elif isinstance(obj, (list, tuple)):
+        for v in obj:
+            _rehome(v, device)
 
 
 #: saved algo -> (module, class) of the model that loads it
@@ -404,6 +430,19 @@ _MODEL_CLASSES = {
     "word2vec": ("h2o_tpu_torch.models.word2vec", "Word2VecModel"),
     "naivebayes": ("h2o_tpu_torch.models.naive_bayes", "NaiveBayesModel"),
     "coxph": ("h2o_tpu_torch.models.coxph", "CoxPHModel"),
+    "isotonicregression": ("h2o_tpu_torch.models.isotonic",
+                           "IsotonicRegressionModel"),
+    "aggregator": ("h2o_tpu_torch.models.aggregator", "AggregatorModel"),
+    "targetencoder": ("h2o_tpu_torch.models.target_encoder",
+                      "TargetEncoderModel"),
+    "modelselection": ("h2o_tpu_torch.models.modelselection",
+                       "ModelSelectionModel"),
+    "anovaglm": ("h2o_tpu_torch.models.anovaglm", "AnovaGLMModel"),
+    "psvm": ("h2o_tpu_torch.models.psvm", "PSVMModel"),
+    "infogram": ("h2o_tpu_torch.models.infogram", "InfogramModel"),
+    "stackedensemble": ("h2o_tpu_torch.models.ensemble",
+                        "StackedEnsembleModel"),
+    "grep": ("h2o_tpu_torch.models.grep", "GrepModel"),
 }
 
 
@@ -424,7 +463,8 @@ class ModelBuilder:
 
     def __init__(self, device: DeviceLike = None, **params):
         self.params = self.default_params()
-        unknown = set(params) - set(self.params)
+        # ``model_id`` names the model (the reference's key), as there
+        unknown = set(params) - set(self.params) - {"model_id"}
         if unknown:
             raise ValueError(f"{self.algo}: unknown params {sorted(unknown)}")
         self._validate_fixed(params)
@@ -468,6 +508,20 @@ class ModelBuilder:
         is scored as the model trains (early stopping watches it) and
         gives ``validation_metrics``.  ``nfolds`` > 1 or a
         ``fold_column`` cross-validates first."""
+        x, y = self._columns(x, y, training_frame)
+        if int(self.params.get("nfolds") or 0) > 1 or \
+                self.params.get("fold_column"):
+            if not self.supports_cv:
+                raise ValueError(f"{self.algo}: n-fold cross-validation is "
+                                 "not supported by this builder")
+            return self._fit_cv(x, y, training_frame, validation_frame)
+        return self._fit(x, y, training_frame, validation_frame)
+
+    def _columns(self, x: Optional[Sequence[str]], y: Optional[str],
+                 training_frame: Frame):
+        """The predictors and the response ``train`` fits: ``x`` (every
+        column by default) less the response, ``ignored_columns`` and the
+        fold column."""
         if training_frame is None:
             raise ValueError("training_frame is required")
         y = y or self.params.get("response_column")
@@ -478,15 +532,8 @@ class ModelBuilder:
         ignored = set(self.params.get("ignored_columns") or ())
         if self.params.get("fold_column"):
             ignored.add(self.params["fold_column"])
-        x = [c for c in (x or training_frame.names)
-             if c != y and c not in ignored]
-        if int(self.params.get("nfolds") or 0) > 1 or \
-                self.params.get("fold_column"):
-            if not self.supports_cv:
-                raise ValueError(f"{self.algo}: n-fold cross-validation is "
-                                 "not supported by this builder")
-            return self._fit_cv(x, y, training_frame, validation_frame)
-        return self._fit(x, y, training_frame, validation_frame)
+        return [c for c in (x or training_frame.names)
+                if c != y and c not in ignored], y
 
     def _fit(self, x: List[str], y: str, train: Frame,
              valid: Optional[Frame] = None) -> Model:

@@ -33,7 +33,7 @@ import torch
 
 from h2o_tpu_torch.models.model import DataInfo
 from h2o_tpu_torch.ops.binpack import cast_bins, widen_bins
-from h2o_tpu_torch.ops.xlamath import sum_leading
+from h2o_tpu_torch.ops.xlamath import cumsum, sum_leading
 
 EPS = 1e-10
 
@@ -265,12 +265,12 @@ def find_splits(hist: torch.Tensor, is_cat: torch.Tensor,
     order = torch.argsort(torch.where(is_cat[None, :, None], key, natural),
                           dim=2, stable=True)                  # (L, C, B)
 
-    def sort_take(x):
-        return torch.gather(x[..., :B], 2, order)
-
-    sw, swg, swgg, swh = map(sort_take, (w, wg, wgg, wh))
-    cw, cwg, cwgg, cwh = (torch.cumsum(x, dim=2)
-                          for x in (sw, swg, swgg, swh))
+    # the four stats sorted and scanned together, in XLA's CPU prefix-sum
+    # order on every device (ties between candidates then break as the
+    # reference breaks them)
+    sorted4 = torch.gather(hist[..., :B, :].permute(3, 0, 1, 2), 3,
+                           order.expand(4, L, C, B))
+    cw, cwg, cwgg, cwh = cumsum(sorted4).unbind(0)
     naw, nawg, nawgg, nawh = (x[..., B] for x in (w, wg, wgg, wh))
     tot_w = cw[..., -1] + naw
     tot_wg = cwg[..., -1] + nawg

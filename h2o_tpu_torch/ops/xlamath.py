@@ -16,6 +16,14 @@ expressions the way XLA does:
   equals ``jax.numpy.log`` on the CPU bit for bit on positive finite
   float32 (``tests/test_torch_xlamath.py``: 800,000 values, 1e-13 to
   1e13);
+* ``exp(x)`` is XLA's float32 exp (``polynomial_approximations.cc``,
+  Cephes' ``expf``): n = floor(x log2(e) + 1/2) clamped to [-127, 127],
+  the reduced argument by two fused steps, a degree-5 polynomial in
+  fused Horner steps, times 2^n built in the exponent bits; and
+  ``softplus(x)`` is ``jax.nn.softplus``, XLA's ``logaddexp(x, 0)``:
+  max(x, 0) + log1p(exp(-|x|)) in those two functions.  Both equal
+  ``jax.numpy`` on the CPU bit for bit
+  (``tests/test_torch_find_splits_order.py``);
 * ``log1p(x)`` is XLA's (``ElementalIrEmitter::EmitLog1p``): ``log(1 +
   x)`` above |x| = sqrt(2) - 1, below it Cephes' rational approximation
   with fused Horner steps; equal to ``jax.numpy.log1p`` on the CPU
@@ -24,11 +32,13 @@ expressions the way XLA does:
   axis padded with zeros to a multiple of 32 (half the padding in front),
   each window of 32 summed in order, then the windows in order — the
   order a forest's per-tree predictions are summed in;
-* ``cumsum(x)`` is XLA's CPU float32 prefix sum of a vector (its
-  reduce-window rewrite at base 16): each block of 16 summed in order,
-  the block totals scanned the same way (recursively), and each block's
-  exclusive prefix added to its in-block sums.  From about the 17th term
-  on it differs from a sequential ``np.cumsum``/``torch.cumsum``.
+* ``cumsum(x)`` is XLA's CPU float32 prefix sum along the last axis
+  (its reduce-window rewrite at base 16), the order of
+  ``jnp.cumsum(x, axis=-1)``: each block of 16 summed in order, the
+  block totals scanned the same way (recursively), and each block's
+  exclusive prefix added to its in-block sums.  ``torch.cumsum`` on the
+  CPU carries its sum wider than float32 and parts from it from the
+  third term on; on CUDA it is a parallel scan.
 
 All of it is plain tensor code, the same on every device.
 """
@@ -91,6 +101,43 @@ def log(x: torch.Tensor) -> torch.Tensor:
                        torch.full_like(out, float("nan")), out)
 
 
+# Cephes expf coefficients and range, as float32
+_EXP_P = tuple(float(np.float32(v)) for v in (
+    1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3, 4.1665795894e-2,
+    1.6666665459e-1, 5.0000001201e-1))
+_EXP_LO, _EXP_HI = float(np.float32(-87.8)), float(np.float32(88.8))
+_LOG2E = float(np.float32(1.44269504088896341))
+_EXP_C1 = float(np.float32(0.693359375))
+_EXP_C2 = float(np.float32(-2.12194440e-4))
+
+
+def exp(x: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU float32 exp (see the module docstring): subnormal
+    results flushed to 0, +inf above 88.8, NaN for NaN."""
+    x = x.to(torch.float32)
+    xc = torch.clamp(x, _EXP_LO, _EXP_HI)
+    n = torch.clamp(torch.floor(fma(xc, _LOG2E, 0.5)), -127.0, 127.0)
+    r = fma(n, -_EXP_C1, xc)
+    r = fma(n, -_EXP_C2, r)
+    z = fma(r, _EXP_P[0], _EXP_P[1])
+    for c in _EXP_P[2:]:
+        z = fma(z, r, c)
+    z = 1.0 + fma(z, r * r, r)
+    pow2 = ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+    out = z * pow2
+    out = torch.where(out < _MIN_NORMAL, torch.zeros_like(out), out)  # FTZ
+    return torch.where(torch.isnan(x), x, out)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus`` as XLA computes it on the CPU.  ``log`` reads
+    the float's bits, so autograd cannot differentiate it: the result is
+    detached."""
+    x = x.detach().to(torch.float32)
+    out = torch.clamp_min(x, 0.0) + log1p(exp(-x.abs()))
+    return torch.where(torch.isnan(x), x, out)
+
+
 # Cephes log1p rational approximation, highest order first
 _LOG1P_NUM = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
               6.5787325942061044846969e0, 2.9911919328553073277375e1,
@@ -146,21 +193,23 @@ _SCAN_BASE = 16
 
 
 def cumsum(x: torch.Tensor) -> torch.Tensor:
-    """Prefix sum of a 1-d tensor in XLA's CPU order (see the module
-    docstring)."""
-    n = x.shape[0]
+    """Prefix sums along the last axis in XLA's CPU order (see the module
+    docstring), every row at once: ~16 operations a level of the
+    recursion.  Built from slices and ``torch.stack``, so autograd
+    differentiates it."""
+    n = x.shape[-1]
     if n <= _SCAN_BASE:
-        out = x.clone()
+        parts = [x[..., 0]]
         for i in range(1, n):
-            out[i] = out[i - 1] + x[i]
-        return out
+            parts.append(parts[-1] + x[..., i])
+        return torch.stack(parts, dim=-1) if n else x.clone()
     nb = -(-n // _SCAN_BASE)
-    blk = torch.zeros(nb * _SCAN_BASE, dtype=x.dtype, device=x.device)
-    blk[:n] = x
-    blk = blk.reshape(nb, _SCAN_BASE)
-    for j in range(1, _SCAN_BASE):
-        blk[:, j] = blk[:, j - 1] + blk[:, j]
-    pre = cumsum(blk[:, -1].contiguous())
-    excl = torch.cat([torch.zeros(1, dtype=x.dtype, device=x.device),
-                      pre[:-1]])
-    return (blk + excl[:, None]).reshape(-1)[:n]
+    pad = nb * _SCAN_BASE - n
+    if pad:
+        x = torch.cat([x, x.new_zeros(x.shape[:-1] + (pad,))], dim=-1)
+    blk = cumsum(x.reshape(x.shape[:-1] + (nb, _SCAN_BASE)))
+    pre = cumsum(blk[..., -1])
+    excl = torch.cat([pre.new_zeros(pre.shape[:-1] + (1,)), pre[..., :-1]],
+                     dim=-1)
+    out = blk + excl[..., None]
+    return out.reshape(out.shape[:-2] + (nb * _SCAN_BASE,))[..., :n]

@@ -6,13 +6,22 @@ sparse frontier capped at 16 live leaves (a depth-8 DRF; the
 reference's ``H2O_TPU_MAX_LIVE_LEAVES`` and the port's
 ``engine.MAX_LIVE_LEAVES``) and K class trees an iteration (a 3-class
 GBM).  Weights are on a 1/8 grid and DRF's stats are 0/1, so every
-histogram sums exactly in either package: the trees are equal,
-``node_w`` is equal bit for bit, and ``node_gain`` agrees to 1e-5
-relative (atol 1e-6) at every node.  A forest trained in blocks
-(``score_tree_interval=1``) and one resumed from a checkpoint carry
-the same arrays as one trained in one call, and the converters keep
-the reference's arrays, so a JAX model resumed in the port keeps them
-for its own trees.
+histogram sums exactly in either package, and ``node_w`` is equal
+bit for bit.  The gradient stats' tables are summed in another order in
+each package, so the GBMs' trees are held where that rounding leaves
+them determined (``hold_gbm_forest`` in
+``tests/test_torch_find_splits_order.py``): a split that differs must
+send the node's rows the same way or tie with the reference's within
+F3's rounding level, 1e-6 of the node's wgg, and a tie's subtree and
+later iterations are not held (the 3-class GBM ties at tree 0).  The
+DRF's and XGBoost's trees are equal.  ``node_gain`` agrees to 1e-5
+relative (atol 1e-6) at every node held, but where a GBM's gain cancels
+below 0.1 of its node's wgg: its float32 rounding there, up to 1e-6 of
+wgg, exceeds that, so it is held within 1e-6 of wgg.  A forest trained
+in blocks (``score_tree_interval=1``) and one resumed from a checkpoint
+carry the same arrays as one trained in one call, and the converters
+keep the reference's arrays, so a JAX model resumed in the port keeps
+them for its own trees.
 """
 
 import numpy as np
@@ -32,6 +41,7 @@ from h2o_tpu_torch.models.tree.convert import (drf_from_jax_output,
 from h2o_tpu_torch.models.tree.drf import DRF
 from h2o_tpu_torch.models.tree.gbm import GBM
 from h2o_tpu_torch.models.tree.xgboost import XGBoost
+from tests.test_torch_find_splits_order import TIE, hold_gbm_forest
 
 pytestmark = pytest.mark.shared_dkv
 
@@ -111,22 +121,40 @@ def case(request, cl):
                             **dict(kw, ntrees=kw["ntrees"] + 1)).train(
             x=_x(kw), y="y", training_frame=pf)
     return dict(name=request.param, jm=jm, pm=pm, blk=blk, res=res,
-                conv=conv_m, resumed_conv=resumed_conv, kw=kw)
+                conv=conv_m, resumed_conv=resumed_conv, kw=kw, frame=pf)
 
 
 def test_node_arrays_equal_reference(case):
-    jo, po = case["jm"].output, case["pm"].output
-    for k in _TREE_KEYS:
-        if po.get(k) is None:
-            assert jo.get(k) is None, k
-            continue
-        np.testing.assert_array_equal(po[k], np.asarray(jo[k]), err_msg=k)
+    jo = {k: (np.asarray(v) if hasattr(v, "shape") else v)
+          for k, v in case["jm"].output.items()}
+    po = case["pm"].output
     nw, ng = po["node_w"], po["node_gain"]
     assert nw.dtype == np.float32 and nw.shape == po["split_col"].shape
     assert ng.shape == po["split_col"].shape
-    np.testing.assert_array_equal(nw, np.asarray(jo["node_w"]))
-    np.testing.assert_allclose(ng, np.asarray(jo["node_gain"]), rtol=1e-5,
-                               atol=1e-6)
+    if case["name"].startswith("gbm"):
+        pf = case["frame"]
+        w = (pf.vec("w").to_numpy().astype(np.float64)
+             if "weights_column" in case["kw"] else np.ones(pf.nrows))
+        keep, wgg, ties = hold_gbm_forest(
+            case["pm"], jo, case["jm"].params, pf,
+            pf.vec("y").to_numpy().astype(np.int64), w)
+        assert keep[0].sum() > 10
+        T = keep.shape[0]
+        tol = np.maximum(1e-6 + 1e-5 * np.abs(jo["node_gain"][:T]),
+                         np.where(jo["node_gain"][:T] < 0.1 * wgg,
+                                  TIE * wgg, 0.0))
+    else:
+        for k in _TREE_KEYS:
+            if po.get(k) is None:
+                assert jo.get(k) is None, k
+                continue
+            np.testing.assert_array_equal(po[k], jo[k], err_msg=k)
+        keep = np.ones(ng.shape, bool)
+        T = keep.shape[0]
+        tol = 1e-6 + 1e-5 * np.abs(jo["node_gain"])
+    np.testing.assert_array_equal(nw[:T][keep], jo["node_w"][:T][keep])
+    gap = np.abs(ng[:T] - jo["node_gain"][:T])
+    assert (gap[keep] <= tol[keep]).all(), (gap - tol).max()
     split = po["split_col"] >= 0
     assert split.sum() > 5 and (ng[split] > 0).all() and \
         (ng[~split] == 0).all()

@@ -3,14 +3,23 @@ param set, as a client that sends all params does.
 
 For each of GBM, DRF, XGBoost, DT, IsolationForest,
 ExtendedIsolationForest, UpliftDRF, GLM, KMeans, DeepLearning, GAM,
-RuleFit, PCA, SVD, GLRM, Word2Vec, NaiveBayes and CoxPH the port's
+RuleFit, PCA, SVD, GLRM, Word2Vec, NaiveBayes, CoxPH,
+IsotonicRegression, Aggregator, TargetEncoder, ModelSelection,
+AnovaGLM, PSVM, Infogram, StackedEnsemble and Grep the port's
 builder is
 constructed with ``h2o_tpu``'s ``default_params()`` passed explicitly
 (nothing may be "unknown", no accepted default may be refused, and every
 param resolves to the value the reference builder resolves it to), and
 trains a small frame with them (the tree builders' ntrees cut to 2,
 RuleFit's rule trees to 4, GAM given one gam column, CoxPH a stop
-column, Word2Vec a token column).  Word2Vec's reference refuses its own
+column, Word2Vec a token column, IsotonicRegression one predictor,
+TargetEncoder a categorical, StackedEnsemble a cross-validated GLM as
+its base model, Grep a regex over a text column).  Each model of the
+nine builders from IsotonicRegression on trained so round-trips through
+``Model.save``/``load`` (the StackedEnsemble onto ``cpu:0``, another
+device than the ``cpu`` it was saved from, base models and metalearner
+included) and scores, transforms or reports as before.  Word2Vec's
+reference refuses its own
 default ``norm_model="NegSampling"`` (its ENGINE_FIXED accepts HSM
 only), so its resolved params are compared with the reference's
 defaults instead.
@@ -26,6 +35,7 @@ several cards (P8).
 
 import numpy as np
 import pytest
+import torch
 
 from h2o_tpu.models.coxph import CoxPH as JCoxPH
 from h2o_tpu.models.deeplearning import DeepLearning as JDL
@@ -45,6 +55,15 @@ from h2o_tpu.models.tree.isofor import (ExtendedIsolationForest as JEIF,
 from h2o_tpu.models.tree.uplift import UpliftDRF as JUplift
 from h2o_tpu.models.tree.xgboost import XGBoost as JXGB
 from h2o_tpu.models.word2vec import Word2Vec as JW2V
+from h2o_tpu.models.aggregator import Aggregator as JAgg
+from h2o_tpu.models.anovaglm import AnovaGLM as JAnova
+from h2o_tpu.models.ensemble import StackedEnsemble as JSE
+from h2o_tpu.models.grep import Grep as JGrep
+from h2o_tpu.models.infogram import Infogram as JInfogram
+from h2o_tpu.models.isotonic import IsotonicRegression as JIso
+from h2o_tpu.models.modelselection import ModelSelection as JMS
+from h2o_tpu.models.psvm import PSVM as JPSVM
+from h2o_tpu.models.target_encoder import TargetEncoder as JTE
 
 from h2o_tpu_torch.core.frame import T_CAT, T_STR, Frame, Vec
 from h2o_tpu_torch.models.coxph import CoxPH
@@ -65,6 +84,16 @@ from h2o_tpu_torch.models.tree.isofor import (ExtendedIsolationForest,
 from h2o_tpu_torch.models.tree.uplift import UpliftDRF
 from h2o_tpu_torch.models.tree.xgboost import XGBoost
 from h2o_tpu_torch.models.word2vec import Word2Vec
+from h2o_tpu_torch.models.aggregator import Aggregator
+from h2o_tpu_torch.models.anovaglm import AnovaGLM
+from h2o_tpu_torch.models.ensemble import StackedEnsemble
+from h2o_tpu_torch.models.grep import Grep
+from h2o_tpu_torch.models.infogram import Infogram
+from h2o_tpu_torch.models.isotonic import IsotonicRegression
+from h2o_tpu_torch.models.model import Model
+from h2o_tpu_torch.models.modelselection import ModelSelection
+from h2o_tpu_torch.models.psvm import PSVM
+from h2o_tpu_torch.models.target_encoder import TargetEncoder
 
 PAIRS = {"gbm": (JGBM, GBM), "drf": (JDRF, DRF), "xgboost": (JXGB, XGBoost),
          "dt": (JDT, DT), "isolationforest": (JIF, IsolationForest),
@@ -74,11 +103,25 @@ PAIRS = {"gbm": (JGBM, GBM), "drf": (JDRF, DRF), "xgboost": (JXGB, XGBoost),
          "gam": (JGAM, GAM), "rulefit": (JRuleFit, RuleFit),
          "pca": (JPCA, PCA), "svd": (JSVD, SVD), "glrm": (JGLRM, GLRM),
          "word2vec": (JW2V, Word2Vec), "naivebayes": (JNB, NaiveBayes),
-         "coxph": (JCoxPH, CoxPH)}
+         "coxph": (JCoxPH, CoxPH),
+         "isotonicregression": (JIso, IsotonicRegression),
+         "aggregator": (JAgg, Aggregator),
+         "targetencoder": (JTE, TargetEncoder),
+         "modelselection": (JMS, ModelSelection),
+         "anovaglm": (JAnova, AnovaGLM),
+         "psvm": (JPSVM, PSVM), "infogram": (JInfogram, Infogram),
+         "stackedensemble": (JSE, StackedEnsemble), "grep": (JGrep, Grep)}
+#: the builders whose default-trained models also round-trip
+SLICE11 = ("isotonicregression", "aggregator", "targetencoder",
+           "modelselection", "anovaglm", "psvm", "infogram",
+           "stackedensemble", "grep")
 #: what a small training needs beyond the reference defaults
 _TRAIN_KW = {"gam": dict(gam_columns=["a"]),
              "rulefit": dict(rule_generation_ntrees=4),
-             "coxph": dict(stop_column="a")}
+             "coxph": dict(stop_column="a"), "grep": dict(regex="[ae]b")}
+#: the predictors of a small training where not a, b and c
+_TRAIN_X = {"isotonicregression": ["a"], "targetencoder": ["a", "treatment"]}
+_WORDS = [w for _ in range(60) for w in ("ab", "cd", "ef", None)]
 
 
 def _frame(n=300):
@@ -106,22 +149,45 @@ def test_reference_defaults_are_accepted(algo):
         assert b.params[k] == v, k
 
 
-@pytest.mark.parametrize("algo", sorted(PAIRS))
-def test_reference_defaults_train(algo):
+def _train_defaults(algo):
+    """The port model of ``algo`` trained with the reference's defaults
+    (and what a small training needs), and its training frame."""
     jcls, pcls = PAIRS[algo]
     params = jcls().default_params()
     if "ntrees" in params:
         params["ntrees"] = 2
     params.update(_TRAIN_KW.get(algo, {}))
     fr = _frame()
+    if algo == "stackedensemble":
+        params["base_models"] = [GLM(
+            device="cpu", family="binomial", nfolds=2, seed=1,
+            keep_cross_validation_predictions=True).train(
+                x=["a", "b", "c"], y="y", training_frame=fr)]
     b = pcls(device="cpu", **params)
-    if algo == "word2vec":
-        words = [w for _ in range(60) for w in ("ab", "cd", "ef", None)]
-        m = b.train(training_frame=Frame(["t"], [Vec(words, T_STR)]))
-    elif b.supervised:
-        m = b.train(x=["a", "b", "c"], y="y", training_frame=fr)
-    else:
-        m = b.train(x=["a", "b", "c"], training_frame=fr)
+    if algo in ("word2vec", "grep"):
+        fr = Frame(["t"], [Vec(_WORDS, T_STR)])
+        return b.train(training_frame=fr), fr
+    x = _TRAIN_X.get(algo, ["a", "b", "c"])
+    if b.supervised:
+        return b.train(x=x, y="y", training_frame=fr), fr
+    return b.train(x=x, training_frame=fr), fr
+
+
+_trained = {}
+
+
+def _trained_defaults(algo):
+    if algo not in _trained:
+        import warnings
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")         # PSVM's engine note
+            _trained[algo] = _train_defaults(algo)
+    return _trained[algo]
+
+
+@pytest.mark.parametrize("algo", sorted(PAIRS))
+def test_reference_defaults_train(algo):
+    m, fr = _trained_defaults(algo)
     if algo == "glm":
         assert m.params["_solver_resolved"] == "IRLSM"
         assert np.isfinite(m.output["beta"]).all()
@@ -145,9 +211,60 @@ def test_reference_defaults_train(algo):
     elif algo == "coxph":
         assert m.output["coef_names"] == ["b", "c"] and \
             m.output["iterations"] >= 1
+    elif algo == "isotonicregression":
+        assert m.output["nobs"] == fr.nrows
+    elif algo == "aggregator":
+        assert m.aggregated_frame().nrows == m.output["num_exemplars"] > 0
+    elif algo == "targetencoder":
+        assert m.output["columns"] == ["treatment"]
+    elif algo == "modelselection":
+        assert sorted(m.output["best_models"]) == [1]
+    elif algo == "anovaglm":
+        assert [r[0] for r in m.result()] == ["a", "b", "c"]
+    elif algo == "psvm":
+        assert m.output["feature_dim"] == 256
+    elif algo == "infogram":
+        assert [r[0] for r in m.result()][0] == "a"
+    elif algo == "stackedensemble":
+        assert m.output["metalearner_algo"] == "glm"
+    elif algo == "grep":
+        assert m.output["matches"] == ["ab"] * 60
     else:
         assert m.output["ntrees_actual"] == (1 if algo == "dt" else 2)
     assert m.output["training_metrics"] is not None
+
+
+def _behaviour(algo, m, fr):
+    """What a model of ``algo`` gives back: scores, an encoding, a table
+    or matches."""
+    if algo == "targetencoder":
+        return m.transform(fr).vec("treatment_te").to_numpy()
+    if algo in ("modelselection", "anovaglm", "infogram"):
+        return m.output["training_metrics"].data
+    if algo == "grep":
+        return (m.output["matches"], m.output["offsets"])
+    return m.predict_raw(fr).numpy()
+
+
+@pytest.mark.parametrize("algo", SLICE11)
+def test_slice11_models_round_trip(algo, tmp_path):
+    m, fr = _trained_defaults(algo)
+    device = "cpu:0" if algo == "stackedensemble" else "cpu"
+    back = Model.load(m.save(str(tmp_path / f"{algo}.bin")), device=device)
+    assert type(back) is type(m) and back.model_id == m.model_id
+    assert back.device == torch.device(device)
+    want, got = _behaviour(algo, m, fr), _behaviour(algo, back, fr)
+    if isinstance(want, np.ndarray):
+        np.testing.assert_array_equal(got, want)
+    else:
+        assert got == want
+    if algo == "stackedensemble":
+        assert back.device != m.device
+        held = back.output["base_models"] + [back.output["metalearner"]]
+        assert all(h.device == torch.device(device) for h in held)
+    if algo == "modelselection":
+        assert back.output["best_models"][1]["model"].device == \
+            torch.device(device)
 
 
 @pytest.mark.parametrize("algo", ["gbm", "xgboost"])
@@ -165,6 +282,8 @@ def test_custom_distribution_func_names_p13(algo):
 
 
 _SMALL = {"kmeans": dict(k=2), "deeplearning": dict(hidden=[4], epochs=1.0),
+          "aggregator": dict(target_num_exemplars=10), "psvm": {},
+          "infogram": {}, "modelselection": {}, "isotonicregression": {},
           "gam": dict(gam_columns=["a"]),
           "rulefit": dict(rule_generation_ntrees=2), "pca": {}, "svd": {},
           "glrm": {}, "word2vec": {}, "naivebayes": {},
@@ -185,11 +304,18 @@ _SMALL = {"kmeans": dict(k=2), "deeplearning": dict(hidden=[4], epochs=1.0),
     ("word2vec", dict(recovery_dir="ck"), "P14"),
     ("naivebayes", dict(checkpoint_interval=2), "P14"),
     ("coxph", dict(recovery_dir="ck"), "P14"),
+    ("aggregator", dict(recovery_dir="ck"), "P14"),
+    ("psvm", dict(checkpoint_interval=1), "P14"),
+    ("infogram", dict(recovery_dir="ck"), "P14"),
+    ("modelselection", dict(checkpoint_interval=1), "P14"),
+    ("isotonicregression", dict(recovery_dir="ck"), "P14"),
 ], ids=["dl_export", "gam_keep_cols", "kmeans_recovery", "dl_recovery",
         "dl_checkpoint_interval", "gam_recovery", "rulefit_recovery",
         "pca_recovery", "svd_checkpoint_interval", "glrm_recovery",
         "word2vec_recovery", "naivebayes_checkpoint_interval",
-        "coxph_recovery"])
+        "coxph_recovery", "aggregator_recovery", "psvm_checkpoint_interval",
+        "infogram_recovery", "modelselection_checkpoint_interval",
+        "isotonic_recovery"])
 def test_refused_by_name(algo, kw, match):
     _, pcls = PAIRS[algo]
     b = pcls(device="cpu", **_SMALL[algo], **kw)

@@ -3,7 +3,7 @@ reference (``h2o_tpu``) and the port (``h2o_tpu_torch``) cannot agree
 closer, because float32 rounding decides and both packages round.
 
     JAX_PLATFORMS=cpu python tools/torch_port_probes.py \
-        [dl|gam|rulefit|glrm|word2vec|coxph ...]
+        [dl|gam|rulefit|glrm|word2vec|coxph|psvm ...]
 
 Prints one JSON line per case:
 
@@ -28,7 +28,13 @@ Prints one JSON line per case:
 - ``coxph``: ``tests/test_torch_coxph.py``'s cases: iterations, the
   largest coefficient gap beside the region the float32 likelihood
   cannot resolve (``unresolved``), the log-likelihood's relative gap
-  and both concordances.
+  and both concordances;
+- ``psvm``: ``tests/test_torch_psvm.py``'s cases: the reference's
+  subgradient loop (``h2o_tpu/models/psvm.py`` ``_svm_fit``'s body, run
+  a step at a time on the reference's Z) beside the port's on its own Z:
+  the first step whose hinge mask ``margin < 1`` differs, the rows that
+  differ there and their margins, and beta's drift over its largest
+  |value| at that step and at the end.
 """
 
 import json
@@ -228,10 +234,68 @@ def probe_coxph():
             flush=True)
 
 
+def probe_psvm():
+    import warnings
+
+    import jax.numpy as jnp
+
+    from h2o_tpu.models.glm import expand_for_scoring as j_expand
+    from h2o_tpu_torch.models import psvm as ppsvm
+    from h2o_tpu_torch.ops import statpack
+    from tests.test_torch_psvm import CASES, _data
+    statpack.ROW_QUANTUM = 64
+    warnings.simplefilter("ignore")
+    for case in CASES:
+        (jf, pf), kw = _data(case)
+        masks, betas = [], []
+        ppsvm.PSVM(device="cpu", **kw)._fit(
+            [c for c in pf.names if c != "y"], "y", pf, None,
+            step_hook=lambda t, beta, mask: (masks.append(mask.numpy()),
+                                             betas.append(beta.numpy())))
+        from h2o_tpu.models.psvm import PSVM as JPSVM
+        jo = JPSVM(**kw).train(y="y", training_frame=jf).output
+        # the reference's loop body, a step at a time, on its Z
+        X = j_expand(jf, jo["expansion_spec"])
+        W, b = jnp.asarray(jo["rff_w"]), jnp.asarray(jo["rff_b"])
+        D = W.shape[1]
+        Z = jnp.sqrt(2.0 / D) * jnp.cos(X @ W + b[None, :])
+        yv = jnp.asarray(np.pad(pf.vec("y").as_float(),
+                                (0, X.shape[0] - pf.nrows),
+                                constant_values=np.nan))
+        valid = ~jnp.isnan(yv)
+        ysign = jnp.where(jnp.nan_to_num(yv) > 0, 1.0, -1.0)
+        w = jnp.where(ysign > 0, float(kw.get("positive_weight", 1.0)),
+                      float(kw.get("negative_weight", 1.0)))
+        w = jnp.where(valid, w, 0.0)
+        C = jnp.float32(kw.get("hyper_param", 1.0))
+        beta = jnp.zeros((D + 1,), jnp.float32)
+        Rn = Z.shape[0]
+        first, drift = None, 0.0
+        for t in range(int(kw["max_iterations"])):
+            marg = ysign * (Z @ beta[:-1] + beta[-1])
+            g_mask = jnp.where(valid & (marg < 1.0), w, 0.0)
+            gw = beta[:-1] - C * (Z.T @ (g_mask * ysign))
+            gb = -C * jnp.sum(g_mask * ysign)
+            g = jnp.concatenate([gw, jnp.array([gb])])
+            step = 0.5 / jnp.sqrt(t + 1.0)
+            beta = beta - step * g / (1.0 + C * jnp.sum(w * valid) / Rn)
+            jmask = np.asarray(valid & (marg < 1.0))[: pf.nrows]
+            bj = np.asarray(beta)
+            drift = float(np.abs(betas[t] - bj).max() / np.abs(bj).max())
+            if first is None and not np.array_equal(jmask, masks[t]):
+                rows = np.flatnonzero(jmask != masks[t])
+                first = dict(step=t, rows=rows[:5].tolist(),
+                             margins=np.asarray(marg)[rows[:5]].tolist(),
+                             beta_drift_there=drift)
+        print(json.dumps(dict(probe="psvm", case=case,
+                              first_mask_difference=first,
+                              final_beta_drift=drift)), flush=True)
+
+
 if __name__ == "__main__":
     Cloud.boot()
     probes = {"dl": probe_dl, "gam": probe_gam, "rulefit": probe_rulefit,
               "glrm": probe_glrm, "word2vec": probe_word2vec,
-              "coxph": probe_coxph}
+              "coxph": probe_coxph, "psvm": probe_psvm}
     for name in sys.argv[1:] or list(probes):
         probes[name]()
