@@ -10,7 +10,9 @@ it and explained, GLM with every family and solver, then KMeans,
 DeepLearning, GAM and RuleFit, then PCA, SVD, GLRM, Word2Vec,
 NaiveBayes and CoxPH, then IsotonicRegression, Aggregator,
 TargetEncoder, ModelSelection, AnovaGLM, PSVM, Infogram,
-StackedEnsemble and Grep.  Phases (each
+StackedEnsemble and Grep, then the trained models served: MOJO files
+written and read, the array fast path, Generic and ScoringEngine.
+Phases (each
 prints one JSON line; any failure raises and the exit code is not 0):
 
   0 device  - card name and power limit
@@ -288,6 +290,42 @@ prints one JSON line; any failure raises and the exit code is not 0):
               1e-5 over the card's base models loaded onto the CPU, and
               the saved ensemble loaded onto the CPU scoring as on the
               card
+ 20 scoring artifacts and online serving over models earlier phases
+              trained (the default GBM, DRF, XGBoost gbtree, binomial GLM
+              and KMeans PlusPlus) and one deployment trained first, a GBM
+              (20 trees, depth 5, K2 100) on the covertype frame with wild
+              and soil as categoricals, class c1 against the rest; then,
+              counters set to 0, neither histogram kernel may run:
+              20a the default GBM written as an npz MOJO and as a genmodel
+              zip and read back (walls, bytes), the first HOST_ROWS rows
+              scored by each host scorer: probabilities within 1e-5 of the
+              card's predict_raw, labels equal where p1 is more than 1e-6
+              from the threshold, rows/s;
+              20b predict_raw_array over the 1M rows on the card for GBM,
+              DRF, XGBoost and GLM: bitwise predict_raw(frame), and its
+              first HOST_ROWS rows against each model's npz host scorer
+              (20a's for the GBM): probabilities within 1e-5, labels
+              equal where p1 is more than 1e-5 from the threshold; walls,
+              the matrix build apart;
+              20c the genmodel zip through import_mojo and the Generic
+              builder (both on the card): predict_raw and predict() over
+              HOST_ROWS bitwise 20a's host scores as float32; the
+              deployment's genmodel zip imported, scoring REMAP_ROWS rows
+              of its frame with wild's and soil's domains reversed and an
+              unseen level on 1 % of their cells: bitwise the frame in
+              training order with those cells NA, and within 1e-5 of the
+              card's model on it (labels as in 20b);
+              20d ScoringEngine: buckets 1, 32 and 1,024 warmed, REQUESTS
+              requests of 1..1,024 JSON-like rows (seed 20; level strings,
+              2 % unseen levels, 2 % missing keys, 1 % numbers as
+              strings), each answer bitwise predict_raw_array on the same
+              encoded rows; p50/p99 per bucket, encode times, the device
+              operations of one request (torch.profiler), device_batches
+              = REQUESTS and fallback_batches 0; a KMeans deployment
+              answered by the host scorer (fallback_batches 1), its
+              labels the card's but where two centers are equally near
+              (1e-5 of the squared norms); evict empties the buckets;
+              20e the launch counters read 0 over 20a-20d
   7 profile - torch.profiler over 2 default trees: device busy share and
               the kernels that take the device time; then 2 QuantilesGlobal
               trees: each histogram kernel's device ms per main-path launch
@@ -297,12 +335,13 @@ prints one JSON line; any failure raises and the exit code is not 0):
               iteration (7 class trees) and one UpliftDRF tree
 
 The kernels line's launches sum every main-path training above (phases
-4, 5, 8-19), each read from counters set to 0 just before it; the
+4, 5, 8-20), each read from counters set to 0 just before it; the
 launches phase lists them path by path (phase 16 as "glm", 0 and 0;
 phase 17's KMeans, DeepLearning and GAM paths 0 and 0, "rulefit" 150
 and 0; phase 18's PCA, SVD, GLRM, Word2Vec, NaiveBayes and CoxPH runs 0
 and 0; phase 19's "infogram" 0 and 940, "stackedensemble_bases" 0 and
-600, its other runs 0 and 0).
+600, its other runs 0 and 0; phase 20's deployment
+"gbm_covertype_categorical" 0 and 100, "serving" 0 and 0).
 
 The line before the last holds every kernel's numbers; the last line is
 the device summary.  Needs one CUDA card; exits non-zero without one.
@@ -345,6 +384,7 @@ from h2o_tpu_torch.models.aggregator import Aggregator  # noqa: E402
 from h2o_tpu_torch.models.anovaglm import AnovaGLM  # noqa: E402
 from h2o_tpu_torch.models.coxph import CoxPH  # noqa: E402
 from h2o_tpu_torch.models.ensemble import StackedEnsemble  # noqa: E402
+from h2o_tpu_torch.models.generic import Generic  # noqa: E402
 from h2o_tpu_torch.models.grep import Grep  # noqa: E402
 from h2o_tpu_torch.models.infogram import Infogram  # noqa: E402
 from h2o_tpu_torch.models.isotonic import IsotonicRegression  # noqa: E402
@@ -375,6 +415,10 @@ from h2o_tpu_torch.models.tree.isofor import (  # noqa: E402
 from h2o_tpu_torch.models.tree.uplift import UpliftDRF  # noqa: E402
 from h2o_tpu_torch.models.tree.xgboost import XGBoost  # noqa: E402
 from h2o_tpu_torch.models.word2vec import Word2Vec  # noqa: E402
+from h2o_tpu_torch.mojo import (MojoModel, _flatten_arrays,  # noqa: E402
+                                export_genmodel_mojo, export_mojo,
+                                import_mojo, load_mojo, scorers)
+from h2o_tpu_torch.serve import ScoringEngine  # noqa: E402
 from h2o_tpu_torch.ops import hist_kernels as hk  # noqa: E402
 from h2o_tpu_torch.ops import prng  # noqa: E402
 from h2o_tpu_torch.ops.histogram import hist_plain  # noqa: E402
@@ -432,6 +476,15 @@ EIF_LEVELS = (0, C - 1)
 CSV_FILES = 2
 EXPLAIN_ROWS = 100_000
 DEFAULT_GBM_AUC = 0.783277011
+#: phase 20: rows the host MOJO scorers score, the engine's requests, its
+#: warm buckets and the largest request
+HOST_ROWS = 100_000
+REQUESTS, WARM_BUCKETS, MAX_REQUEST = 300, (1, 32, 1024), 1024
+#: 20c: covertype rows of the remap check (the genmodel scorer walks
+#: categorical splits at ~11,000 rows/s on the host, twice over them)
+REMAP_ROWS = 20_000
+#: the models earlier phases trained that phase 20 deploys
+KEEP = {}
 
 
 def emit(obj) -> None:
@@ -862,6 +915,7 @@ def phase_xgboost(fr: Frame, sub: Frame, yt: torch.Tensor, paths) -> None:
     """10: XGBoost gbtree and dart at full width."""
     m, wall, got = launched(train_xgb, fr=fr)
     paths["xgboost_gbtree"] = got
+    KEEP["xgboost"] = m
     auc = m.output["training_metrics"]["AUC"]
     emit(dict(phase="xgboost_gbtree", rows=R, cols=C, ntrees=XGB_TREES,
               max_depth=6, max_bins=256, wall_s=wall,
@@ -1736,6 +1790,7 @@ def phase_glm(X, y, fr: Frame, paths) -> None:
 
     # 16a the default binomial GLM: IRLSM with COD inside
     m, wall, _, pr = fit_glm(fr)
+    KEEP["glm"] = m
     P = len(m.output["coef_names"])
     tm = m.output["training_metrics"]
     auc_pred = binomial_metrics(
@@ -1976,6 +2031,7 @@ def phase_kmeans(X, fr: Frame, paths) -> None:
             got = hist_launches()
             paths[f"kmeans_{init.lower()}"] = got
             no_hist("KMeans", got)
+            KEEP.setdefault("kmeans", m)
             tm = m.output["training_metrics"]
             emit(dict(phase=f"kmeans_{init.lower()}", rows=R, cols=C, k=KM_K,
                       standardize=True, wall_s=wall,
@@ -3405,6 +3461,335 @@ def phase_slice11(X, y, fr: Frame, paths) -> None:
               **{f"{n}_s": b - a for n, a, b in zip(names, t, t[1:])}))
 
 
+def bits_equal(a, b) -> bool:
+    """Two arrays or tensors equal bit for bit (NaN included)."""
+    a = a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+    b = b.detach().cpu().numpy() if torch.is_tensor(b) else np.asarray(b)
+    return a.shape == b.shape and a.dtype == b.dtype and \
+        a.tobytes() == b.tobytes()
+
+
+def phase_mojo(m, head: Frame, d: str) -> tuple:
+    """20a: the default GBM written as an npz MOJO and as a genmodel zip,
+    read back, and both scored by the host scorers on ``head``: held
+    against the card's ``predict_raw`` (probabilities within 1e-5,
+    labels equal where p1 is more than 1e-6 from the threshold)."""
+    Xh = head.as_matrix(m.output["x"], "cpu").numpy().astype(np.float64)
+    card = m.predict_raw(head).cpu().numpy()
+    thr = float(m.output.get("default_threshold", 0.5))
+    decided = np.abs(card[:, 2] - thr) > 1e-6
+    paths_ = {"npz": os.path.join(d, "gbm_npz.zip"),
+              "genmodel": os.path.join(d, "gbm_genmodel.zip")}
+    rec, host = {}, {}
+    for fmt, path in paths_.items():
+        t0 = time.perf_counter()
+        if fmt == "npz":
+            export_mojo(m, path)
+        else:
+            with open(path, "wb") as f:
+                f.write(export_genmodel_mojo(m))
+        t1 = time.perf_counter()
+        mojo = load_mojo(path)
+        t2 = time.perf_counter()
+        # in blocks of 10,000 rows: the npz scorer bins through a (rows,
+        # C, fine bins) comparison, 2.9 GB at 100,000 rows at once
+        raw = np.concatenate([np.asarray(mojo.score_matrix(Xh[i:i + 10_000]))
+                              for i in range(0, len(Xh), 10_000)])
+        t3 = time.perf_counter()
+        err = float(np.max(np.abs(raw[:, 1:] - card[:, 1:])))
+        labels = bool(np.array_equal(raw[decided, 0], card[decided, 0]))
+        rec[fmt] = dict(bytes=os.path.getsize(path), write_s=t1 - t0,
+                        read_s=t2 - t1, score_s=t3 - t2,
+                        rows_per_s=HOST_ROWS / (t3 - t2),
+                        max_abs_err_p=err, labels_equal=labels,
+                        rows_near_threshold=int((~decided).sum()))
+        if err > 1e-5 or not labels or raw.shape != card.shape:
+            raise AssertionError(f"20a {fmt} MOJO: max |p - card| {err}, "
+                                 f"labels equal {labels}")
+        host[fmt] = raw
+    emit(dict(phase="mojo", model=m.model_id, rows=HOST_ROWS, **rec))
+    return paths_["genmodel"], host
+
+
+def host_scores(m, Xh: np.ndarray) -> np.ndarray:
+    """The pure-NumPy MOJO scorer of ``m`` (the arrays ``export_mojo``
+    writes) on the rows ``Xh``, in blocks of 10,000 rows (its binning
+    compares each value with every fine bin edge)."""
+    arrays, meta = _flatten_arrays(m.output)
+    mojo = MojoModel(m.algo, dict(m.params), meta, arrays)
+    return np.concatenate([np.asarray(mojo.score_matrix(Xh[i:i + 10_000]))
+                           for i in range(0, len(Xh), 10_000)])
+
+
+def held_to_host(what: str, card: np.ndarray, host: np.ndarray,
+                 thr: float, tol: float = 1e-5) -> dict:
+    """The card's binomial raw predictions against the host scorer's on
+    the same rows: probabilities within ``tol``, labels equal where p1
+    is more than ``tol`` from the threshold."""
+    decided = np.abs(card[:, 2] - thr) > tol
+    err = float(np.max(np.abs(host[:, 1:] - card[:, 1:])))
+    labels = bool(np.array_equal(host[decided, 0], card[decided, 0]))
+    if host.shape != card.shape or not err <= tol or not labels:
+        raise AssertionError(f"{what}: max |p - host| {err}, labels equal "
+                             f"{labels}, shapes {card.shape} {host.shape}")
+    return dict(max_abs_err_host=err, labels_equal_host=labels,
+                rows_near_threshold=int((~decided).sum()))
+
+
+def phase_fast_path(fr: Frame, head: Frame, models: dict,
+                    gbm_host: np.ndarray) -> None:
+    """20b: ``predict_raw_array`` over the 1M rows on the card, bitwise
+    ``predict_raw(frame)``, and its first HOST_ROWS rows held against
+    the model's host MOJO scorer (20a's scores for the GBM).  The
+    array's wall leaves out building the matrix (``as_matrix_s``),
+    which ``predict_raw(frame)`` does itself."""
+    rec = {}
+    for name, m in models.items():
+        sync()
+        t0 = time.perf_counter()
+        Xd = fr.as_matrix(m.output["x"], DEV)
+        sync()
+        t1 = time.perf_counter()
+        a = m.predict_raw_array(Xd)
+        sync()
+        t2 = time.perf_counter()
+        b = m.predict_raw(fr)
+        sync()
+        t3 = time.perf_counter()
+        same = bits_equal(a, b)
+        if not same or a.device != DEV:
+            raise AssertionError(f"20b {name}: predict_raw_array differs "
+                                 "from predict_raw(frame)")
+        Xh = head.as_matrix(m.output["x"], "cpu").numpy().astype(np.float64)
+        host = gbm_host if name == "gbm" else host_scores(m, Xh)
+        t4 = time.perf_counter()
+        rec[name] = dict(as_matrix_s=t1 - t0, array_s=t2 - t1,
+                         frame_s=t3 - t2, bitwise_equal=same,
+                         device=str(a.device), host_score_s=t4 - t3,
+                         **held_to_host(f"20b {name}",
+                                        a[:HOST_ROWS].cpu().numpy(), host,
+                                        float(m.output.get(
+                                            "default_threshold", 0.5))))
+    emit(dict(phase="fast_path", rows=R, host_rows=HOST_ROWS, **rec))
+
+
+def reordered(fc: Frame, cols, seed: int = 21) -> tuple:
+    """``fc`` with each categorical of ``cols`` under its domain
+    reversed plus a level "unseen" that 1 % of its rows take, and ``fc``
+    with those cells NA: the frame Generic remaps, and the frame the
+    card's model scores as it was trained."""
+    rng = np.random.default_rng(seed)
+    moved, na = fc, fc
+    for c in cols:
+        v = fc.vec(c)
+        L, codes = len(v.domain), v.data
+        hit = rng.uniform(size=codes.shape[0]) < 0.01
+        new = np.where(hit, L, np.where(codes < 0, -1, L - 1 - codes))
+        moved = moved.drop(c).add(c, Vec(new, T_CAT, domain=list(
+            reversed(v.domain)) + ["unseen"]))
+        na = na.drop(c).add(c, Vec(np.where(hit, -1, codes), T_CAT,
+                                   domain=v.domain))
+    return moved, na
+
+
+def phase_generic(path: str, head: Frame, host: np.ndarray, m_cat,
+                  fc: Frame, d: str) -> None:
+    """20c: the genmodel zip imported as a Generic model (import_mojo and
+    the Generic builder, both on the card): its predictions equal 20a's
+    host scores, as float32, bitwise.  Then the categorical deployment's
+    genmodel zip, imported, scores a frame whose wild and soil domains
+    are reversed and hold an unseen level (the adaptTestForTrain remap):
+    bitwise as it scores the frame in training order with those cells
+    NA, and within 1e-5 of the card's model on that frame."""
+    want = host.astype(np.float32)
+    rec = {}
+    for name, load in (("import_mojo", lambda: import_mojo(path)),
+                       ("Generic", lambda: Generic(path=path).train())):
+        t0 = time.perf_counter()
+        g = load()
+        t1 = time.perf_counter()
+        raw = g.predict_raw(head)
+        sync()
+        t2 = time.perf_counter()
+        pred = g.predict(head)
+        same = bits_equal(raw, want) and raw.device == DEV and \
+            bits_equal(pred.vec("s").data, want[:, 2])
+        rec[name] = dict(load_s=t1 - t0, predict_raw_s=t2 - t1,
+                         bitwise_equal=same)
+        if not same:
+            raise AssertionError(f"20c {name}: Generic predictions differ "
+                                 "from the host scorer's")
+    cat_path = os.path.join(d, "gbm_covertype_genmodel.zip")
+    with open(cat_path, "wb") as f:
+        f.write(export_genmodel_mojo(m_cat))
+    moved, na = reordered(fc.slice_rows(slice(0, REMAP_ROWS)),
+                          ("wild", "soil"))
+    g = import_mojo(cat_path)
+    t0 = time.perf_counter()
+    raw = g.predict_raw(moved)
+    sync()
+    t1 = time.perf_counter()
+    same = bits_equal(raw, g.predict_raw(na)) and raw.device == DEV
+    if not same:
+        raise AssertionError("20c remap: the reordered frame scores "
+                             "otherwise than the frame in training order")
+    rec["remap"] = dict(model=m_cat.model_id, rows=REMAP_ROWS,
+                        predict_raw_s=t1 - t0,
+                        bitwise_equal=same,
+                        **held_to_host("20c remap", m_cat.predict_raw(
+                            na).cpu().numpy(), raw.cpu().numpy().astype(
+                            np.float64), float(m_cat.output.get(
+                                "default_threshold", 0.5))))
+    emit(dict(phase="generic", rows=HOST_ROWS, **rec))
+
+
+def serving_model(paths) -> tuple:
+    """The deployment of 20d: a GBM (20 trees, depth 5) on the
+    covertype-shaped frame with wild and soil as categoricals, class c1
+    against the rest, trained on the card (K2 every level)."""
+    cov = make_covertype(seed=0, categorical=True)
+    yc = cov.vec("y").data
+    fc = cov.drop("y").add("y", Vec((yc == 1).astype(np.int32), T_CAT,
+                                    domain=["rest", "c1"]))
+    m, wall, got = launched(train, fr=fc)
+    paths["gbm_covertype_categorical"] = got
+    emit(dict(phase="serving_model", rows=fc.nrows, ntrees=20, max_depth=5,
+              wall_s=wall, train_auc=m.output["training_metrics"]["AUC"],
+              k1_launches=got[0], k2_launches=got[1]))
+    if got != (0, 100):
+        raise AssertionError(f"serving model: (K1, K2) launched {got}, "
+                             "want (0, 100)")
+    return m, fc
+
+
+def request_rows(fc: Frame, x, seed: int = 20) -> list:
+    """REQUESTS JSON-like requests of 1..MAX_REQUEST row dicts drawn from
+    ``fc``: categoricals as their level strings, 2 % of them an unseen
+    level, 2 % of the keys missing, 1 % of the numbers as strings."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(1, MAX_REQUEST + 1, size=REQUESTS)
+    starts = rng.integers(0, fc.nrows - MAX_REQUEST, size=REQUESTS)
+    vals = {c: fc.vec(c).data for c in x}
+    doms = {c: fc.vec(c).domain for c in x if fc.vec(c).is_categorical}
+    reqs = []
+    for n, s in zip(sizes, starts):
+        unseen = rng.uniform(size=(n, len(x))) < 0.02
+        missing = rng.uniform(size=(n, len(x))) < 0.02
+        as_str = rng.uniform(size=(n, len(x))) < 0.01
+        rows = []
+        for i in range(n):
+            row = {}
+            for j, c in enumerate(x):
+                if missing[i, j]:
+                    continue
+                v = vals[c][s + i]
+                if c in doms:
+                    row[c] = "unseen" if unseen[i, j] else doms[c][v]
+                else:
+                    row[c] = repr(float(v)) if as_str[i, j] else float(v)
+            rows.append(row)
+        reqs.append(rows)
+    return reqs
+
+
+def phase_engine(m, fc: Frame, km, fr: Frame) -> None:
+    """20d: ScoringEngine warms buckets 1, 32 and 1,024, then answers
+    REQUESTS requests, each bitwise ``predict_raw_array`` on the same
+    encoded rows; the KMeans deployment goes to the host scorer; evict
+    empties the model's buckets."""
+    from torch.profiler import ProfilerActivity, profile
+    eng = ScoringEngine()
+    x = list(m.output["x"])
+    reqs = request_rows(fc, x)
+    t0 = time.perf_counter()
+    eng.warm(m, 1, WARM_BUCKETS)
+    sync()
+    warm_s = time.perf_counter() - t0
+    lat, enc, mism, nrows = {}, [], 0, 0
+    for rows in reqs:
+        t0 = time.perf_counter()
+        X = eng.encode_rows(m, 1, rows)
+        t1 = time.perf_counter()
+        ans = eng.predict(m, 1, X)
+        t2 = time.perf_counter()
+        enc.append(t1 - t0)
+        b = 1 if len(rows) <= 1 else 1 << (len(rows) - 1).bit_length()
+        lat.setdefault(b, []).append((t2 - t1) * 1e3)
+        want = m.predict_raw_array(torch.from_numpy(
+            X.astype(np.float32)).to(DEV))
+        mism += not bits_equal(ans, want)
+        nrows += len(rows)
+    stats = eng.stats()
+    buckets = {str(b): dict(requests=len(v), p50_ms=float(np.percentile(
+        v, 50)), p99_ms=float(np.percentile(v, 99)))
+        for b, v in sorted(lat.items())}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.predict(m, 1, eng.encode_rows(m, 1, reqs[0]))
+    dev_ops = sum(1 for ev in prof.events()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA)
+    # the KMeans deployment: no device predict, the host scorer answers
+    head = fr.slice_rows(slice(0, 100))
+    krows = [{c: float(head.vec(c).data[i]) for c in km.output[
+        "expansion_spec"]["num_names"]} for i in range(head.nrows)]
+    kx = eng.encode_rows(km, 0, krows)
+    lab = eng.predict(km, 0, kx)
+    card = km.predict_raw(head).cpu().numpy()
+    # a label may differ only where the two centers are equally near
+    kv = eng.view(km, 0)
+    Xe = scorers._expand(kv.meta, kx)
+    cen = kv.arrays["centers_std"]
+    d2 = ((Xe[:, None, :] - cen[None]) ** 2).sum(-1)
+    diff = np.flatnonzero(lab != card)
+    gap = d2[diff, card[diff].astype(int)] - d2[diff, lab[diff].astype(int)]
+    scale = (Xe[diff] ** 2).sum(1) + (cen ** 2).sum(1).max()
+    not_tie = int((np.abs(gap) > 1e-5 * scale).sum())
+    k_stats = eng.stats()
+    eng.evict(m.model_id, 1)
+    left = eng.buckets_for(m.model_id, 1)
+    emit(dict(phase="engine", model=m.model_id, requests=REQUESTS,
+              rows=nrows, warm_buckets=list(WARM_BUCKETS), warm_s=warm_s,
+              encode_ms_p50=float(np.percentile(enc, 50)) * 1e3,
+              encode_ms_p99=float(np.percentile(enc, 99)) * 1e3,
+              buckets=buckets, mismatched_requests=mism,
+              device_ops_one_request=dev_ops, rows_one_request=len(reqs[0]),
+              stats=stats, kmeans_fallback_batches=k_stats[
+                  "fallback_batches"],
+              kmeans_label_agreement=float(np.mean(lab == card)),
+              kmeans_differences_not_ties=not_tie,
+              buckets_after_evict=left))
+    if mism or stats["device_batches"] != REQUESTS or \
+            stats["fallback_batches"] != 0:
+        raise AssertionError(f"20d: {mism} answers differ from "
+                             f"predict_raw_array; stats {stats}")
+    if k_stats["fallback_batches"] != 1 or lab.shape != (100,) or \
+            not np.isfinite(lab).all() or not_tie or left:
+        raise AssertionError(f"20d: KMeans host scoring {k_stats}, "
+                             f"{not_tie} labels differ from the card's "
+                             f"outside ties, buckets after evict {left}")
+
+
+def phase_slice12(fr: Frame, m_def, m_drf, paths) -> None:
+    """20: MOJO write and read, the array fast path, Generic and the
+    engine over models earlier phases trained (and 20d's deployment);
+    neither histogram kernel runs."""
+    m_cat, fc = serving_model(paths)
+    hk.reset_launches()
+    t0 = time.perf_counter()
+    head = fr.slice_rows(slice(0, HOST_ROWS))
+    with tempfile.TemporaryDirectory(prefix="h2o_mojo_") as d:
+        path, host = phase_mojo(m_def, head, d)
+        phase_fast_path(fr, head, {"gbm": m_def, "drf": m_drf,
+                                   "xgboost": KEEP["xgboost"],
+                                   "glm": KEEP["glm"]}, host["npz"])
+        phase_generic(path, head, host["genmodel"], m_cat, fc, d)
+    phase_engine(m_cat, fc, KEEP["kmeans"], fr)
+    got = hist_launches()
+    paths["serving"] = got
+    no_hist("phase 20", got)
+    emit(dict(phase="phase20_walls", total_s=time.perf_counter() - t0))
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # -- 0 device ------------------------------------------------------------
@@ -3625,6 +4010,9 @@ def main() -> None:
     # -- 19 IsotonicRegression .. Grep ----------------------------------------
     torch.cuda.empty_cache()
     phase_slice11(X, y, fr, paths)
+    # -- 20 MOJO, the array fast path, Generic, ScoringEngine -----------------
+    torch.cuda.empty_cache()
+    phase_slice12(fr, m_def, m_drf, paths)
     emit(dict(phase="launches", paths={k: dict(k1=v[0], k2=v[1])
                                        for k, v in paths.items()}))
     sync()

@@ -23,8 +23,9 @@ given as a key, are refused until P13 brings the DKV).  Scoring runs
 every base model, then the metalearner on their predictions, on the
 model's device.  The honest metrics are the metalearner's on the
 level-one frame: ``cross_validation_metrics`` in CV mode, else
-``validation_metrics`` when no validation frame was given.  The MOJO
-form comes with P10; iteration checkpoints (P14) are refused.
+``validation_metrics`` when no validation frame was given.  The
+genmodel MOJO nests the metalearner's and base models' artifacts
+(``mojo/genmodel.py``); iteration checkpoints (P14) are refused.
 """
 
 from __future__ import annotations

@@ -775,7 +775,6 @@ def glm_from_jax_output(output: Dict, params: Dict,
     out = dict(x=list(output["x"]), family_resolved=fam,
                coef_names=list(output["coef_names"]),
                is_multinomial=fam == "multinomial",
-               is_ordinal=fam == "ordinal",
                expansion_spec=dict(output["expansion_spec"]))
     dom = output.get("response_domain")
     out["response_domain"] = list(dom) if dom is not None else None
@@ -784,10 +783,12 @@ def glm_from_jax_output(output: Dict, params: Dict,
     else:
         out["beta"] = np.array(output["beta"], _F32)
     if fam == "ordinal":
+        out["is_ordinal"] = True
         out["ordinal_thresholds"] = np.array(output["ordinal_thresholds"],
                                              _F32)
     for k in ("default_threshold", "lambda_used", "std_errs", "coef_cov",
-              "dispersion_df"):
+              "dispersion_df", "iterations", "null_deviance",
+              "residual_deviance"):
         if output.get(k) is not None:
             out[k] = output[k]
     out["coefficients_table"] = build_coef_table(out)

@@ -16,7 +16,7 @@ knot spacing of at most ``spacing(eps)`` taking the left value, else
 contracts it to (``ops/xlamath.fma``), so a prediction equals the
 reference's bit for bit.  The metrics are the regression ones
 (``Model.metrics_from_raw``).  Iteration checkpoints (P14) are refused;
-the MOJO form (``IsotonicCalibrator``) comes with P10.
+the MOJO form (``IsotonicCalibrator``) is ``mojo/genmodel.py``'s.
 """
 
 from __future__ import annotations

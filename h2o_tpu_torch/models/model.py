@@ -236,6 +236,42 @@ class Model:
     def model_metrics(self, frame: Frame) -> mm.ModelMetrics:
         return self.metrics_from_raw(self.predict_raw(frame), frame)
 
+    # -- online fast path (serve/engine.py) ---------------------------------
+
+    def predict_raw_array(self, X) -> torch.Tensor:
+        """Predictions on the model's device over a raw (rows,
+        len(output['x'])) matrix of column values in training order
+        (categoricals as domain codes, NAs as NaN) — no Frame, so the
+        serving engine can call it per batch bucket.  Families with a
+        device scoring path override this (GBM/DRF/XGBoost/GLM);
+        ``predict_raw(frame)`` delegates to it where possible."""
+        raise NotImplementedError(
+            f"{self.algo} has no device array-predict fast path")
+
+    def has_device_predict(self) -> bool:
+        """Whether the model's family overrides ``predict_raw_array``
+        (decided by type, so a failure inside a device predict raises
+        instead of moving the model to the host scorer)."""
+        return type(self).predict_raw_array is not Model.predict_raw_array
+
+    def predict_array(self, X: np.ndarray) -> np.ndarray:
+        """Online scoring entry: raw ndarray in, raw predictions out as
+        numpy.  Uses the device fast path when the model family
+        implements one, else the pure-NumPy MOJO scorer over the same
+        flattened artifact arrays."""
+        X = np.asarray(X)
+        if self.has_device_predict():
+            return self.predict_raw_array(torch.as_tensor(
+                X, dtype=torch.float32, device=self.device)).cpu().numpy()
+        from h2o_tpu_torch.mojo import _flatten_arrays, scorers
+        fn = getattr(scorers, f"score_{self.algo}", None)
+        if fn is None:
+            raise NotImplementedError(
+                f"{self.algo} has neither a device predict_raw_array "
+                "nor a standalone numpy scorer")
+        arrays, meta = _flatten_arrays(self.output)
+        return np.asarray(fn(arrays, meta, np.asarray(X, np.float64)))
+
     # -- the tree family's explain options (hex/Model.java scoring
     # flags); binning and staged values on the model's device, TreeSHAP
     # and leaf assignment in the host library (models/tree/contributions)
@@ -443,6 +479,7 @@ _MODEL_CLASSES = {
     "stackedensemble": ("h2o_tpu_torch.models.ensemble",
                         "StackedEnsembleModel"),
     "grep": ("h2o_tpu_torch.models.grep", "GrepModel"),
+    "generic": ("h2o_tpu_torch.models.generic", "GenericModel"),
 }
 
 

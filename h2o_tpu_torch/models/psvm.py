@@ -21,7 +21,8 @@ Class probabilities are a Platt sigmoid of the decision value, its 50
 Newton steps on the host in the reference's numpy float32 arithmetic.
 ``predict_raw`` gives [label (decision >= 0), p0, p1]; the metrics are
 the binomial ones.  ``kernel_type`` is gaussian only; iteration
-checkpoints (P14) are refused; the MOJO form comes with P10.
+checkpoints (P14) are refused; the npz MOJO scores it on the host
+(``mojo/scorers.py`` ``score_psvm``).
 """
 
 from __future__ import annotations
@@ -136,6 +137,8 @@ def psvm_from_jax_output(output: Dict, params: Dict,
                response_domain=list(output["response_domain"]),
                svs_count=int(output["svs_count"]),
                expansion_spec=dict(output["expansion_spec"]))
+    if output.get("warnings"):
+        out["warnings"] = list(output["warnings"])
     return PSVMModel(dict(params), out, cloud(device))
 
 

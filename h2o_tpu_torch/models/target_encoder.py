@@ -23,8 +23,8 @@ reference's numpy dtypes: the small (fold, level) tables of means and
 blending weights are computed on the host in float32, exactly its
 expressions, and gathered per row on the model's device; LeaveOneOut's
 per-row means are float64 there, as numpy promotes them; the noise is
-added in float64 and the column cast to float32.  The MOJO form comes
-with P10; iteration checkpoints (P14) are refused.
+added in float64 and the column cast to float32.  The MOJO form is
+``mojo/genmodel.py``'s; iteration checkpoints (P14) are refused.
 """
 
 from __future__ import annotations

@@ -10,10 +10,13 @@ build the port's model, which scores the same forest on the port's
 device: dense-heap forests and sparse-frontier forests with their
 ``child`` pointers, one tree or K class trees an iteration, and
 XGBoost's gbtree and dart forests (dart's trees carry their rescaled
-values).  A converted GBM or DRF carries what a checkpoint needs (tree
-count, f0, split points, fine grid, node arrays and importance) and the
-per-node gains and covers (``node_gain``, ``node_w``), so it can be
-given to the port's builder as ``checkpoint`` and trained on.  An
+values).  Every converted forest carries the categorical predictors'
+training ``domains``, which the MOJO writers, the POJO and the serving
+engine's row encoder read.  A converted GBM or DRF carries what a
+checkpoint needs (tree count, f0, split points, fine grid, node arrays
+and importance) and the per-node gains and covers (``node_gain``,
+``node_w``), so it can be given to the port's builder as
+``checkpoint`` and trained on.  An
 XGBoost gblinear model is a GLM and goes through
 ``models.glm.glm_from_jax_output``.
 """
@@ -44,6 +47,9 @@ _ARRAYS = ("split_points", "is_cat", "split_col", "bitset", "value",
 #: carried when the reference's output has them (its models made before
 #: the per-node gain and cover arrays lack them)
 _OPTIONAL = ("varimp", "node_gain", "node_w")
+#: carried only where the reference's output holds them, so a carried
+#: model's artifact metadata holds the reference's keys
+_IF_PRESENT = ("effective_max_depth", "custom_link")
 
 
 def _port_output(output: Dict[str, Any], keys: Tuple[str, ...],
@@ -54,6 +60,7 @@ def _port_output(output: Dict[str, Any], keys: Tuple[str, ...],
     out = {k: output[k] for k in keys}
     for k in _OPTIONAL:
         out[k] = output.get(k)
+    out.update((k, output[k]) for k in _IF_PRESENT if k in output)
     for k in _ARRAYS:
         if out.get(k) is not None:
             out[k] = np.asarray(out[k])
@@ -64,7 +71,14 @@ def _port_output(output: Dict[str, Any], keys: Tuple[str, ...],
     out["ntrees_actual"] = int(out["ntrees_actual"])
     dom = out["response_domain"]
     out["response_domain"] = list(dom) if dom is not None else None
+    out["domains"] = _domains(output)
     return out
+
+
+def _domains(output: Dict[str, Any]) -> Dict[str, list]:
+    """The training domains of the categorical predictors, which the
+    MOJO writers, the POJO and the serving engine's row encoder read."""
+    return {c: list(d) for c, d in (output.get("domains") or {}).items()}
 
 
 def _boosted(cls, what: str, output: Dict[str, Any],
@@ -120,7 +134,7 @@ def _host_output(output: Dict[str, Any], keys: Tuple[str, ...],
     for k in arrays:
         out[k] = np.asarray(out[k])
     out["x"] = list(out["x"])
-    out["domains"] = dict(output.get("domains") or {})
+    out["domains"] = _domains(output)
     return out
 
 

@@ -56,9 +56,12 @@ def raw_from_votes(F: torch.Tensor, ntrees: int, dom: Optional[List[str]],
 class DRFModel(Model):
     algo = "drf"
 
-    def predict_raw(self, frame: Frame) -> torch.Tensor:
+    def predict_raw_array(self, X) -> torch.Tensor:
+        """Online fast path (serve/engine.py): a raw (rows, len(x))
+        column matrix in ``output['x']`` order, as float32 on the
+        model's device, no Frame."""
         out = self.output
-        m = frame.as_matrix(out["x"], self.device)
+        m = torch.as_tensor(X, dtype=torch.float32, device=self.device)
         bins = st.bin_matrix(m, out["split_points"], out["is_cat"],
                              st.model_fine_na(out))
         return raw_from_votes(st.forest_score_out(bins, out),
@@ -66,6 +69,11 @@ class DRFModel(Model):
                               out.get("response_domain"),
                               threshold=float(out.get("default_threshold",
                                                       0.5)))
+
+    def predict_raw(self, frame: Frame) -> torch.Tensor:
+        # delegates to the array fast path — one scoring implementation
+        return self.predict_raw_array(
+            frame.as_matrix(self.output["x"], self.device))
 
 
 class DRF(ModelBuilder):

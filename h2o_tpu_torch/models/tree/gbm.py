@@ -71,15 +71,25 @@ class GBMModel(Model):
                           device=m.device)
         return st.forest_score_out(bins, out) + f0[None, :]
 
+    def _raw_from_F(self, F: torch.Tensor) -> torch.Tensor:
+        return raw_from_F(F, self.output.get("response_domain"),
+                          self.family(), threshold=float(self.output.get(
+                              "default_threshold", 0.5)))
+
+    def predict_raw_array(self, X) -> torch.Tensor:
+        """Online fast path (serve/engine.py): a raw (rows, len(x))
+        column matrix in ``output['x']`` order (categorical codes, NaN
+        NAs), as float32 on the model's device, no Frame."""
+        return self._raw_from_F(self._forest_F(torch.as_tensor(
+            X, dtype=torch.float32, device=self.device)))
+
     def predict_raw(self, frame: Frame) -> torch.Tensor:
         F = self._forest_F(frame.as_matrix(self.output["x"], self.device))
         off_col = self.params.get("offset_column")
         if off_col and off_col in frame.names:
             F = F + torch.from_numpy(frame.vec(off_col).as_float()).to(
                 F.device)[:, None]
-        return raw_from_F(F, self.output.get("response_domain"),
-                          self.family(), threshold=float(self.output.get(
-                              "default_threshold", 0.5)))
+        return self._raw_from_F(F)
 
 
 class GBM(ModelBuilder):

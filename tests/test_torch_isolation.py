@@ -155,6 +155,7 @@ _BUILDERS = {
     "extendedisolationforest": ("h2o_tpu_torch.models.tree.isofor",
                                 "ExtendedIsolationForest"),
     "upliftdrf": ("h2o_tpu_torch.models.tree.uplift", "UpliftDRF"),
+    "generic": ("h2o_tpu_torch.models.generic", "Generic"),
 }
 
 
@@ -171,6 +172,49 @@ def test_every_builder_and_converter_takes_the_card(algo, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cls()
-    conv = getattr(convert, f"{algo}_from_jax_output")
+    if algo == "generic":
+        # a Generic model's "converter" is from_mojo, behind import_mojo
+        from h2o_tpu_torch.models.generic import GenericModel
+        from h2o_tpu_torch.mojo import MojoModel
+
+        def conv(out, params):
+            return GenericModel.from_mojo(MojoModel("gbm", params, out, {}))
+    else:
+        conv = getattr(convert, f"{algo}_from_jax_output")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         conv({}, {})
+
+
+def test_mojo_generic_and_engine_take_the_card(monkeypatch, tmp_path):
+    """import_mojo lands on the card unless told otherwise; the engine
+    keeps no device of its own and scores on its model's."""
+    import numpy as np
+    from h2o_tpu_torch.core.frame import T_CAT, Frame, Vec
+    from h2o_tpu_torch.models.tree.gbm import GBM
+    from h2o_tpu_torch.mojo import export_mojo, import_mojo
+    from h2o_tpu_torch.serve import ScoringEngine
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=200).astype(np.float32)
+    fr = Frame(["x", "y"], [Vec(x), Vec((x > 0).astype(np.int32), T_CAT,
+                                        domain=["a", "b"])])
+    m = GBM(device="cpu", ntrees=1, max_depth=2).train(y="y",
+                                                       training_frame=fr)
+    path = export_mojo(m, str(tmp_path / "m.zip"))
+    assert import_mojo(path, device="cpu").device == torch.device("cpu")
+    seen = []
+
+    class _OnMeta:
+        algo, model_id, params = "gbm", "meta_model", m.params
+        output, device = m.output, torch.device("meta")
+
+        def predict_raw_array(self, X):
+            seen.append(X.device)
+            return torch.zeros((X.shape[0], 3))
+
+    monkeypatch.setattr(ScoringEngine, "has_device_predict",
+                        staticmethod(lambda model: True))
+    ScoringEngine().predict(_OnMeta(), 0, np.zeros((3, 1)))
+    assert seen == [torch.device("meta")]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        import_mojo(path)

@@ -5,7 +5,7 @@ For each of GBM, DRF, XGBoost, DT, IsolationForest,
 ExtendedIsolationForest, UpliftDRF, GLM, KMeans, DeepLearning, GAM,
 RuleFit, PCA, SVD, GLRM, Word2Vec, NaiveBayes, CoxPH,
 IsotonicRegression, Aggregator, TargetEncoder, ModelSelection,
-AnovaGLM, PSVM, Infogram, StackedEnsemble and Grep the port's
+AnovaGLM, PSVM, Infogram, StackedEnsemble, Grep and Generic the port's
 builder is
 constructed with ``h2o_tpu``'s ``default_params()`` passed explicitly
 (nothing may be "unknown", no accepted default may be refused, and every
@@ -14,7 +14,9 @@ trains a small frame with them (the tree builders' ntrees cut to 2,
 RuleFit's rule trees to 4, GAM given one gam column, CoxPH a stop
 column, Word2Vec a token column, IsotonicRegression one predictor,
 TargetEncoder a categorical, StackedEnsemble a cross-validated GLM as
-its base model, Grep a regex over a text column).  Each model of the
+its base model, Grep a regex over a text column, Generic the path of a
+GLM's MOJO: it imports the model, which scores and, like the
+reference's, holds no training metrics).  Each model of the
 nine builders from IsotonicRegression on trained so round-trips through
 ``Model.save``/``load`` (the StackedEnsemble onto ``cpu:0``, another
 device than the ``cpu`` it was saved from, base models and metalearner
@@ -58,6 +60,7 @@ from h2o_tpu.models.word2vec import Word2Vec as JW2V
 from h2o_tpu.models.aggregator import Aggregator as JAgg
 from h2o_tpu.models.anovaglm import AnovaGLM as JAnova
 from h2o_tpu.models.ensemble import StackedEnsemble as JSE
+from h2o_tpu.models.generic import Generic as JGeneric
 from h2o_tpu.models.grep import Grep as JGrep
 from h2o_tpu.models.infogram import Infogram as JInfogram
 from h2o_tpu.models.isotonic import IsotonicRegression as JIso
@@ -87,6 +90,7 @@ from h2o_tpu_torch.models.word2vec import Word2Vec
 from h2o_tpu_torch.models.aggregator import Aggregator
 from h2o_tpu_torch.models.anovaglm import AnovaGLM
 from h2o_tpu_torch.models.ensemble import StackedEnsemble
+from h2o_tpu_torch.models.generic import Generic
 from h2o_tpu_torch.models.grep import Grep
 from h2o_tpu_torch.models.infogram import Infogram
 from h2o_tpu_torch.models.isotonic import IsotonicRegression
@@ -110,7 +114,8 @@ PAIRS = {"gbm": (JGBM, GBM), "drf": (JDRF, DRF), "xgboost": (JXGB, XGBoost),
          "modelselection": (JMS, ModelSelection),
          "anovaglm": (JAnova, AnovaGLM),
          "psvm": (JPSVM, PSVM), "infogram": (JInfogram, Infogram),
-         "stackedensemble": (JSE, StackedEnsemble), "grep": (JGrep, Grep)}
+         "stackedensemble": (JSE, StackedEnsemble), "grep": (JGrep, Grep),
+         "generic": (JGeneric, Generic)}
 #: the builders whose default-trained models also round-trip
 SLICE11 = ("isotonicregression", "aggregator", "targetencoder",
            "modelselection", "anovaglm", "psvm", "infogram",
@@ -163,6 +168,15 @@ def _train_defaults(algo):
             device="cpu", family="binomial", nfolds=2, seed=1,
             keep_cross_validation_predictions=True).train(
                 x=["a", "b", "c"], y="y", training_frame=fr)]
+    if algo == "generic":
+        # the artifact is the training input: a GLM's MOJO, read at train
+        import tempfile
+        from h2o_tpu_torch.mojo import export_mojo
+        src = GLM(device="cpu", family="binomial").train(
+            x=["a", "b", "c"], y="y", training_frame=fr)
+        with tempfile.TemporaryDirectory() as d:
+            params["path"] = export_mojo(src, f"{d}/glm.zip")
+            return pcls(device="cpu", **params).train(), fr
     b = pcls(device="cpu", **params)
     if algo in ("word2vec", "grep"):
         fr = Frame(["t"], [Vec(_WORDS, T_STR)])
@@ -188,6 +202,12 @@ def _trained_defaults(algo):
 @pytest.mark.parametrize("algo", sorted(PAIRS))
 def test_reference_defaults_train(algo):
     m, fr = _trained_defaults(algo)
+    if algo == "generic":
+        # an imported model scores; it carries no training metrics, as
+        # the reference's GenericModel does not
+        assert m.output["source_algo"] == "glm"
+        assert m.predict_raw(fr).shape == (fr.nrows, 3)
+        return
     if algo == "glm":
         assert m.params["_solver_resolved"] == "IRLSM"
         assert np.isfinite(m.output["beta"]).all()
