@@ -11,7 +11,9 @@ DeepLearning, GAM and RuleFit, then PCA, SVD, GLRM, Word2Vec,
 NaiveBayes and CoxPH, then IsotonicRegression, Aggregator,
 TargetEncoder, ModelSelection, AnovaGLM, PSVM, Infogram,
 StackedEnsemble and Grep, then the trained models served: MOJO files
-written and read, the array fast path, Generic and ScoringEngine.
+written and read, the array fast path, Generic and ScoringEngine, and
+the serving layers above it: micro-batching, the deployment registry,
+the load breaker and the replica fleet.
 Phases (each
 prints one JSON line; any failure raises and the exit code is not 0):
 
@@ -326,6 +328,40 @@ prints one JSON line; any failure raises and the exit code is not 0):
               labels the card's but where two centers are equally near
               (1e-5 of the squared norms); evict empties the buckets;
               20e the launch counters read 0 over 20a-20d
+ 21 the serving layers above the engine over phase 20's models (the
+              default GBM, the DRF, the covertype deployment), counters
+              set to 0, neither histogram kernel may run:
+              21a the GBM behind ServingConfig(max_batch=32,
+              max_delay_ms=2, queue_cap=256), score_rows from 1, 8 and
+              32 client threads for SERVE_SECONDS each, cycling through
+              SERVE_POOL requests of 1-4 rows drawn by seed from the
+              training frame: requests/s, p50/p99 a request, batches and
+              requests a batch; every answer bitwise the engine on that
+              request's rows alone;
+              21b under 8 clients a hot swap to the DRF, a rollback and
+              an undeploy: every answer bitwise one version's alone, the
+              DRF's only while it was active, none after the undeploy
+              (404s), the evicted versions' buckets empty;
+              21c the DRF deployed, a canary of the GBM at 0.25 (each
+              lane's answers its version's), promoted; a canary made to
+              fail, rolled back
+              automatically while its clients see the stable version; a
+              shadow of the active model, 0 mismatches;
+              21d the breaker CLOSED -> SHEDDING (queue depth held by
+              chaos slow-score) -> OPEN (chaos serve-pressure, seed 21)
+              -> HALF_OPEN (cooldown) -> CLOSED (three probes), every
+              refusal ShedLoad or BreakerOpen with retry_after_s > 0;
+              deadlines of 100 ms expiring as TimeoutError under a
+              300 ms slow-score; QueueFull at a cap of 2;
+              21e a fleet of two replicas serving the covertype
+              deployment (level strings): converged; one replica dies
+              unannounced mid-traffic, then is killed: every request
+              answered bitwise, at most one retry each; all killed:
+              NoHealthyReplica;
+              21f an adaptive deployment under 12 clients: every retune
+              a power of two within [serve_min_batch, serve_max_batch];
+              the engine's host-scorer count stays 0 and no deployment
+              is left
   7 profile - torch.profiler over 2 default trees: device busy share and
               the kernels that take the device time; then 2 QuantilesGlobal
               trees: each histogram kernel's device ms per main-path launch
@@ -335,13 +371,14 @@ prints one JSON line; any failure raises and the exit code is not 0):
               iteration (7 class trees) and one UpliftDRF tree
 
 The kernels line's launches sum every main-path training above (phases
-4, 5, 8-20), each read from counters set to 0 just before it; the
+4, 5, 8-21), each read from counters set to 0 just before it; the
 launches phase lists them path by path (phase 16 as "glm", 0 and 0;
 phase 17's KMeans, DeepLearning and GAM paths 0 and 0, "rulefit" 150
 and 0; phase 18's PCA, SVD, GLRM, Word2Vec, NaiveBayes and CoxPH runs 0
 and 0; phase 19's "infogram" 0 and 940, "stackedensemble_bases" 0 and
 600, its other runs 0 and 0; phase 20's deployment
-"gbm_covertype_categorical" 0 and 100, "serving" 0 and 0).
+"gbm_covertype_categorical" 0 and 100, "serving" 0 and 0; phase 21's
+"serving_layers" 0 and 0).
 
 The line before the last holds every kernel's numbers; the last line is
 the device summary.  Needs one CUDA card; exits non-zero without one.
@@ -354,6 +391,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 
@@ -418,7 +456,12 @@ from h2o_tpu_torch.models.word2vec import Word2Vec  # noqa: E402
 from h2o_tpu_torch.mojo import (MojoModel, _flatten_arrays,  # noqa: E402
                                 export_genmodel_mojo, export_mojo,
                                 import_mojo, load_mojo, scorers)
-from h2o_tpu_torch.serve import ScoringEngine  # noqa: E402
+from h2o_tpu_torch.core import chaos as chaos_mod  # noqa: E402
+from h2o_tpu_torch.core.diag import TimeLine  # noqa: E402
+from h2o_tpu_torch.serve import (BreakerOpen, NoHealthyReplica,  # noqa: E402
+                                 QueueFull, ScoringEngine, ServingConfig,
+                                 ShedLoad, breaker, fleet, registry)
+from h2o_tpu_torch.serve.replica import reset_fleet  # noqa: E402
 from h2o_tpu_torch.ops import hist_kernels as hk  # noqa: E402
 from h2o_tpu_torch.ops import prng  # noqa: E402
 from h2o_tpu_torch.ops.histogram import hist_plain  # noqa: E402
@@ -2765,6 +2808,12 @@ def phase_coxph(X, paths) -> None:
         def grad_hessian():         # forward, gradient, batched Hessian
             return rs.state(o["coef"])
         h_ms = time_ms(grad_hessian, n=3, warm=1)
+        # the Newton state at one beta is the same at every call (the
+        # float32 stop test and the steps follow its last places)
+        reps = [grad_hessian() for _ in range(3)]
+        state_repeats = all(r[0] == reps[0][0] and
+                            np.array_equal(r[1], reps[0][1]) and
+                            np.array_equal(r[2], reps[0][2]) for r in reps)
         emit(dict(phase=f"coxph_{ties}", rows=R, cols=C, wall_s=wall,
                   iterations=o["iterations"],
                   ms_per_iteration=wall / o["iterations"] * 1e3,
@@ -2774,7 +2823,11 @@ def phase_coxph(X, paths) -> None:
                   censored_share=1 - o["n_events"] / R,
                   distinct_times=int(len(np.unique(t_))),
                   loglik=o["loglik"], null_loglik=o["null_loglik"],
-                  concordance=o["concordance"]))
+                  concordance=o["concordance"],
+                  state_bitwise_over_3_calls=state_repeats))
+        if not state_repeats:
+            raise AssertionError(f"CoxPH {ties}: the Newton state at one "
+                                 "beta differs between calls")
         if not np.isfinite(o["coef"]).all() or \
                 not o["loglik"] > o["null_loglik"] or \
                 not 0.5 < o["concordance"] <= 1.0:
@@ -3769,10 +3822,11 @@ def phase_engine(m, fc: Frame, km, fr: Frame) -> None:
                              f"outside ties, buckets after evict {left}")
 
 
-def phase_slice12(fr: Frame, m_def, m_drf, paths) -> None:
+def phase_slice12(fr: Frame, m_def, m_drf, paths) -> tuple:
     """20: MOJO write and read, the array fast path, Generic and the
     engine over models earlier phases trained (and 20d's deployment);
-    neither histogram kernel runs."""
+    neither histogram kernel runs.  Returns the deployment and its
+    frame for phase 21."""
     m_cat, fc = serving_model(paths)
     hk.reset_launches()
     t0 = time.perf_counter()
@@ -3788,6 +3842,496 @@ def phase_slice12(fr: Frame, m_def, m_drf, paths) -> None:
     paths["serving"] = got
     no_hist("phase 20", got)
     emit(dict(phase="phase20_walls", total_s=time.perf_counter() - t0))
+    return m_cat, fc
+
+
+# ---------------------------------------------------------------------------
+# 21 the serving layers above the engine
+# ---------------------------------------------------------------------------
+
+#: 21a: distinct requests in the pool the clients cycle through (each one's
+#: answer alone is computed once), client counts, seconds of traffic each
+SERVE_POOL, SERVE_CLIENTS, SERVE_SECONDS = 128, (1, 8, 32), 3.0
+#: 21b-c: requests of the pool the lifecycle, canary and shadow runs use
+LIFE_POOL = 32
+#: 21e: the covertype deployment's pool for the fleet
+FLEET_POOL = 48
+
+
+def pool_rows(fr: Frame, x, n: int, seed: int) -> list:
+    """``n`` requests of 1-4 JSON-like rows drawn by seed from ``fr``:
+    numbers as floats, categoricals as their level strings."""
+    rng = np.random.default_rng(seed)
+    vals = {c: fr.vec(c).data for c in x}
+    doms = {c: fr.vec(c).domain for c in x if fr.vec(c).is_categorical}
+    reqs = []
+    for k in rng.integers(1, 5, size=n):
+        rows = []
+        for r in rng.integers(0, fr.nrows, size=k):
+            rows.append({c: (doms[c][vals[c][r]] if c in doms
+                             else float(vals[c][r])) for c in x})
+        reqs.append(rows)
+    return reqs
+
+
+def alone(eng, m, version: int, pool: list) -> tuple:
+    """Each request of ``pool`` scored by the engine on its rows alone,
+    and the wall of one such call (ms, median)."""
+    out, ms = [], []
+    for rows in pool:
+        t0 = time.perf_counter()
+        out.append(eng.predict(m, version, eng.encode_rows(m, version,
+                                                             rows)))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return out, float(np.median(ms))
+
+
+def drive(score, pool: list, clients: int, seconds: float,
+          at=()) -> tuple:
+    """``clients`` threads call ``score(rows)`` over ``pool`` for
+    ``seconds``; ``at`` holds (second, name, action) triples the calling
+    thread runs meanwhile.  A client whose alias is gone (``KeyError``)
+    stops.  Returns (request index, answer and version or the exception,
+    start, end) for every request, and the actions' times."""
+    box = {}
+    res = [[] for _ in range(clients)]
+    barrier = threading.Barrier(clients + 1, timeout=60)
+
+    def client(tid):
+        barrier.wait()
+        i = tid
+        while time.perf_counter() < box["end"]:
+            k = i % len(pool)
+            t0 = time.perf_counter()
+            try:
+                got = score(pool[k])
+            except Exception as e:  # noqa: BLE001 — classified by the caller
+                got = e
+            res[tid].append((k, got, t0, time.perf_counter()))
+            if isinstance(got, KeyError):
+                return
+            i += clients
+
+    threads = [threading.Thread(target=client, args=(t,), daemon=True)
+               for t in range(clients)]
+    for t in threads:
+        t.start()
+    t_start = time.perf_counter()
+    box["end"] = t_start + seconds
+    barrier.wait()
+    marks = {}
+    for sec, name, fn in at:
+        time.sleep(max(0.0, t_start + sec - time.perf_counter()))
+        t0 = time.perf_counter()
+        fn()
+        marks[name] = (t0, time.perf_counter())
+    for t in threads:
+        t.join(seconds + 120)
+        if t.is_alive():
+            raise AssertionError("21: a client thread did not finish")
+    return [r for per in res for r in per], marks
+
+
+def traffic_stats(res: list, dep, b0: int) -> dict:
+    lat = [(t1 - t0) * 1e3 for _k, _g, t0, t1 in res]
+    wall = max(t1 for *_x, t1 in res) - min(t0 for _k, _g, t0, _t in res)
+    batches = dep.stats.batches - b0
+    return dict(requests=len(res), requests_per_s=len(res) / wall,
+                p50_ms=float(np.percentile(lat, 50)),
+                p99_ms=float(np.percentile(lat, 99)), batches=batches,
+                mean_requests_per_batch=len(res) / max(batches, 1))
+
+
+def phase_batched(reg, m, fr: Frame) -> tuple:
+    """21a: the default GBM behind ``ServingConfig(max_batch=32,
+    max_delay_ms=2, queue_cap=256)``, driven from 1, 8 and 32 client
+    threads; every answer bitwise the engine on that request alone."""
+    reg.deploy("higgs", m, ServingConfig(max_batch=32, max_delay_ms=2,
+                                         queue_cap=256))
+    dep = reg.get("higgs")
+    x = list(m.output["x"])
+    pool = pool_rows(fr, x, SERVE_POOL, seed=21)
+    want, call_ms = alone(reg.engine, m, 1, pool)
+    runs = {}
+    for n in SERVE_CLIENTS:
+        b0 = dep.stats.batches
+        res, _ = drive(lambda rows: reg.score_rows("higgs", rows), pool, n,
+                       SERVE_SECONDS)
+        bad = [repr(g) for _k, g, *_t in res if isinstance(g, Exception)]
+        mism = sum(not bits_equal(g[0], want[k]) or g[1].version != 1
+                   for k, g, *_t in res if not isinstance(g, Exception))
+        runs[str(n)] = dict(traffic_stats(res, dep, b0), errors=len(bad),
+                            mismatched=mism)
+        if bad or mism:
+            raise AssertionError(f"21a: {n} clients, {len(bad)} errors "
+                                 f"({bad[:3]}), {mism} answers differ "
+                                 "from the engine alone")
+    emit(dict(phase="serve_batched", model=m.model_id, pool=SERVE_POOL,
+              rows=sum(len(r) for r in pool), engine_call_ms_p50=call_ms,
+              seconds=SERVE_SECONDS, clients=runs,
+              speedup_32_vs_1=runs["32"]["requests_per_s"] /
+              runs["1"]["requests_per_s"],
+              stats={k: v for k, v in reg.describe(dep)["stats"].items()}))
+    return pool, want
+
+
+def phase_lifecycle(reg, m, m_drf, pool, want) -> tuple:
+    """21b: hot swap to the DRF under load, roll back, undeploy while the
+    clients run; every answer is the engine's alone on one of the two
+    versions, the swapped-in version's only while it was active, and
+    nothing is answered after the undeploy."""
+    pool = pool[:LIFE_POOL]
+    want_drf, drf_ms = alone(reg.engine, m_drf, 2, pool)
+    cfg = reg.get("higgs").config
+
+    res, marks = drive(
+        lambda rows: reg.score_rows("higgs", rows), pool, 8, 3.0,
+        at=((0.5, "swap", lambda: reg.deploy("higgs", m_drf, cfg)),
+            (1.3, "rollback", lambda: reg.rollback("higgs")),
+            (2.1, "undeploy", lambda: reg.undeploy("higgs"))))
+    drf_buckets = reg.engine.buckets_for(m_drf.model_id, 2)
+    gbm_buckets = reg.engine.buckets_for(m.model_id, 1)
+    counts = {"v1": 0, "v2": 0, "gone": 0}
+    bad = []
+    for k, g, t0, t1 in res:
+        if isinstance(g, KeyError):
+            counts["gone"] += 1
+            if t1 < marks["undeploy"][0]:
+                bad.append(("404 before the undeploy", k))
+            continue
+        if isinstance(g, Exception):
+            bad.append(("error", repr(g)))
+            continue
+        if t0 > marks["undeploy"][1]:
+            bad.append(("answered after the undeploy", k))
+        if bits_equal(g[0], want[k]):
+            counts["v1"] += 1
+        elif bits_equal(g[0], want_drf[k]):
+            counts["v2"] += 1
+            if t1 < marks["swap"][0] or t0 > marks["rollback"][1]:
+                bad.append(("DRF answer outside its window", k))
+        else:
+            bad.append(("answer of neither version", k))
+    emit(dict(phase="serve_lifecycle", requests=len(res), **counts,
+              drf_engine_call_ms_p50=drf_ms,
+              marks_s={n: [a - res[0][2], b - res[0][2]]
+                       for n, (a, b) in marks.items()},
+              drf_buckets_after_rollback=drf_buckets,
+              gbm_buckets_after_undeploy=gbm_buckets, violations=bad[:5]))
+    if bad or drf_buckets or gbm_buckets or not counts["v2"] or \
+            not counts["gone"] or reg.get("higgs") is not None:
+        raise AssertionError(f"21b: {bad[:5]}, counts {counts}, buckets "
+                             f"{drf_buckets} / {gbm_buckets}")
+    return pool, want_drf
+
+
+def phase_canary_shadow(reg, m, m_drf, pool, want, want_drf) -> None:
+    """21c: the DRF deployed, a canary of the GBM at 0.25 under load,
+    promoted; a canary made to fail, rolled back automatically while its
+    clients see the stable version; a shadow of the active model with 0
+    mismatches.  The canary is the faster model: a DRF call takes ~2.3x
+    a GBM call, and a canary whose p99 passes 2x the primary's is rolled
+    back by the registry's own rule (a DRF canary over the GBM was, in
+    some runs), which would leave nothing to promote."""
+    reg.deploy("higgs", m_drf, ServingConfig(max_batch=32, max_delay_ms=2,
+                                             queue_cap=256))
+    reg.set_canary("higgs", m, fraction=0.25)
+    dep = reg.get("higgs")
+    res, _ = drive(lambda rows: reg.score_rows("higgs", rows), pool, 8, 1.5)
+    lanes, bad = {1: 0, 2: 0}, []
+    for k, g, *_t in res:
+        if isinstance(g, Exception):
+            bad.append(repr(g))
+            continue
+        lanes[g[1].version] += 1
+        if not bits_equal(g[0], (want_drf if g[1].version == 1
+                                 else want)[k]):
+            bad.append(("wrong answer", k, g[1].version))
+    canary_share = lanes[2] / max(1, len(res))
+    reg.promote_canary("higgs")
+    out, ver = reg.score_rows("higgs", pool[0])
+    promoted = ver.version == 2 and bits_equal(out, want[0])
+    # a canary that fails on every batch it scores
+    reg.set_canary("higgs", m_drf, fraction=0.5)
+    bad_version = dep.canary.version
+    orig = reg.engine.predict
+
+    def failing(model, version, X):
+        if version == bad_version:
+            raise RuntimeError("canary made to fail")
+        return orig(model, version, X)
+    reg.engine.predict = failing
+    seen = []
+    try:
+        for i in range(60):
+            out, ver = reg.score_rows("higgs", pool[i % len(pool)])
+            seen.append(ver.version == 2 and bits_equal(
+                out, want[i % len(pool)]))
+            if dep.canary is None:
+                break
+    finally:
+        reg.engine.predict = orig
+    rolled = dict(rollbacks=dep.canary_rollbacks,
+                  fallbacks=dep.canary_fallbacks, requests=len(seen))
+    # a shadow of the active GBM: compared, never returned
+    reg.set_shadow("higgs", m)
+    sres, _ = drive(lambda rows: reg.score_rows("higgs", rows), pool, 2, 0.5)
+    t_end = time.perf_counter() + 60
+    while time.perf_counter() < t_end:
+        sh = reg.describe(dep)["shadow"]
+        if sh["compared"] + sh["errors"] + sh["dropped"] >= len(sres):
+            break
+        time.sleep(0.01)
+    sh = reg.describe(dep)["shadow"]
+    s_bad = sum(isinstance(g, Exception) or not bits_equal(g[0], want[k])
+                for k, g, *_t in sres)
+    reg.undeploy("higgs")
+    emit(dict(phase="serve_canary_shadow", requests=len(res),
+              lanes=lanes, canary_share=canary_share, promoted=promoted,
+              failing_canary=rolled, shadow=sh,
+              shadow_requests=len(sres), errors=bad[:5]))
+    if bad or not 0.15 < canary_share < 0.35 or not promoted or \
+            rolled["rollbacks"] != 1 or rolled["fallbacks"] < 5 or \
+            not all(seen) or sh["mismatches"] or sh["errors"] or \
+            not sh["compared"] or s_bad:
+        raise AssertionError(f"21c: errors {bad[:5]}, share "
+                             f"{canary_share}, promoted {promoted}, "
+                             f"failing canary {rolled}, shadow {sh}, "
+                             f"{s_bad} shadowed answers off")
+
+
+def _concurrently(fn, n: int) -> tuple:
+    """``n`` threads call ``fn()`` once each; their outcomes."""
+    out = [None] * n
+
+    def run(i):
+        try:
+            out[i] = fn()
+        except Exception as e:  # noqa: BLE001 — classified by the caller
+            out[i] = e
+    threads = [threading.Thread(target=run, args=(i,), daemon=True)
+               for i in range(n)]
+    for t in threads:
+        t.start()
+    return threads, out
+
+
+def _join(threads) -> None:
+    for t in threads:
+        t.join(60)
+        if t.is_alive():
+            raise AssertionError("21d: a request thread did not finish")
+
+
+def phase_protection(reg, m, pool) -> None:
+    """21d: the breaker's whole cycle (queue pressure held by chaos
+    slow-score enters SHEDDING, chaos serve-pressure trips OPEN, the
+    cooldown opens HALF_OPEN, three probes close it), deadlines expiring
+    as ``TimeoutError`` under slow-score, and ``QueueFull``."""
+    saved = {k: os.environ.get(k) for k in ("H2O_TPU_BREAKER_INTERVAL_MS",
+                                            "H2O_TPU_BREAKER_OPEN_SECS")}
+    os.environ["H2O_TPU_BREAKER_INTERVAL_MS"] = "0"
+    os.environ["H2O_TPU_BREAKER_OPEN_SECS"] = "0.25"
+    try:
+        reg.deploy("guard", m, ServingConfig(max_batch=1, max_delay_ms=0,
+                                             queue_cap=20))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    dep = reg.get("guard")
+    breaker.reset_totals()
+    chaos_mod.configure(score_slow_p=1.0, score_slow_ms=150, seed=21)
+    threads, held = _concurrently(
+        lambda: reg.score_rows("guard", pool[1]), 19)
+    t_end = time.perf_counter() + 20
+    while dep.batcher.pending < 17 and time.perf_counter() < t_end:
+        time.sleep(0.002)
+    state_queued = dep.breaker.state
+    chaos_mod.configure(score_slow_p=1.0, score_slow_ms=150,
+                        serve_pressure_p=1.0, seed=21)
+    refusals = []
+    try:
+        reg.score_rows("guard", pool[2])
+    except (ShedLoad, BreakerOpen) as e:
+        refusals.append(e)
+    state_injected = dep.breaker.state
+    injected = chaos_mod.chaos().counters()
+    chaos_mod.reset()
+    _join(threads)
+    time.sleep(0.3)                           # the cooldown
+    probes = []
+    for i in range(3):
+        out, _ver = reg.score_rows("guard", pool[i])
+        probes.append(dep.breaker.state)
+    refusals += [o for o in held if isinstance(o, (ShedLoad, BreakerOpen))]
+    other = [repr(o) for o in held if isinstance(o, Exception) and
+             not isinstance(o, (ShedLoad, BreakerOpen))]
+    edges = [(e["from"], e["to"]) for e in dep.breaker.stats()["events"]]
+    want_edges = [("closed", "shedding"), ("shedding", "open"),
+                  ("open", "half_open"), ("half_open", "closed")]
+    b_stats = dep.breaker.stats()
+    reg.undeploy("guard")
+
+    # deadlines: slow-score holds the worker past each request's 100 ms
+    reg.deploy("slow", m, ServingConfig(max_batch=1, max_delay_ms=0,
+                                        queue_cap=16, deadline_ms=100,
+                                        breaker_enabled=False))
+    chaos_mod.configure(score_slow_p=1.0, score_slow_ms=300, seed=22)
+    threads, late = _concurrently(
+        lambda: reg.score_rows("slow", pool[3]), 4)
+    _join(threads)
+    slow_counts = chaos_mod.chaos().counters()["injected_slow_scores"]
+    chaos_mod.reset()
+    expired = reg.get("slow").stats.snapshot()["deadline_expired_count"]
+    reg.undeploy("slow")
+
+    # a full queue
+    reg.deploy("full", m, ServingConfig(max_batch=1, max_delay_ms=0,
+                                        queue_cap=2,
+                                        breaker_enabled=False))
+    chaos_mod.configure(score_slow_p=1.0, score_slow_ms=200, seed=23)
+    threads, fulls = _concurrently(
+        lambda: reg.score_rows("full", pool[4]), 8)
+    _join(threads)
+    chaos_mod.reset()
+    rejected = reg.get("full").stats.snapshot()["reject_count"]
+    reg.undeploy("full")
+    n_full = sum(isinstance(o, QueueFull) for o in fulls)
+    n_ok = sum(isinstance(o, tuple) for o in fulls)
+    emit(dict(phase="serve_protection", state_with_queue=state_queued,
+              state_injected=state_injected, probe_states=probes,
+              breaker_edges=edges, breaker_totals=breaker.totals(),
+              refusals={"ShedLoad": sum(isinstance(e, ShedLoad)
+                                        for e in refusals),
+                        "BreakerOpen": sum(isinstance(e, BreakerOpen)
+                                           for e in refusals)},
+              min_retry_after_s=min((e.retry_after_s for e in refusals),
+                                    default=None),
+              injected_serve_pressure=injected["injected_serve_pressure"],
+              breaker=dict(trips=b_stats["trips"], sheds=b_stats["sheds"]),
+              deadline=dict(requests=len(late),
+                            timeouts=sum(isinstance(o, TimeoutError)
+                                         for o in late),
+                            expired_count=expired,
+                            injected_slow_scores=slow_counts),
+              queue_full=dict(requests=len(fulls), queue_full=n_full,
+                              answered=n_ok, reject_count=rejected)))
+    it = iter(edges)
+    if not all(e in it for e in want_edges) or other or \
+            state_injected != "open" or probes[-1] != "closed" or \
+            not refusals or any(e.retry_after_s <= 0 for e in refusals):
+        raise AssertionError(f"21d breaker: edges {edges}, other errors "
+                             f"{other[:3]}, refusals {len(refusals)}")
+    if not all(isinstance(o, TimeoutError) for o in late) or expired != 4:
+        raise AssertionError(f"21d deadlines: {late}, expired {expired}")
+    if not n_full or not n_ok or n_full + n_ok != len(fulls) or \
+            rejected != n_full:
+        raise AssertionError(f"21d queue: {fulls}")
+
+
+def phase_fleet(m_cat, fc: Frame) -> None:
+    """21e: two replicas serving the covertype deployment (level strings
+    in the rows); one dies while clients run, unannounced (its batcher
+    stops, its health bit stays up), then is killed: every request
+    answered, bitwise the engine alone, with at most one retry; all
+    killed: ``NoHealthyReplica``."""
+    reset_fleet()
+    fl = fleet(2)
+    fl.deploy("cov", m_cat)
+    converged = fl.converged("cov")
+    pool = pool_rows(fc, list(m_cat.output["x"]), FLEET_POOL, seed=25)
+    want, _ms = alone(fl.engine, m_cat, 1, pool)
+    def die():
+        for dep in fl.replicas[1].registry._deployments.values():
+            dep.batcher.stop(timeout=5.0)
+    res, marks = drive(lambda rows: fl.score_rows("cov", rows), pool, 8,
+                       2.0, at=((0.6, "die", die),
+                                (1.2, "kill", lambda: fl.kill(1))))
+    bad = [repr(g) for _k, g, *_t in res if isinstance(g, Exception)]
+    mism = sum(not bits_equal(g[0], want[k]) for k, g, *_t in res
+               if not isinstance(g, Exception))
+    st = fl.stats()
+    fl.kill(0)
+    try:
+        fl.score_rows("cov", pool[0])
+        none = None
+    except NoHealthyReplica as e:
+        none = e.retry_after_s
+    emit(dict(phase="serve_fleet", replicas=2, converged=converged,
+              requests=len(res), errors=bad[:3], mismatched=mism,
+              retries=st["retries"], redistributed=st["redistributed"],
+              healthy_after_kill=st["healthy"],
+              served=[r["served"] for r in st["members"]],
+              no_healthy_retry_after_s=none))
+    reset_fleet()
+    if not converged or bad or mism or st["healthy"] != 1 or \
+            st["retries"] != st["redistributed"] or \
+            not st["redistributed"] or none is None or \
+            none <= 0 or fleet().records():
+        raise AssertionError(f"21e: converged {converged}, errors {bad}, "
+                             f"{mism} answers off, stats {st}")
+
+
+def phase_tuner(reg, m, pool, want) -> None:
+    """21f: the adaptive tuner under 12 clients: every retune picks a
+    power of two within [serve_min_batch, serve_max_batch]."""
+    from h2o_tpu_torch import config
+    TimeLine.clear()
+    reg.deploy("tune", m, ServingConfig(max_batch=4, max_delay_ms=1,
+                                        queue_cap=16, adaptive=True,
+                                        breaker_enabled=False))
+    dep = reg.get("tune")
+    res, _ = drive(lambda rows: reg.score_rows("tune", rows), pool, 12, 2.0)
+    picks = [e["max_batch"] for e in TimeLine.snapshot()
+             if e["what"] == "batch_retune" and e["deployment"] == "tune"]
+    t = dep.tuner.stats()
+    lo, hi = config.serve_min_batch(), config.serve_max_batch()
+    bad = [repr(g) for _k, g, *_t in res if isinstance(g, Exception)]
+    mism = sum(not bits_equal(g[0], want[k]) for k, g, *_t in res
+               if not isinstance(g, Exception))
+    reg.undeploy("tune")
+    emit(dict(phase="serve_tuner", requests=len(res), picks=picks,
+              tuner=t, bounds=[lo, hi], errors=bad[:3], mismatched=mism))
+    if not picks or t["grows"] < 1 or bad or mism or any(
+            p & (p - 1) or not lo <= p <= hi for p in picks):
+        raise AssertionError(f"21f: picks {picks}, tuner {t}, errors "
+                             f"{bad[:3]}, {mism} answers off")
+
+
+def phase_slice13(fr: Frame, m_def, m_drf, m_cat, fc: Frame, paths) -> None:
+    """21: the serving layers above the engine over phase 20's models;
+    neither histogram kernel runs."""
+    hk.reset_launches()
+    t = [time.perf_counter()]
+    reg = registry()
+    pool, want = phase_batched(reg, m_def, fr)
+    t.append(time.perf_counter())
+    pool_l, want_drf = phase_lifecycle(reg, m_def, m_drf, pool, want)
+    t.append(time.perf_counter())
+    phase_canary_shadow(reg, m_def, m_drf, pool_l, want[:LIFE_POOL],
+                        want_drf)
+    t.append(time.perf_counter())
+    phase_protection(reg, m_def, pool)
+    t.append(time.perf_counter())
+    phase_fleet(m_cat, fc)
+    t.append(time.perf_counter())
+    phase_tuner(reg, m_def, pool, want)
+    t.append(time.perf_counter())
+    got = hist_launches()
+    paths["serving_layers"] = got
+    no_hist("phase 21", got)
+    stats = reg.engine.stats()
+    names = ("batched", "lifecycle", "canary_shadow", "protection", "fleet",
+             "tuner")
+    emit(dict(phase="phase21_walls", total_s=t[-1] - t[0],
+              **{f"{n}_s": b - a for n, a, b in zip(names, t, t[1:])},
+              engine=stats, deployments=[d["name"] for d in reg.list()]))
+    if stats["fallback_batches"] or reg.list():
+        raise AssertionError(f"21: host scorer batches {stats}, "
+                             f"deployments left {reg.list()}")
 
 
 def main() -> None:
@@ -4012,7 +4556,10 @@ def main() -> None:
     phase_slice11(X, y, fr, paths)
     # -- 20 MOJO, the array fast path, Generic, ScoringEngine -----------------
     torch.cuda.empty_cache()
-    phase_slice12(fr, m_def, m_drf, paths)
+    m_cat, fc = phase_slice12(fr, m_def, m_drf, paths)
+    # -- 21 micro-batcher, registry, breaker, fleet -------------------------
+    torch.cuda.empty_cache()
+    phase_slice13(fr, m_def, m_drf, m_cat, fc, paths)
     emit(dict(phase="launches", paths={k: dict(k1=v[0], k2=v[1])
                                        for k, v in paths.items()}))
     sync()

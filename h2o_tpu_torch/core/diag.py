@@ -1,0 +1,45 @@
+"""Diagnostics — the part of ``h2o_tpu/core/diag.py`` the serving layers
+use: :class:`TimeLine` (``diag.py:240-266``), the fixed-size event ring
+of water/TimeLine.java.
+
+The reference module also holds ``DispatchStats`` with its XLA compile
+listener, the water meters, ``jstack``, ``Profiler`` and
+``device_memory``; they come with later slices (ROADMAP P13/P14).
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from typing import Any, Dict, List
+
+MAX_EVENTS = 2048
+
+
+class TimeLine:
+    """Fixed-size event ring (water/TimeLine.java)."""
+
+    _events: deque = deque(maxlen=MAX_EVENTS)
+    _lock = threading.Lock()
+    _enabled = True
+
+    @classmethod
+    def record(cls, kind: str, what: str, **info) -> None:
+        if not cls._enabled:
+            return
+        ev = {"ns": time.time_ns(), "kind": kind, "what": what,
+              "thread": threading.get_ident(), **info}
+        with cls._lock:
+            cls._events.append(ev)
+
+    @classmethod
+    def snapshot(cls) -> List[Dict[str, Any]]:
+        """Consistent copy of the ring (TimelineSnapshot analog)."""
+        with cls._lock:
+            return list(cls._events)
+
+    @classmethod
+    def clear(cls) -> None:
+        with cls._lock:
+            cls._events.clear()

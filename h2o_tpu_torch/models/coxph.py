@@ -14,14 +14,16 @@ start column the rows reordered by descending start and, per tie group, the
 count of rows that have not yet entered. On the model's device: the partial
 log-likelihood over the sorted risk sets — the risk-set sums a prefix sum in
 XLA's blocked order (``ops/xlamath.cumsum``, as ``jnp.cumsum`` computes it on
-the CPU), the per-group sums ``index_add_`` over the groups, Efron's tie terms
-a (groups, max ties) masked sum — and its gradient and Hessian by
-``torch.autograd`` (one backward pass for the gradient, one batched backward
-pass over the P unit vectors for the Hessian).  The Newton step solves the P x
-P system on the host (float32), halving it while the likelihood gets worse (at
-most 20 times); iterations stop when the log-likelihood moves by less than
-10^-lre of its size, after ``max_iterations`` at most.  The covariance is the
-float64 inverse of the final Hessian; the concordance is Harrell's C on the
+the CPU), the per-group sums ``index_add_`` over the groups (on the card
+``index_put_``'s sorted accumulate: row order, the same at every call),
+Efron's tie terms a (groups, max ties) masked sum — and its gradient and
+Hessian by ``torch.autograd`` (one backward pass for the gradient, one
+batched backward pass over the P unit vectors for the Hessian).  The Newton
+step solves the P x P system on the host (float32), halving it while the
+likelihood gets worse (at most 20 times); iterations stop when the
+log-likelihood moves by less than 10^-lre of its size, after
+``max_iterations`` at most.  The covariance is the float64 inverse of the
+final Hessian; the concordance is Harrell's C on the
 host over at most 4,000 rows drawn by ``default_rng(0)``.  Scores are the
 centered linear predictor. Iteration checkpoints (``recovery_dir``, P14) and
 cross-validation are refused.
@@ -73,6 +75,12 @@ class RiskSets:
 
     def segsum(self, v: torch.Tensor) -> torch.Tensor:
         out = torch.zeros(self.n_groups, dtype=v.dtype, device=v.device)
+        if v.is_cuda:
+            # index_add_ on the card adds by atomics in no fixed order, so
+            # the likelihood moved in its last place between calls at one
+            # beta and the float32 stop test followed it; index_put_'s
+            # accumulate sorts the indices and adds each group in row order
+            return out.index_put((self.group,), v, accumulate=True)
         return out.index_add(0, self.group, v)
 
     def neg_loglik(self, beta: torch.Tensor) -> torch.Tensor:

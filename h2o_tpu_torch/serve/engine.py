@@ -29,9 +29,11 @@ What differs from the reference, on purpose:
   version for the numpy scorer), and the out-of-memory ladder halves the
   chunk on ``torch.cuda.OutOfMemoryError`` and re-raises at a chunk of
   one row (the reference's last rung is the host scorer);
-- the executable store's disk layer, the chaos slow-score injector and
-  the membership gate come with P14: ``stats()`` has no
-  ``store_disk_hits``, and ``predict`` has no chaos or mesh-reform hook.
+- the executable store's disk layer and the membership gate come with
+  P14: ``stats()`` has no ``store_disk_hits``, and ``predict`` has no
+  mesh-reform hook.  The chaos slow-score injector sits where the
+  reference's does (``h2o_tpu/serve/engine.py:229``), first in
+  ``predict``.
 
 Row encoding reuses the MOJO view of the model's training schema
 (columns in training order, categorical domain lookup, unseen level /
@@ -41,13 +43,14 @@ scoring agree by construction.
 
 from __future__ import annotations
 
-import threading
 from collections import OrderedDict
 from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from h2o_tpu_torch.core.chaos import chaos
+from h2o_tpu_torch.core.lockwitness import make_rlock, note_device_dispatch
 from h2o_tpu_torch.models.model import Model
 
 
@@ -63,7 +66,7 @@ class ScoringEngine:
     capacity = 256
 
     def __init__(self):
-        self._lock = threading.RLock()
+        self._lock = make_rlock("engine.ScoringEngine._lock")
         # (model_id, version, bucket) keys served, LRU order
         self._entries: "OrderedDict[Tuple[str, int, int], None]" = \
             OrderedDict()
@@ -167,7 +170,10 @@ class ScoringEngine:
         """Score one (already encoded) micro-batch on the model's
         device.  Out of device memory, the batch splits into halved
         chunks (smaller buckets, a recorded degradation) down to one
-        row, where the error is raised."""
+        row, where the error is raised.  The chaos slow-score injector
+        lives here so overload shedding and deadline expiry are
+        testable."""
+        chaos().maybe_slow_score(f"serve:{model.model_id}")
         n = X.shape[0]
         if not self.has_device_predict(model):
             return self._predict_host(model, version, X)
@@ -200,6 +206,7 @@ class ScoringEngine:
         """One predict of X's rows on the model's device, recorded under
         X's bucket."""
         self._touch(model, version, _bucket(X.shape[0]))
+        note_device_dispatch("serve.predict")
         raw = model.predict_raw_array(torch.from_numpy(
             np.asarray(X, np.float32)).to(model.device)).cpu().numpy()
         with self._lock:

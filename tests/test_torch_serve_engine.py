@@ -20,6 +20,7 @@
   ``stats`` report the buckets, the LRU capacity bounds the table;
 - KMeans, with no device predict, is answered by the host scorer and
   counted in ``fallback_batches``;
+- chaos slow-score at p = 1 delays ``predict`` by its ms and counts;
 - a ``warm`` whose predict raises, raises (the reference moves such a
   version to the numpy scorer); out of device memory the batch splits
   into halved chunks, and at one row the error is raised.
@@ -204,3 +205,29 @@ def test_oom_halves_the_chunk_then_raises(monkeypatch):
     with pytest.raises(torch.cuda.OutOfMemoryError):
         eng.predict(_Failing(cm, oom, max_rows=0), 1, X)
     assert eng.stats()["fallback_batches"] == 0
+
+
+def test_chaos_slow_score_delays_predict():
+    """The engine's chaos slow-score hook (the reference's
+    ``engine.py:229``): at p = 1 every ``predict`` sleeps
+    ``score_slow_ms`` before scoring and counts in
+    ``injected_slow_scores``; the answer does not change."""
+    import time
+
+    from h2o_tpu_torch.core import chaos as p_chaos
+    _, cm, _ = carried("gbm")
+    eng = ScoringEngine()
+    X = _raw_X()[:5]
+    want = eng.predict(cm, 0, X)
+    try:
+        p_chaos.configure(score_slow_p=1.0, score_slow_ms=30.0, seed=1)
+        t0 = time.perf_counter()
+        got = eng.predict(cm, 0, X)
+        waited = time.perf_counter() - t0
+        c = p_chaos.chaos().counters()
+    finally:
+        p_chaos.reset()
+    np.testing.assert_array_equal(got, want)
+    assert waited >= 0.03
+    assert c["injected_slow_scores"] == 1 and c["injected"] == 1
+    assert p_chaos.chaos().counters()["injected"] == 0
