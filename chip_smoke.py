@@ -13,7 +13,10 @@ TargetEncoder, ModelSelection, AnovaGLM, PSVM, Infogram,
 StackedEnsemble and Grep, then the trained models served: MOJO files
 written and read, the array fast path, Generic and ScoringEngine, and
 the serving layers above it: micro-batching, the deployment registry,
-the load breaker and the replica fleet.
+the load breaker and the replica fleet; then the other ingest formats
+(SVMLight with sparse columns feeding a GBM, ARFF, Avro, XLSX/XLS), a
+remote path, a frame snapshot, streaming ingest and the cluster
+timezone.
 Phases (each
 prints one JSON line; any failure raises and the exit code is not 0):
 
@@ -67,8 +70,9 @@ prints one JSON line; any failure raises and the exit code is not 0):
               signal): the default GBM with 20 iterations (K2 700 launches)
               and the default DRF with 3 iterations (21 trees of depth 20,
               420 launches); logloss and mean per-class error reproduced by
-              predict(); one GBM and one DRF iteration on the first 100,000
-              rows equal on the card and on the CPU
+              predict(); one GBM iteration on the first 100,000 rows and
+              one DRF iteration on the first 25,000 equal on the card and
+              on the CPU
  12 distributions, weights, offset, monotone: poisson, gamma, tweedie,
               laplace, quantile and huber GBMs (3 trees on 100,000 rows, a
               response made for each) and a bernoulli GBM with a weights
@@ -177,7 +181,7 @@ prints one JSON line; any failure raises and the exit code is not 0):
               categoricals; the first 100,000 rows on the card and on the
               CPU: equal iterations and assignments, centers within 1e-5;
               17b DeepLearning at H2O-3's defaults (hidden [200, 200],
-              Rectifier, ADADELTA, 10 epochs: 9,765 steps of 1,024 rows):
+              Rectifier, ADADELTA; 3 of their 10 epochs: 2,929 steps of 1,024 rows):
               wall, ms a step, training AUC reproduced by predict(); rate/
               momentum and RectifierWithDropout for 1 epoch; an autoencoder
               (hidden [20], 1 epoch) and anomaly() over the 1M rows; card
@@ -193,7 +197,7 @@ prints one JSON line; any failure raises and the exit code is not 0):
               17d RuleFit at its defaults (50 DRF trees of depth 3,
               QuantilesGlobal, L1 GLM at lambda 1e-3): K1 150 launches
               (trees x levels), rule count, wall and the GLM's share of it;
-              card against CPU on 100,000 rows: equal rule sets and
+              card against CPU on 25,000 rows: equal rule sets and
               descriptions, coefficients within 1e-4
  18 PCA, SVD, GLRM, Word2Vec, NaiveBayes and CoxPH (no histogram kernel:
               each run's counters and the phase's total must read 0):
@@ -283,7 +287,7 @@ prints one JSON line; any failure raises and the exit code is not 0):
               cancellation bound; PSVM W and b bitwise, Z within
               its rounding bound, beta 1e-4 (or the step where the hinge
               masks part, and the decision values' AUCs 1e-3); Infogram's
-              admissible set equal, every relevance index 1e-5, each
+              (on 25,000 rows) admissible set equal, every relevance index 1e-5, each
               column's information index 1e-5 and their order where
               its 10 trees are equal on both devices (every admissible
               column's must be), and where they part, the first node
@@ -362,6 +366,35 @@ prints one JSON line; any failure raises and the exit code is not 0):
               a power of two within [serve_min_batch, serve_max_batch];
               the engine's host-scorer count stays 0 and no deployment
               is left
+ 22 ingest, the rest (files written by the script from its seeded
+              frames, into a temporary directory; host parsers, the GBM on
+              the card):
+              22a the covertype-shaped frame of phase 11 written as LIBSVM
+              publishes covtype (label 1-7, the non-zero index:value pairs
+              from index 1, 9 significant digits), parsed with
+              column_types {target: enum}: every column bitwise the
+              in-memory frame's, a SparseVec exactly where fewer than half
+              its rows are non-zero (every one-hot column), C1 (index 0)
+              all zero; C1 dropped, the multinomial GBM of phase 11 cut to
+              SVM_GBM_ITERS iterations (K2 175) equal, node for node and
+              value for value, to the same GBM on the in-memory frame;
+              22b ARFF_ROWS HIGGS-shaped rows (OpenML data id 23512's
+              shape: 28 numeric attributes, class {0,1}) as ARFF, held
+              bitwise; 22c AVRO_ROWS of them and a b/s label written by the
+              port's Avro writer (deflate) and parsed, held bitwise
+              (`reduced` from 1M); 22d XLSX_ROWS as a SpreadsheetML
+              workbook, equal to the CSV parse of the same rows, and the
+              CPU tests' BIFF8 workbook held against its cells; 22e the
+              ARFF file over http from a server on 127.0.0.1: equal to the
+              local parse, two parses one GET; 22a's frame saved and
+              loaded, bitwise; 22f phase 15's first CSV file streamed
+              (ChunkReader, 4,096-row chunks, frame_from_chunk and
+              append_rows): numerics bitwise and labels equal to the
+              whole-file parse, rows/s; 22g TZ_ROWS naive times parsed
+              under set_timezone(TZ_NAME): zoneinfo's UTC milliseconds row
+              by row, the DST gap and fold rows NA (without a tz database,
+              the refusal is asserted and printed).  Each prints its
+              bytes, walls and MB/s
   7 profile - torch.profiler over 2 default trees: device busy share and
               the kernels that take the device time; then 2 QuantilesGlobal
               trees: each histogram kernel's device ms per main-path launch
@@ -371,23 +404,25 @@ prints one JSON line; any failure raises and the exit code is not 0):
               iteration (7 class trees) and one UpliftDRF tree
 
 The kernels line's launches sum every main-path training above (phases
-4, 5, 8-21), each read from counters set to 0 just before it; the
+4, 5, 8-22), each read from counters set to 0 just before it; the
 launches phase lists them path by path (phase 16 as "glm", 0 and 0;
 phase 17's KMeans, DeepLearning and GAM paths 0 and 0, "rulefit" 150
 and 0; phase 18's PCA, SVD, GLRM, Word2Vec, NaiveBayes and CoxPH runs 0
 and 0; phase 19's "infogram" 0 and 940, "stackedensemble_bases" 0 and
 600, its other runs 0 and 0; phase 20's deployment
 "gbm_covertype_categorical" 0 and 100, "serving" 0 and 0; phase 21's
-"serving_layers" 0 and 0).
+"serving_layers" 0 and 0; phase 22's "ingest_formats" 0 and 175).
 
 The line before the last holds every kernel's numbers; the last line is
 the device summary.  Needs one CUDA card; exits non-zero without one.
 """
 
+import http.server
 import json
 import os
 import re
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -403,9 +438,14 @@ if not torch.cuda.is_available():
     sys.exit(2)
 
 from h2o_tpu_torch import native  # noqa: E402
-from h2o_tpu_torch.core.frame import T_CAT, T_STR, Frame, Vec  # noqa: E402
+from h2o_tpu_torch.core.avro import write_avro  # noqa: E402
+from h2o_tpu_torch.core.device import set_timezone  # noqa: E402
+from h2o_tpu_torch.core.frame import (T_CAT, T_STR, Frame,  # noqa: E402
+                                      SparseVec, Vec)
 from h2o_tpu_torch.core.parse import (parse_files,  # noqa: E402
                                       parse_setup)
+from h2o_tpu_torch.core.persist import load_frame, save_frame  # noqa: E402
+from h2o_tpu_torch.stream import ChunkReader, frame_from_chunk  # noqa: E402
 from h2o_tpu_torch.models import aggregator as agg_mod  # noqa: E402
 from h2o_tpu_torch.models import anovaglm as anova_mod  # noqa: E402
 from h2o_tpu_torch.models import coxph as cox_mod  # noqa: E402
@@ -499,6 +539,12 @@ FAMILIES = {"poisson": {}, "gamma": {}, "tweedie": dict(tweedie_power=1.3),
             "laplace": {}, "quantile": dict(quantile_alpha=0.25),
             "huber": dict(huber_alpha=0.8)}
 SUB_ROWS = 100_000
+#: phase 11: rows of the multinomial DRF's card-against-CPU first tree
+#: (depth 20, seven classes: ~100 s on the CPU at SUB_ROWS)
+COV_DRF_CPU_ROWS = 25_000
+#: phases 17d and 19g: rows of RuleFit's and Infogram's card-against-CPU
+#: runs (their CPU fits took 24-30 and 27-50 s at SUB_ROWS)
+RULEFIT_CPU_ROWS = INFO_CPU_ROWS = 25_000
 #: phase 13: validation rows after the 1M training rows, and the
 #: early-stopped GBM of 13a
 VALID_ROWS = 250_000
@@ -522,12 +568,27 @@ DEFAULT_GBM_AUC = 0.783277011
 #: phase 20: rows the host MOJO scorers score, the engine's requests, its
 #: warm buckets and the largest request
 HOST_ROWS = 100_000
-REQUESTS, WARM_BUCKETS, MAX_REQUEST = 300, (1, 32, 1024), 1024
+REQUESTS, WARM_BUCKETS, MAX_REQUEST = 120, (1, 32, 1024), 1024
 #: 20c: covertype rows of the remap check (the genmodel scorer walks
 #: categorical splits at ~11,000 rows/s on the host, twice over them)
 REMAP_ROWS = 20_000
 #: the models earlier phases trained that phase 20 deploys
 KEEP = {}
+#: phase 22: OpenML HIGGS ARFF's shape (data id 23512: 98,050 rows, 28
+#: numeric attributes, a nominal class), the Avro rows (bench.py's 1M
+#: cut: the reader decodes each cell in Python), the XLSX rows, the
+#: iterations of the multinomial GBM on the SVMLight frame (phase 11's
+#: 20, cut), the streaming chunk (the reference's default), the
+#: timezone CSV's rows and zone, and the BIFF8 workbook's rows (num,
+#: colour's shared-string index, y or an empty cell)
+ARFF_ROWS = 98_050
+AVRO_ROWS = 250_000
+XLSX_ROWS = 50_000
+SVM_GBM_ITERS = 5
+STREAM_CHUNK_ROWS = 4096
+TZ_ROWS = 100_000
+TZ_NAME = "America/New_York"
+XLS_CELLS = ((1.5, 3, 10.0), (2.5, 4, None), (4.0, 3, 30.0))
 
 
 def emit(obj) -> None:
@@ -1036,7 +1097,9 @@ def phase_multinomial(cov: Frame, paths) -> None:
                                  f"{pm['mean_per_class_error']}")
     sub = cov.slice_rows(slice(0, SUB_ROWS))
     first_tree_check("multinomial_gbm", GBM, sub, ntrees=1, seed=1)
-    rec = first_tree_check("multinomial_drf", DRF, sub, ntrees=1, seed=1)
+    rec = first_tree_check("multinomial_drf", DRF,
+                           cov.slice_rows(slice(0, COV_DRF_CPU_ROWS)),
+                           ntrees=1, seed=1)
     if rec["value_max_abs_diff"] > 1e-6:
         raise AssertionError("multinomial DRF: card and CPU values differ")
 
@@ -2018,8 +2081,9 @@ def phase_glm(X, y, fr: Frame, paths) -> None:
 #: 17a: KMeans's k and iterations on the 1M x 28 frame, k on covertype
 KM_K, KM_ITERS, KM_COV_K = 10, 10, 7
 #: 17b: DeepLearning at H2O-3's defaults (hidden [200, 200], Rectifier,
-#: ADADELTA, 10 epochs = 9,765 steps of 1,024 rows); the 1-epoch variants
-DL_EPOCHS = 10.0
+#: ADADELTA) cut from 10 epochs to 3 = 2,929 steps of 1,024 rows (the
+#: script's time limit); the 1-epoch variants
+DL_EPOCHS = 3.0
 DL_VARIANTS = {"momentum": dict(adaptive_rate=False, rate=0.005,
                                 momentum_start=0.5, momentum_stable=0.99,
                                 momentum_ramp=1e6),
@@ -2305,14 +2369,14 @@ def phase_rulefit(fr: Frame, paths) -> None:
         raise AssertionError(f"RuleFit: (K1, K2) launched {got}, want "
                              f"({RULEFIT_TREES * RULEFIT_DEPTH}, 0); AUC "
                              f"{auc}")
-    sub = fr.slice_rows(slice(0, SUB_ROWS))
+    sub = fr.slice_rows(slice(0, RULEFIT_CPU_ROWS))
     g, _ = fit(RuleFit, sub, device="cuda", seed=1)
     c, _ = fit(RuleFit, sub, device="cpu", seed=1)
     names_g = [n for f in g.output["forests"] for n in f["rule_names"]]
     names_c = [n for f in c.output["forests"] for n in f["rule_names"]]
     gc, cc = g._inner().coef(), c._inner().coef()
     d_beta = max(abs(gc[k] - cc[k]) for k in cc)
-    rec = dict(phase="rulefit_cuda_vs_cpu", rows=SUB_ROWS,
+    rec = dict(phase="rulefit_cuda_vs_cpu", rows=RULEFIT_CPU_ROWS,
                rules=(len(names_g), len(names_c)),
                rules_equal=names_g == names_c,
                descriptions_equal=[r[3] for r in g.rule_importance()] ==
@@ -3326,7 +3390,7 @@ def phase_infogram(fr: Frame, paths) -> None:
               k2_launches=paths["infogram"][1]))
     if not m.admissible_features():
         raise AssertionError("infogram: no admissible feature")
-    sub = fr.slice_rows(slice(0, SUB_ROWS))
+    sub = fr.slice_rows(slice(0, INFO_CPU_ROWS))
     g, g_gbms = infogram_and_gbms(sub, DEV)
     c, c_gbms = infogram_and_gbms(sub, "cpu")
     gt = {r[0]: r for r in g.result()}
@@ -3355,7 +3419,7 @@ def phase_infogram(fr: Frame, paths) -> None:
                for v in parted.values())
     order = [r[0] for r in g.result() if r[0] in held] == \
         [r[0] for r in c.result() if r[0] in held]
-    card_cpu("infogram", dict(rows=SUB_ROWS, admissible=adm,
+    card_cpu("infogram", dict(rows=INFO_CPU_ROWS, admissible=adm,
                               relevance_max_diff=rel,
                               relevance_trees_equal=first_split_difference(
                                   g_gbms[0].output, c_gbms[0].output) is None,
@@ -3854,6 +3918,8 @@ def phase_slice12(fr: Frame, m_def, m_drf, paths) -> tuple:
 SERVE_POOL, SERVE_CLIENTS, SERVE_SECONDS = 128, (1, 8, 32), 3.0
 #: 21b-c: requests of the pool the lifecycle, canary and shadow runs use
 LIFE_POOL = 32
+#: 21b, 21e: seconds the clients run on after the last timed action
+ACTION_TAIL_S = 0.5
 #: 21e: the covertype deployment's pool for the fleet
 FLEET_POOL = 48
 
@@ -3889,11 +3955,15 @@ def alone(eng, m, version: int, pool: list) -> tuple:
 def drive(score, pool: list, clients: int, seconds: float,
           at=()) -> tuple:
     """``clients`` threads call ``score(rows)`` over ``pool`` for
-    ``seconds``; ``at`` holds (second, name, action) triples the calling
-    thread runs meanwhile.  A client whose alias is gone (``KeyError``)
+    ``seconds``; ``at`` holds (delay, name, action) triples the calling
+    thread runs meanwhile, each ``delay`` seconds after the previous
+    action returned (the first after the start), so a slow action (a
+    hot swap's warm) never eats the next one's window.  The clients run
+    on until ``ACTION_TAIL_S`` after the last action when that is later
+    than ``seconds``.  A client whose alias is gone (``KeyError``)
     stops.  Returns (request index, answer and version or the exception,
     start, end) for every request, and the actions' times."""
-    box = {}
+    box = {"end": float("inf") if at else None}
     res = [[] for _ in range(clients)]
     barrier = threading.Barrier(clients + 1, timeout=60)
 
@@ -3917,14 +3987,18 @@ def drive(score, pool: list, clients: int, seconds: float,
     for t in threads:
         t.start()
     t_start = time.perf_counter()
-    box["end"] = t_start + seconds
+    if not at:
+        box["end"] = t_start + seconds
     barrier.wait()
-    marks = {}
-    for sec, name, fn in at:
-        time.sleep(max(0.0, t_start + sec - time.perf_counter()))
+    marks, t_prev = {}, t_start
+    for delay, name, fn in at:
+        time.sleep(max(0.0, t_prev + delay - time.perf_counter()))
         t0 = time.perf_counter()
         fn()
-        marks[name] = (t0, time.perf_counter())
+        t_prev = time.perf_counter()
+        marks[name] = (t0, t_prev)
+    if at:
+        box["end"] = max(t_start + seconds, t_prev + ACTION_TAIL_S)
     for t in threads:
         t.join(seconds + 120)
         if t.is_alive():
@@ -3987,8 +4061,8 @@ def phase_lifecycle(reg, m, m_drf, pool, want) -> tuple:
     res, marks = drive(
         lambda rows: reg.score_rows("higgs", rows), pool, 8, 3.0,
         at=((0.5, "swap", lambda: reg.deploy("higgs", m_drf, cfg)),
-            (1.3, "rollback", lambda: reg.rollback("higgs")),
-            (2.1, "undeploy", lambda: reg.undeploy("higgs"))))
+            (0.8, "rollback", lambda: reg.rollback("higgs")),
+            (0.8, "undeploy", lambda: reg.undeploy("higgs"))))
     drf_buckets = reg.engine.buckets_for(m_drf.model_id, 2)
     gbm_buckets = reg.engine.buckets_for(m.model_id, 1)
     counts = {"v1": 0, "v2": 0, "gone": 0}
@@ -4249,7 +4323,7 @@ def phase_fleet(m_cat, fc: Frame) -> None:
             dep.batcher.stop(timeout=5.0)
     res, marks = drive(lambda rows: fl.score_rows("cov", rows), pool, 8,
                        2.0, at=((0.6, "die", die),
-                                (1.2, "kill", lambda: fl.kill(1))))
+                                (0.6, "kill", lambda: fl.kill(1))))
     bad = [repr(g) for _k, g, *_t in res if isinstance(g, Exception)]
     mism = sum(not bits_equal(g[0], want[k]) for k, g, *_t in res
                if not isinstance(g, Exception))
@@ -4332,6 +4406,479 @@ def phase_slice13(fr: Frame, m_def, m_drf, m_cat, fc: Frame, paths) -> None:
     if stats["fallback_batches"] or reg.list():
         raise AssertionError(f"21: host scorer batches {stats}, "
                              f"deployments left {reg.list()}")
+
+
+
+# -- 22 ingest, the rest -------------------------------------------------------
+
+def g9_lines(X, tail: np.ndarray, sep: int = ord(",")) -> np.ndarray:
+    """(n, c) float32 -> (n, c * 16 + tail width) bytes: each value as
+    ``format_g9`` writes it followed by ``sep``, then ``tail``'s bytes."""
+    n, c = X.shape
+    out = np.empty((n, c * 16 + tail.shape[1]), np.uint8)
+    cells = out[:, : c * 16].reshape(n, c, 16)
+    cells[..., :15] = format_g9(X)
+    cells[..., 15] = sep
+    out[:, c * 16:] = tail
+    return out
+
+
+def digits(v: np.ndarray, width: int) -> np.ndarray:
+    """(n,) non-negative ints -> (n, width) ASCII digits, zero-padded."""
+    return np.stack([(v // 10 ** (width - 1 - k)) % 10 + 48
+                     for k in range(width)], axis=1).astype(np.uint8)
+
+
+def covertype_matrix(cov: Frame) -> np.ndarray:
+    return np.stack([v.data for v in cov.vecs[:-1]], axis=1)
+
+
+def write_svmlight(path: str, cov: Frame) -> int:
+    """``cov`` as LIBSVM publishes covtype: the label 1-7, then the
+    non-zero ``index:value`` pairs with indices from 1, the normal
+    columns' values with 9 significant digits, the one-hot blocks' ones
+    as ``1``; returns the file's bytes."""
+    M = covertype_matrix(cov)
+    n = M.shape[0]
+    normal, wild, soil = M[:, :10], M[:, 10:14], M[:, 14:54]
+    if (normal == 0).any() or not ((wild.sum(1) == 1) &
+                                   (soil.sum(1) == 1)).all():
+        raise AssertionError("svmlight: a zero normal value or a one-hot "
+                             "row without one 1")
+    parts = [digits(cov.vec("y").data.astype(np.int64) + 1, 1)]
+    for j in range(10):
+        key = np.frombuffer(f" {j + 1}:".encode(), np.uint8)
+        parts += [np.broadcast_to(key, (n, len(key))), format_g9(
+            normal[:, j:j + 1]).reshape(n, 15)]
+    for base, block in ((11, wild), (15, soil)):
+        parts += [np.full((n, 1), ord(" "), np.uint8),
+                  digits(base + block.argmax(1), 2),
+                  np.broadcast_to(np.frombuffer(b":1", np.uint8), (n, 2))]
+    parts.append(np.full((n, 1), ord("\n"), np.uint8))
+    with open(path, "wb") as f:
+        f.write(np.ascontiguousarray(np.concatenate(parts, axis=1)).tobytes())
+    return os.path.getsize(path)
+
+
+def write_arff(path: str, X, y) -> int:
+    """OpenML's HIGGS ARFF layout: 28 numeric attributes and a nominal
+    class {0,1}, values with 9 significant digits."""
+    head = ("% HIGGS-shaped rows (OpenML data id 23512)\n@relation higgs\n"
+            + "".join(f"@attribute x{j} numeric\n" for j in range(X.shape[1]))
+            + "@attribute class {0,1}\n@data\n")
+    tail = np.stack([y.astype(np.uint8) + 48,
+                     np.full(len(y), ord("\n"), np.uint8)], axis=1)
+    with open(path, "wb") as f:
+        f.write(head.encode())
+        f.write(g9_lines(X, tail).tobytes())
+    return os.path.getsize(path)
+
+
+def write_xlsx(path: str, X, y) -> int:
+    """A SpreadsheetML workbook of one sheet: a header row of shared
+    strings x0.. and y, then one row a record (values with 9
+    significant digits, the label a shared string b or s)."""
+    n, c = X.shape
+    names = [f"x{j}" for j in range(c)] + ["y", "b", "s"]
+    sst = ('<?xml version="1.0"?><sst xmlns="http://schemas.openxmlformats'
+           '.org/spreadsheetml/2006/main">' + "".join(
+               f"<si><t>{s}</t></si>" for s in names) + "</sst>")
+    open_c, close_c = b"<c><v>", b"</v></c>"
+    cell = len(open_c) + 15 + len(close_c)
+    body = np.empty((n, c, cell), np.uint8)
+    body[..., : len(open_c)] = np.frombuffer(open_c, np.uint8)
+    body[..., len(open_c): len(open_c) + 15] = format_g9(X)
+    body[..., len(open_c) + 15:] = np.frombuffer(close_c, np.uint8)
+    lab = np.frombuffer(b'<c t="s"><v>', np.uint8)
+    end = np.frombuffer(b"</v></c></row>\n", np.uint8)
+    rows = np.concatenate([
+        np.broadcast_to(np.frombuffer(b"<row>", np.uint8), (n, 5)),
+        body.reshape(n, -1), np.broadcast_to(lab, (n, len(lab))),
+        digits(c + 1 + y.astype(np.int64), 2),
+        np.broadcast_to(end, (n, len(end)))], axis=1)
+    header = "<row>" + "".join(f'<c t="s"><v>{j}</v></c>'
+                               for j in range(c + 1)) + "</row>\n"
+    sheet = ('<?xml version="1.0"?><worksheet xmlns="http://schemas.'
+             'openxmlformats.org/spreadsheetml/2006/main"><sheetData>\n'
+             + header).encode() + np.ascontiguousarray(rows).tobytes() + \
+        b"</sheetData></worksheet>"
+    import zipfile
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as z:
+        z.writestr("xl/sharedStrings.xml", sst)
+        z.writestr("xl/worksheets/sheet1.xml", sheet)
+    return os.path.getsize(path)
+
+
+def biff_record(op: int, body: bytes = b"") -> bytes:
+    return struct.pack("<HH", op, len(body)) + body
+
+
+def xls_book() -> bytes:
+    """The CPU tests' workbook (``tests/test_xls_ingest.py``): an OLE2
+    compound file whose Workbook stream holds a BIFF8 shared-string
+    table, a header row and three rows of NUMBER, LABELSST and RK
+    cells, one of them empty."""
+    def bstr(s):
+        return struct.pack("<HB", len(s), 0) + s.encode("latin-1")
+    out = biff_record(0x0809, struct.pack("<HH12x", 0x0600, 0x0005))
+    strings = ["num", "color", "y", "red", "blue"]
+    out += biff_record(0x00FC, struct.pack("<II", 5, 5) +
+                       b"".join(bstr(s) for s in strings))
+    out += biff_record(0x000A)
+    out += biff_record(0x0809, struct.pack("<HH12x", 0x0600, 0x0010))
+    for c in range(3):
+        out += biff_record(0x00FD, struct.pack("<HHHI", 0, c, 0, c))
+    for r, (a, cc, yv) in enumerate(XLS_CELLS, start=1):
+        out += biff_record(0x0203, struct.pack("<HHHd", r, 0, 0, a))
+        out += biff_record(0x00FD, struct.pack("<HHHI", r, 1, 0, cc))
+        if yv is not None:
+            out += biff_record(0x027E, struct.pack(
+                "<HHHI", r, 2, 0, (int(yv) << 2) | 2))
+    out += biff_record(0x000A)
+    stream = out + b"\x00" * max(0, 4096 - len(out))
+    n_data = (len(stream) + 511) // 512
+    stream = stream.ljust(n_data * 512, b"\x00")
+    end_, free, fatsect = 0xFFFFFFFE, 0xFFFFFFFF, 0xFFFFFFFD
+    fat = [fatsect, end_] + [2 + i + 1 if i + 1 < n_data else end_
+                             for i in range(n_data)]
+    fat += [free] * (128 - len(fat))
+
+    def direntry(name, typ, start, size):
+        raw = name.encode("utf-16-le")
+        return (raw + b"\x00" * (64 - len(raw)) +
+                struct.pack("<H", len(raw) + 2) + bytes([typ, 1]) +
+                struct.pack("<III", free, free, free) + b"\x00" * 36 +
+                struct.pack("<II", start, size) + b"\x00" * 4)
+
+    dirs = direntry("Root Entry", 5, end_, 0) + \
+        direntry("Workbook", 2, 2, len(stream)) + b"\x00" * 256
+    header = b"\xd0\xcf\x11\xe0\xa1\xb1\x1a\xe1" + b"\x00" * 16 + \
+        struct.pack("<HHHHH6x9I", 0x3E, 3, 0xFFFE, 9, 6, 0, 1, 1, 0, 4096,
+                    end_, 0, end_, 0) + struct.pack("<109I", 0,
+                                                   *[free] * 108)
+    return header + struct.pack("<128I", *fat) + dirs + stream
+
+
+class _OneFile(http.server.BaseHTTPRequestHandler):
+    """Serves one file's bytes at any path and counts the GETs."""
+    body, gets = b"", 0
+
+    def log_message(self, *a):
+        pass
+
+    def do_GET(self):
+        type(self).gets += 1
+        self.send_response(200)
+        self.send_header("Content-Length", str(len(self.body)))
+        self.end_headers()
+        self.wfile.write(self.body)
+
+
+def timed(fn):
+    """(result, host wall) of ``fn()``."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def frame_bits_equal(a: Frame, b: Frame) -> list:
+    """Names of the columns whose payloads (numeric bits, codes and
+    domains) differ."""
+    bad = []
+    for n in a.names:
+        va, vb = a.vec(n), b.vec(n)
+        if va.is_categorical:
+            ok = list(va.domain) == list(vb.domain) and \
+                np.array_equal(va.data, vb.data)
+        else:
+            x, w = va.to_numpy(), vb.to_numpy()
+            ok = x.dtype == w.dtype and np.array_equal(
+                x.view(np.uint32 if x.dtype == np.float32 else np.uint64),
+                w.view(np.uint32 if w.dtype == np.float32 else np.uint64))
+        if not ok:
+            bad.append(n)
+    return bad
+
+
+def phase_svmlight(cov: Frame, tmp: str, paths) -> Frame:
+    """22a: covertype as LIBSVM's covtype file, parsed with sparse
+    columns, held against the in-memory frame; the multinomial GBM on
+    it (K2 each level) equal to the GBM on the in-memory frame."""
+    path = os.path.join(tmp, "covtype.svm")
+    nbytes, write_s = timed(lambda: write_svmlight(path, cov))
+    pf, parse_s = timed(lambda: parse_files([path], column_types={
+        "target": "enum"}))
+    M = covertype_matrix(cov)
+    n = cov.nrows
+    want_sparse = [bool(np.count_nonzero(M[:, j]) < 0.5 * n)
+                   for j in range(M.shape[1])]
+    got_sparse = [isinstance(v, SparseVec) for v in pf.vecs[2:]]
+    unequal = [j for j in range(M.shape[1]) if not np.array_equal(
+        pf.vecs[j + 2].data.view(np.uint32), M[:, j].view(np.uint32))]
+    c1 = pf.vec("C1")
+    held = dict(
+        names=pf.names == ["target"] + [f"C{j}" for j in range(1, 56)],
+        sparse_where_under_half=got_sparse == want_sparse,
+        c1_all_zero=isinstance(c1, SparseVec) and c1.nnz == 0,
+        columns_bitwise=not unequal,
+        target=pf.vec("target").domain == [str(k) for k in range(1, 8)]
+        and np.array_equal(pf.vec("target").data, cov.vec("y").data))
+    emit(dict(phase="ingest_svmlight", rows=n, cols=54, bytes=nbytes,
+              write_s=write_s, parse_s=parse_s,
+              parse_mb_per_s=nbytes / parse_s / 1e6,
+              sparse_columns=sum(got_sparse), held=held))
+    if not all(held.values()):
+        raise AssertionError(f"22a svmlight: {held}; unequal columns "
+                             f"{unequal}")
+    fr = pf.drop("C1")
+    m_mem, wall_mem = fit(GBM, cov, ntrees=SVM_GBM_ITERS, seed=1)
+    hk.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    m = GBM(ntrees=SVM_GBM_ITERS, seed=1).train(y="target",
+                                                training_frame=fr)
+    sync()
+    wall = time.perf_counter() - t0
+    got = (hk.hist_cuda.launches, hk.hist_cuda_adaptive.launches)
+    paths["ingest_formats"] = got
+    eq = {k: bool(np.array_equal(m.output[k], m_mem.output[k]))
+          for k in ("split_col", "thr_bin", "na_left", "bitset", "value",
+                    "f0")}
+    want = (0, SVM_GBM_ITERS * len(COV_COUNTS) * 5)
+    emit(dict(phase="ingest_svmlight_gbm", rows=n, cols=54,
+              iterations=SVM_GBM_ITERS, trees=SVM_GBM_ITERS * 7,
+              wall_s=wall, in_memory_wall_s=wall_mem,
+              logloss=m.output["training_metrics"]["logloss"],
+              forest_equal=eq, k1_launches=got[0], k2_launches=got[1],
+              reduced=dict(iterations=f"{SVM_GBM_ITERS} of phase 11's "
+                           f"{COV_GBM_ITERS}")))
+    if got != want or not all(eq.values()):
+        raise AssertionError(f"22a GBM: launches {got} (want {want}), "
+                             f"forest equal {eq}")
+    return pf
+
+
+def phase_arff(X, y, tmp: str) -> tuple:
+    """22b: HIGGS-shaped rows as OpenML's ARFF, held bitwise."""
+    path = os.path.join(tmp, "higgs.arff")
+    Xa, ya = X[:ARFF_ROWS], y[:ARFF_ROWS]
+    nbytes = write_arff(path, Xa, ya)
+    pf, wall = timed(lambda: parse_files([path]))
+    held = dict(names=pf.names == [f"x{j}" for j in range(C)] + ["class"],
+                types=pf.types() == ["real"] * C + ["enum"],
+                values=all(np.array_equal(pf.vecs[j].data.view(np.uint32),
+                                          Xa[:, j].view(np.uint32))
+                           for j in range(C)),
+                cls=pf.vec("class").domain == ["0", "1"] and
+                np.array_equal(pf.vec("class").data, ya))
+    emit(dict(phase="ingest_arff", rows=ARFF_ROWS, cols=C + 1, bytes=nbytes,
+              parse_s=wall, parse_mb_per_s=nbytes / wall / 1e6, held=held))
+    if not all(held.values()):
+        raise AssertionError(f"22b ARFF: {held}")
+    return path, pf
+
+
+def phase_avro(X, y, tmp: str) -> None:
+    """22c: bench.py's rows and a string label as a deflate Avro file
+    written by the port's writer, held bitwise."""
+    path = os.path.join(tmp, "higgs.avro")
+    Xa, ya = X[:AVRO_ROWS], y[:AVRO_ROWS]
+    cols = [Xa[:, j].astype(np.float64).tolist() for j in range(C)] + \
+        [np.where(ya == 1, "s", "b").tolist()]
+    _, write_s = timed(lambda: write_avro(
+        path, [f"x{j}" for j in range(C)] + ["y"], ["num"] * C + ["str"],
+        cols, codec="deflate"))
+    nbytes = os.path.getsize(path)
+    pf, wall = timed(lambda: parse_files([path]))
+    held = dict(names=pf.names == [f"x{j}" for j in range(C)] + ["y"],
+                values=all(np.array_equal(pf.vecs[j].data.view(np.uint32),
+                                          Xa[:, j].view(np.uint32))
+                           for j in range(C)),
+                label=pf.vec("y").domain == ["b", "s"] and
+                np.array_equal(pf.vec("y").data, ya))
+    emit(dict(phase="ingest_avro", rows=AVRO_ROWS, cols=C + 1, bytes=nbytes,
+              codec="deflate", write_s=write_s, parse_s=wall,
+              parse_mb_per_s=nbytes / wall / 1e6,
+              rows_per_s=AVRO_ROWS / wall, held=held,
+              reduced=dict(rows=f"{AVRO_ROWS} of {R}: the reader decodes "
+                           "each cell in Python")))
+    if not all(held.values()):
+        raise AssertionError(f"22c Avro: {held}")
+
+
+def phase_xls(X, y, tmp: str) -> None:
+    """22d: an XLSX workbook held against the CSV parse of the same
+    rows; the BIFF8 workbook of the CPU tests against its cells."""
+    path = os.path.join(tmp, "higgs.xlsx")
+    Xx, yx = X[:XLSX_ROWS], y[:XLSX_ROWS]
+    nbytes = write_xlsx(path, Xx, yx)
+    pf, wall = timed(lambda: parse_files([path]))
+    csv_path = os.path.join(tmp, "higgs_xlsx.csv")
+    write_csv(csv_path, Xx, yx)
+    want = parse_files([csv_path])
+    bad = frame_bits_equal(pf, want)
+    book = os.path.join(tmp, "book.xls")
+    with open(book, "wb") as f:
+        f.write(xls_book())
+    bf, wall_xls = timed(lambda: parse_files([book]))
+    xls_ok = bf.names == ["num", "color", "y"] and \
+        bf.vec("color").domain == ["blue", "red"] and np.array_equal(
+            bf.vec("num").data, np.float32([r[0] for r in XLS_CELLS])) and \
+        np.array_equal(bf.vec("color").data, [1, 0, 1]) and np.array_equal(
+            bf.vec("y").data, np.float32([10, np.nan, 30]), equal_nan=True)
+    emit(dict(phase="ingest_xls", xlsx_rows=XLSX_ROWS, xlsx_bytes=nbytes,
+              xlsx_parse_s=wall, xlsx_mb_per_s=nbytes / wall / 1e6,
+              xlsx_equal_to_csv_parse=not bad, xls_parse_s=wall_xls,
+              xls_cells_held=xls_ok))
+    if bad or pf.nrows != XLSX_ROWS or not xls_ok:
+        raise AssertionError(f"22d: XLSX columns unlike the CSV parse "
+                             f"{bad}, rows {pf.nrows}; XLS cells {xls_ok}")
+
+
+def phase_remote(arff_path: str, arff_frame: Frame, svm_frame: Frame,
+                 tmp: str) -> None:
+    """22e: the ARFF file over http from 127.0.0.1 (one GET for two
+    parses within max_age_s), and 22a's frame saved and loaded."""
+    with open(arff_path, "rb") as f:
+        _OneFile.body = f.read()
+    _OneFile.gets = 0
+    srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), _OneFile)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    try:
+        uri = f"http://127.0.0.1:{srv.server_address[1]}/higgs.arff"
+        first, wall = timed(lambda: parse_files([uri]))
+        again, wall2 = timed(lambda: parse_files([uri]))
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=10)
+    bad = frame_bits_equal(first, arff_frame) + \
+        frame_bits_equal(again, arff_frame)
+    snap = os.path.join(tmp, "snapshot")
+    _, save_s = timed(lambda: save_frame(svm_frame, snap))
+    back, load_s = timed(lambda: load_frame(snap))
+    snap_bytes = sum(os.path.getsize(os.path.join(snap, f))
+                     for f in os.listdir(snap))
+    bad_snap = [] if back.names != svm_frame.names else \
+        frame_bits_equal(back, svm_frame)
+    emit(dict(phase="ingest_remote_persist", bytes=len(_OneFile.body),
+              http_parse_s=wall, http_mb_per_s=len(_OneFile.body) / wall
+              / 1e6, second_parse_s=wall2, gets=_OneFile.gets,
+              equal_to_local=not bad, snapshot_bytes=snap_bytes,
+              save_s=save_s, load_s=load_s,
+              snapshot_bitwise=back.names == svm_frame.names and
+              not bad_snap))
+    if bad or _OneFile.gets != 1 or back.names != svm_frame.names or \
+            bad_snap:
+        raise AssertionError(f"22e: remote columns unlike local {bad}, "
+                             f"GETs {_OneFile.gets}; snapshot {bad_snap}")
+
+
+def phase_stream(X, y, tmp: str) -> None:
+    """22f: phase 15's first CSV file streamed in 4,096-row chunks into a
+    growing frame, equal to the whole-file parse."""
+    n_part = R // CSV_FILES
+    path = os.path.join(tmp, "part0.csv")
+    nbytes = write_csv(path, X[:n_part], y[:n_part])
+    whole, whole_s = timed(lambda: parse_files([path]))
+
+    def stream():
+        rd = ChunkReader(path, chunk_rows=STREAM_CHUNK_ROWS)
+        fr = None
+        for cols in rd:
+            fr = frame_from_chunk(cols, rd.setup) if fr is None else \
+                fr.append_rows(cols)
+        rd.close()
+        return fr, rd.chunks_read
+    (fr, chunks), wall = timed(stream)
+    bad = [n for n in whole.names[:-1] if not np.array_equal(
+        fr.vec(n).data.view(np.uint32), whole.vec(n).data.view(np.uint32))]
+    dom = np.asarray(fr.vec("y").domain)
+    labels_equal = np.array_equal(dom[fr.vec("y").data], np.asarray(
+        whole.vec("y").domain)[whole.vec("y").data])
+    emit(dict(phase="ingest_stream", rows=fr.nrows, bytes=nbytes,
+              chunk_rows=STREAM_CHUNK_ROWS, chunks=chunks, stream_s=wall,
+              rows_per_s=fr.nrows / wall, mb_per_s=nbytes / wall / 1e6,
+              whole_file_parse_s=whole_s, numerics_bitwise=not bad,
+              labels_equal=bool(labels_equal)))
+    if fr.nrows != n_part or bad or not labels_equal or \
+            chunks < n_part // STREAM_CHUNK_ROWS:
+        raise AssertionError(f"22f stream: rows {fr.nrows}, columns unlike "
+                             f"the whole parse {bad}, labels {labels_equal}")
+
+
+def phase_timezone(tmp: str) -> None:
+    """22g: naive times parsed under TZ_NAME equal zoneinfo's UTC
+    milliseconds row by row, the DST gap and fold rows NA."""
+    import datetime as dt
+    import zoneinfo
+    try:
+        set_timezone(TZ_NAME)
+    except ValueError as e:
+        if "Unacceptable timezone" not in str(e) or \
+                TZ_NAME in zoneinfo.available_timezones():
+            raise
+        emit(dict(phase="ingest_timezone", zone=TZ_NAME,
+                  tz_database=False, refused=str(e)))
+        return
+    rng = np.random.default_rng(22)
+    t0 = np.datetime64("2020-01-01T00:00", "m")
+    walls = t0 + rng.integers(0, 3 * 365 * 1440, size=TZ_ROWS)
+    special = np.array(["2021-03-14T02:30", "2021-11-07T01:30",
+                        "2020-03-08T02:00", "2022-11-06T01:59"],
+                       "datetime64[m]")
+    walls[: len(special)] = special
+    text = np.datetime_as_string(walls, unit="m")
+    path = os.path.join(tmp, "times.csv")
+    with open(path, "w") as f:
+        f.write("t,n\n" + "".join(f"{s},{i}\n" for i, s in enumerate(text)))
+    zone = zoneinfo.ZoneInfo(TZ_NAME)
+    want = np.empty(TZ_ROWS)
+    for i, s in enumerate(text):
+        w = dt.datetime.fromisoformat(s)
+        a, b = (w.replace(tzinfo=zone, fold=k) for k in (0, 1))
+        want[i] = np.nan if a.utcoffset() != b.utcoffset() else \
+            a.timestamp() * 1e3
+    fr, wall = timed(lambda: parse_files([path]))
+    nbytes = os.path.getsize(path)
+    got = fr.vec("t").host_f64
+    ok = np.array_equal(got, want, equal_nan=True)
+    n_na = int(np.isnan(got).sum())
+    emit(dict(phase="ingest_timezone", zone=TZ_NAME, tz_database=True,
+              rows=TZ_ROWS, bytes=nbytes, parse_s=wall,
+              parse_mb_per_s=nbytes / wall / 1e6, rows_per_s=TZ_ROWS / wall,
+              equal_to_zoneinfo=bool(ok), na_rows=n_na,
+              special_rows_na=np.isnan(got[: len(special)]).tolist()))
+    set_timezone("UTC")
+    if not ok or not np.isnan(got[: len(special)]).all():
+        raise AssertionError(f"22g: zone {TZ_NAME} parse unlike zoneinfo "
+                             f"({ok}), special rows {got[:len(special)]}")
+
+
+def phase_slice15(X, y, cov: Frame, paths) -> None:
+    """22: SVMLight, ARFF, Avro, XLSX/XLS, a remote path, a snapshot,
+    streaming and the cluster timezone; K2 carries 22a's GBM."""
+    t = [time.perf_counter()]
+    with tempfile.TemporaryDirectory(prefix="h2o_ingest22_") as tmp:
+        svm = phase_svmlight(cov, tmp, paths)
+        t.append(time.perf_counter())
+        arff_path, arff = phase_arff(X, y, tmp)
+        t.append(time.perf_counter())
+        phase_avro(X, y, tmp)
+        t.append(time.perf_counter())
+        phase_xls(X, y, tmp)
+        t.append(time.perf_counter())
+        phase_remote(arff_path, arff, svm, tmp)
+        t.append(time.perf_counter())
+        phase_stream(X, y, tmp)
+        t.append(time.perf_counter())
+        phase_timezone(tmp)
+        t.append(time.perf_counter())
+    names = ("svmlight", "arff", "avro", "xls", "remote_persist", "stream",
+             "timezone")
+    emit(dict(phase="phase22_walls", total_s=t[-1] - t[0],
+              **{f"{n}_s": b - a for n, a, b in zip(names, t, t[1:])}))
 
 
 def main() -> None:
@@ -4560,6 +5107,9 @@ def main() -> None:
     # -- 21 micro-batcher, registry, breaker, fleet -------------------------
     torch.cuda.empty_cache()
     phase_slice13(fr, m_def, m_drf, m_cat, fc, paths)
+    # -- 22 the other formats, remote paths, streaming, the timezone -------
+    torch.cuda.empty_cache()
+    phase_slice15(X, y, cov, paths)
     emit(dict(phase="launches", paths={k: dict(k1=v[0], k2=v[1])
                                        for k, v in paths.items()}))
     sync()

@@ -20,16 +20,18 @@ so tests can monkeypatch ``os.environ``.
     batch tuner (off).
 ``H2O_TPU_SERVE_MIN_BATCH`` / ``_MAX_BATCH`` — the tuner's pow2 bounds
     (1, 128).
+``H2O_TPU_STREAM_POLL_MS`` — follow-mode re-poll interval of a quiet
+    stream source (50 ms; ``config.py:272-274``).
 
-The other readers of the reference (tiers, streaming, tenants, the
-Rapids planner) come with their slices.
+The other readers of the reference (tiers, the stream holdout, tenants,
+the Rapids planner) come with their slices.
 """
 
 from __future__ import annotations
 
 import os
 
-__all__ = ["hbm_budget", "serve_replicas", "breaker_soft", "breaker_hard", "breaker_open_secs", "breaker_probes", "breaker_interval_ms", "breaker_stall_soft", "serve_adaptive_default", "serve_min_batch", "serve_max_batch"]
+__all__ = ["hbm_budget", "serve_replicas", "breaker_soft", "breaker_hard", "breaker_open_secs", "breaker_probes", "breaker_interval_ms", "breaker_stall_soft", "serve_adaptive_default", "serve_min_batch", "serve_max_batch", "stream_poll_ms"]
 
 
 def hbm_budget() -> int:
@@ -90,3 +92,8 @@ def serve_max_batch() -> int:
     """Upper pow2 bound for the adaptive tuner's ``max_batch``."""
     return max(1, int(os.environ.get("H2O_TPU_SERVE_MAX_BATCH", "128")
                       or 128))
+
+
+def stream_poll_ms() -> float:
+    """Follow-mode re-poll interval for a quiet stream source (ms)."""
+    return float(os.environ.get("H2O_TPU_STREAM_POLL_MS", "50") or 50.0)

@@ -10,6 +10,12 @@ Nothing moves to the CPU on its own: with no argument the device is
 the card can never quietly measure the CPU.  Tests pass
 ``device="cpu"`` explicitly, which selects the plain PyTorch version of
 every kernel.
+
+The cluster timezone (the reference keeps it on ``cloud().timezone``,
+set by Rapids' ``(setTimeZone)``, ``rapids/interp.py:2351-2362``) lives
+beside ``cloud()`` here, since ``cloud()`` returns a ``torch.device``:
+``set_timezone`` validates a name as ``setTimeZone`` does, and the
+parsers read naive times as wall-clock time in ``timezone()``.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ from typing import Optional, Union
 import torch
 
 DeviceLike = Optional[Union[str, torch.device]]
+
+_timezone: Optional[str] = None
 
 
 def cloud(device: DeviceLike = None) -> torch.device:
@@ -42,3 +50,23 @@ def cloud(device: DeviceLike = None) -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def timezone() -> Optional[str]:
+    """The cluster timezone, or None when none was set (naive times are
+    then UTC)."""
+    return _timezone
+
+
+def set_timezone(tz: str) -> str:
+    """Set the cluster timezone (the reference's ``(setTimeZone tz)``):
+    a name of ``zoneinfo.available_timezones()``, else ``ValueError``
+    worded as the reference's."""
+    import zoneinfo
+    global _timezone
+    if tz not in zoneinfo.available_timezones():
+        raise ValueError(
+            f"Unacceptable timezone {tz} given.  For a list of "
+            "acceptable names, use listTimezone().")
+    _timezone = tz
+    return tz

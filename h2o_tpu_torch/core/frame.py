@@ -4,7 +4,10 @@
 ``Vec`` :185 with ``is_numeric`` :383, ``Frame`` :812 with
 ``from_numpy`` :828, ``from_dict`` :839, ``ncols`` :860,
 ``__getitem__``/``__contains__``/``subframe``/``drop``/``add``/``cbind``
-:902-932, ``as_matrix`` :1003 and ``types`` :1061).
+:902-932, ``as_matrix`` :1003 and ``types`` :1061), with the streaming
+appends (``_append_capacity`` :68-76, ``Vec.append`` :534-623,
+``_chunk_cols_from_frame`` :778-800, ``Frame.append_rows`` :933-968)
+and the sparse codec ``SparseVec`` (:678-777).
 
 Columns are numpy arrays: numeric ones float32 with NaN for NA,
 categorical ones (``T_CAT``) int32 codes with -1 for NA and a host
@@ -15,6 +18,14 @@ no DKV, no row padding and no sharding: a frame of ``n`` rows holds
 exactly ``n`` rows, and ``as_matrix`` lands them on the device the
 caller names.  (The JAX frame pads rows and masks them; padded rows
 never reach a histogram there, so no result depends on them.)
+
+``Vec.append`` grows a column in place into a host buffer of
+power-of-two capacity, so a stream of ``n`` rows in chunks copies each
+row O(1) times on average instead of re-concatenating the column for
+every chunk.  ``SparseVec`` keeps ``(row index, value)`` pairs of a
+mostly-default column (SVMLight's one-hot blocks) and builds its dense
+float32 form once, on the first read of ``data``; a write of dense
+values graduates it out of the codec.
 """
 
 from __future__ import annotations
@@ -47,6 +58,12 @@ def _merge_domains(base: Optional[List], new: Optional[List]):
             union.append(d)
         remap[j] = seen[d]
     return union, remap
+
+
+def _append_capacity(n: int) -> int:
+    """Host buffer capacity for ``n`` rows on the append path: the
+    smallest power of two >= n (the reference's ``bucket_pow2``)."""
+    return 1 if n <= 1 else 1 << int(n - 1).bit_length()
 
 
 class RollupStats:
@@ -154,11 +171,61 @@ class Vec:
 
     @property
     def rollups(self) -> RollupStats:
-        """The column's rollups, computed once (the payload of a Vec is
-        never replaced)."""
+        """The column's rollups, computed once and dropped by
+        ``append``."""
         if self._rollups is None:
             self._rollups = RollupStats(self.as_float())
         return self._rollups
+
+    def _grow(self, slot: str, cur: np.ndarray, new: np.ndarray):
+        """``cur`` followed by ``new`` as a prefix view of the buffer in
+        ``slot``, reallocated at the next power-of-two capacity when full
+        (or when ``cur`` is no longer that buffer's view)."""
+        n_old, n = cur.shape[0], cur.shape[0] + new.shape[0]
+        buf, view = self.__dict__.get(slot) or (None, None)
+        if view is not cur or buf.shape[0] < n:
+            buf = np.empty(_append_capacity(n), new.dtype)
+            buf[:n_old] = cur
+        buf[n_old:n] = new
+        out = buf[:n]
+        self.__dict__[slot] = (buf, out)
+        return out
+
+    def append(self, values, domain: Optional[List[str]] = None) -> None:
+        """Grow this column by ``values`` rows in place (reference
+        ``Vec.append``): float payloads for numeric and time columns
+        (time as float64 milliseconds), int codes for categoricals, a
+        list for strings.  ``domain`` is a chunk's local categorical
+        domain: new levels extend this column's domain in first-seen
+        order and the chunk's codes are remapped into the union (codes
+        outside it become NA).  Cached rollups are dropped."""
+        self._rollups = None
+        if self.host_data is not None:
+            self.host_data.extend(list(values))
+            return
+        arr = np.asarray(values)
+        if arr.shape[0] == 0:
+            return
+        if self.type == T_CAT:
+            codes = arr.astype(np.int32)
+            if domain is not None and list(domain) != list(self.domain
+                                                          or []):
+                self.domain, remap = _merge_domains(self.domain, domain)
+                ok = (codes >= 0) & (codes < len(domain))
+                codes = np.where(ok, remap[np.clip(codes, 0,
+                                                   len(domain) - 1)],
+                                 -1).astype(np.int32)
+            self.data = self._grow("_buf", self.data, codes)
+            return
+        if self.type == T_TIME:
+            if self.host_f64 is None:
+                raise ValueError(
+                    "appending to a T_TIME vec that lost its exact "
+                    "float64 host copy would silently degrade "
+                    "time-part extraction to f32 precision")
+            self.host_f64 = self._grow("_buf64", self.host_f64,
+                                       arr.astype(np.float64))
+        self.data = self._grow("_buf", self.data, arr.astype(np.float32))
 
     def is_constant(self) -> bool:
         """The ``ignore_const_cols`` test DataInfo applies in both modes
@@ -168,6 +235,78 @@ class Vec:
         if self.is_categorical:
             return self.cardinality <= 1
         return self.rollups.sigma == 0
+
+
+class SparseVec(Vec):
+    """A numeric column of ``(row index, value)`` pairs over a default
+    value — the reference's ``SparseVec`` (the CXIChunk analog, store
+    only the non-default values).  The dense float32 form is built once,
+    on the first read of ``data`` (``as_float``, ``to_numpy``,
+    ``rollups``, ``as_matrix``); assigning ``data`` (as ``append`` does)
+    graduates the column out of the codec."""
+
+    def __init__(self, idx, vals, nrows: int, default: float = 0.0,
+                 vtype: str = T_NUM):
+        idx = np.asarray(idx, np.int64)
+        vals = np.asarray(vals, np.float32)
+        if idx.shape != vals.shape or idx.ndim != 1:
+            raise ValueError("a SparseVec needs one value per index")
+        if vtype not in (T_NUM, T_TIME):
+            raise ValueError(f"a SparseVec holds numbers, not {vtype!r}")
+        self.type = vtype
+        self.domain = None
+        self.host_data = None
+        self.host_f64 = None
+        self._rollups = None
+        self._n = int(nrows)
+        self._sparse = (idx, vals, np.float32(default))
+        self._dense: Optional[np.ndarray] = None
+
+    @property
+    def nnz(self) -> int:
+        """The stored pairs (while the column is in the codec)."""
+        return len(self._sparse[0])
+
+    @property
+    def nrows(self) -> int:
+        return self._n if self._dense is None else int(self._dense.shape[0])
+
+    @property
+    def data(self) -> np.ndarray:
+        if self._dense is None:
+            idx, vals, default = self._sparse
+            dense = np.full(self._n, default, np.float32)
+            dense[idx] = vals
+            self._dense = dense
+        return self._dense
+
+    @data.setter
+    def data(self, value) -> None:
+        self._sparse = None
+        self._dense = value
+
+
+def _chunk_cols_from_frame(target: "Frame", chunk: "Frame") -> Dict:
+    """Host column payloads of a chunk frame, shaped for ``Vec.append``
+    (reference ``_chunk_cols_from_frame``)."""
+    if list(chunk.names) != list(target.names):
+        raise ValueError(
+            f"append_rows schema mismatch: frame has {target.names}, "
+            f"chunk has {chunk.names}")
+    cols: Dict = {}
+    for name, v in zip(chunk.names, chunk.vecs):
+        tv = target.vec(name)
+        if v.type != tv.type:
+            raise ValueError(
+                f"append_rows type mismatch on {name!r}: frame is "
+                f"{tv.type}, chunk is {v.type}")
+        if v.host_data is not None:
+            cols[name] = list(v.host_data)
+        elif v.type == T_CAT:
+            cols[name] = (v.to_numpy(), list(v.domain or []))
+        else:
+            cols[name] = v.to_numpy()
+    return cols
 
 
 class Frame:
@@ -252,6 +391,37 @@ class Frame:
 
     def cbind(self, other: "Frame") -> "Frame":
         return Frame(self.names + other.names, self.vecs + other.vecs)
+
+    def append_rows(self, chunk) -> "Frame":
+        """Append a chunk of rows in place (reference
+        ``Frame.append_rows``): ``chunk`` is a dict of host payloads
+        (``name -> ndarray`` for numeric and time, ``(codes, domain)``
+        for categoricals, ``list`` for strings: what ``tokenize_chunk``
+        returns) or a frame of the same names and types.  Every column
+        grows by the same count through ``Vec.append``; a missing column
+        or columns of different lengths raise before any column grows."""
+        cols = chunk if isinstance(chunk, dict) else \
+            _chunk_cols_from_frame(self, chunk)
+        missing = [n for n in self.names if n not in cols]
+        if missing:
+            raise ValueError(f"append_rows chunk is missing columns "
+                             f"{missing}")
+        n_new = None
+        for name in self.names:
+            payload = cols[name]
+            n = len(payload[0] if isinstance(payload, tuple) else payload)
+            if n_new is None:
+                n_new = n
+            elif n != n_new:
+                raise ValueError(
+                    f"ragged append chunk: column {name!r} has {n} rows, "
+                    f"expected {n_new}")
+        for name in self.names:
+            payload = cols[name]
+            vals, dom = (payload if isinstance(payload, tuple)
+                         else (payload, None))
+            self.vec(name).append(vals, domain=dom)
+        return self
 
     def types(self) -> List[str]:
         return [v.type for v in self.vecs]

@@ -16,9 +16,15 @@ machinery lives here:
   retry loop and the serving layers' per-request deadlines
   (serve/batcher.py, serve/registry.py).
 
-The reference's process-wide ``default_policy()`` (built from the
-``H2O_TPU_RETRY_*`` environment) has no caller in the port yet and comes
-with the persist layer.
+The process-wide ``default_policy()`` (the persist byte stores' and the
+stream reader's retries) is built once from the environment, as the
+reference's (``resilience.py:197-221``):
+
+- ``H2O_TPU_RETRY_MAX_ATTEMPTS``   (default 4)
+- ``H2O_TPU_RETRY_BASE_DELAY``     (seconds, default 0.05)
+- ``H2O_TPU_RETRY_MAX_DELAY``      (seconds, default 2.0)
+- ``H2O_TPU_RETRY_TOTAL_DEADLINE`` (seconds across all attempts,
+  default 60; 0 disables)
 
 Every retry is observable: ``stats()`` returns cumulative counters
 (attempts/retries/recoveries/giveups) that chaos tests assert against
@@ -28,6 +34,7 @@ and a later ``GET /3/Resilience`` exposes.
 from __future__ import annotations
 
 import dataclasses
+import os
 import random
 import threading
 import time
@@ -186,3 +193,32 @@ class RetryPolicy:
                             "in %.3fs", what, attempt, self.max_attempts,
                             e, pause)
                 time.sleep(pause)
+
+
+# -- process default (env-tunable, like core/chaos.py) -----------------------
+
+_default: Optional[RetryPolicy] = None
+_default_lock = threading.Lock()
+
+
+def default_policy() -> RetryPolicy:
+    """The process-wide policy, built once from ``H2O_TPU_RETRY_*`` env."""
+    global _default
+    if _default is None:
+        with _default_lock:
+            if _default is None:
+                e = os.environ.get
+                _default = RetryPolicy(
+                    max_attempts=int(e("H2O_TPU_RETRY_MAX_ATTEMPTS", 4)),
+                    base_delay=float(e("H2O_TPU_RETRY_BASE_DELAY", 0.05)),
+                    max_delay=float(e("H2O_TPU_RETRY_MAX_DELAY", 2.0)),
+                    total_deadline=float(
+                        e("H2O_TPU_RETRY_TOTAL_DEADLINE", 60.0)))
+    return _default
+
+
+def set_default_policy(policy: Optional[RetryPolicy]) -> None:
+    """Override (or with ``None`` re-derive from env) the process policy."""
+    global _default
+    with _default_lock:
+        _default = policy

@@ -378,10 +378,12 @@ ENVS = [{},
          "H2O_TPU_BREAKER_OPEN_SECS": "0.25", "H2O_TPU_BREAKER_PROBES": "0",
          "H2O_TPU_BREAKER_INTERVAL_MS": "0",
          "H2O_TPU_BREAKER_STALL_SOFT": "2", "H2O_TPU_SERVE_ADAPTIVE": "on",
-         "H2O_TPU_SERVE_MIN_BATCH": "4", "H2O_TPU_SERVE_MAX_BATCH": "64"},
+         "H2O_TPU_SERVE_MIN_BATCH": "4", "H2O_TPU_SERVE_MAX_BATCH": "64",
+         "H2O_TPU_STREAM_POLL_MS": "7.5"},
         {"H2O_TPU_HBM_BUDGET": "1024", "H2O_TPU_MEM_BUDGET": "9",
          "H2O_TPU_SERVE_REPLICAS": "0", "H2O_TPU_SERVE_ADAPTIVE": "no",
-         "H2O_TPU_SERVE_MIN_BATCH": "", "H2O_TPU_SERVE_MAX_BATCH": "0"}]
+         "H2O_TPU_SERVE_MIN_BATCH": "", "H2O_TPU_SERVE_MAX_BATCH": "0",
+         "H2O_TPU_STREAM_POLL_MS": ""}]
 
 
 @pytest.mark.parametrize("env", range(len(ENVS)))
@@ -394,7 +396,7 @@ def test_config_readers_equal(monkeypatch, env):
                        "breaker_hard", "breaker_open_secs", "breaker_probes",
                        "breaker_interval_ms", "breaker_stall_soft",
                        "serve_adaptive_default", "serve_min_batch",
-                       "serve_max_batch"]
+                       "serve_max_batch", "stream_poll_ms"]
     for name in READERS:
         assert getattr(p_config, name)() == getattr(j_config, name)(), name
 
