@@ -16,7 +16,8 @@ the serving layers above it: micro-batching, the deployment registry,
 the load breaker and the replica fleet; then the other ingest formats
 (SVMLight with sparse columns feeding a GBM, ARFF, Avro, XLSX/XLS), a
 remote path, a frame snapshot, streaming ingest and the cluster
-timezone.
+timezone; then the data plane below Rapids: map_reduce, quantiles, and
+the sort, filter, take, group-by and merge verbs.
 Phases (each
 prints one JSON line; any failure raises and the exit code is not 0):
 
@@ -395,6 +396,46 @@ prints one JSON line; any failure raises and the exit code is not 0):
               by row, the DST gap and fold rows NA (without a tz database,
               the refusal is asserted and printed).  Each prints its
               bytes, walls and MB/s
+ 23 the data plane (core/mrtask.py, core/quantile.py, core/munge.py),
+              each sub-phase run on the card and on the CPU through the
+              same port code and held card against CPU, with the card's
+              wall, the bytes it moved to and from the host and the
+              card's name and power limit on its line; the 1M x 28 frame
+              gains a 100,000-level Zipf (s = 1.1) integer key zkey and a
+              7-level categorical c7 (1 % NA):
+              23a map_reduce over the 1M x 28 matrix (column sums, the
+              28 x 28 Gram block, min, max): min/max bitwise, sums and
+              Gram within 1e-5 of their summed magnitudes (sum |x|,
+              sqrt(G_ii G_jj)), bitwise over three calls on the card;
+              mutate_array and Vec.map_inplace on one column bitwise;
+              23b the quantiles of all 28 columns with 1 % NaN cells at
+              nine probabilities: bitwise, each within 1e-5 of its span
+              of the exact order statistic;
+              23c sort of the 1M frame by (c7 ascending, x0 descending)
+              and of the covertype frame (wild/soil categorical) by
+              (wild, soil, elev0): every column bitwise, in numpy's stable
+              lexsort order;
+              23d group-by with every DEVICE_AGGS aggregate (mode on a
+              categorical) of the covertype frame by (wild, soil) and of
+              the 1M frame by zkey: keys, counts, min, max, median and
+              mode bitwise; sum, mean, sd and var at rtol 1e-6 (their
+              sums run in one tree order on every device, so they are
+              bitwise too, which the line prints); bitwise over three
+              calls;
+              23e the 1M frame joined to a 100,000-row right frame on
+              zkey (~10 % of its keys absent from the left, ~10 % of its
+              rows repeating a key): inner, left, right and outer, every
+              column (row ids included, so the pair order) bitwise and
+              the row counts numpy's; a categorical-key outer join whose
+              domains differ, matched by label through the union domain;
+              23f a ~50 % mask (x1 > 0) and 100,000 row indices: bitwise
+              and numpy's selection;
+              23g F8's repeat check (h2o_tpu_torch/tools/repeat_check.py):
+              a weighted binomial GBM (AUC stopping, scoring every tree)
+              and a weighted 7-class GBM on 100,000 rows, three trainings
+              each, and KMeans' and GLRM's steps three times at one state:
+              histories, tree counts, varimp, the AUC bins and threshold
+              table, the confusion matrix bitwise; K2 5 launches a tree
   7 profile - torch.profiler over 2 default trees: device busy share and
               the kernels that take the device time; then 2 QuantilesGlobal
               trees: each histogram kernel's device ms per main-path launch
@@ -404,14 +445,15 @@ prints one JSON line; any failure raises and the exit code is not 0):
               iteration (7 class trees) and one UpliftDRF tree
 
 The kernels line's launches sum every main-path training above (phases
-4, 5, 8-22), each read from counters set to 0 just before it; the
+4, 5, 8-23), each read from counters set to 0 just before it; the
 launches phase lists them path by path (phase 16 as "glm", 0 and 0;
 phase 17's KMeans, DeepLearning and GAM paths 0 and 0, "rulefit" 150
 and 0; phase 18's PCA, SVD, GLRM, Word2Vec, NaiveBayes and CoxPH runs 0
 and 0; phase 19's "infogram" 0 and 940, "stackedensemble_bases" 0 and
 600, its other runs 0 and 0; phase 20's deployment
 "gbm_covertype_categorical" 0 and 100, "serving" 0 and 0; phase 21's
-"serving_layers" 0 and 0; phase 22's "ingest_formats" 0 and 175).
+"serving_layers" 0 and 0; phase 22's "ingest_formats" 0 and 175;
+phase 23's "data_plane" 0 and 0, "repeat_check" 0 and 5 a tree).
 
 The line before the last holds every kernel's numbers; the last line is
 the device summary.  Needs one CUDA card; exits non-zero without one.
@@ -497,7 +539,10 @@ from h2o_tpu_torch.mojo import (MojoModel, _flatten_arrays,  # noqa: E402
                                 export_genmodel_mojo, export_mojo,
                                 import_mojo, load_mojo, scorers)
 from h2o_tpu_torch.core import chaos as chaos_mod  # noqa: E402
-from h2o_tpu_torch.core.diag import TimeLine  # noqa: E402
+from h2o_tpu_torch.core import mrtask  # noqa: E402
+from h2o_tpu_torch.core import munge as dp_munge  # noqa: E402
+from h2o_tpu_torch.core import quantile as dp_quantile  # noqa: E402
+from h2o_tpu_torch.core.diag import TimeLine, TransferStats  # noqa: E402
 from h2o_tpu_torch.serve import (BreakerOpen, NoHealthyReplica,  # noqa: E402
                                  QueueFull, ScoringEngine, ServingConfig,
                                  ShedLoad, breaker, fleet, registry)
@@ -506,6 +551,8 @@ from h2o_tpu_torch.ops import hist_kernels as hk  # noqa: E402
 from h2o_tpu_torch.ops import prng  # noqa: E402
 from h2o_tpu_torch.ops.histogram import hist_plain  # noqa: E402
 from h2o_tpu_torch.ops.linalg import eigh_desc  # noqa: E402
+from h2o_tpu_torch.tools.repeat_check import (all_equal,  # noqa: E402
+                                              repeat_check)
 
 DEV = torch.device("cuda:0")
 R, C = 1_000_000, 28
@@ -4881,6 +4928,404 @@ def phase_slice15(X, y, cov: Frame, paths) -> None:
               **{f"{n}_s": b - a for n, a, b in zip(names, t, t[1:])}))
 
 
+# ---------------------------------------------------------------------------
+# 23 the data plane: map_reduce, quantiles, sort, group-by, merge, filter,
+# take; F8's repeat check
+# ---------------------------------------------------------------------------
+
+DP_LEVELS, DP_ZIPF = 100_000, 1.1
+DP_CATS = 7
+DP_PROBS = (0.001, 0.01, 0.1, 0.25, 0.5, 0.75, 0.9, 0.99, 0.999)
+DP_NA = 0.01
+DP_RIGHT_ROWS = 100_000
+DP_TAKE_ROWS = 100_000
+DP_CALLS = 3
+DP_SUM_TOL = 1e-5     # 23a: of the summed magnitudes
+DP_AGG_RTOL = 1e-6    # 23d: sum, mean, sd and var, card against CPU
+DP_FLOAT_AGGS = ("sum", "mean", "sd", "var")
+
+
+def dp_frame(fr: Frame, seed: int = 31) -> Frame:
+    """The 1M x 28 frame with a 100,000-level Zipf (s = 1.1) integer key
+    ``zkey`` and a 7-level categorical ``c7`` (1 % NA)."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, DP_LEVELS + 1) ** DP_ZIPF
+    key = rng.choice(DP_LEVELS, size=fr.nrows, p=p / p.sum())
+    c7 = rng.integers(0, DP_CATS, size=fr.nrows).astype(np.int32)
+    c7[rng.uniform(size=fr.nrows) < DP_NA] = -1
+    return Frame(fr.names + ["zkey", "c7"], fr.vecs + [
+        Vec(key.astype(np.float32)),
+        Vec(c7, T_CAT, domain=[f"k{j}" for j in range(DP_CATS)])])
+
+
+def on_card(fn):
+    """(result, wall s, bytes to the device, bytes to the host) of one
+    call ``fn(DEV)``, the wall ending in a synchronize."""
+    TransferStats.reset()
+    sync()
+    t0 = time.perf_counter()
+    out = fn(DEV)
+    sync()
+    wall = time.perf_counter() - t0
+    moved = TransferStats.snapshot()
+    return out, wall, moved["to_device"], moved["to_host"]
+
+
+def on_cpu(fn):
+    """(result, host wall s) of ``fn("cpu")``."""
+    t0 = time.perf_counter()
+    out = fn("cpu")
+    return out, time.perf_counter() - t0
+
+
+def frame_diff(a: Frame, b: Frame) -> list:
+    """Columns of two frames that differ in name, type, domain or bits."""
+    if a.names != b.names or a.nrows != b.nrows:
+        return ["<names or rows>"]
+    return [n for n in a.names if a.vec(n).type != b.vec(n).type] + \
+        frame_bits_equal(a, b)
+
+
+def dp_hold(name: str, smi: str, rec: dict, ok: bool) -> None:
+    emit(dict(phase=name, gpu=smi, **rec))
+    if not ok:
+        raise AssertionError(f"{name}: a hold failed: {rec}")
+
+
+def dp_map_reduce(X, smi: str) -> None:
+    """23a: per-column sums, the 28 x 28 Gram block, min and max in one
+    map_reduce; mutate_array and Vec.map_inplace on one column."""
+    def stats(m):
+        return dict(sum=m.sum(dim=0), gram=m.T @ m, min=m.amin(dim=0),
+                    max=m.amax(dim=0))
+
+    def run(dev):
+        out = mrtask.map_reduce(stats, X, device=dev)
+        return {k: v.cpu().numpy() for k, v in out.items()}
+
+    card = [on_card(run) for _ in range(DP_CALLS)]
+    cpu, cpu_wall = on_cpu(run)
+    c = card[0][0]
+    repeat = all(bits_equal(r[0][k], c[k]) for r in card[1:] for k in c)
+    scale_sum = np.abs(X).sum(axis=0, dtype=np.float64)
+    g = np.diag(cpu["gram"]).astype(np.float64)
+    scale_gram = np.sqrt(np.outer(g, g))
+    # relative to the summed magnitudes: an entry that cancels toward 0
+    # keeps no relative precision in any summation order
+    sum_err = float(np.max(np.abs(c["sum"] - cpu["sum"]) / scale_sum))
+    gram_err = float(np.max(np.abs(c["gram"] - cpu["gram"]) / scale_gram))
+    plain = {k: float(np.max(np.abs(c[k] - cpu[k]) / np.abs(cpu[k])))
+             for k in ("sum", "gram")}
+    exact = X.sum(axis=0, dtype=np.float64)
+    ref_err = float(np.max(np.abs(cpu["sum"] - exact) / scale_sum))
+    minmax = bits_equal(c["min"], cpu["min"]) and \
+        bits_equal(c["max"], cpu["max"]) and \
+        bits_equal(cpu["min"], X.min(axis=0)) and \
+        bits_equal(cpu["max"], X.max(axis=0))
+
+    def affine(t):
+        return t.mul_(2.0).add_(1.0)
+
+    col = X[:, 0]
+    mut_card = mrtask.mutate_array(affine, col.copy(), device=DEV).cpu()
+    mut_cpu = mrtask.mutate_array(affine, col.copy(), device="cpu")
+    v_card, v_cpu = Vec(col.copy()), Vec(col.copy())
+    v_card.map_inplace(affine, device=DEV)
+    v_cpu.map_inplace(affine, device="cpu")
+    mut_ok = bits_equal(mut_card, mut_cpu) and \
+        bits_equal(v_card.data, mut_cpu) and bits_equal(v_cpu.data, mut_cpu)
+    down = sum(v.nbytes for v in c.values())
+    dp_hold("23a_map_reduce", smi, dict(
+        rows=X.shape[0], cols=X.shape[1], calls=DP_CALLS,
+        card_wall_s=[r[1] for r in card], cpu_wall_s=cpu_wall,
+        to_device_bytes=card[0][2], to_host_bytes=down,
+        min_max_bitwise=minmax, sums_rel_to_abs_sum=sum_err,
+        gram_rel_to_diag=gram_err, sums_max_rel=plain["sum"],
+        gram_max_rel=plain["gram"], cpu_sum_vs_float64=ref_err,
+        sums_bitwise=bits_equal(c["sum"], cpu["sum"]),
+        gram_bitwise=bits_equal(c["gram"], cpu["gram"]),
+        card_repeats_bitwise=repeat, mutate_and_map_inplace_bitwise=mut_ok),
+        minmax and repeat and mut_ok and sum_err <= DP_SUM_TOL and
+        gram_err <= DP_SUM_TOL and ref_err <= DP_SUM_TOL)
+
+
+def dp_quantiles(X, smi: str) -> None:
+    """23b: the nine quantiles of all 28 columns with 1 % NaN cells."""
+    rng = np.random.default_rng(37)
+    Xq = X.copy()
+    Xq[rng.uniform(size=X.shape) < DP_NA] = np.nan
+    fq = Frame.from_numpy(Xq, names=[f"x{j}" for j in range(X.shape[1])])
+
+    def run(dev):
+        return dp_quantile.quantile(fq, DP_PROBS, device=dev)
+
+    card, wall, up, down = on_card(run)
+    cpu, cpu_wall = on_cpu(run)
+    bad = [k for k in card if not bits_equal(card[k], cpu[k])]
+    # the refined bracket holds the order statistic of index
+    # floor(p (n - 1)) (the rank taken in float32 as the verb takes it)
+    got = np.stack([card[f"x{j}"] for j in range(X.shape[1])], axis=1)
+    off = 0.0
+    for j in range(X.shape[1]):
+        xs = np.sort(Xq[:, j][~np.isnan(Xq[:, j])])
+        k = np.floor(np.float32(np.asarray(DP_PROBS) * (xs.size - 1)))
+        want = xs[k.astype(np.int64)]
+        off = max(off, float(np.max(np.abs(got[:, j] - want)) /
+                             (xs[-1] - xs[0])))
+    monotone = bool(np.all(np.diff(got, axis=0) >= 0))
+    dp_hold("23b_quantiles", smi, dict(
+        rows=X.shape[0], cols=X.shape[1], probs=list(DP_PROBS),
+        na_cells=int(np.isnan(Xq).sum()), card_wall_s=wall,
+        cpu_wall_s=cpu_wall, to_device_bytes=up, to_host_bytes=down,
+        columns_not_bitwise=bad, max_off_order_statistic_rel_span=off,
+        nondecreasing=monotone),
+        not bad and monotone and off <= 1e-5)
+
+
+def sort_reference(fr: Frame, idxs, asc) -> np.ndarray:
+    """numpy's stable order of the verbs' sort keys (NA first)."""
+    keys = []
+    for j, a in zip(idxs, asc):
+        v = fr.vecs[j]
+        d = v.data.astype(np.float64)
+        na = np.isnan(d) | (v.is_categorical & (d < 0))
+        keys.append(np.where(na, -np.inf, d if a else -d))
+    return np.lexsort(keys[::-1])
+
+
+def dp_sort(f23: Frame, cov: Frame, smi: str) -> None:
+    """23c: the 1M frame by (c7 ascending, x0 descending), the covertype
+    frame by (wild, soil, elev0)."""
+    for name, fr, idxs, asc in (
+            ("dp_c7_asc_x0_desc", f23, [f23.names.index("c7"), 0],
+             [True, False]),
+            ("covertype_wild_soil_elev0", cov,
+             [cov.names.index(n) for n in ("wild", "soil", "elev0")],
+             [True, True, True])):
+        def run(dev):
+            return dp_munge.sort_frame(fr, idxs, asc, device=dev)
+
+        card, wall, up, down = on_card(run)
+        cpu, cpu_wall = on_cpu(run)
+        bad = frame_diff(card, cpu)
+        order = sort_reference(fr, idxs, asc)
+        ref_ok = all(bits_equal(card.vecs[j].data, fr.vecs[j].data[order])
+                     for j in range(fr.ncols))
+        dp_hold("23c_sort", smi, dict(
+            case=name, rows=fr.nrows, cols=fr.ncols, card_wall_s=wall,
+            cpu_wall_s=cpu_wall, to_device_bytes=up, to_host_bytes=down,
+            columns_not_bitwise=bad, numpy_lexsort_order=ref_ok),
+            not bad and ref_ok)
+
+
+def dp_groupby(f23: Frame, cov: Frame, smi: str) -> None:
+    """23d: every DEVICE_AGGS aggregate, mode on a categorical, on the
+    covertype frame by (wild, soil) and the 1M frame by the Zipf key."""
+    for name, fr, gnames, col, mode_col in (
+            ("covertype_by_wild_soil", cov, ("wild", "soil"), "elev0", "y"),
+            ("dp_by_zipf_key", f23, ("zkey",), "x0", "c7")):
+        gcols = [fr.names.index(n) for n in gnames]
+        ci = fr.names.index(col)
+        aggs = [(a, ci, "all") for a in dp_munge.DEVICE_AGGS if a != "mode"]
+        aggs.append(("mode", fr.names.index(mode_col), "all"))
+
+        def run(dev):
+            return dp_munge.groupby_frame(fr, gcols, aggs, device=dev)
+
+        card = [on_card(run) for _ in range(DP_CALLS)]
+        cpu, cpu_wall = on_cpu(run)
+        c = card[0][0]
+        repeat = all(not frame_diff(r[0], c) for r in card[1:])
+        bad_exact = [n for n in frame_diff(c, cpu)
+                     if n.split("_")[0] not in DP_FLOAT_AGGS]
+        floats, close = {}, True
+        for op in DP_FLOAT_AGGS:
+            n = f"{op}_{col}"
+            a = c.vec(n).data.astype(np.float64)
+            b = cpu.vec(n).data.astype(np.float64)
+            ok = np.isclose(a, b, rtol=DP_AGG_RTOL, atol=0.0,
+                            equal_nan=True)
+            floats[n] = dict(bitwise=bits_equal(c.vec(n).data,
+                                                cpu.vec(n).data),
+                             max_abs_diff=float(np.nanmax(np.abs(a - b)))
+                             if a.size else 0.0)
+            close = close and bool(ok.all())
+        counts_ok = float(c.vec(f"nrow_{col}").data.sum()) == fr.nrows
+        dp_hold("23d_groupby", smi, dict(
+            case=name, rows=fr.nrows, groups=c.nrows,
+            aggs=[a for a, _c, _n in aggs],
+            card_wall_s=[r[1] for r in card], cpu_wall_s=cpu_wall,
+            to_device_bytes=card[0][2], to_host_bytes=card[0][3],
+            exact_columns_not_bitwise=bad_exact, float_aggs=floats,
+            card_repeats_bitwise=repeat, counts_sum_to_rows=counts_ok),
+            not bad_exact and repeat and counts_ok and close)
+
+
+def dp_right_frame(f23: Frame, seed: int = 41) -> Frame:
+    """100,000 rows keyed on zkey: ~10 % of the keys absent from the left
+    frame, ~10 % of the rows repeating another row's key; a row id, a
+    value, a column named like a left one (x0) and a categorical."""
+    rng = np.random.default_rng(seed)
+    present = np.unique(f23.vec("zkey").data)
+    absent = np.setdiff1d(np.arange(2 * DP_LEVELS, dtype=np.float32),
+                          present)
+    n_dup = DP_RIGHT_ROWS // 10
+    n_abs = (DP_RIGHT_ROWS - n_dup) // 10
+    n_pres = min(DP_RIGHT_ROWS - n_dup - n_abs, present.size)
+    uniq = np.concatenate([rng.choice(present, n_pres, replace=False),
+                           rng.choice(absent, DP_RIGHT_ROWS - n_dup - n_pres,
+                                      replace=False)])
+    keys = np.concatenate([uniq, rng.choice(uniq, n_dup)])
+    keys = keys[rng.permutation(keys.size)].astype(np.float32)
+    n = keys.size
+    return Frame(["zkey", "rid", "rv", "x0", "rc"], [
+        Vec(keys), Vec(np.arange(n, dtype=np.float32)),
+        Vec(rng.normal(size=n).astype(np.float32)),
+        Vec(rng.normal(size=n).astype(np.float32)),
+        Vec(rng.integers(-1, 3, size=n).astype(np.int32), T_CAT,
+            domain=["r0", "r1", "r2"])])
+
+
+def join_counts(lk: np.ndarray, rk: np.ndarray) -> dict:
+    """Rows of each join of two numeric key columns (numpy)."""
+    ul, cl = np.unique(lk, return_counts=True)
+    ur, cr = np.unique(rk, return_counts=True)
+    both, il, ir = np.intersect1d(ul, ur, return_indices=True)
+    inner = int((cl[il] * cr[ir]).sum())
+    ul_only = int(cl.sum() - cl[il].sum())
+    ur_only = int(cr.sum() - cr[ir].sum())
+    return dict(inner=inner, left=inner + ul_only, right=inner + ur_only,
+                outer=inner + ul_only + ur_only)
+
+
+def dp_merge(f23: Frame, smi: str) -> None:
+    """23e: the 1M frame against a 100,000-row right frame on the Zipf
+    key (inner, left, right, outer); a categorical-key join whose
+    domains differ, matched by label."""
+    left = f23.subframe(["zkey", "x0", "x1", "c7", "y"])
+    left.add("lid", Vec(np.arange(left.nrows, dtype=np.float32)))
+    right = dp_right_frame(f23)
+    want = join_counts(left.vec("zkey").data, right.vec("zkey").data)
+    for join, (ax, ay) in (("inner", (False, False)), ("left", (True, False)),
+                           ("right", (False, True)),
+                           ("outer", (True, True))):
+        def run(dev):
+            return dp_munge.merge_frames(left, right, ax, ay, [0], [0],
+                                         device=dev)
+
+        card, wall, up, down = on_card(run)
+        cpu, cpu_wall = on_cpu(run)
+        bad = frame_diff(card, cpu)
+        # left rows in order, then the right-only rows (no left row)
+        lid = card.vec("lid").data
+        n_left = int(np.sum(~np.isnan(lid)))
+        ordered = bool(np.all(np.diff(lid[:n_left]) >= 0) and
+                       np.isnan(lid[n_left:]).all())
+        dp_hold("23e_merge", smi, dict(
+            join=join, left_rows=left.nrows, right_rows=right.nrows,
+            rows_out=card.nrows, numpy_rows=want[join], card_wall_s=wall,
+            cpu_wall_s=cpu_wall, to_device_bytes=up, to_host_bytes=down,
+            columns_not_bitwise=bad, names=card.names,
+            pairs_in_left_order=ordered),
+            not bad and card.nrows == want[join] and ordered and
+            "x0_y" in card.names)
+    # categorical keys: the right domain in another order, with a level
+    # the left lacks
+    rdom = ["k6", "k5", "kx", "k0", "k3"]
+    rcat = Frame(["c7", "cv"], [
+        Vec(np.arange(len(rdom), dtype=np.int32), T_CAT, domain=rdom),
+        Vec(np.arange(len(rdom), dtype=np.float32) * 10)])
+    lcat = f23.subframe(["c7"])
+    lcat.add("lid", Vec(np.arange(lcat.nrows, dtype=np.float32)))
+
+    def run_cat(dev):
+        return dp_munge.merge_frames(lcat, rcat, True, True, [0], [0],
+                                     device=dev)
+
+    card, wall, up, down = on_card(run_cat)
+    cpu, cpu_wall = on_cpu(run_cat)
+    bad = frame_diff(card, cpu)
+    dom = card.vec("c7").domain
+    labels = np.asarray(dom + ["<NA>"], dtype=object)[card.vec("c7").data]
+    cv = card.vec("cv").data
+    hit = ~np.isnan(cv)
+    by_label = bool(np.all(labels[hit] == np.asarray(rdom, dtype=object)[
+        (cv[hit] / 10).astype(int)]))
+    dp_hold("23e_merge_categorical", smi, dict(
+        rows_out=card.nrows, union_domain=dom, card_wall_s=wall,
+        cpu_wall_s=cpu_wall, to_device_bytes=up, to_host_bytes=down,
+        columns_not_bitwise=bad, matched_by_label=by_label),
+        not bad and by_label and dom == [f"k{j}" for j in range(DP_CATS)] +
+        ["kx"])
+
+
+def dp_filter_take(f23: Frame, smi: str) -> None:
+    """23f: a mask of about 50 % (x1 > 0), then 100,000 row indices."""
+    mask = f23.vec("x1").data > 0
+    idx = np.random.default_rng(43).integers(0, f23.nrows, DP_TAKE_ROWS)
+    for name, fn, sel in (
+            ("filter", lambda dev: dp_munge.filter_rows(f23, mask,
+                                                        device=dev), mask),
+            ("take", lambda dev: dp_munge.take_rows(f23, idx, device=dev),
+             idx)):
+        card, wall, up, down = on_card(fn)
+        cpu, cpu_wall = on_cpu(fn)
+        bad = frame_diff(card, cpu)
+        ref_ok = all(bits_equal(card.vecs[j].data, f23.vecs[j].data[sel])
+                     for j in range(f23.ncols))
+        dp_hold("23f_" + name, smi, dict(
+            rows=f23.nrows, rows_out=card.nrows, card_wall_s=wall,
+            cpu_wall_s=cpu_wall, to_device_bytes=up, to_host_bytes=down,
+            columns_not_bitwise=bad, numpy_selection=ref_ok),
+            not bad and ref_ok)
+
+
+def phase_slice16(X, fr: Frame, cov: Frame, smi: str, paths) -> None:
+    """23: the data plane on the card, each sub-phase held against the
+    same port code on the CPU; then F8's repeat check (23g)."""
+    t = [time.perf_counter()]
+    f23 = dp_frame(fr)
+    covc = make_covertype(seed=0, categorical=True)
+    t.append(time.perf_counter())
+    hk.reset_launches()
+    dp_map_reduce(X, smi)
+    t.append(time.perf_counter())
+    dp_quantiles(X, smi)
+    t.append(time.perf_counter())
+    dp_sort(f23, covc, smi)
+    t.append(time.perf_counter())
+    dp_groupby(f23, covc, smi)
+    t.append(time.perf_counter())
+    dp_merge(f23, smi)
+    t.append(time.perf_counter())
+    dp_filter_take(f23, smi)
+    t.append(time.perf_counter())
+    got = hist_launches()
+    no_hist("data plane", got)
+    paths["data_plane"] = got
+    # 23g: F8's repeat check, the GBMs on K2
+    hk.reset_launches()
+    records = repeat_check(fr, cov, runs=DP_CALLS, device=DEV)
+    got = hist_launches()
+    t.append(time.perf_counter())
+    trees = records[0]["trees"]
+    iters = records[1]["trees"]
+    want = (0, 5 * sum(trees) + 5 * len(COV_COUNTS) * sum(iters))
+    paths["repeat_check"] = got
+    for r in records:
+        emit(dict(phase="23g_repeat", gpu=smi, **r))
+    ok = all_equal(records) and got == want
+    emit(dict(phase="23g_repeat_summary", gpu=smi, all_equal=ok,
+              k1_launches=got[0], k2_launches=got[1], want_launches=want))
+    if not ok:
+        raise AssertionError(f"23g: a repeat differed or the launches "
+                             f"{got} are not {want}")
+    names = ("frames", "map_reduce", "quantiles", "sort", "groupby",
+             "merge", "filter_take", "repeat_check")
+    emit(dict(phase="phase23_walls", gpu=smi, total_s=t[-1] - t[0],
+              **{f"{n}_s": b - a for n, a, b in zip(names, t, t[1:])}))
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # -- 0 device ------------------------------------------------------------
@@ -5110,6 +5555,9 @@ def main() -> None:
     # -- 22 the other formats, remote paths, streaming, the timezone -------
     torch.cuda.empty_cache()
     phase_slice15(X, y, cov, paths)
+    # -- 23 the data plane and F8's repeat check ---------------------------
+    torch.cuda.empty_cache()
+    phase_slice16(X, fr, cov, smi, paths)
     emit(dict(phase="launches", paths={k: dict(k1=v[0], k2=v[1])
                                        for k, v in paths.items()}))
     sync()

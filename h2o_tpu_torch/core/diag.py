@@ -1,9 +1,10 @@
-"""Diagnostics — the part of ``h2o_tpu/core/diag.py`` the serving layers
-use: :class:`TimeLine` (``diag.py:240-266``), the fixed-size event ring
-of water/TimeLine.java.
+"""Diagnostics — the parts of ``h2o_tpu/core/diag.py`` the port uses:
+:class:`TimeLine` (``diag.py:240-266``), the fixed-size event ring of
+water/TimeLine.java, and :class:`TransferStats`, the byte counts of the
+reference's ``DispatchStats.note_transfer`` / host pulls.
 
-The reference module also holds ``DispatchStats`` with its XLA compile
-listener, the water meters, ``jstack``, ``Profiler`` and
+The reference module also holds the rest of ``DispatchStats`` with its
+XLA compile listener, the water meters, ``jstack``, ``Profiler`` and
 ``device_memory``; they come with later slices (ROADMAP P13/P14).
 """
 
@@ -43,3 +44,27 @@ class TimeLine:
     def clear(cls) -> None:
         with cls._lock:
             cls._events.clear()
+
+
+class TransferStats:
+    """Bytes the data-plane verbs moved between the host and the device,
+    by direction (``to_device``, ``to_host``)."""
+
+    _bytes: Dict[str, int] = {"to_device": 0, "to_host": 0}
+    _lock = threading.Lock()
+
+    @classmethod
+    def note(cls, direction: str, nbytes: int) -> None:
+        with cls._lock:
+            cls._bytes[direction] += int(nbytes)
+
+    @classmethod
+    def snapshot(cls) -> Dict[str, int]:
+        with cls._lock:
+            return dict(cls._bytes)
+
+    @classmethod
+    def reset(cls) -> None:
+        with cls._lock:
+            for k in cls._bytes:
+                cls._bytes[k] = 0

@@ -1,7 +1,8 @@
 """Columns and frames — a host-side port of ``h2o_tpu/core/frame.py``
 (the column types :55-60, ``_merge_domains`` :78-92, the rollups
 ``_rollups_matrix_kernel`` :124-153 and ``RollupStats`` :167-183,
-``Vec`` :185 with ``is_numeric`` :383, ``Frame`` :812 with
+``Vec`` :185 with ``is_numeric`` :383 and ``map_inplace`` :658-675,
+``frame_device_ok`` :802-810, ``Frame`` :812 with
 ``from_numpy`` :828, ``from_dict`` :839, ``ncols`` :860,
 ``__getitem__``/``__contains__``/``subframe``/``drop``/``add``/``cbind``
 :902-932, ``as_matrix`` :1003 and ``types`` :1061), with the streaming
@@ -227,6 +228,25 @@ class Vec:
                                        arr.astype(np.float64))
         self.data = self._grow("_buf", self.data, arr.astype(np.float32))
 
+    def map_inplace(self, fn, *extras, device=None) -> None:
+        """``payload = fn(payload, *extras)`` on the device (reference
+        ``Vec.map_inplace``, :658-675): the payload (float32, or int32
+        codes) is uploaded once, transformed by ``mrtask.mutate_array``
+        and written back to the host; the cached rollups are dropped.  A
+        time column is refused, since the transform would desync its
+        exact float64 copy."""
+        if self.data is None:
+            raise ValueError("map_inplace needs a numeric payload, not a "
+                             f"{self.type} column")
+        if self.host_f64 is not None:
+            raise ValueError("map_inplace would desync the exact host copy "
+                             "(T_TIME)")
+        from h2o_tpu_torch.core.mrtask import mutate_array
+        new = mutate_array(fn, self.data, *extras, device=device)
+        self.data = new.cpu().numpy().astype(
+            np.int32 if self.type == T_CAT else np.float32)
+        self._rollups = None
+
     def is_constant(self) -> bool:
         """The ``ignore_const_cols`` test DataInfo applies in both modes
         (``h2o_tpu/models/model.py:58-69``): a categorical column with at
@@ -307,6 +327,15 @@ def _chunk_cols_from_frame(target: "Frame", chunk: "Frame") -> Dict:
         else:
             cols[name] = v.to_numpy()
     return cols
+
+
+def frame_device_ok(fr: "Frame") -> bool:
+    """True when every column has a payload the device verbs compute on
+    exactly: numeric and categorical columns only (reference
+    ``frame_device_ok``, :802-810).  A time column keeps an exact float64
+    copy on the host; strings and uuids have no numeric payload."""
+    return bool(fr.vecs) and all(
+        v.type in (T_NUM, T_CAT) and v.host_data is None for v in fr.vecs)
 
 
 class Frame:

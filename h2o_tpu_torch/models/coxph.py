@@ -14,9 +14,9 @@ start column the rows reordered by descending start and, per tie group, the
 count of rows that have not yet entered. On the model's device: the partial
 log-likelihood over the sorted risk sets — the risk-set sums a prefix sum in
 XLA's blocked order (``ops/xlamath.cumsum``, as ``jnp.cumsum`` computes it on
-the CPU), the per-group sums ``index_add_`` over the groups (on the card
-``index_put_``'s sorted accumulate: row order, the same at every call),
-Efron's tie terms a (groups, max ties) masked sum — and its gradient and
+the CPU), the per-group sums ``ops/segment.segment_sum`` (a fixed order
+on every device, the same at every call), Efron's tie terms a (groups, max
+ties) masked sum — and its gradient and
 Hessian by ``torch.autograd`` (one backward pass for the gradient, one
 batched backward pass over the P unit vectors for the Hessian).  The Newton
 step solves the P x P system on the host (float32), halving it while the
@@ -42,6 +42,7 @@ from h2o_tpu_torch.models import metrics as mm
 from h2o_tpu_torch.models.glm import expand_for_scoring, expansion_spec
 from h2o_tpu_torch.models.model import DataInfo, Model, ModelBuilder
 from h2o_tpu_torch.ops import xlamath
+from h2o_tpu_torch.ops.segment import segment_sum
 
 EPS = 1e-10
 
@@ -74,14 +75,10 @@ class RiskSets:
             put(start_cnt, torch.int64)
 
     def segsum(self, v: torch.Tensor) -> torch.Tensor:
-        out = torch.zeros(self.n_groups, dtype=v.dtype, device=v.device)
-        if v.is_cuda:
-            # index_add_ on the card adds by atomics in no fixed order, so
-            # the likelihood moved in its last place between calls at one
-            # beta and the float32 stop test followed it; index_put_'s
-            # accumulate sorts the indices and adds each group in row order
-            return out.index_put((self.group,), v, accumulate=True)
-        return out.index_add(0, self.group, v)
+        # a fixed order on every device: index_add_'s atomics on the card
+        # moved the likelihood in its last place between calls at one
+        # beta, and the float32 stop test followed it
+        return segment_sum(v, self.group, self.n_groups)
 
     def neg_loglik(self, beta: torch.Tensor) -> torch.Tensor:
         """The negative partial log-likelihood at ``beta`` (0-d)."""

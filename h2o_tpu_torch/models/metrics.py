@@ -34,6 +34,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from h2o_tpu_torch.ops.segment import segment_sum
+
 _NBINS_AUC = 1024
 EPS = 1e-15
 
@@ -49,10 +51,8 @@ def _binomial_reduce(p, y, w, valid, nbins: int = _NBINS_AUC):
         torch.log(torch.clamp_min(1.0 - p, EPS))))
     mse = torch.sum(w * (y - p) ** 2)
     b = torch.clamp((p * nbins).to(torch.int32), 0, nbins - 1).long()
-    pos = torch.zeros(nbins, dtype=torch.float32, device=p.device)
-    neg = torch.zeros(nbins, dtype=torch.float32, device=p.device)
-    pos.index_add_(0, b, w * y)
-    neg.index_add_(0, b, w * (1 - y))
+    pos = segment_sum(w * y, b, nbins)
+    neg = segment_sum(w * (1 - y), b, nbins)
     return dict(logloss=(logloss / wsum).item(), mse=(mse / wsum).item(),
                 pos=pos.cpu().numpy(), neg=neg.cpu().numpy(),
                 wsum=wsum.item())
@@ -283,8 +283,7 @@ def multinomial_metrics(probs: torch.Tensor, y: torch.Tensor,
     logloss = torch.sum(-w * torch.log(torch.clamp(py, EPS, 1.0))) / wsum
     pred = torch.argmax(probs, dim=1)
     err = torch.sum(w * (pred != yi)) / wsum
-    cm = torch.zeros(K * K, dtype=torch.float32, device=probs.device)
-    cm.index_add_(0, yi * K + pred, w)
+    cm = segment_sum(w, yi * K + pred, K * K)
     rank = torch.sum(probs > py[:, None], dim=1)
     hits = torch.stack([torch.sum(w * (rank <= k)) / wsum
                         for k in range(min(10, K))])

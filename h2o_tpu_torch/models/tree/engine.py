@@ -59,6 +59,7 @@ from h2o_tpu_torch.models.tree.shared_tree import find_splits, tree_predict
 from h2o_tpu_torch.ops import prng, statpack
 from h2o_tpu_torch.ops.binpack import widen_bins
 from h2o_tpu_torch.ops.histogram import histogram_build
+from h2o_tpu_torch.ops.segment import scatter_add
 
 EPS = 1e-10
 #: frontier width cap the builders run with (the reference's
@@ -422,7 +423,7 @@ def build_tree(bins: torch.Tensor, stats: torch.Tensor, leaf0: torch.Tensor,
                               ranges, sibling, tree_cols, inv_scale, mono,
                               bounds)
         bounds = lv.child_b
-        t.varimp.index_add_(0, lv.s["col"].long(), lv.gain_pos)
+        scatter_add(t.varimp, lv.s["col"], lv.gain_pos)
         t.split_col[off:off + L] = lv.split_col
         t.thr_bin[off:off + L] = lv.thr_bin
         t.na_left[off:off + L] = lv.na_left
@@ -485,7 +486,7 @@ def build_tree_frontier(bins: torch.Tensor, stats: torch.Tensor,
                               ranges, sibling, tree_cols, inv_scale, mono,
                               bounds)
         s = lv.s
-        t.varimp.index_add_(0, s["col"].long(), lv.gain_pos)
+        scatter_add(t.varimp, s["col"], lv.gain_pos)
         t.split_col[frontier] = lv.split_col
         t.thr_bin[frontier] = lv.thr_bin
         t.na_left[frontier] = lv.na_left
