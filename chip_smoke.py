@@ -17,7 +17,11 @@ the load breaker and the replica fleet; then the other ingest formats
 (SVMLight with sparse columns feeding a GBM, ARFF, Avro, XLSX/XLS), a
 remote path, a frame snapshot, streaming ingest and the cluster
 timezone; then the data plane below Rapids: map_reduce, quantiles, and
-the sort, filter, take, group-by and merge verbs.
+the sort, filter, take, group-by and merge verbs; then builds run as
+jobs, their models and frames published in the DKV and read back by
+key, and a user's distribution and metric.  Every training runs as a
+job of the process registry (core/job.py) and publishes its model in
+the DKV; main removes what each phase published once it returns.
 Phases (each
 prints one JSON line; any failure raises and the exit code is not 0):
 
@@ -436,6 +440,40 @@ prints one JSON line; any failure raises and the exit code is not 0):
               each, and KMeans' and GLRM's steps three times at one state:
               histories, tree counts, varimp, the AUC bins and threshold
               table, the confusion matrix bitwise; K2 5 launches a tree
+ 24 jobs, the DKV and user functions (core/job.py, core/store.py,
+              core/udf.py), each part printing its wall, its K2 launches
+              and its holds:
+              24a the default GBM through train_async on cuda:0, joined:
+              the job DONE at progress 1.0, the model in the DKV under
+              the job's dest, its forest bitwise phase 4's, K2 100;
+              24b that GBM and a DRF_TREES-tree DRF started together on
+              the pool: each forest bitwise the same build alone (phases
+              4 and 9), K2 the sum of the two alone (300);
+              24c a user's asymmetric loss and MAE metric zipped, put in
+              the DKV under upload keys: a distribution="custom" GBM
+              (numeric y) with custom_metric_func on the 1M rows and
+              JOB_VALID_ROWS validation rows (make_data seed 2): K2 100,
+              custom_metric_value on both metrics within 1e-9 relative
+              of the same MAE in numpy over the card's predictions; 3
+              trees on the first 100,000 rows on the card and on the
+              CPU: the same first tree;
+              24d on KEYS_ROWS rows: a 5-fold GBM (K2 600) and GLM with
+              keep_cross_validation_predictions (fold models and holdout
+              frames under the reference's keys), a StackedEnsemble from
+              their keys, Generic from a MOJO's upload key, GLM with
+              beta_constraints as a frame key, GAM keep_gam_cols and
+              DeepLearning export_weights_and_biases: each bitwise the
+              same build from objects or a path; every published
+              frame's shape; torch.cuda.memory_allocated before and
+              after;
+              24e on a registry of one worker: a DeepLearning and a
+              GBM build cancelled from their own first update() end
+              CANCELLED; a JOB_LATE_TREES-tree GBM past its
+              JOB_DEADLINE_S deadline ends FAILED with TimeoutError
+              within one watchdog interval and stops at its next tree;
+              nothing published, a job runs on the pool after each;
+              then every key published in 24 is removed and the store
+              is back to its keys before it
   7 profile - torch.profiler over 2 default trees: device busy share and
               the kernels that take the device time; then 2 QuantilesGlobal
               trees: each histogram kernel's device ms per main-path launch
@@ -445,7 +483,7 @@ prints one JSON line; any failure raises and the exit code is not 0):
               iteration (7 class trees) and one UpliftDRF tree
 
 The kernels line's launches sum every main-path training above (phases
-4, 5, 8-23), each read from counters set to 0 just before it; the
+4, 5, 8-24), each read from counters set to 0 just before it; the
 launches phase lists them path by path (phase 16 as "glm", 0 and 0;
 phase 17's KMeans, DeepLearning and GAM paths 0 and 0, "rulefit" 150
 and 0; phase 18's PCA, SVD, GLRM, Word2Vec, NaiveBayes and CoxPH runs 0
@@ -453,7 +491,9 @@ and 0; phase 19's "infogram" 0 and 940, "stackedensemble_bases" 0 and
 600, its other runs 0 and 0; phase 20's deployment
 "gbm_covertype_categorical" 0 and 100, "serving" 0 and 0; phase 21's
 "serving_layers" 0 and 0; phase 22's "ingest_formats" 0 and 175;
-phase 23's "data_plane" 0 and 0, "repeat_check" 0 and 5 a tree).
+phase 23's "data_plane" 0 and 0, "repeat_check" 0 and 5 a tree;
+phase 24's "job_gbm" 0 and 100, "job_gbm_drf_together" 0 and 300,
+"gbm_custom" 0 and 100, "keys_for_objects" 0 and 600).
 
 The line before the last holds every kernel's numbers; the last line is
 the device summary.  Needs one CUDA card; exits non-zero without one.
@@ -471,6 +511,7 @@ import tempfile
 import threading
 import time
 import warnings
+import zipfile
 
 import numpy as np
 import torch
@@ -629,7 +670,7 @@ KEEP = {}
 #: timezone CSV's rows and zone, and the BIFF8 workbook's rows (num,
 #: colour's shared-string index, y or an empty cell)
 ARFF_ROWS = 98_050
-AVRO_ROWS = 250_000
+AVRO_ROWS = 100_000
 XLSX_ROWS = 50_000
 SVM_GBM_ITERS = 5
 STREAM_CHUNK_ROWS = 4096
@@ -3020,7 +3061,7 @@ def phase_slice10(X, fr: Frame, paths) -> None:
 #: blending frame's rows, the clustered frame of the card-vs-CPU
 #: Aggregator check (centers, spread) and Grep's pattern (x0 in
 #: (-2.5, -2.0], some 8,000 lines of the first CSV file)
-AGG_ROWS = 20_000
+AGG_ROWS = 10_000
 TE_LEVELS, TE_ZIPF = 2_000, 1.1
 BLEND_ROWS = 250_000
 AGG_CENTERS, AGG_SPREAD = 50, 6.0
@@ -5326,6 +5367,383 @@ def phase_slice16(X, fr: Frame, cov: Frame, smi: str, paths) -> None:
               **{f"{n}_s": b - a for n, a, b in zip(names, t, t[1:])}))
 
 
+# -- 24: jobs, models and frames in the DKV, user functions ------------------
+
+#: phase 24: the custom GBM's validation rows, the deadline of 24e's job
+#: and the rows of 24d's key-for-object builds
+JOB_VALID_ROWS = 250_000
+JOB_DEADLINE_S = 1.0
+#: 24e: its registry's watchdog interval, the trees of its GBM that
+#: outlives the deadline (it stops at its next tree) and how long the
+#: histogram counts may take to settle once that GBM is expired
+JOB_WATCHDOG_S = 0.1
+JOB_LATE_TREES = 2000
+JOB_SETTLE_S = 3.0
+KEYS_ROWS = SUB_ROWS
+#: a user's distribution and metric, the stock client's upload flow
+#: (tests/test_custom_metric.py's CUSTOM_ASYMMETRIC and CUSTOM_MAE)
+CUSTOM_ASYMMETRIC = """class AsymmetricLossDist:
+    def link(self):
+        return "identity"
+
+    def init(self, w, o, y):
+        return [w * y, w]
+
+    def gradient(self, y, f):
+        return (y - f) * ((y > f) * 3.0 + (y <= f) * 1.0)
+"""
+CUSTOM_MAE = """class CustomMaeFunc:
+    def map(self, pred, act, w, o, model):
+        return [w * abs(act[0] - pred[0]), w]
+
+    def reduce(self, l, r):
+        return [l[0] + r[0], l[1] + r[1]]
+
+    def metric(self, l):
+        return l[0] / l[1]
+"""
+_FOREST_KEYS = ("split_col", "thr_bin", "na_left", "bitset", "child",
+                "value")
+
+
+def forest_bitwise(a: dict, b: dict) -> bool:
+    """Every node array and value of two forests bitwise equal."""
+    for k in _FOREST_KEYS:
+        x, y = a.get(k), b.get(k)
+        if (x is None) != (y is None):
+            return False
+        if x is not None and not (np.asarray(x).shape == np.asarray(y).shape
+                                  and np.array_equal(np.asarray(x).view(
+                                      np.uint8), np.asarray(y).view(
+                                          np.uint8))):
+            return False
+    return True
+
+
+def upload(tmp: str, key: str, source: str, module: str, cls: str) -> str:
+    """A zip of ``source`` as ``<module>.py`` under the upload ``key`` in
+    the DKV; the ``python:<key>=<module>.<cls>`` reference."""
+    from h2o_tpu_torch.core.store import dkv
+    path = os.path.join(tmp, f"{key}.zip")
+    with zipfile.ZipFile(path, "w") as z:
+        z.writestr(f"{module}.py", source)
+    dkv().put(key, path)
+    return f"python:{key}={module}.{cls}"
+
+
+def jobs_24a(fr: Frame, m_def, paths) -> None:
+    """24a: the default GBM as a job on cuda:0."""
+    from h2o_tpu_torch.core.job import DONE
+    from h2o_tpu_torch.core.store import dkv
+    hk.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    job = GBM(ntrees=20, max_depth=5, seed=1).train_async(
+        y="y", training_frame=fr)
+    m = job.join()
+    sync()
+    wall = time.perf_counter() - t0
+    got = hist_launches()
+    paths["job_gbm"] = got
+    holds = dict(status=job.status == DONE, progress=job.progress == 1.0,
+                 published=dkv().get(m.model_id) is m,
+                 dest=str(job.dest) == m.model_id,
+                 forest_equals_phase4=forest_bitwise(m.output, m_def.output),
+                 launches=got == (0, 100))
+    emit(dict(phase="job_gbm", rows=fr.nrows, wall_s=wall,
+              k1_launches=got[0], k2_launches=got[1], holds=holds))
+    if not all(holds.values()):
+        raise AssertionError(f"24a: {holds}")
+
+
+def jobs_24b(fr: Frame, m_def, m_drf, paths) -> None:
+    """24b: a GBM and a 10-tree DRF as two jobs at once on the pool."""
+    hk.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    jg = GBM(ntrees=20, max_depth=5, seed=1).train_async(
+        y="y", training_frame=fr)
+    jd = DRF(ntrees=DRF_TREES, seed=1).train_async(y="y", training_frame=fr)
+    g, d = jg.join(), jd.join()
+    sync()
+    wall = time.perf_counter() - t0
+    got = hist_launches()
+    paths["job_gbm_drf_together"] = got
+    alone = (paths["gbm_default"][1] + paths["drf"][1])
+    holds = dict(gbm_equals_alone=forest_bitwise(g.output, m_def.output),
+                 drf_equals_alone=forest_bitwise(d.output, m_drf.output),
+                 k2_sum=got == (0, alone))
+    emit(dict(phase="jobs_together", rows=fr.nrows, drf_trees=DRF_TREES,
+              wall_s=wall, k1_launches=got[0], k2_launches=got[1],
+              k2_alone_sum=alone, holds=holds))
+    if not all(holds.values()):
+        raise AssertionError(f"24b: {holds}")
+
+
+def jobs_24c(X, y, tmp: str, paths) -> None:
+    """24c: a user's distribution and metric from upload keys: the custom
+    GBM on the card at full width, its metric against numpy, and the
+    first tree against the CPU's on the first 100,000 rows."""
+    dist = upload(tmp, "upload_asym", CUSTOM_ASYMMETRIC, "asym",
+                  "AsymmetricLossDist")
+    mae = upload(tmp, "upload_mae", CUSTOM_MAE, "mae", "CustomMaeFunc")
+    fr = frame(X, y.astype(np.float32))
+    Xv, yv = make_data(JOB_VALID_ROWS, C, seed=2)
+    fv = frame(Xv, yv.astype(np.float32))
+    kw = dict(distribution="custom", custom_distribution_func=dist,
+              custom_metric_func=mae)
+    m, wall, got = launched(train, fr=fr, valid=fv, **kw)
+    paths["gbm_custom"] = got
+    metrics = {}
+    for mk, f in (("training_metrics", fr), ("validation_metrics", fv)):
+        p = m.predict_raw(f).cpu().numpy().astype(np.float64)
+        a = f.vec("y").as_float().astype(np.float64)
+        want = float(np.sum(np.abs(a - p)) / len(a))
+        have = m.output[mk]["custom_metric_value"]
+        metrics[mk] = dict(custom=have, numpy=want,
+                           rel=abs(have - want) / abs(want))
+    sub = fr.slice_rows(slice(0, SUB_ROWS))
+    cmp_ = first_tree_check("gbm_custom", GBM, sub, ntrees=3, max_depth=5,
+                            seed=1, **kw)
+    holds = dict(launches=got == (0, 100),
+                 custom_link=m.output["custom_link"] == "identity",
+                 metric_name=m.output["training_metrics"][
+                     "custom_metric_name"] == "upload_mae",
+                 metrics_1e9=all(v["rel"] <= 1e-9 for v in metrics.values()),
+                 first_tree=all(cmp_["equal"].values()))
+    emit(dict(phase="gbm_custom", rows=R, valid_rows=JOB_VALID_ROWS,
+              wall_s=wall, k1_launches=got[0], k2_launches=got[1],
+              f0=float(m.output["f0"][0]), metrics=metrics, holds=holds))
+    if not all(holds.values()):
+        raise AssertionError(f"24c: {holds}")
+
+
+def jobs_24d(fr: Frame, tmp: str, paths) -> None:
+    """24d: keys in place of objects on KEYS_ROWS rows: each build from
+    keys bitwise the same build from objects or a path; every published
+    frame present with its shape."""
+    from h2o_tpu_torch.core.store import dkv
+    store = dkv()
+    sub = fr.slice_rows(slice(0, KEYS_ROWS))
+    alloc0 = torch.cuda.memory_allocated(DEV)
+    hk.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    common = dict(nfolds=5, seed=1, keep_cross_validation_predictions=True)
+    gbm = GBM(ntrees=20, max_depth=5, model_id="keys_gbm", **common).train(
+        y="y", training_frame=sub)
+    glm = GLM(family="binomial", model_id="keys_glm", **common).train(
+        y="y", training_frame=sub)
+    holds, shapes = {}, {}
+    for b in (gbm, glm):
+        ids = b.output["cross_validation_models"]
+        hf = store.get(b.output[
+            "cross_validation_holdout_predictions_frame_id"])
+        holds[f"{b.algo}_cv_keys"] = ids == [
+            f"{b.model_id}_cv_{i}" for i in range(1, 6)] and \
+            all(store.get(k).model_id == k for k in ids)
+        shapes[str(hf.key)] = [hf.nrows, hf.ncols]
+        holds[f"{b.algo}_holdout_shape"] = (hf.nrows, hf.ncols) == (
+            KEYS_ROWS, 3)
+    se_keys = StackedEnsemble(base_models=["keys_gbm", "keys_glm"],
+                              seed=1).train(y="y", training_frame=sub)
+    se_objs = StackedEnsemble(base_models=[gbm, glm], seed=1).train(
+        y="y", training_frame=sub)
+    holds["ensemble_keys_equals_objects"] = bool(torch.equal(
+        se_keys.predict_raw(sub), se_objs.predict_raw(sub))) and \
+        store.get(se_keys.output["metalearner_key"]) is \
+        se_keys.output["metalearner"]
+    path = os.path.join(tmp, "keys_gbm.zip")
+    with open(path, "wb") as f:
+        f.write(export_genmodel_mojo(gbm))
+    store.put("upload_keys_mojo", path)
+    g_key = Generic(model_key="upload_keys_mojo").train()
+    g_path = Generic(path=path).train()
+    holds["generic_key_equals_path"] = bool(torch.equal(
+        g_key.predict_raw(sub), g_path.predict_raw(sub)))
+    names = ["x0", "x1", "Intercept"]
+    bc = Frame(["names", "lower_bounds", "upper_bounds"],
+               [Vec(np.arange(3, dtype=np.int32), T_CAT, domain=names),
+                Vec(np.asarray([-0.1, 0.0, -1.0], np.float32)),
+                Vec(np.asarray([0.3, 5.0, 0.05], np.float32))],
+               key="keys_bounds")
+    store.put(bc.key, bc)
+    b_key = GLM(beta_constraints="keys_bounds").train(y="y",
+                                                      training_frame=sub)
+    b_obj = GLM(beta_constraints=bc).train(y="y", training_frame=sub)
+    holds["beta_constraints_key_equals_frame"] = bool(np.array_equal(
+        b_key.output["beta"], b_obj.output["beta"]))
+    gam_kept = GAM(model_id="keys_gam", keep_gam_cols=True,
+                   **GAM_KW).train(y="y", training_frame=sub)
+    gam_plain = GAM(**GAM_KW).train(y="y", training_frame=sub)
+    gf = store.get(gam_kept.output["gam_transformed_center_key"])
+    shapes[str(gf.key)] = [gf.nrows, gf.ncols]
+    holds["gam_kept_equals_plain"] = bool(np.array_equal(
+        gam_kept.output["glm_output"]["beta"],
+        gam_plain.output["glm_output"]["beta"]))
+    holds["gam_frame"] = gf.nrows == KEYS_ROWS and gf.names == \
+        gam_kept.expand(sub).names
+    dl_kw = dict(hidden=[64, 64], epochs=1.0, seed=1)
+    dl_wb = DeepLearning(model_id="keys_dl", export_weights_and_biases=True,
+                         **dl_kw).train(y="y", training_frame=sub)
+    dl_plain = DeepLearning(**dl_kw).train(y="y", training_frame=sub)
+    wb_ok = True
+    for i, (lw, lp) in enumerate(zip(dl_wb.output["weights"],
+                                     dl_plain.output["weights"])):
+        wf = store.get(f"keys_dl_weights_{i + 1}")
+        bf = store.get(f"keys_dl_biases_{i + 1}")
+        shapes[str(wf.key)] = [wf.nrows, wf.ncols]
+        shapes[str(bf.key)] = [bf.nrows, bf.ncols]
+        wb_ok &= bool(np.array_equal(lw["W"], lp["W"]) and
+                      np.array_equal(lw["b"], lp["b"]) and
+                      (wf.nrows, wf.ncols) == lw["W"].shape and
+                      bf.nrows == lw["b"].shape[0] and np.array_equal(
+                          np.stack([v.data for v in wf.vecs], 1), lw["W"]))
+    holds["dl_export_equals_plain"] = wb_ok
+    sync()
+    wall = time.perf_counter() - t0
+    got = hist_launches()
+    paths["keys_for_objects"] = got
+    holds["launches"] = got == (0, 6 * 20 * 5)
+    alloc1 = torch.cuda.memory_allocated(DEV)
+    emit(dict(phase="keys_for_objects", rows=KEYS_ROWS, wall_s=wall,
+              k1_launches=got[0], k2_launches=got[1], shapes=shapes,
+              memory_allocated_before=alloc0, memory_allocated_after=alloc1,
+              holds=holds))
+    if not all(holds.values()):
+        raise AssertionError(f"24d: {holds}")
+
+
+def cancelling(cls):
+    """``cls`` whose build cancels its own job at its first progress
+    report (24e)."""
+    class Cancelling(cls):
+        def _update(self, progress: float, msg: str = "") -> None:
+            if self._job is not None:
+                self._job.cancel()
+            super()._update(progress, msg)
+    return Cancelling
+
+
+def settled_launches(window_s: float):
+    """The histogram launch counts once two reads 0.1 s apart agree
+    (a build still running keeps adding to them), or None after
+    ``window_s``."""
+    last = hist_launches()
+    end = time.perf_counter() + window_s
+    while time.perf_counter() < end:
+        time.sleep(0.1)
+        now = hist_launches()
+        if now == last:
+            return now
+        last = now
+    return None
+
+
+def jobs_24e(fr: Frame) -> None:
+    """24e, on a registry of one worker made the process's for the part:
+    a DeepLearning and a GBM build cancelled from their first progress
+    report; a GBM past its deadline; the slot free after each, nothing
+    published, the late GBM stopped at its next tree."""
+    from h2o_tpu_torch.core import job as job_mod
+    from h2o_tpu_torch.core.job import (CANCELLED, FAILED, Job,
+                                        JobCancelledException, JobRegistry)
+    from h2o_tpu_torch.core.store import dkv
+    reg = JobRegistry(max_workers=1, watchdog_interval=JOB_WATCHDOG_S)
+    sub = fr.slice_rows(slice(0, SUB_ROWS))
+    process_reg, job_mod._instance = job_mod._instance, reg
+    try:
+        rows, holds = {}, {}
+        for name, cls, kw in (
+                ("dl", DeepLearning, dict(hidden=[64], epochs=1.0, seed=1)),
+                ("gbm", GBM, dict(ntrees=20, max_depth=5, seed=1))):
+            hk.reset_launches()
+            t0 = time.perf_counter()
+            job = cancelling(cls)(model_id=f"cancelled_{name}",
+                                  **kw).train_async(y="y", training_frame=sub)
+            try:
+                job.join()
+                cancelled = False
+            except JobCancelledException:
+                cancelled = True
+            rows[f"{name}_cancel_wall_s"] = time.perf_counter() - t0
+            rows[f"{name}_cancel_k2_launches"] = hist_launches()[1]
+            holds[f"{name}_cancelled"] = cancelled and \
+                job.status == CANCELLED
+            holds[f"{name}_unpublished"] = \
+                dkv().get(f"cancelled_{name}") is None
+            holds[f"{name}_slot_free"] = reg.run_sync(
+                Job(description=f"after the {name} cancel"),
+                lambda j: "ran") == "ran"
+
+        reg.default_deadline_secs = JOB_DEADLINE_S
+        hk.reset_launches()
+        t1 = time.perf_counter()
+        late = GBM(ntrees=JOB_LATE_TREES, max_depth=5, seed=1,
+                   model_id="late_gbm").train_async(y="y",
+                                                    training_frame=sub)
+        # the watchdog scans once an interval: the job is FAILED at most
+        # one interval past its deadline (and the thread's wake-up)
+        try:
+            late.join(JOB_DEADLINE_S + JOB_WATCHDOG_S + 0.25)
+            timed_out = False
+        except TimeoutError as e:
+            timed_out = "deadline" in str(e)
+        rows["expiry_wall_s"] = time.perf_counter() - t1
+        holds["deadline"] = timed_out and late.status == FAILED and \
+            isinstance(late.exception, TimeoutError)
+        holds["slot_after_deadline"] = reg.run_sync(
+            Job(description="after the deadline"), lambda j: "ran") == "ran"
+        # the body stops at its first tree past the deadline
+        got = settled_launches(JOB_SETTLE_S)
+        rows["late_k2_launches"] = got and got[1]
+        holds["late_body_stopped"] = got is not None and \
+            got[1] < 5 * JOB_LATE_TREES
+        holds["late_unpublished"] = dkv().get("late_gbm") is None
+    finally:
+        job_mod._instance = process_reg
+    emit(dict(phase="job_cancel_deadline", rows=SUB_ROWS,
+              deadline_s=JOB_DEADLINE_S, watchdog_interval_s=JOB_WATCHDOG_S,
+              late_trees=JOB_LATE_TREES, **rows, holds=holds))
+    if not all(holds.values()):
+        raise AssertionError(f"24e: {holds}")
+
+
+def phase_slice18(X, y, fr: Frame, m_def, m_drf, paths) -> None:
+    """24: jobs, models and frames published in the DKV, a user's
+    distribution and metric; every key published here removed at the
+    end, the store back to its keys before the phase."""
+    from h2o_tpu_torch.core.store import dkv
+    before = set(dkv().keys())
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs_24a(fr, m_def, paths)
+        jobs_24b(fr, m_def, m_drf, paths)
+        jobs_24c(X, y, tmp, paths)
+        jobs_24d(fr, tmp, paths)
+        jobs_24e(fr)
+        published = sorted(set(dkv().keys()) - before)
+        for k in published:
+            dkv().remove(k, force=True)
+    restored = set(dkv().keys()) == before
+    import gc
+    gc.collect()
+    emit(dict(phase="slice18", wall_s=time.perf_counter() - t0,
+              keys_published=len(published), store_restored=restored,
+              memory_allocated_after_removal=torch.cuda.memory_allocated(
+                  DEV)))
+    if not restored:
+        raise AssertionError("24: the DKV is not back to its keys")
+
+
+def unpublish(before: set) -> None:
+    """Remove every DKV key published since ``before`` (each phase's
+    models and frames; the phase's own variables keep what it returns)."""
+    from h2o_tpu_torch.core.store import dkv
+    for k in set(dkv().keys()) - before:
+        dkv().remove(k, force=True)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # -- 0 device ------------------------------------------------------------
@@ -5519,45 +5937,68 @@ def main() -> None:
         raise AssertionError("DRF: cuda and cpu forests differ")
     sync()
 
+    # each phase removes the models and frames its trainings published
+    # in the DKV (what it returns stays referenced by main)
+    from h2o_tpu_torch.core.store import dkv
+    base_keys = set(dkv().keys())
+    unpublish(base_keys)
+
     # -- 10 XGBoost, 11 multinomial, 12 distributions / weights / monotone --
     phase_xgboost(fr, sub, yt, paths)
+    unpublish(base_keys)
     cov = make_covertype(seed=0)
     phase_multinomial(cov, paths)
+    unpublish(base_keys)
     phase_families(X, y, fr, paths)
+    unpublish(base_keys)
     # -- 13 the training loop: validation, early stopping, blocks,
     # checkpoints, cross-validation ------------------------------------------
     torch.cuda.empty_cache()
     phase_loop(paths)
+    unpublish(base_keys)
     # -- 14 DT, IsolationForest, ExtendedIsolationForest, UpliftDRF ---------
     torch.cuda.empty_cache()
     fr_u = phase_family(X, y, fr, paths)
+    unpublish(base_keys)
     # -- 15 ingest and explain ----------------------------------------------
     torch.cuda.empty_cache()
     phase_ingest_explain(X, y, fr, m_def, paths)
+    unpublish(base_keys)
     # -- 16 GLM and XGBoost gblinear ------------------------------------------
     torch.cuda.empty_cache()
     phase_glm(X, y, fr, paths)
+    unpublish(base_keys)
     # -- 17 KMeans, DeepLearning, GAM, RuleFit --------------------------------
     torch.cuda.empty_cache()
     phase_more(X, fr, paths)
+    unpublish(base_keys)
     # -- 18 PCA, SVD, GLRM, Word2Vec, NaiveBayes, CoxPH -----------------------
     torch.cuda.empty_cache()
     phase_slice10(X, fr, paths)
+    unpublish(base_keys)
     # -- 19 IsotonicRegression .. Grep ----------------------------------------
     torch.cuda.empty_cache()
     phase_slice11(X, y, fr, paths)
+    unpublish(base_keys)
     # -- 20 MOJO, the array fast path, Generic, ScoringEngine -----------------
     torch.cuda.empty_cache()
     m_cat, fc = phase_slice12(fr, m_def, m_drf, paths)
+    unpublish(base_keys)
     # -- 21 micro-batcher, registry, breaker, fleet -------------------------
     torch.cuda.empty_cache()
     phase_slice13(fr, m_def, m_drf, m_cat, fc, paths)
+    unpublish(base_keys)
     # -- 22 the other formats, remote paths, streaming, the timezone -------
     torch.cuda.empty_cache()
     phase_slice15(X, y, cov, paths)
+    unpublish(base_keys)
     # -- 23 the data plane and F8's repeat check ---------------------------
     torch.cuda.empty_cache()
     phase_slice16(X, fr, cov, smi, paths)
+    unpublish(base_keys)
+    # -- 24 jobs, the DKV, user functions ----------------------------------
+    torch.cuda.empty_cache()
+    phase_slice18(X, y, fr, m_def, m_drf, paths)
     emit(dict(phase="launches", paths={k: dict(k1=v[0], k2=v[1])
                                        for k, v in paths.items()}))
     sync()

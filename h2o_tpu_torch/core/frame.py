@@ -14,10 +14,12 @@ Columns are numpy arrays: numeric ones float32 with NaN for NA,
 categorical ones (``T_CAT``) int32 codes with -1 for NA and a host
 domain, time ones (``T_TIME``) a float32 payload of milliseconds since
 the epoch (UTC) with an exact float64 copy (``host_f64``), string and
-uuid ones (``T_STR``, ``T_UUID``) host lists with None for NA.  There is
-no DKV, no row padding and no sharding: a frame of ``n`` rows holds
-exactly ``n`` rows, and ``as_matrix`` lands them on the device the
-caller names.  (The JAX frame pads rows and masks them; padded rows
+uuid ones (``T_STR``, ``T_UUID``) host lists with None for NA.  A frame
+has a DKV key (``Frame.key``, ``frame_<hex>`` unless the constructor is
+given ``key=``, as ``h2o_tpu/core/frame.py:816-851``); it is published in
+``store.dkv()`` only by whoever names it there.  There is no row padding
+and no sharding: a frame of ``n`` rows holds exactly ``n`` rows, and
+``as_matrix`` lands them on the device the caller names.  (The JAX frame pads rows and masks them; padded rows
 never reach a histogram there, so no result depends on them.)
 
 ``Vec.append`` grows a column in place into a host buffer of
@@ -35,6 +37,8 @@ from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
+
+from h2o_tpu_torch.core.store import Key
 
 T_NUM = "real"     # numeric: float32, NaN = NA
 T_CAT = "enum"     # categorical: int32 codes, -1 = NA, host domain
@@ -341,7 +345,8 @@ def frame_device_ok(fr: "Frame") -> bool:
 class Frame:
     """An ordered collection of equally long columns."""
 
-    def __init__(self, names: Sequence[str] = (), vecs: Sequence[Vec] = ()):
+    def __init__(self, names: Sequence[str] = (), vecs: Sequence[Vec] = (),
+                 key: Optional[str] = None):
         if len(names) != len(vecs):
             raise ValueError("one name per column")
         self.names: List[str] = list(names)
@@ -349,10 +354,12 @@ class Frame:
         for v in self.vecs[1:]:
             if v.nrows != self.vecs[0].nrows:
                 raise ValueError("ragged frame: columns differ in length")
+        self.key = Key(key) if key else Key.make("frame")
 
     @classmethod
     def from_numpy(cls, array: np.ndarray,
-                   names: Optional[Sequence[str]] = None) -> "Frame":
+                   names: Optional[Sequence[str]] = None,
+                   key: Optional[str] = None) -> "Frame":
         """float32 numeric columns of a 1-d or 2-d array, named C1.. unless
         ``names`` are given."""
         array = np.asarray(array, dtype=np.float32)
@@ -360,10 +367,12 @@ class Frame:
             array = array[:, None]
         names = list(names) if names else [f"C{i + 1}" for i in
                                            range(array.shape[1])]
-        return cls(names, [Vec(array[:, j]) for j in range(array.shape[1])])
+        return cls(names, [Vec(array[:, j]) for j in range(array.shape[1])],
+                   key=key)
 
     @classmethod
-    def from_dict(cls, cols: Dict[str, Union[np.ndarray, list]]) -> "Frame":
+    def from_dict(cls, cols: Dict[str, Union[np.ndarray, list]],
+                  key: Optional[str] = None) -> "Frame":
         """String columns become categoricals (sorted domain), the rest
         float32 numerics — as ``h2o_tpu`` ``Frame.from_dict``."""
         names, vecs = [], []
@@ -377,7 +386,7 @@ class Frame:
                                 domain=[str(d) for d in domain]))
             else:
                 vecs.append(Vec(arr.astype(np.float32)))
-        return cls(names, vecs)
+        return cls(names, vecs, key=key)
 
     @property
     def nrows(self) -> int:

@@ -17,11 +17,12 @@ a later slice (ROADMAP P13).
 
 from __future__ import annotations
 
+import contextlib
 import fnmatch
 import threading
 import time
 import uuid
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Iterator, List, Optional
 
 from h2o_tpu_torch.core.diag import TimeLine
 from h2o_tpu_torch.core.lockwitness import make_lock, make_rlock
@@ -200,6 +201,20 @@ def dkv() -> DKV:
             if _instance is None:
                 _instance = DKV()
     return _instance
+
+
+@contextlib.contextmanager
+def unpublish_on_exit(store: Optional[DKV] = None) -> Iterator[DKV]:
+    """On exit, remove every key put in ``store`` (the process DKV by
+    default) since entry, forced as a leaked key is: the models and
+    frames a test or a smoke phase published."""
+    s = store or dkv()
+    before = set(s.keys())
+    try:
+        yield s
+    finally:
+        for k in set(s.keys()) - before:
+            s.remove(k, force=True)
 
 
 # Scope's parameter keeps the reference's name ``dkv``; this reaches the

@@ -185,9 +185,11 @@ class Aggregator(ModelBuilder):
         radius2 = span / max(target, 1)
         best, best_dist = None, np.inf
         r_lo = r_hi = None
-        for _ in range(TRIALS):
+        for trial in range(TRIALS):
             ex, counts, assign = aggregate(X, radius2)
             n = len(ex)
+            self._update(0.1 + 0.07 * trial,
+                         f"radius²={radius2:.4g} -> {n} exemplars")
             dist = abs(n - target)
             if dist < best_dist:
                 best, best_dist = (ex, counts, assign, radius2), dist

@@ -171,7 +171,8 @@ class AnovaGLM(ModelBuilder):
         disp = max(dev_full / max(nobs - ncoef_full, 1.0), 1e-30) \
             if family == "gaussian" else 1.0
         table, term_dev = [], []
-        for t in terms:
+        for i, t in enumerate(terms):
+            self._update(0.1 + 0.8 * i / len(terms), f"drop {t['name']}")
             m = fit([c for c in all_cols if c not in t["cols"]])
             term_dev.append(_deviance(m))
             dd = max(term_dev[-1] - dev_full, 0.0) / disp

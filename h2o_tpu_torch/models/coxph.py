@@ -269,6 +269,8 @@ class CoxPH(ModelBuilder):
                 if halvings > 20:
                     break
             beta = beta_new
+            self._update(min(0.9, it / int(p["max_iterations"])),
+                         f"iter {it} loglik {-float(nll_new):.5g}")
             done = abs(nll_prev - nll_new) < tol * max(1.0, abs(nll_prev))
             nll_prev = nll_new
             if done:

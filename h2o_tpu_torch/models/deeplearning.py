@@ -22,10 +22,12 @@ reference's padded row count (``statpack.padded_rows``), as the
 reference caps it at ``X.shape[0]``: a 1,000-row frame draws batches of
 1,024 rows.  ``Maxout`` runs as Rectifier (with the reference's warning)
 and ``model_parallel`` on one device is the identity, as on the
-reference's one-wide model axis.  Refused by name: the weight and bias
-frames of ``export_weights_and_biases`` (DKV frames, P13), iteration
-checkpoints (``recovery_dir``, P14) and ``model_parallel`` over several
-cards (P8).  No histogram kernel: DeepLearning reaches no Pallas kernel
+reference's one-wide model axis.  ``export_weights_and_biases``
+publishes each layer's weight and bias frames in ``store.dkv()``
+(``{model_id}_weights_{i}``, ``{model_id}_biases_{i}``).  Each block of
+steps reports progress to the build's job (its heartbeat, and where a
+cancel lands).  Refused by name: iteration checkpoints
+(``recovery_dir``, P14) and ``model_parallel`` over several cards (P8).  No histogram kernel: DeepLearning reaches no Pallas kernel
 in the reference either.
 """
 
@@ -39,6 +41,7 @@ import torch
 
 from h2o_tpu_torch.core.device import DeviceLike, cloud
 from h2o_tpu_torch.core.frame import Frame, Vec
+from h2o_tpu_torch.core.store import dkv
 from h2o_tpu_torch.models import metrics as mm
 from h2o_tpu_torch.models.distributions import get_distribution
 from h2o_tpu_torch.models.glm import expand_for_scoring, expansion_spec
@@ -375,12 +378,6 @@ class DeepLearning(ModelBuilder):
         return p
 
     def _check_slice(self, p: Dict) -> None:
-        if p.get("export_weights_and_biases"):
-            raise NotImplementedError(
-                "deeplearning: export_weights_and_biases publishes weight "
-                "and bias frames in the DKV, which comes with the REST and "
-                "orchestration slice (P13); the weights are on "
-                "model.output['weights']")
         if p.get("recovery_dir") or int(p.get("checkpoint_interval") or 0):
             raise NotImplementedError(
                 "deeplearning: recovery_dir/checkpoint_interval (iteration "
@@ -464,9 +461,13 @@ class DeepLearning(ModelBuilder):
         while done < steps:
             n = min(block, steps - done)
             key, sub = prng.split(key)
-            params, opt_state, _ = train_block(params, opt_state, X, yv_f,
-                                               w_act, sub, done, n, cfg)
+            params, opt_state, loss = train_block(params, opt_state, X,
+                                                  yv_f, w_act, sub, done, n,
+                                                  cfg)
             done += n
+            if self._job is not None:
+                self._update(done / steps, f"step {done}/{steps} "
+                                           f"loss={float(loss):.4f}")
 
         out = dict(
             x=list(di.x), expansion_spec=expansion_spec(di),
@@ -486,4 +487,20 @@ class DeepLearning(ModelBuilder):
         model.output["training_metrics"] = model.model_metrics(train)
         if valid is not None:
             model.output["validation_metrics"] = model.model_metrics(valid)
+        if p.get("export_weights_and_biases"):
+            # weight and bias frames in the DKV (DeepLearningModel
+            # _weights/_biases keys), as the reference's :483-500
+            names = []
+            for i, layer in enumerate(out["weights"]):
+                W = np.asarray(layer["W"])
+                wk, bk = f"{model.key}_weights_{i + 1}", \
+                    f"{model.key}_biases_{i + 1}"
+                wf = Frame([f"w{j}" for j in range(W.shape[1])],
+                           [Vec(W[:, j]) for j in range(W.shape[1])],
+                           key=wk)
+                bf = Frame(["bias"], [Vec(np.asarray(layer["b"]))], key=bk)
+                dkv().put(wk, wf)
+                dkv().put(bk, bf)
+                names += [wk, bk]
+            model.output["weights_and_biases_keys"] = names
         return model

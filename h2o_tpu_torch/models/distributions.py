@@ -11,9 +11,10 @@ in the reference (e.g. ``1 / (1 + exp(-f))``, not ``torch.sigmoid``) so
 the two round alike.
 
 Multinomial is a marker: the tree engine builds K class trees on
-softmax gradients itself.  ``"custom"`` (a user's distribution from the
-REST/UDF layer, ``h2o_tpu/core/udf.py``) raises until the port's REST
-and orchestration slice brings that layer.
+softmax gradients itself.  ``"custom"`` is a user's distribution
+function: ``distribution_from_params`` loads it from the params'
+``custom_distribution_func`` (``core/udf.py``, the reference's
+``gbm.py:187-200``); ``get_distribution`` alone cannot build it.
 """
 
 from __future__ import annotations
@@ -227,10 +228,8 @@ def get_distribution(name: str, **kw) -> Distribution:
     if name == "auto":
         raise ValueError("resolve AUTO before calling get_distribution")
     if name == "custom":
-        raise NotImplementedError(
-            "distribution 'custom' (a user distribution function) is not "
-            "in the port yet; it comes with the REST and orchestration "
-            "slice (P13), which brings the UDF layer")
+        raise ValueError("distribution='custom' requires "
+                         "custom_distribution_func")
     if name == "tweedie":
         return Tweedie(kw.get("tweedie_power", 1.5))
     if name == "quantile":
@@ -248,7 +247,15 @@ FAMILY_PARAMS = ("tweedie_power", "quantile_alpha", "huber_alpha")
 
 def distribution_from_params(name: str, params: Dict) -> Distribution:
     """The family ``name`` with the family parameters a builder's
-    ``params`` set (absent ones take ``get_distribution``'s defaults)."""
+    ``params`` set (absent ones take ``get_distribution``'s defaults);
+    ``"custom"`` is the user's ``custom_distribution_func``."""
+    if name.lower() == "custom":
+        ref = params.get("custom_distribution_func")
+        if not ref:
+            raise ValueError("distribution='custom' requires "
+                             "custom_distribution_func")
+        from h2o_tpu_torch.core.udf import load_custom_distribution
+        return load_custom_distribution(ref)
     return get_distribution(name, **{k: float(params[k])
                                      for k in FAMILY_PARAMS
                                      if params.get(k) is not None})

@@ -7,25 +7,29 @@ model in the given order, its predictions named by its ``model_id``: p1
 for a binomial model, every class probability (``<id>/<level>``) for a
 multinomial one, the value for a regression; then the response (and the
 weights column).  In CV mode they are the base model's cross-validation
-holdout predictions, ``output["cross_validation_holdout_predictions_
-frame"]`` (train the base models with ``keep_cross_validation_
-predictions=True``; the reference reads the frame from its DKV); in
+holdout predictions, the frame published under
+``output["cross_validation_holdout_predictions_frame_id"]`` (train the
+base models with ``keep_cross_validation_predictions=True``); in
 blending mode, each base model's predictions on ``blending_frame``.
+Base models may be given as port Models or as their keys in
+``store.dkv()``, and ``blending_frame`` as a Frame or its key.
 
 The metalearner trains on that frame: AUTO (and glm) is the port's GLM
 with ``non_negative`` (binomial or multinomial from the base models'
 response), else the named builder with ``metalearner_params``;
 ``metalearner_nfolds`` cross-validates it through ``_fit_cv``.  It is
-kept as ``output["metalearner"]`` and the base models as
-``output["base_models"]``, the model objects themselves (the reference
-keeps DKV keys: ``base_models`` given as keys, and a ``blending_frame``
-given as a key, are refused until P13 brings the DKV).  Scoring runs
-every base model, then the metalearner on their predictions, on the
-model's device.  The honest metrics are the metalearner's on the
-level-one frame: ``cross_validation_metrics`` in CV mode, else
-``validation_metrics`` when no validation frame was given.  The
-genmodel MOJO nests the metalearner's and base models' artifacts
-(``mojo/genmodel.py``); iteration checkpoints (P14) are refused.
+published in the DKV under ``output["metalearner_key"]``, as the
+reference does (``ensemble.py:154``).  The model also keeps the
+metalearner and the base models themselves (``output["metalearner"]``,
+``output["base_models"]``), which scoring, ``Model.save`` and the
+genmodel MOJO writer read, so a saved or exported ensemble does not
+depend on the DKV.  Scoring runs every base model, then the
+metalearner on their predictions, on the model's device.  The honest
+metrics are the metalearner's on the level-one frame:
+``cross_validation_metrics`` in CV mode, else ``validation_metrics``
+when no validation frame was given.  The genmodel MOJO nests the
+metalearner's and base models' artifacts (``mojo/genmodel.py``);
+iteration checkpoints (P14) are refused.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import torch
 
 from h2o_tpu_torch.core.device import DeviceLike, cloud
 from h2o_tpu_torch.core.frame import Frame, Vec
+from h2o_tpu_torch.core.store import dkv
 from h2o_tpu_torch.models.model import Model, ModelBuilder
 
 #: the metalearners: algo -> (module, builder class)
@@ -51,11 +56,13 @@ _METALEARNERS = {
 
 
 def _resolve_model(m) -> Model:
+    """A base model given as a Model or as its key in the DKV."""
     if isinstance(m, Model):
         return m
-    raise NotImplementedError(
-        f"stackedensemble: base model {m!r} is a DKV key; pass the port "
-        "Model objects (the DKV comes with P13)")
+    mdl = dkv().get(str(m))
+    if not isinstance(mdl, Model):
+        raise ValueError(f"base model {m} not found in DKV")
+    return mdl
 
 
 def _base_pred_columns(model: Model, raw: torch.Tensor) -> Dict[str, Vec]:
@@ -101,6 +108,7 @@ def stackedensemble_from_jax_output(output: Dict, params: Dict,
     the reference's order.  A base model's ``model_id`` must be the
     reference's key, which names its level-one column."""
     out = dict(base_models=list(base_models), metalearner=metalearner,
+               metalearner_key=str(output["metalearner_key"]),
                metalearner_algo=output["metalearner_algo"],
                response_domain=output.get("response_domain"),
                x=list(output["x"]))
@@ -127,14 +135,19 @@ class StackedEnsemble(ModelBuilder):
         else:
             cols = {}
             for bm in base_models:
-                pf = bm.output.get(
-                    "cross_validation_holdout_predictions_frame")
-                if pf is None:
+                fid = bm.output.get(
+                    "cross_validation_holdout_predictions_frame_id")
+                if fid is None:
                     raise ValueError(
                         f"base model {bm.model_id} lacks CV holdout "
                         "predictions; train with "
                         "keep_cross_validation_predictions=True or pass a "
                         "blending_frame")
+                pf = dkv().get(fid)
+                if pf is None:
+                    raise ValueError(f"CV holdout predictions {fid} of "
+                                     f"base model {bm.model_id} not found "
+                                     "in DKV")
                 dom = bm.output.get("response_domain")
                 if dom is None:
                     cols[bm.model_id] = pf.vec("predict")
@@ -183,11 +196,14 @@ class StackedEnsemble(ModelBuilder):
         if not base_models:
             raise ValueError("StackedEnsemble requires base_models")
         blending = p.get("blending_frame")
-        if blending is not None and not isinstance(blending, Frame):
-            raise NotImplementedError(
-                f"stackedensemble: blending_frame {blending!r} is a DKV "
-                "key; pass a Frame (the DKV comes with P13)")
+        if isinstance(blending, str):
+            fr = dkv().get(blending)
+            if not isinstance(fr, Frame):
+                raise ValueError(f"blending_frame {blending} not found in "
+                                 "DKV")
+            blending = fr
         l1 = self._level_one_frame(base_models, y, train, blending)
+        self._update(0.3, "level-one frame assembled")
 
         builder = self._metalearner(p, base_models)
         builder.params["response_column"] = y
@@ -198,8 +214,11 @@ class StackedEnsemble(ModelBuilder):
         else:
             meta_model = builder._fit(x_meta, y, l1, None)
         meta_model.params["response_column"] = y
+        dkv().put(meta_model.key, meta_model)
+        self._update(0.9, "metalearner trained")
 
         out = dict(base_models=base_models, metalearner=meta_model,
+                   metalearner_key=str(meta_model.key),
                    metalearner_algo=builder.algo,
                    response_domain=base_models[0].output.get(
                        "response_domain"),

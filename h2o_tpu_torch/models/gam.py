@@ -18,8 +18,10 @@ is ``x * x * x``, and a division by a knot difference divides by a
 float32 tensor.  The penalty matrices integrate the bases' second
 differences on a 512-point grid on the host, in float64 from the
 float32 basis values, once per smoother.  Scoring re-expands a frame
-with the stored knots and training means.  Refused by name:
-``keep_gam_cols`` (a frame published in the DKV, P13) and iteration
+with the stored knots and training means.  ``keep_gam_cols`` publishes
+the expanded training frame in ``store.dkv()`` as
+``{model_id}_gamified`` (``output["gam_transformed_center_key"]``, the
+reference's ``gam.py:322-330``).  Refused by name: iteration
 checkpoints (``recovery_dir``, P14).
 """
 
@@ -32,6 +34,7 @@ import torch
 
 from h2o_tpu_torch.core.device import DeviceLike, cloud
 from h2o_tpu_torch.core.frame import Frame, Vec
+from h2o_tpu_torch.core.store import Key, dkv
 from h2o_tpu_torch.models.glm import GLM, GLMModel, glm_from_jax_output
 from h2o_tpu_torch.models.model import Model, ModelBuilder
 
@@ -207,6 +210,8 @@ def gam_from_jax_output(output: Dict, params: Dict,
                                   "gam_col_means", "bs_map", "scale_map",
                                   "num_knots", "basis_names", "x")}
     dom = output.get("response_domain")
+    if "glm_key" in output:
+        out["glm_key"] = str(output["glm_key"])
     out.update(knots={c: np.asarray(v, np.float64)
                       for c, v in output["knots"].items()},
                glm_params=dict(output["glm_params"]),
@@ -241,11 +246,6 @@ class GAM(ModelBuilder):
     def _fit(self, x: List[str], y: str, train: Frame,
              valid: Optional[Frame] = None) -> GAMModel:
         p = self.params
-        if p.get("keep_gam_cols"):
-            raise NotImplementedError(
-                "gam: keep_gam_cols publishes the expanded frame in the DKV, "
-                "which comes with the REST and orchestration slice (P13); "
-                "GAMModel.expand(frame) gives the same columns")
         if p.get("recovery_dir") or int(p.get("checkpoint_interval") or 0):
             raise NotImplementedError(
                 "gam: recovery_dir/checkpoint_interval comes with the "
@@ -288,6 +288,7 @@ class GAM(ModelBuilder):
                                 dev, plain_x=list(x)) \
             if valid is not None else None
         basis_names = [n for n in expanded.names if n not in train.names]
+        self._update(0.2, f"spline basis: {len(basis_names)} columns")
 
         penalty_blocks = []
         nonneg_names: List[str] = []
@@ -320,7 +321,8 @@ class GAM(ModelBuilder):
                    knots=knots_map, gam_col_means=means, bs_map=bs_map,
                    scale_map=scale_map,
                    num_knots=[nk_map[c] for c in gam_cols],
-                   basis_names=basis_names, glm_params=inner.params,
+                   basis_names=basis_names, glm_key=inner.model_id,
+                   glm_params=inner.params,
                    glm_output=inner.output,
                    response_domain=inner.output.get("response_domain"),
                    x=list(x),
@@ -330,4 +332,9 @@ class GAM(ModelBuilder):
                 inner.output.get("validation_metrics")
         model = self.model_cls(dict(p), out, dev)
         model.params["response_column"] = y
+        if p.get("keep_gam_cols"):
+            key = f"{model.model_id}_gamified"
+            expanded.key = Key(key)
+            dkv().put(key, expanded)
+            out["gam_transformed_center_key"] = key
         return model

@@ -10,9 +10,13 @@ trained model.
 Scoring routes the frame through the MOJO's pure-numpy scorer on the host
 (artifacts may come from other builds and carry no device program), as
 the reference does, and hands the predictions to the model's device
-(``cuda:0`` unless the caller asks for the CPU).  There is no DKV:
-``from_mojo`` publishes nothing, ``Generic.train`` returns the model, and
-a ``model_key`` (the reference's DKV upload key) is refused until P13.
+(``cuda:0`` unless the caller asks for the CPU).  ``from_mojo``
+publishes the model in ``store.dkv()`` under its key, as the
+reference's does (``generic.py:35``); ``Generic.train`` runs the import
+as a job through ``ModelBuilder.train_async``; a ``model_key`` is an
+upload key whose DKV value is the path of the MOJO (``upload_mojo``),
+or the path itself with an ``nfs://`` prefix (reference
+``generic.py:103-113``).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch
 
 from h2o_tpu_torch.core.device import DeviceLike, cloud
 from h2o_tpu_torch.core.frame import Frame
+from h2o_tpu_torch.core.store import dkv
 from h2o_tpu_torch.models.model import Model, ModelBuilder
 
 
@@ -43,7 +48,9 @@ class GenericModel(Model):
         out["__arrays__"] = {k: np.asarray(v)
                              for k, v in mojo.arrays.items()}
         out["source_algo"] = mojo.algo
-        return cls(params, out, dev)
+        m = cls(params, out, dev)
+        dkv().put(m.key, m)
+        return m
 
     def _mojo(self):
         arrays = self.output["__arrays__"]
@@ -107,20 +114,27 @@ class Generic(ModelBuilder):
         return p
 
     def _resolve_path(self) -> str:
-        if self.params.get("model_key"):
-            raise NotImplementedError(
-                "Generic: model_key names a DKV upload (upload_mojo); the "
-                "port has no DKV until P13 — pass path= instead")
         path = self.params.get("path")
+        if not path and self.params.get("model_key"):
+            # upload_mojo: model_key is the upload key whose DKV value is
+            # the spooled path
+            mk = str(self.params["model_key"])
+            src = dkv().get(mk)
+            path = str(src) if src else mk.replace("nfs://", "")
         if not path:
-            raise ValueError("Generic requires path to a MOJO")
+            raise ValueError("Generic requires path or model_key to a MOJO")
         return path
 
-    def train(self, x=None, y=None, training_frame=None,
-              validation_frame=None) -> GenericModel:
-        """The imported model: the artifact is the training input, so
-        every frame argument is ignored, as in the reference."""
+    def _columns(self, x, y, training_frame):
+        """The artifact is the training input: every frame argument is
+        ignored, as in the reference."""
+        return [], None
+
+    def _job_description(self, training_frame) -> str:
+        return "generic model import"
+
+    def _fit(self, x, y, train, valid=None) -> GenericModel:
         from h2o_tpu_torch.mojo import load_mojo
-        return GenericModel.from_mojo(load_mojo(self._resolve_path()),
-                                      model_id=self.params.get("model_id"),
-                                      device=self.device)
+        return GenericModel.from_mojo(
+            load_mojo(self._resolve_path()),
+            model_id=self.params["model_id"], device=self.device)

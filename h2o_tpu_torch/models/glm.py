@@ -27,9 +27,10 @@ data pass that fails on the card raises.
 
 Not in the port yet, each refused by name: iteration checkpoints
 (``recovery_dir``) and the stream refresh's warm start
-(``_warm_start_beta``), which come with the runtime services (P14);
-the DKV-key form of ``beta_constraints`` and ``custom_metric_func``
-(P13).  The reference's executable store and OOM ladder (``_solver_
+(``_warm_start_beta``), which come with the runtime services (P14).
+``beta_constraints`` may be a Frame, a dict, or the key of a frame in
+``store.dkv()``; ``custom_metric_func`` is attached by the job body
+(``models/model.py``).  The reference's executable store and OOM ladder (``_solver_
 dispatch``) are P14 as well; the port calls its passes directly.
 ``offset_column`` is refused: the reference accepts it and never reads
 it (``glm.py:788`` hands it to DataInfo, ``:255`` forms eta without it),
@@ -568,10 +569,11 @@ def _beta_constraint_rows(bc) -> List[tuple]:
                 out.append((str(name), lb, ub))
         return out
     if isinstance(bc, str):
-        raise NotImplementedError(
-            "beta_constraints as the key of a stored frame needs the DKV, "
-            "which comes with the REST and orchestration slice (P13); pass "
-            "the Frame or a dict")
+        from h2o_tpu_torch.core.store import dkv
+        fr = dkv().get(bc)
+        if fr is None:
+            raise ValueError(f"beta_constraints frame {bc!r} not found")
+        bc = fr
     nv = bc.vec("names")
     if nv.host_data is not None:
         names = [str(s) for s in nv.host_data]
@@ -854,10 +856,6 @@ class GLM(ModelBuilder):
             raise NotImplementedError(
                 "glm: the stream refresh's warm start (_warm_start_beta) "
                 "comes with the runtime services (P14)")
-        if p.get("custom_metric_func") not in (None, ""):
-            raise NotImplementedError(
-                "glm: custom_metric_func comes with the REST and "
-                "orchestration slice (P13), which brings the UDF layer")
 
     def _fit(self, x: List[str], y: str, train: Frame,
              valid: Optional[Frame] = None) -> GLMModel:
@@ -1177,6 +1175,7 @@ class GLM(ModelBuilder):
             if bool(p.get("compute_p_values")):
                 extra.update(self._p_values(X, yv, w, valid_m, fam, p,
                                             beta, n_obs))
+            self._update(1.0, f"{solver} converged")
             return beta, lam, dev, extra
 
         # ---- the lambda search path ----
@@ -1220,6 +1219,8 @@ class GLM(ModelBuilder):
             path_dev_t.append(dev)
             path_dev_v.append(dev_v)
             path_coefs.append(np.asarray(beta))
+            self._update((k + 1) / len(lams),
+                         f"lambda {k + 1}/{len(lams)} = {lam_k:.4g}")
             # NaN-safe: the first path point always seeds best
             if best is None or crit < best[0] - 1e-12:
                 best = (crit, beta, float(lam_k), dev)
@@ -1322,11 +1323,13 @@ class GLM(ModelBuilder):
                 torch.as_tensor(np.asarray(mask, _F32)[:P], device=dev),
                 torch.zeros(params0.shape[0] - P, device=dev)])
         steps = 200 * max(max_iter, 10)
-        params, _loss = _ordinal_gd(
+        params, loss = _ordinal_gd(
             params0, X, yk, wa, n_obs,
             torch.tensor(float(_F32(l1)), device=dev),
             torch.tensor(float(_F32(l2)), device=dev),
             pen_dev, proj_mask, P=P, K=K, steps=steps)
+        self._update(0.9, f"ordinal GD {steps} steps, "
+                          f"nll={float(loss):.5g}")
         beta, thr = _ordinal_unpack(params, P, K)
         beta_full = np.concatenate([beta.cpu().numpy(),
                                     np.zeros(1, _F32)])   # intercept in thr
@@ -1360,7 +1363,10 @@ class GLM(ModelBuilder):
             flat, _f, iters = _lbfgs_minimize(
                 vg, np.zeros((K * (P + 1),), np.float64),
                 max(max_iter, 300),
-                gtol=float(p.get("gradient_epsilon") or 0) or 1e-7)
+                gtol=float(p.get("gradient_epsilon") or 0) or 1e-7,
+                progress=lambda i, f: self._update(
+                    min(0.9, i / max(max_iter, 300)),
+                    f"L-BFGS iter {i} obj={f:.5g}"))
             self._last_iters = iters
             return np.asarray(flat.reshape(K, P + 1), _F32)
         binom = _Binomial()
@@ -1383,6 +1389,7 @@ class GLM(ModelBuilder):
                                 float(np.max(np.abs(bk - betas[k]))))
                 betas[k] = bk
             self._last_iters = it + 1
+            self._update((it + 1) / max_iter, f"multinomial iter {it + 1}")
             if max_delta < float(p["beta_epsilon"]):
                 break
         return betas

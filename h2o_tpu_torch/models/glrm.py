@@ -325,6 +325,9 @@ class GLRM(ModelBuilder):
                 alpha /= 2.0
                 if alpha < min_alpha:
                     break
+            if it % 20 == 0:
+                self._update(min(0.9, it / int(p["max_iterations"])),
+                             f"iter {it} objective {obj:.5g}")
             if len(history) > 2 and \
                     abs(history[-2] - history[-1]) < 1e-8 * (1 + obj):
                 break
@@ -346,4 +349,5 @@ class GLRM(ModelBuilder):
                    model_category="DimReduction")
         model = self.model_cls(dict(p), out, dev)
         out["training_metrics"] = model.model_metrics()
+        self._update(1.0)
         return model

@@ -72,12 +72,12 @@ class Grep(ModelBuilder):
         p.update(regex=None)
         return p
 
-    def train(self, x=None, y=None, training_frame=None,
-              validation_frame: Optional[Frame] = None) -> GrepModel:
-        """``training_frame`` is a one-text-column frame or a path."""
+    def _columns(self, x, y, training_frame):
+        """``training_frame`` is a one-text-column frame or a path; no
+        predictors, no response."""
         if training_frame is None:
             raise ValueError("training_frame is required")
-        return self._fit([], None, training_frame, validation_frame)
+        return [], None
 
     def _fit(self, x: List[str], y: Optional[str], train,
              valid: Optional[Frame] = None) -> GrepModel:
@@ -92,9 +92,12 @@ class Grep(ModelBuilder):
         text = text_of(train)
         matches: List[str] = []
         offsets: List[int] = []
-        for m in pattern.finditer(text):
+        n = max(len(text), 1)
+        for i, m in enumerate(pattern.finditer(text)):
             matches.append(m.group(0))
             offsets.append(m.start())
+            if i % 4096 == 0:
+                self._update(m.start() / n, f"{len(matches)} matches")
         out = dict(matches=matches, offsets=offsets,
                    model_category="Unknown")
         model = self.model_cls(dict(p), out, self.device)

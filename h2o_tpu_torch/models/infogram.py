@@ -115,6 +115,7 @@ class Infogram(ModelBuilder):
         seed = p.get("seed", -1)
 
         # relevance: varimp of a GBM on all candidate predictors
+        self._update(0.1, "relevance model")
         rel_model = GBM(device=dev, ntrees=20, max_depth=5, seed=seed,
                         response_column=y)._fit(preds, y, train, None)
         vi = np.asarray(rel_model.output.get("varimp"))
@@ -124,8 +125,12 @@ class Infogram(ModelBuilder):
         # information: logloss reduction of [conditioning + x_j] over
         # [conditioning]
         base_ll = _model_logloss(protected, y, train, seed, dev)
-        info = np.asarray([max(base_ll - _model_logloss(
-            protected + [c], y, train, seed, dev), 0.0) for c in preds])
+        info = []
+        for i, c in enumerate(preds):
+            self._update(0.2 + 0.7 * i / len(preds), f"CMI {c}")
+            info.append(max(base_ll - _model_logloss(
+                protected + [c], y, train, seed, dev), 0.0))
+        info = np.asarray(info)
         info_idx = info / max(info.max(), EPS)
 
         net_thr = float(p["net_information_threshold"])

@@ -111,7 +111,8 @@ def kmeans_from_jax_output(output: Dict, params: Dict,
     dict (arrays as numpy)."""
     dev = cloud(device)
     out = {k: output[k] for k in ("k", "tot_withinss", "totss",
-                                  "iterations") if k in output}
+                                  "iterations", "training_frame_key")
+           if k in output}
     out.update(
         centers_std=np.array(output["centers_std"], np.float32),
         centers=np.array(output["centers"], np.float32),
@@ -180,6 +181,7 @@ class KMeans(ModelBuilder):
             _, new_centers, cnts, wss = _lloyd_step(X, centers, k)
             shift = float(torch.max(torch.abs(new_centers - centers)))
             centers = new_centers
+            self._update((it + 1) / max_iter, f"iteration {it + 1}")
             if shift < 1e-5:
                 break
 
@@ -194,7 +196,8 @@ class KMeans(ModelBuilder):
         wss_np, cnts_np = wss.cpu().numpy(), cnts.cpu().numpy()
         totss = _totss(X)
         data = clustering_data(k, wss_np, cnts_np, totss)
-        out = dict(k=k, centers_std=cst, centers=cdn, expansion_spec=spec,
+        out = dict(k=k, centers_std=cst, centers=cdn,
+                   training_frame_key=str(train.key), expansion_spec=spec,
                    coef_names=di.expanded_names, withinss=wss_np,
                    size=cnts_np, tot_withinss=data["tot_withinss"],
                    totss=totss, iterations=it + 1,

@@ -3,27 +3,40 @@
 :156-166, ``Model`` :169-380 with the explain options :229-265,
 ``metrics_from_raw`` :270-303, ``varimp`` :303 and ``save``/``load``
 :338-380, ``ModelBuilder`` :383-696 with ``_validate_fixed`` :397-416,
-``train`` :447-470, ``_fold_assignment`` :545-572, ``_fit_cv`` :574-666,
-``checkpoint_model`` :668-679 and ``rng_key`` :691-696).
+``train``/``train_async`` :447-532, ``_fold_assignment`` :545-572,
+``_fit_cv`` :574-664, ``checkpoint_model`` :668-679 and ``rng_key``
+:691-696).
 
-The reference runs a build as an asynchronous Job that stores the model
-and its cross-validation artifacts in the DKV under keys; the port has
-no DKV: it trains synchronously, returns the model, and keeps the fold
-models, the holdout predictions frame and the fold assignment frame on
-``model.output`` itself (``cross_validation_models``,
-``cross_validation_holdout_predictions_frame``,
-``cross_validation_fold_assignment_frame``).  A ``checkpoint`` is a port
-``Model`` or the path of a file ``Model.save`` wrote.  Frames hold no
-padded rows, so the holdout predictions need no padding either.
+A build runs as a job of the process-wide registry (``core/job.py``
+:func:`jobs`): ``train_async`` pins the model key (``model_id``, else
+``<algo>_<hex>``), starts a job whose ``dest`` is that key and returns
+it; ``train`` joins it.  The body runs on a pool thread with the
+builder's CUDA device current, fits (cross-validating first with
+``nfolds`` or a ``fold_column``), attaches a ``custom_metric_func``
+(``core/udf.py``) to the training and validation metrics, and publishes
+the model in ``store.dkv()`` under its key.  A body that raises makes
+the job FAILED and ``train`` re-raises it; nothing is retried on
+another device.  Cross-validation publishes, as the reference does, the
+fold models as ``{model_id}_cv_{i}``, the holdout predictions as
+``cv_holdout_prediction_{model_id}`` and the fold assignment as
+``cv_fold_assignment_{model_id}``, and ``model.output`` holds their keys
+(``cross_validation_models``,
+``cross_validation_holdout_predictions_frame_id``,
+``cross_validation_fold_assignment_frame_id``).  A ``checkpoint`` is a
+port ``Model``, the key of one in the DKV, or the path of a file
+``Model.save`` wrote.  Frames hold no padded rows, so the holdout
+predictions need no padding either.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import importlib
 import json
 import os
 import pickle
+import threading
 import uuid
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -32,6 +45,8 @@ import torch
 
 from h2o_tpu_torch.core.device import DeviceLike, cloud
 from h2o_tpu_torch.core.frame import T_CAT, T_STR, T_UUID, Frame, Vec
+from h2o_tpu_torch.core.job import Job, JobCancelledException, jobs
+from h2o_tpu_torch.core.store import Key, dkv
 from h2o_tpu_torch.models import metrics as mm
 from h2o_tpu_torch.models.distributions import (Distribution,
                                                 distribution_from_params)
@@ -224,6 +239,11 @@ class Model:
     def model_id(self) -> str:
         return str(self.params["model_id"])
 
+    @property
+    def key(self) -> Key:
+        """The model's DKV key (its ``model_id``)."""
+        return Key(self.model_id)
+
     def predict_raw(self, frame: Frame) -> torch.Tensor:
         """(rows,) regression values or (rows, 1+K) [label, p0..] on
         the model's device."""
@@ -344,9 +364,10 @@ class Model:
     def family(self) -> Optional[Distribution]:
         """The distribution the model was fitted under: its resolved name
         with the params' family parameters; None for a model without one
-        (DRF)."""
+        (DRF) and for a custom one, whose metrics are plain regression
+        metrics (``h2o_tpu/models/model.py:287-289``)."""
         name = self.output.get("distribution_resolved")
-        return None if name is None else \
+        return None if name in (None, "custom") else \
             distribution_from_params(name, self.params)
 
     def metrics_from_raw(self, raw: torch.Tensor, frame: Frame,
@@ -483,6 +504,10 @@ _MODEL_CLASSES = {
 }
 
 
+#: per thread, the job whose body runs there (``ModelBuilder._job``)
+_running = threading.local()
+
+
 class ModelBuilder:
     """Train lifecycle: params -> validate -> ``_fit`` -> Model."""
 
@@ -538,21 +563,100 @@ class ModelBuilder:
                     checkpoint=None, custom_metric_func=None,
                     recovery_dir=None, checkpoint_interval=0)
 
+    @property
+    def _job(self) -> Optional[Job]:
+        """The job whose body runs on this thread: the build's own, also
+        for the builders a build nests (CV folds, a metalearner, a
+        relevance GBM), as the reference passes its job down."""
+        return getattr(_running, "job", None)
+
     def train(self, x: Optional[Sequence[str]] = None,
               y: Optional[str] = None, training_frame: Frame = None,
               validation_frame: Optional[Frame] = None) -> Model:
         """Train on ``training_frame``; ``validation_frame``, when given,
         is scored as the model trains (early stopping watches it) and
         gives ``validation_metrics``.  ``nfolds`` > 1 or a
-        ``fold_column`` cross-validates first."""
+        ``fold_column`` cross-validates first.  Runs as a job
+        (``train_async(...).join()``)."""
+        return self.train_async(x, y, training_frame,
+                                validation_frame).join()
+
+    def train_async(self, x: Optional[Sequence[str]] = None,
+                    y: Optional[str] = None, training_frame: Frame = None,
+                    validation_frame: Optional[Frame] = None) -> Job:
+        """Start the build as a job of :func:`jobs` and return it; its
+        ``dest`` is the model key, under which the body publishes the
+        model in ``store.dkv()``."""
         x, y = self._columns(x, y, training_frame)
-        if int(self.params.get("nfolds") or 0) > 1 or \
-                self.params.get("fold_column"):
-            if not self.supports_cv:
-                raise ValueError(f"{self.algo}: n-fold cross-validation is "
-                                 "not supported by this builder")
-            return self._fit_cv(x, y, training_frame, validation_frame)
-        return self._fit(x, y, training_frame, validation_frame)
+        use_cv = self._use_cv()
+        # pin the key now, so the job's dest and the stored model agree
+        if not self.params.get("model_id"):
+            self.params["model_id"] = str(Key.make(self.algo))
+        job = Job(dest=self.params["model_id"], dest_type="Key<Model>",
+                  description=self._job_description(training_frame))
+        dev = self.device
+        # per-thread state the caller's thread would have trained under:
+        # pool threads keep the intra-op thread count they started with,
+        # and grad mode is per thread
+        n_threads, grad = torch.get_num_threads(), torch.is_grad_enabled()
+
+        def body(j: Job) -> Model:
+            if torch.get_num_threads() != n_threads:
+                torch.set_num_threads(n_threads)
+            # a thread starts on device 0; another card is made current
+            ctx = torch.cuda.device(dev) if dev.type == "cuda" and \
+                (dev.index or 0) != 0 else contextlib.nullcontext()
+            _running.job = j
+            try:
+                with ctx, torch.set_grad_enabled(grad):
+                    return self._train_body(j, x, y, training_frame,
+                                            validation_frame, use_cv)
+            finally:
+                _running.job = None
+
+        jobs().start(job, body)
+        return job
+
+    def _train_body(self, j: Job, x: List[str], y: Optional[str],
+                    train: Frame, valid: Optional[Frame],
+                    use_cv: bool) -> Model:
+        model = self._fit_cv(x, y, train, valid) if use_cv \
+            else self._fit(x, y, train, valid)
+        model.params["model_id"] = str(j.dest)
+        cmf = self.params.get("custom_metric_func")
+        if cmf:
+            from h2o_tpu_torch.core.udf import attach_custom_metric
+            for mkey, fr_m in (("training_metrics", train),
+                               ("validation_metrics", valid)):
+                mm_obj = model.output.get(mkey)
+                if mm_obj is not None and fr_m is not None:
+                    attach_custom_metric(model, mm_obj, fr_m, cmf)
+        # a job cancelled, or expired by the watchdog, after its last
+        # update() publishes nothing
+        if j.stop_requested:
+            raise JobCancelledException(j.description)
+        dkv().put(model.key, model)
+        return model
+
+    def _job_description(self, training_frame: Frame) -> str:
+        return f"{self.algo} on {getattr(training_frame, 'key', None)}"
+
+    def _use_cv(self) -> bool:
+        """Whether ``nfolds`` > 1 or a ``fold_column`` asks for
+        cross-validation; a builder without it refuses them."""
+        use_cv = int(self.params.get("nfolds") or 0) > 1 or \
+            bool(self.params.get("fold_column"))
+        if use_cv and not self.supports_cv:
+            raise ValueError(f"{self.algo}: n-fold cross-validation is "
+                             "not supported by this builder")
+        return use_cv
+
+    def _update(self, progress: float, msg: str = "") -> None:
+        """Report progress to the running job (its heartbeat; raises at
+        a requested cancel); a no-op outside a job."""
+        job = self._job
+        if job is not None:
+            job.update(progress, msg)
 
     def _columns(self, x: Optional[Sequence[str]], y: Optional[str],
                  training_frame: Frame):
@@ -619,6 +723,9 @@ class ModelBuilder:
         user_w = train.vec(p["weights_column"]).as_float() \
             if p.get("weights_column") else np.ones(train.nrows, np.float32)
 
+        # the fold models' key prefix: the model key, else the algo (a
+        # _fit_cv outside train, as the ensemble's metalearner's)
+        cv_base = str(p.get("model_id") or self.algo)
         cv_models, raw_combined = [], None
         for i in range(nfolds):
             hold = fold == i
@@ -632,7 +739,9 @@ class ModelBuilder:
             sub = copy.copy(self)
             sub.params = dict(p, nfolds=0, fold_column=None,
                               weights_column=wname, checkpoint=None,
-                              recovery_dir=None)
+                              recovery_dir=None,
+                              model_id=f"{cv_base}_cv_{i + 1}")
+            self._update(i / (nfolds + 1.0), f"CV model {i + 1}/{nfolds}")
             m_i = sub._fit(x, y, fr_i, fr_hold)
             cv_models.append(m_i)
             raw_i = m_i.predict_raw(train).cpu().numpy()
@@ -650,6 +759,7 @@ class ModelBuilder:
             p["stopping_rounds"] = 0
             self.params = p
 
+        self._update(nfolds / (nfolds + 1.0), "main model on full data")
         model = self._fit(x, y, train, valid)
         raw_t = torch.from_numpy(raw_combined).to(self.device)
         cvm = model.metrics_from_raw(raw_t, train)
@@ -666,15 +776,25 @@ class ModelBuilder:
                                       sd=float(np.std(vals)), values=vals)
         model.output["cross_validation_metrics"] = cvm
         model.output["cross_validation_metrics_summary"] = summary
+        store = dkv()
         if p.get("keep_cross_validation_models", True):
-            model.output["cross_validation_models"] = cv_models
+            for m_i in cv_models:
+                store.put(m_i.key, m_i)
+            model.output["cross_validation_models"] = \
+                [str(m.key) for m in cv_models]
         if p.get("keep_cross_validation_predictions"):
-            model.output["cross_validation_holdout_predictions_frame"] = \
-                _raw_to_frame(raw_combined,
-                              model.output.get("response_domain"))
+            pf = _raw_to_frame(raw_combined,
+                               model.output.get("response_domain"))
+            pf.key = Key(f"cv_holdout_prediction_{model.key}")
+            store.put(pf.key, pf)
+            model.output["cross_validation_holdout_predictions_frame_id"] = \
+                str(pf.key)
         if p.get("keep_cross_validation_fold_assignment"):
-            model.output["cross_validation_fold_assignment_frame"] = Frame(
-                ["fold_assignment"], [Vec(fold.astype(np.float32))])
+            ff = Frame(["fold_assignment"], [Vec(fold.astype(np.float32))],
+                       key=f"cv_fold_assignment_{model.key}")
+            store.put(ff.key, ff)
+            model.output["cross_validation_fold_assignment_frame_id"] = \
+                str(ff.key)
         return model
 
     def refuse_iteration_checkpoints(self) -> None:
@@ -688,14 +808,17 @@ class ModelBuilder:
                 "the runtime services (P14)")
 
     def checkpoint_model(self) -> Optional[Model]:
-        """The ``checkpoint`` param as a Model: a port model as given, or
-        one loaded from the path ``Model.save`` wrote, on this builder's
-        device."""
+        """The ``checkpoint`` param as a Model: a port model as given,
+        the model published in the DKV under that key, or one loaded
+        from the path ``Model.save`` wrote, on this builder's device."""
         ck = self.params.get("checkpoint")
         if not ck:
             return None
         if isinstance(ck, Model):
             return ck
+        m = dkv().get(str(ck))
+        if isinstance(m, Model):
+            return m
         if not os.path.isfile(str(ck)):
             raise ValueError(f"checkpoint model {ck} not found")
         return Model.load(str(ck), self.device)

@@ -140,6 +140,8 @@ class ModelSelection(ModelBuilder):
             # chosen predictor (sequential replacement)
             chosen: List[str] = []
             for size in range(1, max_k + 1):
+                self._update(size / (max_k + 1.0),
+                             f"{mode}: best subset of size {size}")
                 cands = [c for c in preds if c not in chosen]
                 if not cands:
                     break
@@ -167,6 +169,8 @@ class ModelSelection(ModelBuilder):
             chosen = list(preds)
             record(len(chosen), chosen, fit(chosen))
             while len(chosen) > max(int(p["min_predictor_number"]), 1):
+                self._update(1 - len(chosen) / (len(preds) + 1.0),
+                             f"backward: {len(chosen) - 1} predictors")
                 scored = []
                 for c in chosen:
                     sub = [q for q in chosen if q != c]

@@ -135,4 +135,5 @@ class PCA(ModelBuilder):
                    model_category="DimReduction")
         model = self.model_cls(dict(p), out, self.device)
         out["training_metrics"] = model.model_metrics()
+        self._update(1.0)
         return model

@@ -185,6 +185,7 @@ class PSVM(ModelBuilder):
         cls_w = torch.where(ysign > 0, float(np.float32(p["positive_weight"])),
                             float(np.float32(p["negative_weight"])))
         w = di.weights() * cls_w
+        self._update(0.2, f"primal SVM on {D} Fourier features")
         beta = svm_fit(Z, ysign, w, di.valid_mask(), float(p["hyper_param"]),
                        int(p["max_iterations"]),
                        statpack.padded_rows(train.nrows, statpack.ROW_QUANTUM),

@@ -163,6 +163,8 @@ def rulefit_from_jax_output(output: Dict, params: Dict,
         response_domain=list(dom) if dom is not None else None,
         glm_params=dict(output["glm_params"]), glm_output=inner.output,
         rule_importance=[tuple(r) for r in output["rule_importance"]])
+    if "glm_key" in output:
+        out["glm_key"] = str(output["glm_key"])
     return RuleFitModel(dict(params), out, dev)
 
 
@@ -221,7 +223,9 @@ class RuleFit(ModelBuilder):
         binned = st.prepare_bins(di, 20, 1024)
         forests, support_total = [], []
         nrows = train.nrows
-        for depth in depths:
+        for d_i, depth in enumerate(depths):
+            self._update(0.1 + 0.4 * d_i / len(depths),
+                         f"rule trees depth {depth}")
             f = self._rule_forest(depth, ntrees, list(di.x), y, train)
             nodes = _terminal_nodes(
                 binned.bins, torch.as_tensor(f["split_col"], device=dev),
@@ -255,6 +259,8 @@ class RuleFit(ModelBuilder):
         wc = p.get("weights_column")
         if wc:
             rf.add(wc, train.vec(wc))
+        self._update(0.6, f"L1 GLM over {rf.ncols - 1} rule/linear "
+                          "features")
 
         lam = p.get("lambda_")
         glm = GLM(device=dev, family="binomial" if nclass == 2 else
@@ -288,7 +294,8 @@ class RuleFit(ModelBuilder):
         if max_rules > 0:
             rules_flat = rules_flat[:max_rules]
 
-        out = dict(out_proto, glm_params=inner.params,
+        out = dict(out_proto, glm_key=inner.model_id,
+                   glm_params=inner.params,
                    glm_output=inner.output, rule_importance=rules_flat,
                    training_metrics=inner.output.get("training_metrics"))
         model = self.model_cls(dict(p), out, dev)

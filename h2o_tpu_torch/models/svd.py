@@ -137,4 +137,5 @@ class SVD(ModelBuilder):
                                    [Vec(U[:, i]) for i in range(nv)])
         model = self.model_cls(dict(p), out, dev)
         out["training_metrics"] = model.model_metrics()
+        self._update(1.0)
         return model

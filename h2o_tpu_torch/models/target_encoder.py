@@ -29,7 +29,7 @@ added in float64 and the column cast to float32.  The MOJO form is
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -184,13 +184,10 @@ class TargetEncoder(ModelBuilder):
                  noise=0.01)
         return p
 
-    def train(self, x: Optional[Sequence[str]] = None,
-              y: Optional[str] = None, training_frame: Frame = None,
-              validation_frame: Optional[Frame] = None) -> TargetEncoderModel:
-        """Fit the encoding.  ``nfolds`` and ``fold_column`` are its
-        KFold holdout folds, never cross-validation."""
-        x, y = self._columns(x, y, training_frame)
-        return self._fit(x, y, training_frame, validation_frame)
+    def _use_cv(self) -> bool:
+        """``nfolds`` and ``fold_column`` are the encoding's KFold
+        holdout folds, never cross-validation."""
+        return False
 
     def _fit(self, x: List[str], y: str, train: Frame,
              valid: Optional[Frame] = None) -> TargetEncoderModel:

@@ -165,8 +165,10 @@ class DRF(ModelBuilder):
                                        fine_na=binned.fine_nbins)
         kind = "binomial" if nclass == 2 else (
             "multinomial" if nclass > 2 else "regression")
+        self._update(0.05, f"training {int(p['ntrees']) - prior} trees")
         model = run_tree_driver(p, train_kwargs, F0, self.rng_key(),
-                                make_model, scorer, kind, prior_trees=prior)
+                                make_model, scorer, kind, prior_trees=prior,
+                                update=self._update)
         model.output["training_metrics"] = model.model_metrics(train)
         if valid is not None:
             model.output["validation_metrics"] = model.model_metrics(valid)

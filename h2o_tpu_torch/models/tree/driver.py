@@ -22,8 +22,13 @@ Left out, each on purpose:
   raise ``NotImplementedError`` naming P14 (``shared_tree.check_slice``);
 - the asynchronous double-buffering (block t+1 launched before block t
   is read back): the blocks run one after the other, and nothing leaves
-  the device until the model is made but each scoring round's metrics;
-- there is no ``Job``: progress messages are not kept.
+  the device until the model is made but each scoring round's metrics.
+
+Progress goes to the builder's job through ``update`` (its
+``ModelBuilder._update``) with the reference's fractions and messages,
+after every block and, beyond the reference (whose one-call forest is a
+single device program), after every tree, so that a cancel, an expired
+deadline or a stall window takes effect between trees.
 """
 
 from __future__ import annotations
@@ -156,7 +161,8 @@ def _concat(blocks: List[TrainedForest]) -> TrainedForest:
 def run_tree_driver(p: Dict, train_kwargs: Dict, F0: torch.Tensor, key,
                     make_model: Callable,
                     scorer: Optional[IncrementalScorer], kind: str,
-                    prior_trees: int = 0):
+                    prior_trees: int = 0,
+                    update: Optional[Callable[[float, str], None]] = None):
     """Train ``p['ntrees']`` trees in all, ``prior_trees`` of which a
     checkpoint already holds.  With a ``scorer`` (the builder makes one
     when ``wants_scoring``), score every ``score_tree_interval`` trees
@@ -168,7 +174,8 @@ def run_tree_driver(p: Dict, train_kwargs: Dict, F0: torch.Tensor, key,
     builder prepends a checkpoint's trees and carries its ``varimp`` and
     node arrays); the driver then adds the new trees' importance and
     node arrays (``thr_bin``, ``na_left``, ``node_gain``, ``node_w``)
-    and the scoring history."""
+    and the scoring history.  ``update(progress, msg)`` gets the
+    progress after every tree and every block."""
     ntrees = int(p["ntrees"]) - prior_trees
     if prior_trees and ntrees <= 0:
         raise ValueError(
@@ -184,19 +191,27 @@ def run_tree_driver(p: Dict, train_kwargs: Dict, F0: torch.Tensor, key,
                      stopping_rounds=rounds,
                      tolerance=float(p.get("stopping_tolerance", 1e-3)))
 
+    report = update or (lambda progress, msg="": None)
+    done = 0
+
+    def tree_done(n: int) -> None:
+        report(0.05 + 0.85 * (done + n) / ntrees,
+               f"{prior_trees + done + n} trees")
+
     if scorer is None:
         # single-dispatch path: the whole forest in one call
         tf = train_forest(F0=F0, key=key, ntrees=ntrees, t0=prior_trees,
-                          **train_kwargs)
+                          progress=tree_done, **train_kwargs)
     else:
         block = interval if interval > 0 else max(1, min(ntrees, 10))
         prefix = "validation_" if scorer.is_validation else "training_"
         blocks: List[TrainedForest] = []
-        F, done = F0, 0
+        F = F0
         while done < ntrees:
             n = min(block, ntrees - done)
             tf = train_forest(F0=F, key=key, ntrees=n,
-                              t0=prior_trees + done, **train_kwargs)
+                              t0=prior_trees + done, progress=tree_done,
+                              **train_kwargs)
             F = tf.f_final
             blocks.append(tf)
             done += n
@@ -208,8 +223,14 @@ def run_tree_driver(p: Dict, train_kwargs: Dict, F0: torch.Tensor, key,
                 if mm.get(k) is not None:
                     row[prefix + k.lower()] = mm.get(k)
             sk.add(mm, row)
-            if sk.stop_early() or \
-                    (max_rt > 0 and time.time() - t_start > max_rt):
+            report(0.05 + 0.85 * done / ntrees,
+                   f"{prior_trees + done} trees, "
+                   f"{sk.metric_name}={sk.history[-1]:.5g}")
+            if sk.stop_early():
+                report(0.9, f"early stop at {prior_trees + done} trees")
+                break
+            if max_rt > 0 and time.time() - t_start > max_rt:
+                report(0.9, f"max_runtime_secs hit at {done} trees")
                 break
         tf = _concat(blocks)
 

@@ -50,7 +50,7 @@ TPU — a GPU gathers natively.
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import torch
 
@@ -564,7 +564,9 @@ def train_forest(bins: torch.Tensor, yv: torch.Tensor, w: torch.Tensor,
                  mono: Optional[torch.Tensor] = None,
                  kleaves: int = 0, adaptive: bool = False,
                  fine_nbins: int = 0, hist_random: bool = False,
-                 stats_dtype: str = "f32", t0: int = 0) -> TrainedForest:
+                 stats_dtype: str = "f32", t0: int = 0,
+                 progress: Optional[Callable[[int], None]] = None
+                 ) -> TrainedForest:
     """The forest loop of ``_train_forest_impl``: ``ntrees`` iterations
     of K trees each (ntrees >= 1; F0 is (R, K)).
 
@@ -586,7 +588,9 @@ def train_forest(bins: torch.Tensor, yv: torch.Tensor, w: torch.Tensor,
     against its tree key, with qmax from this call's row count padded to
     the reference's row quantum.  ``mono`` ((C,) int), when given,
     imposes monotone constraints; ``reg_lambda`` is added to every Newton
-    denominator."""
+    denominator.  ``progress(n)``, when given, is called on the host
+    after each of the n iterations done (the job's heartbeat; it may
+    raise to stop the build)."""
     if mode not in ("gbm", "drf"):
         raise ValueError(f"train_forest: unknown mode {mode!r}")
     cfg = dict(max_depth=max_depth, nbins=nbins, k_cols=k_cols,
@@ -664,6 +668,8 @@ def train_forest(bins: torch.Tensor, yv: torch.Tensor, w: torch.Tensor,
             trees.append(tree)
         if mode == "gbm":
             F = F + torch.stack(preds, dim=1)
+        if progress is not None:
+            progress(t - t0 + 1)
 
     def stack(name):                          # (T, K, ...)
         return torch.stack([getattr(tr, name) for tr in trees]).unflatten(

@@ -5,8 +5,11 @@
 Binning, trees and scoring run on the device given to ``GBM``: ``cuda:0`` by
 default, where every histogram goes through the hand-written kernels,
 or the CPU when the caller passes ``device="cpu"`` (the plain PyTorch
-versions).  Every distribution of ``models/distributions.py`` but
-``custom``, multinomial responses (K class trees an iteration), weights
+versions).  Every distribution of ``models/distributions.py``, a
+user's ``custom`` one (``custom_distribution_func``, ``core/udf.py``:
+its gradient and hessian run on the engine's tensors, f0 is its
+``init`` ratio through its link in float64 on the host, and scoring
+applies its link by name), multinomial responses (K class trees an iteration), weights
 and offset columns, monotone constraints, ``reg_lambda`` and
 ``force_newton`` (the XGBoost builder's), row and column sampling,
 ``Random`` histograms, int16/int8 stats and depths beyond the dense
@@ -72,6 +75,10 @@ class GBMModel(Model):
         return st.forest_score_out(bins, out) + f0[None, :]
 
     def _raw_from_F(self, F: torch.Tensor) -> torch.Tensor:
+        if self.output.get("distribution_resolved") == "custom" and \
+                self.output.get("response_domain") is None:
+            from h2o_tpu_torch.core.udf import custom_link_inv
+            return custom_link_inv(self.output.get("custom_link"), F[:, 0])
         return raw_from_F(F, self.output.get("response_domain"),
                           self.family(), threshold=float(self.output.get(
                               "default_threshold", 0.5)))
@@ -207,6 +214,11 @@ class GBM(ModelBuilder):
             pri = torch.stack([torch.sum(wa * (yv == k)) for k in range(K)])
             pri = pri / torch.clamp_min(torch.sum(pri), EPS)
             f0 = torch.log(torch.clamp_min(pri, EPS))
+        elif dist_name == "custom":
+            mask = active.cpu().numpy()
+            f0 = torch.tensor([dist.init_f0(
+                np.nan_to_num(yv.cpu().numpy())[mask],
+                w.cpu().numpy()[mask])], dtype=torch.float32, device=dev)
         else:
             y0 = torch.where(active, yv if dist_name == "bernoulli"
                              else torch.nan_to_num(yv), zero)
@@ -226,7 +238,9 @@ class GBM(ModelBuilder):
         mono = self._mono_array(p, di)
         # XGBoost semantics under force_newton: Newton leaf values for
         # every objective (squared error has unit hessian)
-        newton = dist_name not in FIRST_ORDER or bool(p.get("force_newton"))
+        newton = dist.newton if dist_name == "custom" else \
+            dist_name not in FIRST_ORDER
+        newton = newton or bool(p.get("force_newton"))
         train_kwargs = dict(
             bins=bins, yv=torch.nan_to_num(yv), w=w, active=active,
             is_cat=torch.as_tensor(binned.is_cat, device=dev), dist=dist,
@@ -253,6 +267,8 @@ class GBM(ModelBuilder):
         def make_model(tf) -> GBMModel:
             out = st.forest_output(di, binned, tf, depth, dom, prior=co)
             out.update(f0=f0_out, distribution_resolved=dist_name)
+            if dist_name == "custom":
+                out["custom_link"] = dist.link_name
             return self.model_cls(dict(p), out, dev)
 
         scorer = None
@@ -269,7 +285,7 @@ class GBM(ModelBuilder):
                 F_sc = F_sc + st.forest_score_out(bins_sc, co, depth)
             proto = self.model_cls(dict(p), dict(
                 response_domain=dom, distribution_resolved=dist_name), dev)
-            family = proto.family()
+            family = dist if dist_name == "custom" else proto.family()
 
             def to_metrics(Fv, ntot):
                 return proto.metrics_from_raw(
@@ -280,5 +296,7 @@ class GBM(ModelBuilder):
                                        fine_na=binned.fine_nbins)
         kind = "binomial" if nclass == 2 else (
             "multinomial" if nclass > 2 else "regression")
+        self._update(0.05, f"training {int(p['ntrees']) - prior} trees")
         return run_tree_driver(p, train_kwargs, F, self.rng_key(),
-                               make_model, scorer, kind, prior_trees=prior)
+                               make_model, scorer, kind, prior_trees=prior,
+                               update=self._update)

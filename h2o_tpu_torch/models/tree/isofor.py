@@ -229,6 +229,7 @@ class IsolationForest(ModelBuilder):
         S = int(round(rate * train.nrows)) if rate > 0 else \
             int(p["sample_size"])
         S = max(2, min(S, train.nrows))
+        self._update(0.1, f"growing {T} isolation trees (sample={S})")
         sc, th = build_if_trees(X, prng.split(self.rng_key(), T), S, D,
                                 train.nrows)
         total = if_path_lengths(X, sc, th, D).cpu().numpy()
@@ -367,6 +368,7 @@ class ExtendedIsolationForest(ModelBuilder):
         S = max(2, min(int(p["sample_size"]), train.nrows))
         D = max(1, int(np.ceil(np.log2(S))))
         T = int(p["ntrees"])
+        self._update(0.1, f"growing {T} extended isolation trees")
         normals, points, value, is_split, counts = build_eif_trees(
             X, prng.split(self.rng_key(), T), S, D, train.nrows, ext)
 

@@ -68,8 +68,7 @@ HISTOGRAM_TYPES = ("AUTO", "UniformAdaptive", "QuantilesGlobal", "Random")
 
 def check_slice(algo: str, p: Dict) -> None:
     """Reject, by name, what no tree builder of the port runs yet:
-    iteration-level recovery (P14), custom metrics and custom
-    distribution functions (P13)."""
+    iteration-level recovery (P14)."""
     if str(p.get("histogram_type") or "AUTO") not in HISTOGRAM_TYPES:
         raise ValueError(f"{algo}: unknown histogram_type "
                          f"{p.get('histogram_type')!r}")
@@ -78,12 +77,6 @@ def check_slice(algo: str, p: Dict) -> None:
             f"{algo}: recovery_dir/checkpoint_interval (iteration-level "
             "recovery) is not in the port yet; it comes with the runtime "
             "services (P14)")
-    for udf in ("custom_metric_func", "custom_distribution_func"):
-        if p.get(udf) not in (None, ""):
-            raise NotImplementedError(
-                f"{algo}: {udf} is not in the port yet; it comes with the "
-                "REST and orchestration slice (P13), which brings the UDF "
-                "layer")
     if int(p["ntrees"]) < 1:
         raise ValueError(f"{algo}: ntrees must be >= 1")
 

@@ -321,6 +321,7 @@ class UpliftDRF(ModelBuilder):
             mtries = C
         depth = engine.clamp_depth(int(p["max_depth"]))
         T = int(p["ntrees"])
+        self._update(0.1, f"training {T} uplift trees")
         sc, bs, vt, vc, ch = train_uplift_forest(
             binned.bins, codes.to(torch.float32),
             torch.nan_to_num(di.response()), di.weights(),

@@ -216,6 +216,8 @@ class XGBoost(GBM):
                 fits.append(dict(out, value=vl))
                 preds.append(Fnew)
                 scale.append(1.0)
+                self._update(0.05 + 0.9 * (t + 1) / ntrees,
+                             f"dart tree {t + 1}/{ntrees} (dropped {k})")
         finally:
             self.params = p_all
         out = dict(fits[0])

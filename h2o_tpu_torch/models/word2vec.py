@@ -270,7 +270,7 @@ class Word2Vec(ModelBuilder):
         labels[:, 0] = 1.0
 
         step_i, total_steps = 0, None
-        for _ in range(epochs):
+        for ep in range(epochs):
             centers, contexts = self.epoch_pairs(sents, keep_p, window, rng)
             if centers is None:
                 continue
@@ -294,6 +294,8 @@ class Word2Vec(ModelBuilder):
                           labels, torch.tensor(lr, dtype=torch.float32,
                                                device=dev))
                 step_i += 1
+            self._update(0.1 + 0.85 * (ep + 1) / epochs,
+                         f"epoch {ep + 1}/{epochs} ({len(centers)} pairs)")
 
         out = dict(words=words, vocab=vocab, vectors=Win.cpu().numpy(),
                    vec_size=D, epochs_run=epochs,

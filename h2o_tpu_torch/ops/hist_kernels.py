@@ -52,6 +52,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 from typing import Iterator, NamedTuple, Optional, Tuple
@@ -271,6 +272,10 @@ class _Library(NamedTuple):
 
 
 _LIBRARY: Optional[_Library] = None
+# one compile at a time; the launch counters add up exactly when builds
+# run on several job threads at once
+_BUILD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def _find_nvcc() -> str:
@@ -297,10 +302,18 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 def build() -> _Library:
     """Compile ``csrc/hist.cu`` for sm_90a (once per source content) and
-    load it.  Raises with nvcc's output when the build fails."""
-    global _LIBRARY
+    load it.  Raises with nvcc's output when the build fails.  Builds
+    running at once (jobs on the pool) wait for one compile."""
     if _LIBRARY is not None:
         return _LIBRARY
+    with _BUILD_LOCK:
+        if _LIBRARY is None:
+            _build_locked()
+    return _LIBRARY
+
+
+def _build_locked() -> None:
+    global _LIBRARY
     src = SOURCE.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     so = BUILD_DIR / f"libh2o_hist_{digest[:16]}.so"
@@ -327,7 +340,6 @@ def build() -> _Library:
     lib = ctypes.CDLL(str(so))
     _bind(lib)
     _LIBRARY = _Library(lib, so, log, time.perf_counter() - t0)
-    return _LIBRARY
 
 
 # -- wrappers -----------------------------------------------------------------
@@ -418,7 +430,8 @@ def hist_cuda(bins: torch.Tensor, leaf: torch.Tensor, stats: torch.Tensor,
     _check(bins, leaf, stats, n_leaves, nbins, bf16, "hist_cuda")
     out = _launch("hist_cuda", bins, leaf, stats, n_leaves, nbins, bf16,
                   False)
-    hist_cuda.launches += 1
+    with _COUNT_LOCK:
+        hist_cuda.launches += 1
     return out
 
 
@@ -446,7 +459,8 @@ def hist_cuda_adaptive(bins: torch.Tensor, leaf: torch.Tensor,
     cat = is_cat.to(torch.int32).contiguous()
     out = _launch("hist_cuda_adaptive", bins, leaf, stats, n_leaves, nbins,
                   bf16, True, (lo, hi, off, cat), fine_na)
-    hist_cuda_adaptive.launches += 1
+    with _COUNT_LOCK:
+        hist_cuda_adaptive.launches += 1
     return out
 
 
@@ -456,5 +470,6 @@ hist_cuda_adaptive.launches = 0
 
 def reset_launches() -> None:
     """Zero both launch counters (before a run whose launches are read)."""
-    hist_cuda.launches = 0
-    hist_cuda_adaptive.launches = 0
+    with _COUNT_LOCK:
+        hist_cuda.launches = 0
+        hist_cuda_adaptive.launches = 0

@@ -18,13 +18,13 @@ degenerate case of host-replicas on a pod), sharing:
 - **one ScoringEngine** — its bucket table and schema views are
   shared, so a new replica finds its alias's buckets already warm.
 
-Where the port differs: the records live in the port's process-wide
-DKV (``core/store.py`` :func:`dkv`; ``cloud().dkv`` in the reference).
-The reference's ``sync`` reads each record's model back from the DKV,
-where its training published it; the port publishes no models there
-until ROADMAP P13, so the fleet keeps the models it deployed
-(``_models``, by ``model_id``) and ``sync`` reads the DKV first, then
-those.
+The records live in the port's process-wide DKV (``core/store.py``
+:func:`dkv`; ``cloud().dkv`` in the reference).  ``sync`` reads each
+record's model back from the DKV, where its training published it
+(``ModelBuilder.train``, ``models/model.py``).  A model that was never
+published there (built outside a job, or carried from another package)
+is found among the models this fleet deployed (``_models``, by
+``model_id``).
 
 Routing is alias-level round-robin over HEALTHY replicas.  A dead
 replica (killed via the :meth:`ReplicaFleet.kill` test hook, or

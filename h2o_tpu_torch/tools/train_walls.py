@@ -14,9 +14,12 @@ times: the GBM of ``chip_smoke.py`` phase 4 (``default``), phase 5
 5, each wall ending in ``torch.cuda.synchronize()``.  One JSON line
 per timed training (wall, training AUC), then a summary with the
 median, the card's name and power limit, and the operations of one more
-training under ``torch.profiler``: the ``aten::`` calls on the host
-(nested ones included) and the device operations.  Those counts do not vary between
-runs, so two checkouts that show the same ones do the same work a tree.
+fit under ``torch.profiler``: the ``aten::`` calls on the host (nested
+ones included) and the device operations.  The profiled fit is the
+builder's ``_fit`` on the script's own thread, the work ``train`` does
+in either checkout, wherever ``train`` runs it (a job's pool thread, in
+a checkout with jobs).  Those counts do not vary between runs, so two
+checkouts that show the same ones do the same work a tree.
 
 Two checkouts are compared by running the script for both, in turns
 (parent, change, change, parent), in one call on one card.
@@ -67,9 +70,12 @@ def main() -> None:
                                   "training_metrics"]["AUC"])), flush=True)
     from torch.profiler import ProfilerActivity, profile
     from torch.autograd import DeviceType
+    b = cs.GBM(**{"ntrees": 20, "max_depth": 5, "seed": 1, **kw})
+    x, yname = b._columns(None, "y", fr)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        cs.train(fr, **kw)
+        b._fit(x, yname, fr, None)
+        cs.sync()
     evs = prof.events()
     print(json.dumps(dict(
         tree=str(tree), config=args.config,

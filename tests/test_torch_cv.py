@@ -8,7 +8,8 @@ fold column with a missing value raises in both.  A 3-fold GBM on
 and per-fold summary (metrics to 1e-5) and holdout predictions (atol
 1e-5), and its main model equals the reference's.  Under early stopping
 the fold models' mean tree count carries to the main model, as in the
-reference.  The port keeps fold models and frames on ``model.output``.
+reference.  Both packages publish the fold models and frames in their
+DKVs and keep their keys on ``model.output``.
 """
 
 import numpy as np
@@ -20,8 +21,17 @@ from h2o_tpu.core.frame import Frame as JFrame, T_CAT as J_CAT, Vec as JVec
 from h2o_tpu.models.tree.gbm import GBM as JGBM
 
 from h2o_tpu_torch.core.frame import T_CAT, Frame, Vec
+from h2o_tpu_torch.core.store import dkv as p_dkv, unpublish_on_exit
 from h2o_tpu_torch.models.tree.gbm import GBM
 from tests.test_torch_find_splits_order import hold_gbm_forest
+
+
+@pytest.fixture(autouse=True)
+def _unpublish():
+    """What a test publishes in the port's DKV is removed after it."""
+    with unpublish_on_exit():
+        yield
+
 
 pytestmark = pytest.mark.shared_dkv
 
@@ -98,7 +108,7 @@ def cv_pair(cl):
 def test_cv_fold_models_equal(cv_pair):
     _, _, jm, pm = cv_pair
     jms = [cloud().dkv.get(k) for k in jm.output["cross_validation_models"]]
-    pms = pm.output["cross_validation_models"]
+    pms = [p_dkv().get(k) for k in pm.output["cross_validation_models"]]
     assert len(pms) == len(jms) == 3
     for a, b in zip(pms, jms):
         for k in _TREE_KEYS:
@@ -133,12 +143,13 @@ def test_cv_frames_and_main_model_equal(cv_pair):
     jf, pf, jm, pm = cv_pair
     jp = cloud().dkv.get(
         jm.output["cross_validation_holdout_predictions_frame_id"])
-    pp = pm.output["cross_validation_holdout_predictions_frame"]
+    pp = p_dkv().get(
+        pm.output["cross_validation_holdout_predictions_frame_id"])
     assert pp.nrows == pf.nrows == jp.nrows
     np.testing.assert_allclose(pp.vec("yes").data,
                                np.asarray(jp.vec("yes").to_numpy()), rtol=0,
                                atol=1e-5)
-    fa = pm.output["cross_validation_fold_assignment_frame"]
+    fa = p_dkv().get(pm.output["cross_validation_fold_assignment_frame_id"])
     jfa = cloud().dkv.get(
         jm.output["cross_validation_fold_assignment_frame_id"])
     np.testing.assert_array_equal(fa.vec("fold_assignment").data,
@@ -163,7 +174,7 @@ def test_cv_early_stopping_carries_the_tree_count(cl):
               score_tree_interval=4)
     jm = JGBM(**kw).train(y="y", training_frame=jf)
     pm = GBM(device="cpu", **kw).train(y="y", training_frame=pf)
-    pms = pm.output["cross_validation_models"]
+    pms = [p_dkv().get(k) for k in pm.output["cross_validation_models"]]
     jms = [cloud().dkv.get(k) for k in jm.output["cross_validation_models"]]
     y = pf.vec("y").to_numpy().astype(np.int64)
     fold = np.arange(pf.nrows) % 3

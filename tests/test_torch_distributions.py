@@ -27,6 +27,15 @@ from h2o_tpu.models.tree.gbm import GBM as JGBM
 from h2o_tpu_torch.core.frame import T_CAT, Frame, Vec
 from h2o_tpu_torch.models.distributions import get_distribution
 from h2o_tpu_torch.models.tree.gbm import GBM
+from h2o_tpu_torch.core.store import unpublish_on_exit
+
+
+@pytest.fixture(autouse=True)
+def _unpublish():
+    """What a test publishes in the port's DKV is removed after it."""
+    with unpublish_on_exit():
+        yield
+
 
 pytestmark = pytest.mark.shared_dkv
 
@@ -108,7 +117,9 @@ def test_gbm_distribution_matches_reference(cl, family):
 
 
 def test_custom_distribution_names_its_slice():
-    with pytest.raises(NotImplementedError, match="P13"):
+    # the family needs the user's function (core/udf.py), which only
+    # distribution_from_params reads from a builder's params
+    with pytest.raises(ValueError, match="custom_distribution_func"):
         get_distribution("custom")
     with pytest.raises(ValueError, match="tweedie_power"):
         get_distribution("tweedie", tweedie_power=2.5)

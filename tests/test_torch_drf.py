@@ -34,6 +34,15 @@ from h2o_tpu_torch.core.frame import T_CAT, Frame, Vec
 from h2o_tpu_torch.models.tree import engine
 from h2o_tpu_torch.models.tree.convert import drf_from_jax_output
 from h2o_tpu_torch.models.tree.drf import DRF
+from h2o_tpu_torch.core.store import unpublish_on_exit
+
+
+@pytest.fixture(autouse=True)
+def _unpublish():
+    """What a test publishes in the port's DKV is removed after it."""
+    with unpublish_on_exit():
+        yield
+
 
 pytestmark = pytest.mark.shared_dkv
 
@@ -140,9 +149,16 @@ def test_stock_default_depth20_drf(cl):
 
 def test_out_of_slice_options_raise():
     _, pf = _frames(True)
-    for kw in (dict(recovery_dir="r"), dict(custom_metric_func="f")):
-        with pytest.raises(NotImplementedError):
-            DRF(device="cpu", ntrees=1, **kw).train(y="y", training_frame=pf)
+    with pytest.raises(NotImplementedError):
+        DRF(device="cpu", ntrees=1, recovery_dir="r").train(
+            y="y", training_frame=pf)
+    # a custom metric that does not load records NaN, as the reference's
+    # attach_custom_metric does; the model trains
+    m = DRF(device="cpu", ntrees=1, custom_metric_func="f").train(
+        y="y", training_frame=pf)
+    tm = m.output["training_metrics"]
+    assert tm["custom_metric_name"] == "f"
+    assert np.isnan(tm["custom_metric_value"])
     with pytest.raises(ValueError, match="not found"):
         DRF(device="cpu", ntrees=1, checkpoint="m").train(
             y="y", training_frame=pf)

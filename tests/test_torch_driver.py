@@ -33,6 +33,15 @@ from h2o_tpu_torch.models.tree import engine
 from h2o_tpu_torch.models.tree.drf import DRF
 from h2o_tpu_torch.models.tree.gbm import GBM
 from h2o_tpu_torch.models.tree.xgboost import XGBoost
+from h2o_tpu_torch.core.store import unpublish_on_exit
+
+
+@pytest.fixture(autouse=True)
+def _unpublish():
+    """What a test publishes in the port's DKV is removed after it."""
+    with unpublish_on_exit():
+        yield
+
 
 pytestmark = pytest.mark.shared_dkv
 

@@ -23,8 +23,9 @@ a logistic draw on 1.5 x0 - x1 + x2 x3):
 - ``stackedensemble_from_jax_output`` scores like the reference model;
   ``Model.save``/``load`` rebuilds the base models and the metalearner on
   the device asked for (here ``cpu:0``, another device object than the
-  ``cpu`` they were saved from); DKV keys for base models or the
-  blending frame and unknown metalearners are refused by name.
+  ``cpu`` they were saved from); base models or a blending frame whose
+  keys the DKV does not hold, and unknown metalearners, are refused by
+  name.
 
 Grep on ``test_xgb_extras.py``'s lines and on a file: matches and
 offsets equal to the reference's and to an independent ``re.finditer``;
@@ -49,6 +50,7 @@ from h2o_tpu.models.tree.drf import DRF as JDRF
 from h2o_tpu.models.tree.gbm import GBM as JGBM
 
 from h2o_tpu_torch.core.frame import T_CAT, T_STR, Frame, Vec
+from h2o_tpu_torch.core.store import dkv as p_dkv, unpublish_on_exit
 from h2o_tpu_torch.models.ensemble import (StackedEnsemble,
                                            stackedensemble_from_jax_output)
 from h2o_tpu_torch.models.glm import GLM, glm_from_jax_output
@@ -57,6 +59,14 @@ from h2o_tpu_torch.models.model import Model
 from h2o_tpu_torch.models.tree.convert import (drf_from_jax_output,
                                                gbm_from_jax_output)
 from h2o_tpu_torch.models.tree.gbm import GBM
+
+
+@pytest.fixture(autouse=True)
+def _unpublish():
+    """What a test publishes in the port's DKV is removed after it."""
+    with unpublish_on_exit():
+        yield
+
 
 pytestmark = pytest.mark.shared_dkv
 
@@ -85,15 +95,19 @@ def _np(out):
 
 def _convert(jm, conv, n):
     """A reference base model in the port, keyed as the reference keys
-    it, with its CV holdout frame carried across."""
+    it, with its CV holdout frame carried across: read from the
+    reference's DKV, published under the same key in the port's."""
     pm = conv(_np(jm.output), dict(jm.params, model_id=str(jm.key)),
               device="cpu")
     fid = jm.output.get("cross_validation_holdout_predictions_frame_id")
     if fid is not None:
         hf = jcloud().dkv.get(fid)
         dom = list(jm.output["response_domain"])
-        pm.output["cross_validation_holdout_predictions_frame"] = Frame(
-            dom, [Vec(np.asarray(hf.vec(d).to_numpy())[:n]) for d in dom])
+        p_dkv().put(fid, Frame(
+            dom, [Vec(np.asarray(hf.vec(d).to_numpy())[:n]) for d in dom],
+            key=fid))
+        pm.output["cross_validation_holdout_predictions_frame_id"] = fid
+    p_dkv().put(pm.key, pm)
     return pm
 
 
@@ -207,10 +221,12 @@ def test_save_load_onto_another_device(port_end_to_end):
 
 def test_refusals(port_end_to_end):
     pf, gbm, glm, _ = port_end_to_end
-    with pytest.raises(NotImplementedError, match="P13"):
+    # keys resolve through the DKV, and a missing one is refused as the
+    # reference refuses it
+    with pytest.raises(ValueError, match="not found in DKV"):
         StackedEnsemble(device="cpu", base_models=["gbm_123", glm]).train(
             y="y", training_frame=pf)
-    with pytest.raises(NotImplementedError, match="P13"):
+    with pytest.raises(ValueError, match="not found in DKV"):
         StackedEnsemble(device="cpu", base_models=[gbm, glm],
                         blending_frame="frame_1").train(
             y="y", training_frame=pf)

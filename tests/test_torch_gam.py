@@ -40,6 +40,15 @@ from h2o_tpu.core.frame import Frame as JFrame, T_CAT as J_CAT, Vec as JVec
 import h2o_tpu_torch.models.gam as pgam
 from h2o_tpu_torch.core.frame import T_CAT, Frame, Vec
 from h2o_tpu_torch.models.model import Model
+from h2o_tpu_torch.core.store import unpublish_on_exit
+
+
+@pytest.fixture(autouse=True)
+def _unpublish():
+    """What a test publishes in the port's DKV is removed after it."""
+    with unpublish_on_exit():
+        yield
+
 
 pytestmark = pytest.mark.shared_dkv
 

@@ -25,6 +25,15 @@ from h2o_tpu.models.tree.gbm import GBM as JGBM
 from h2o_tpu_torch.core.frame import T_CAT, Frame, Vec
 from h2o_tpu_torch.models.tree.convert import gbm_from_jax_output
 from h2o_tpu_torch.models.tree.gbm import GBM
+from h2o_tpu_torch.core.store import unpublish_on_exit
+
+
+@pytest.fixture(autouse=True)
+def _unpublish():
+    """What a test publishes in the port's DKV is removed after it."""
+    with unpublish_on_exit():
+        yield
+
 
 pytestmark = pytest.mark.shared_dkv
 
@@ -147,16 +156,21 @@ def test_bf16_histograms_reach_the_tables():
 
 
 def test_out_of_slice_options_raise():
-    """Iteration-level recovery (P14), custom metrics and distributions
-    (P13) raise by name; a checkpoint that names no saved model, an
-    unknown stats dtype or histogram type and ntrees 0 are errors."""
+    """Iteration-level recovery (P14) raises by name; a checkpoint that
+    names no saved model, an unknown stats dtype or histogram type,
+    ntrees 0 and a custom distribution without its function are errors;
+    a custom metric that does not load records NaN, as the reference's
+    does."""
     jf, pf = _frames(True)
-    for kw in (dict(recovery_dir="r"), dict(checkpoint_interval=2),
-               dict(custom_metric_func="f"), dict(distribution="custom")):
+    for kw in (dict(recovery_dir="r"), dict(checkpoint_interval=2)):
         with pytest.raises(NotImplementedError):
             GBM(device="cpu", ntrees=1, **kw).train(y="y", training_frame=pf)
+    m = GBM(device="cpu", ntrees=1, custom_metric_func="f").train(
+        y="y", training_frame=pf)
+    assert np.isnan(m.output["training_metrics"]["custom_metric_value"])
     for kw in (dict(stats_dtype="int4"), dict(histogram_type="Exact"),
-               dict(ntrees=0), dict(checkpoint="m")):
+               dict(ntrees=0), dict(checkpoint="m"),
+               dict(distribution="custom")):
         with pytest.raises(ValueError):
             GBM(device="cpu", **{"ntrees": 1, **kw}).train(
                 y="y", training_frame=pf)

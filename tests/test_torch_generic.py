@@ -8,8 +8,9 @@ bitwise, to the reference's ``GenericModel`` of the same file, on the
 training frame and on a frame whose categorical domain is in another
 order and holds an unseen level (the adaptTestForTrain remap: known
 levels move to the training codes, the unseen one scores as NA).  A
-``model_key`` (a DKV upload key) is refused by name (P13); a saved
-Generic model loads and scores as before.
+``model_key`` (a DKV upload key whose value is the file's path, or an
+``nfs://`` path) imports the same model; a saved Generic model loads
+and scores as before.
 """
 
 import os
@@ -21,10 +22,19 @@ import torch
 
 from h2o_tpu.models.generic import Generic as JGeneric
 
+from h2o_tpu_torch.core.store import dkv as p_dkv, unpublish_on_exit
 from h2o_tpu_torch.models.generic import Generic, GenericModel
 from h2o_tpu_torch.models.model import Model
 from h2o_tpu_torch.mojo import export_genmodel_mojo, export_mojo, import_mojo
 from tests.test_torch_mojo import _pair, carried, dataset
+
+
+@pytest.fixture(autouse=True)
+def _unpublish():
+    """What a test publishes in the port's DKV is removed after it."""
+    with unpublish_on_exit():
+        yield
+
 
 pytestmark = pytest.mark.shared_dkv
 
@@ -106,9 +116,20 @@ def test_remap_sends_unseen_levels_to_na(files):
 
 
 def test_model_key_refused_by_name(files):
-    b = Generic(device="cpu", model_key="upload_123")
-    with pytest.raises(NotImplementedError, match="P13"):
-        b.train()
+    path = files[1][("gbm", "genmodel")]
+    by_path = Generic(device="cpu", path=path).train()
+    p_dkv().put("upload_123", path)
+    try:
+        for mk in ("upload_123", "nfs://" + path):
+            m = Generic(device="cpu", model_key=mk).train()
+            assert p_dkv().get(m.model_id) is m
+            p_dkv().remove(m.model_id)
+            pf = dataset("mixed")[1]
+            np.testing.assert_array_equal(m.predict_raw(pf).numpy(),
+                                          by_path.predict_raw(pf).numpy())
+    finally:
+        p_dkv().remove("upload_123")
+        p_dkv().remove(by_path.model_id)
     with pytest.raises(ValueError, match="path"):
         Generic(device="cpu").train()
 

@@ -32,6 +32,15 @@ from h2o_tpu.mojo import genmodel as jgm
 from h2o_tpu_torch.mojo import export_genmodel_mojo
 from h2o_tpu_torch.mojo import genmodel as pgm
 from tests.test_torch_mojo import carried, dataset, raw_matrix
+from h2o_tpu_torch.core.store import unpublish_on_exit
+
+
+@pytest.fixture(autouse=True)
+def _unpublish():
+    """What a test publishes in the port's DKV is removed after it."""
+    with unpublish_on_exit():
+        yield
+
 
 pytestmark = pytest.mark.shared_dkv
 

@@ -47,6 +47,15 @@ from h2o_tpu.models.glm import GLM as JGLM
 from h2o_tpu_torch.core.frame import T_CAT, Frame, Vec
 from h2o_tpu_torch.models.glm import GLM, GLMModel, glm_from_jax_output
 from h2o_tpu_torch.models.model import Model
+from h2o_tpu_torch.core.store import unpublish_on_exit
+
+
+@pytest.fixture(autouse=True)
+def _unpublish():
+    """What a test publishes in the port's DKV is removed after it."""
+    with unpublish_on_exit():
+        yield
+
 
 pytestmark = pytest.mark.shared_dkv
 
@@ -418,11 +427,17 @@ def test_refusals(data):
                                                       training_frame=jf5)
     np.testing.assert_array_equal(np.asarray(j5.output["beta"]),
                                   np.asarray(j0.output["beta"]))
-    for kw, word in ((dict(recovery_dir="/nonexistent"), "P14"),
-                     (dict(beta_constraints="bc_key"), "P13"),
-                     (dict(custom_metric_func="python:m=x.M"), "P13")):
-        with pytest.raises(NotImplementedError, match=word):
-            GLM(device="cpu", **kw).train(y="y", training_frame=pf)
+    with pytest.raises(NotImplementedError, match="P14"):
+        GLM(device="cpu", recovery_dir="/nonexistent").train(
+            y="y", training_frame=pf)
+    # a key the DKV does not hold is refused as the reference refuses it;
+    # a custom metric that does not load records NaN, as there
+    with pytest.raises(ValueError, match="bc_key"):
+        GLM(device="cpu", beta_constraints="bc_key").train(
+            y="y", training_frame=pf)
+    m = GLM(device="cpu", custom_metric_func="python:m=x.M").train(
+        y="y", training_frame=pf)
+    assert np.isnan(m.output["training_metrics"]["custom_metric_value"])
     b = GLM(device="cpu")
     b.params["_warm_start_beta"] = np.zeros(8, np.float32)
     with pytest.raises(NotImplementedError, match="P14"):

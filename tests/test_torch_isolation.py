@@ -16,6 +16,15 @@ import torch
 import h2o_tpu_torch
 from h2o_tpu_torch.ops import hist_kernels as hk
 from h2o_tpu_torch.ops.histogram import histogram_build
+from h2o_tpu_torch.core.store import unpublish_on_exit
+
+
+@pytest.fixture(autouse=True)
+def _unpublish():
+    """What a test publishes in the port's DKV is removed after it."""
+    with unpublish_on_exit():
+        yield
+
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "h2o_tpu_torch"

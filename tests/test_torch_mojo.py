@@ -9,8 +9,9 @@ naivebayes, xgboost, dt, gam, rulefit, and xgboost's gblinear form):
 
 - ``export_mojo`` of the carried model writes a ``model.ini`` equal to
   the reference's, and a ``meta.json`` whose ``info`` and ``params`` are
-  equal and whose ``output`` holds the reference's keys, but for the DKV
-  keys in ``NO_DKV``, with equal values; every key of ``meta.json`` and
+  equal and whose ``output`` holds the reference's keys, the DKV keys
+  (``training_frame_key``, ``glm_key``) included, with equal values;
+  every key of ``meta.json`` and
   ``arrays.npz`` that the reference's scorer reads on the reference's
   file is in the port's file, equal (arrays bitwise, in dtype and
   shape);
@@ -41,7 +42,16 @@ from h2o_tpu.mojo import export_mojo as j_export_mojo
 from h2o_tpu.mojo import load_mojo as j_load_mojo
 
 from h2o_tpu_torch.core.frame import T_CAT, T_STR, Frame, Vec
+from h2o_tpu_torch.core.store import dkv as p_dkv, unpublish_on_exit
 from h2o_tpu_torch.mojo import export_mojo, load_mojo
+
+
+@pytest.fixture(autouse=True)
+def _unpublish():
+    """What a test publishes in the port's DKV is removed after it."""
+    with unpublish_on_exit():
+        yield
+
 
 pytestmark = pytest.mark.shared_dkv
 
@@ -225,9 +235,23 @@ def _train(name):
 
 
 @functools.lru_cache(maxsize=None)
+def _trained(name):
+    """(reference model, dataset name, the models it reads by key)."""
+    jm, ds = _train(name)
+    keys = list(jm.output.get("base_models") or []) + \
+        [k for k in [jm.output.get("metalearner_key")] if k]
+    return jm, ds, [jcloud().dkv.get(k) for k in keys]
+
+
 def reference_case(name):
-    """(reference model, dataset name); trained once per process."""
-    return _train(name)
+    """(reference model, dataset name); trained once per process and
+    published, with the models it reads by key, in the reference's
+    current DKV at every call: a test of another file in this process
+    may boot a new cloud, whose DKV starts empty."""
+    jm, ds, held = _trained(name)
+    for m in (jm, *held):
+        jcloud().dkv.put(m.key, m)
+    return jm, ds
 
 
 def _np(out):
@@ -268,20 +292,31 @@ def _convert(jm, device):
             "coxph": coxph.coxph_from_jax_output}
     params = dict(jm.params, model_id=str(jm.key))
     if jm.algo == "stackedensemble":
+        # keys resolve through the reference's DKV; each converted model
+        # is published under the same key in the port's
         store = jcloud().dkv
         bases = [_convert(store.get(k), device)
                  for k in jm.output["base_models"]]
         meta = _convert(store.get(jm.output["metalearner_key"]), device)
-        return stackedensemble_from_jax_output(jm.output, params, bases,
-                                               meta, device=device)
-    return conv[jm.algo](_np(jm.output), params, device=device)
+        pm = stackedensemble_from_jax_output(jm.output, params, bases,
+                                             meta, device=device)
+    else:
+        pm = conv[jm.algo](_np(jm.output), params, device=device)
+    p_dkv().put(pm.key, pm)
+    return pm
 
 
 @functools.lru_cache(maxsize=None)
-def carried(name, device="cpu"):
-    """(reference model, the port's carried model, dataset name)."""
+def _carried(name, device):
     jm, ds = reference_case(name)
     return jm, _convert(jm, device), ds
+
+
+def carried(name, device="cpu"):
+    """(reference model, the port's carried model, dataset name); the
+    reference model published in the reference's current DKV."""
+    reference_case(name)
+    return _carried(name, device)
 
 
 def raw_matrix(frame, cols):
@@ -379,10 +414,6 @@ def _exports(name, tmp):
     return jm, cm, ds, jp, pp
 
 
-#: output keys of the reference's meta.json that the port's leaves out:
-#: names of DKV objects (the training frame, GAM's and RuleFit's inner
-#: GLM), which the port does not have until P13
-NO_DKV = {"training_frame_key", "glm_key"}
 
 
 @pytest.mark.parametrize("name", NPZ)
@@ -394,7 +425,7 @@ def test_export_mojo_equals_reference(name, tmp, monkeypatch):
     assert p_meta["info"] == j_meta["info"]
     assert p_meta["params"] == j_meta["params"]
     jo, po = j_meta["output"], p_meta["output"]
-    assert set(po) == set(jo) - NO_DKV
+    assert set(po) == set(jo)
     for k in po:
         assert po[k] == jo[k], k
     # every key the reference's scorer reads is in the port's file, equal

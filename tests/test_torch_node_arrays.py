@@ -42,6 +42,15 @@ from h2o_tpu_torch.models.tree.drf import DRF
 from h2o_tpu_torch.models.tree.gbm import GBM
 from h2o_tpu_torch.models.tree.xgboost import XGBoost
 from tests.test_torch_find_splits_order import TIE, hold_gbm_forest
+from h2o_tpu_torch.core.store import unpublish_on_exit
+
+
+@pytest.fixture(autouse=True)
+def _unpublish():
+    """What a test publishes in the port's DKV is removed after it."""
+    with unpublish_on_exit():
+        yield
+
 
 pytestmark = pytest.mark.shared_dkv
 

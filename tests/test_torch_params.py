@@ -25,11 +25,10 @@ reference refuses its own
 default ``norm_model="NegSampling"`` (its ENGINE_FIXED accepts HSM
 only), so its resolved params are compared with the reference's
 defaults instead.
-``custom_distribution_func`` other than None raises NotImplementedError naming P13, as
-``distribution="custom"`` does; ``calibrate_model=True`` is refused by
-name.  What the port refuses by name instead of dropping: DKV frames
-(DeepLearning's ``export_weights_and_biases``, GAM's ``keep_gam_cols``:
-P13), iteration checkpoints (``recovery_dir`` or ``checkpoint_interval``
+GBM and XGBoost take ``custom_distribution_func`` as the reference's do
+(unused unless ``distribution="custom"``, whose function must be in the
+DKV); ``calibrate_model=True`` is refused by name.  What the port
+refuses by name instead of dropping: iteration checkpoints (``recovery_dir`` or ``checkpoint_interval``
 for KMeans, DeepLearning, GAM, RuleFit and the six builders of PCA to
 CoxPH: P14) and DeepLearning's ``model_parallel`` over
 several cards (P8).
@@ -98,6 +97,15 @@ from h2o_tpu_torch.models.model import Model
 from h2o_tpu_torch.models.modelselection import ModelSelection
 from h2o_tpu_torch.models.psvm import PSVM
 from h2o_tpu_torch.models.target_encoder import TargetEncoder
+from h2o_tpu_torch.core.store import unpublish_on_exit
+
+
+@pytest.fixture(autouse=True)
+def _unpublish():
+    """What a test publishes in the port's DKV is removed after it."""
+    with unpublish_on_exit():
+        yield
+
 
 PAIRS = {"gbm": (JGBM, GBM), "drf": (JDRF, DRF), "xgboost": (JXGB, XGBoost),
          "dt": (JDT, DT), "isolationforest": (JIF, IsolationForest),
@@ -290,8 +298,12 @@ def test_slice11_models_round_trip(algo, tmp_path):
 @pytest.mark.parametrize("algo", ["gbm", "xgboost"])
 def test_custom_distribution_func_names_p13(algo):
     _, pcls = PAIRS[algo]
-    with pytest.raises(NotImplementedError, match="P13"):
-        pcls(device="cpu", ntrees=1,
+    # the reference reads the function only under distribution="custom"
+    pcls(device="cpu", ntrees=1,
+         custom_distribution_func="python:dist=my.Dist").train(
+        y="y", training_frame=_frame())
+    with pytest.raises(ValueError, match="'dist' not found"):
+        pcls(device="cpu", ntrees=1, distribution="custom",
              custom_distribution_func="python:dist=my.Dist").train(
             y="y", training_frame=_frame())
     with pytest.raises(ValueError, match="calibrate_model"):
@@ -311,8 +323,6 @@ _SMALL = {"kmeans": dict(k=2), "deeplearning": dict(hidden=[4], epochs=1.0),
 
 
 @pytest.mark.parametrize("algo,kw,match", [
-    ("deeplearning", dict(export_weights_and_biases=True), "P13"),
-    ("gam", dict(keep_gam_cols=True), "P13"),
     ("kmeans", dict(recovery_dir="ck"), "P14"),
     ("deeplearning", dict(recovery_dir="ck"), "P14"),
     ("deeplearning", dict(checkpoint_interval=1), "P14"),
@@ -329,7 +339,7 @@ _SMALL = {"kmeans": dict(k=2), "deeplearning": dict(hidden=[4], epochs=1.0),
     ("infogram", dict(recovery_dir="ck"), "P14"),
     ("modelselection", dict(checkpoint_interval=1), "P14"),
     ("isotonicregression", dict(recovery_dir="ck"), "P14"),
-], ids=["dl_export", "gam_keep_cols", "kmeans_recovery", "dl_recovery",
+], ids=["kmeans_recovery", "dl_recovery",
         "dl_checkpoint_interval", "gam_recovery", "rulefit_recovery",
         "pca_recovery", "svd_checkpoint_interval", "glrm_recovery",
         "word2vec_recovery", "naivebayes_checkpoint_interval",

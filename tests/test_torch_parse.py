@@ -31,6 +31,15 @@ from h2o_tpu.models.tree.gbm import GBM as JGBM
 from h2o_tpu_torch.core import frame as pframe
 from h2o_tpu_torch.core import parse as pp
 from h2o_tpu_torch.models.tree.gbm import GBM
+from h2o_tpu_torch.core.store import unpublish_on_exit
+
+
+@pytest.fixture(autouse=True)
+def _unpublish():
+    """What a test publishes in the port's DKV is removed after it."""
+    with unpublish_on_exit():
+        yield
+
 
 pytestmark = pytest.mark.shared_dkv
 

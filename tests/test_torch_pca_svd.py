@@ -44,6 +44,15 @@ from h2o_tpu_torch.models.model import Model
 from h2o_tpu_torch.models.pca import PCA, PCAModel, pca_from_jax_output
 from h2o_tpu_torch.models.svd import SVD, SVDModel, svd_from_jax_output
 from h2o_tpu_torch.ops import prng
+from h2o_tpu_torch.core.store import unpublish_on_exit
+
+
+@pytest.fixture(autouse=True)
+def _unpublish():
+    """What a test publishes in the port's DKV is removed after it."""
+    with unpublish_on_exit():
+        yield
+
 
 pytestmark = pytest.mark.shared_dkv
 

@@ -15,6 +15,15 @@ from h2o_tpu.mojo import pojo as jpojo
 
 from h2o_tpu_torch.mojo import pojo as ppojo
 from tests.test_torch_mojo import carried
+from h2o_tpu_torch.core.store import unpublish_on_exit
+
+
+@pytest.fixture(autouse=True)
+def _unpublish():
+    """What a test publishes in the port's DKV is removed after it."""
+    with unpublish_on_exit():
+        yield
+
 
 pytestmark = pytest.mark.shared_dkv
 

@@ -50,6 +50,15 @@ from h2o_tpu_torch.models.model import Model
 from h2o_tpu_torch.models.psvm import (PSVM, fourier_features,
                                        psvm_from_jax_output)
 from h2o_tpu_torch.ops import statpack
+from h2o_tpu_torch.core.store import unpublish_on_exit
+
+
+@pytest.fixture(autouse=True)
+def _unpublish():
+    """What a test publishes in the port's DKV is removed after it."""
+    with unpublish_on_exit():
+        yield
+
 
 pytestmark = pytest.mark.shared_dkv
 

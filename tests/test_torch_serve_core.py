@@ -39,6 +39,14 @@ from h2o_tpu_torch.core import log as p_log
 from h2o_tpu_torch.core import memory as p_memory
 from h2o_tpu_torch.core import resilience as p_res
 from h2o_tpu_torch.core import store as p_store
+from h2o_tpu_torch.core.store import unpublish_on_exit
+
+
+@pytest.fixture(autouse=True)
+def _unpublish():
+    """What a test publishes in the port's DKV is removed after it."""
+    with unpublish_on_exit():
+        yield
 
 
 @pytest.fixture(autouse=True)

@@ -26,6 +26,8 @@
   into halved chunks, and at one row the error is raised.
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -35,6 +37,15 @@ from h2o_tpu.serve.engine import ScoringEngine as JEngine
 
 from h2o_tpu_torch.serve import ScoringEngine
 from tests.test_torch_mojo import XM, carried, dataset, raw_matrix
+from h2o_tpu_torch.core.store import unpublish_on_exit
+
+
+@pytest.fixture(autouse=True)
+def _unpublish():
+    """What a test publishes in the port's DKV is removed after it."""
+    with unpublish_on_exit():
+        yield
+
 
 pytestmark = pytest.mark.shared_dkv
 
@@ -89,7 +100,10 @@ def test_predict_array_without_fast_path_uses_host_scorer():
 def test_predict_array_raises_from_a_device_predict(monkeypatch):
     """A model with a device predict never reaches the host scorer: a
     ``NotImplementedError`` raised inside its predict propagates."""
-    _, cm, _ = carried("gbm")
+    # a copy: undoing a patch of an instance attribute leaves the bound
+    # method on the instance, which would hide class-level spies from
+    # every later test that reads the shared carried model
+    cm = copy.copy(carried("gbm")[1])
     assert cm.has_device_predict()
 
     def fails(X):

@@ -20,12 +20,23 @@ import importlib
 import numpy as np
 import pytest
 
+from h2o_tpu.core import chaos as j_chaos
 from h2o_tpu.core.cloud import cloud as j_cloud
 
+from h2o_tpu_torch.core import chaos as p_chaos
 from h2o_tpu_torch.core import lockwitness as p_lw
 from h2o_tpu_torch.core import store as p_store
 from tests.test_torch_serve_registry import rows
 from tests.test_torch_mojo import carried
+from h2o_tpu_torch.core.store import unpublish_on_exit
+
+
+@pytest.fixture(autouse=True)
+def _unpublish():
+    """What a test publishes in the port's DKV is removed after it."""
+    with unpublish_on_exit():
+        yield
+
 
 pytestmark = pytest.mark.shared_dkv
 
@@ -37,6 +48,10 @@ p_reg = importlib.import_module("h2o_tpu_torch.serve.registry")
 
 @pytest.fixture()
 def clean():
+    # chaos off in both packages: a fault injector another test module
+    # left configured in this process must not shed or slow a request
+    for ch in (j_chaos, p_chaos):
+        ch.reset()
     for rep, reg in ((j_rep, j_reg), (p_rep, p_reg)):
         rep.reset_fleet()
         reg.registry().reset()
@@ -91,7 +106,10 @@ def test_records_equal_reference(clean):
 
 def _failover(rep, model):
     fl = rep.fleet(3)
-    fl.deploy("failover", model)
+    # no load breaker: the counts held here are routing's, and a latency
+    # or pressure reading taken under a busy host must not shed one
+    reg = j_reg if rep is j_rep else p_reg
+    fl.deploy("failover", model, reg.ServingConfig(breaker_enabled=False))
     out = [fl.converged("failover"), fl.routed("failover")]
     answers = []
     for i in range(12):
@@ -152,16 +170,16 @@ def test_undeploy_of_an_unknown_alias_and_the_singleton(clean):
 
 def test_sync_prefers_the_store_then_the_deployed_models(clean):
     _jm, cm, _ = carried("gbm")
+    # the conversion publishes the model (in this test or an earlier
+    # one of this process): the fallback is held with the key absent
+    p_store.dkv().remove(cm.model_id)
     fl = p_rep.fleet(2)
     fl.deploy("s", cm)
     fl.kill(1)
     assert fl._model(cm.model_id) is cm
     p_store.dkv().put(cm.model_id, cm)
-    try:
-        fl.revive(1)
-        assert fl.converged("s") and fl.stats()["healthy"] == 2
-    finally:
-        p_store.dkv().remove(cm.model_id)
+    fl.revive(1)
+    assert fl.converged("s") and fl.stats()["healthy"] == 2
 
 
 def test_no_lock_cycle_witnessed():

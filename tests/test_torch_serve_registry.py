@@ -21,6 +21,7 @@ against ``h2o_tpu.serve.registry`` on the CPU:
 - no lock cycle is witnessed.
 """
 
+import copy
 import importlib
 import threading
 import time
@@ -34,6 +35,15 @@ from h2o_tpu_torch.models.model import Model
 from h2o_tpu_torch.serve.registry import ServingConfig
 from tests.test_torch_mojo import carried, dataset
 from tests.test_torch_serve_engine import FAST
+from h2o_tpu_torch.core.store import unpublish_on_exit
+
+
+@pytest.fixture(autouse=True)
+def _unpublish():
+    """What a test publishes in the port's DKV is removed after it."""
+    with unpublish_on_exit():
+        yield
+
 
 pytestmark = pytest.mark.shared_dkv
 
@@ -336,21 +346,22 @@ def test_shadow_glm_counts_as_reference():
 def test_serves_on_the_models_device_and_never_the_host_scorer():
     """A CPU model serves on the CPU; the device predict answers every
     batch (the host scorer's counter stays 0)."""
-    _jg, cg, _ = carried("gbm")
+    # the spy sits on a copy of the carried model, never on its class:
+    # a class-level spy also records other models' scoring, and misses
+    # an instance that an earlier test left holding its own method
+    cg = copy.copy(carried("gbm")[1])
+    vars(cg).pop("predict_raw_array", None)
     reg = p_reg_mod.ServingRegistry()
     reg.deploy("dev", cg)
     assert str(cg.device) == "cpu"
     seen = []
     orig = type(cg).predict_raw_array
 
-    def spy(self, X):
+    def spy(X):
         seen.append((X.device.type, threading.current_thread().name))
-        return orig(self, X)
-    type(cg).predict_raw_array = spy
-    try:
-        out, _ver = reg.score_rows("dev", rows(range(4)))
-    finally:
-        type(cg).predict_raw_array = orig
+        return orig(cg, X)
+    cg.predict_raw_array = spy
+    out, _ver = reg.score_rows("dev", rows(range(4)))
     assert seen == [("cpu", "h2o-serve-dev")]
     assert reg.engine.stats()["fallback_batches"] == 0
     assert p_reg_mod.serving_stats()["breaker_trips"] >= 0

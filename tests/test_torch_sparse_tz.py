@@ -39,6 +39,15 @@ from h2o_tpu_torch.core import parse as pp
 from h2o_tpu_torch.models.tree.gbm import GBM
 from tests.test_torch_find_splits_order import hold_gbm_forest
 from tests.test_torch_parse import _assert_frame_equal
+from h2o_tpu_torch.core.store import unpublish_on_exit
+
+
+@pytest.fixture(autouse=True)
+def _unpublish():
+    """What a test publishes in the port's DKV is removed after it."""
+    with unpublish_on_exit():
+        yield
+
 
 pytestmark = pytest.mark.shared_dkv
 

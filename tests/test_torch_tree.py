@@ -18,6 +18,15 @@ import jax.numpy as jnp
 from h2o_tpu.models.tree import shared_tree as jst
 
 from h2o_tpu_torch.models.tree import shared_tree as pst
+from h2o_tpu_torch.core.store import unpublish_on_exit
+
+
+@pytest.fixture(autouse=True)
+def _unpublish():
+    """What a test publishes in the port's DKV is removed after it."""
+    with unpublish_on_exit():
+        yield
+
 
 pytestmark = pytest.mark.shared_dkv
 

@@ -28,6 +28,15 @@ from h2o_tpu_torch.models.model import Model
 from h2o_tpu_torch.models.tree import engine
 from h2o_tpu_torch.models.tree.convert import upliftdrf_from_jax_output
 from h2o_tpu_torch.models.tree.uplift import UpliftDRF, UpliftDRFModel
+from h2o_tpu_torch.core.store import unpublish_on_exit
+
+
+@pytest.fixture(autouse=True)
+def _unpublish():
+    """What a test publishes in the port's DKV is removed after it."""
+    with unpublish_on_exit():
+        yield
+
 
 pytestmark = pytest.mark.shared_dkv
 
