@@ -474,6 +474,26 @@ prints one JSON line; any failure raises and the exit code is not 0):
               nothing published, a job runs on the pool after each;
               then every key published in 24 is removed and the store
               is back to its keys before it
+ 25 the orchestration layer (models/registry.py, grid.py,
+              leaderboard.py, segment.py, automl/automl.py) at 1M x 28:
+              25a a Cartesian GBM grid of max_depth [3, 6] x
+              histogram_type [UniformAdaptive, QuantilesGlobal], 20 trees
+              (K1 180 and K2 180), two of its forests bitwise the same
+              params trained alone, the summary in numpy's order of the
+              models' logloss, parallelism=2 the same four forests
+              bitwise, a RandomDiscrete grid (max_models 3, seed 7, 5
+              trees) walking numpy's shuffle, a max_depth=-5 combo
+              collected as a failure; 25b train_segments as a job over a
+              7-level categorical (10-tree GBMs, K2 350), each segment's
+              forest bitwise a GBM trained alone on its rows, to_frame's
+              columns, a level no row holds FAILED with "empty segment";
+              25c AutoML (max_models 4, nfolds 3, seed 42, GLM, GBM,
+              stacked ensembles) on the first GRID_AUTOML_ROWS rows: the
+              leaderboard in its sort order with each base row the
+              model's CV metric, both ensembles, the event log's init and
+              done, the leader retrained alone bitwise; every key
+              published in 25 is removed and the store is back to its
+              keys before it
   7 profile - torch.profiler over 2 default trees: device busy share and
               the kernels that take the device time; then 2 QuantilesGlobal
               trees: each histogram kernel's device ms per main-path launch
@@ -483,7 +503,7 @@ prints one JSON line; any failure raises and the exit code is not 0):
               iteration (7 class trees) and one UpliftDRF tree
 
 The kernels line's launches sum every main-path training above (phases
-4, 5, 8-24), each read from counters set to 0 just before it; the
+4, 5, 8-25), each read from counters set to 0 just before it; the
 launches phase lists them path by path (phase 16 as "glm", 0 and 0;
 phase 17's KMeans, DeepLearning and GAM paths 0 and 0, "rulefit" 150
 and 0; phase 18's PCA, SVD, GLRM, Word2Vec, NaiveBayes and CoxPH runs 0
@@ -493,7 +513,10 @@ and 0; phase 19's "infogram" 0 and 940, "stackedensemble_bases" 0 and
 "serving_layers" 0 and 0; phase 22's "ingest_formats" 0 and 175;
 phase 23's "data_plane" 0 and 0, "repeat_check" 0 and 5 a tree;
 phase 24's "job_gbm" 0 and 100, "job_gbm_drf_together" 0 and 300,
-"gbm_custom" 0 and 100, "keys_for_objects" 0 and 600).
+"gbm_custom" 0 and 100, "keys_for_objects" 0 and 600; phase 25's
+"grid_cartesian" 180 and 180, "grid_parallel" 180 and 180,
+"grid_random" its GBMs' levels, "segments" 0 and 350, "automl" 0 and
+its GBMs' levels over their fold and main fits).
 
 The line before the last holds every kernel's numbers; the last line is
 the device summary.  Needs one CUDA card; exits non-zero without one.
@@ -541,6 +564,7 @@ from h2o_tpu_torch.models import glrm as glrm_mod  # noqa: E402
 from h2o_tpu_torch.models import kmeans as km_mod  # noqa: E402
 from h2o_tpu_torch.models import rulefit as rulefit_mod  # noqa: E402
 from h2o_tpu_torch.models import word2vec as w2v_mod  # noqa: E402
+from h2o_tpu_torch.automl import AutoML  # noqa: E402
 from h2o_tpu_torch.models.aggregator import Aggregator  # noqa: E402
 from h2o_tpu_torch.models.anovaglm import AnovaGLM  # noqa: E402
 from h2o_tpu_torch.models.coxph import CoxPH  # noqa: E402
@@ -558,7 +582,9 @@ from h2o_tpu_torch.models.glrm import GLRM  # noqa: E402
 from h2o_tpu_torch.models.glm import expand_for_scoring  # noqa: E402
 from h2o_tpu_torch.models.kmeans import KMeans  # noqa: E402
 from h2o_tpu_torch.models.rulefit import RuleFit  # noqa: E402
+from h2o_tpu_torch.models.segment import train_segments  # noqa: E402
 from h2o_tpu_torch.models.glm import GLM  # noqa: E402
+from h2o_tpu_torch.models.grid import GridSearch  # noqa: E402
 from h2o_tpu_torch.models.metrics import (binomial_metrics,  # noqa: E402
                                           multinomial_metrics)
 from h2o_tpu_torch.models.model import DataInfo, Model  # noqa: E402
@@ -5736,6 +5762,270 @@ def phase_slice18(X, y, fr: Frame, m_def, m_drf, paths) -> None:
         raise AssertionError("24: the DKV is not back to its keys")
 
 
+# -- 25: grid search, segment models, the leaderboard and AutoML -----------
+
+#: 25a: the Cartesian grid, its trees, the RandomDiscrete grid's models,
+#: seed and trees; 25b: the segment column's levels and each segment
+#: GBM's trees; 25c: the AutoML rows (the first of the 1M) and options
+GRID_HYPER = {"max_depth": [3, 6],
+              "histogram_type": ["UniformAdaptive", "QuantilesGlobal"]}
+GRID_TREES = 20
+GRID_RANDOM = dict(strategy="RandomDiscrete", max_models=3, seed=7)
+GRID_RANDOM_TREES = 5
+SEG_LEVELS = 7
+SEG_TREES = 10
+GRID_AUTOML_ROWS = 250_000
+AUTOML = dict(max_models=4, nfolds=3, seed=42, project_name="p25",
+              include_algos=["glm", "gbm", "stackedensemble"])
+
+
+def grid_launches(hyper_values, ntrees: int, runs: int = 1) -> tuple:
+    """(K1, K2) a grid's GBMs launch: one a level of every tree, K1 for
+    QuantilesGlobal, K2 for UniformAdaptive."""
+    k = [0, 0]
+    for hv in hyper_values:
+        k[hv["histogram_type"] == "UniformAdaptive"] += \
+            hv["max_depth"] * ntrees * runs
+    return tuple(k)
+
+
+def grid_25a(fr: Frame, paths) -> int:
+    """25a: a Cartesian GBM grid, the same grid at parallelism 2, a
+    RandomDiscrete grid and a failing combo.  Returns the models
+    trained."""
+    from h2o_tpu_torch.core.store import dkv
+    base = dict(ntrees=GRID_TREES, seed=1)
+    hk.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    g = GridSearch("gbm", GRID_HYPER, grid_id="grid25", **base).train(
+        y="y", training_frame=fr)
+    sync()
+    wall = time.perf_counter() - t0
+    got = hist_launches()
+    paths["grid_cartesian"] = got
+    combos = [dict(max_depth=d, histogram_type=h)
+              for d in GRID_HYPER["max_depth"]
+              for h in GRID_HYPER["histogram_type"]]
+    alone = [GBM(**base, **hv).train(y="y", training_frame=fr)
+             for hv in (combos[0], combos[3])]
+    by_hv = {str(hv): m for hv, m in zip(g.hyper_values, g.models)}
+    ll = [m.output["training_metrics"]["logloss"] for m in g.models]
+    summary = [r["model_id"] for r in g.summary()["summary_rows"]]
+    hk.reset_launches()
+    sync()
+    t1 = time.perf_counter()
+    par = GridSearch("gbm", GRID_HYPER, parallelism=2, **base).train(
+        y="y", training_frame=fr)
+    sync()
+    wall_par = time.perf_counter() - t1
+    got_par = hist_launches()
+    paths["grid_parallel"] = got_par
+    hk.reset_launches()
+    rnd = GridSearch("gbm", GRID_HYPER, search_criteria=GRID_RANDOM,
+                     ntrees=GRID_RANDOM_TREES, seed=1).train(
+        y="y", training_frame=fr)
+    got_rnd = hist_launches()
+    paths["grid_random"] = got_rnd
+    shuffled = list(combos)
+    np.random.default_rng(GRID_RANDOM["seed"]).shuffle(shuffled)
+    bad = GridSearch("gbm", {"max_depth": [-5]}, ntrees=GRID_RANDOM_TREES,
+                     seed=1).train(y="y", training_frame=fr)
+    holds = dict(
+        cartesian_walk=g.hyper_values == combos and g.failures == [],
+        launches=got == grid_launches(combos, GRID_TREES),
+        two_alone_bitwise=all(forest_bitwise(by_hv[str(hv)].output,
+                                             m.output)
+                              for hv, m in zip((combos[0], combos[3]),
+                                               alone)),
+        summary_numpy_order=summary == [g.models[i].model_id
+                                        for i in np.argsort(ll,
+                                                            kind="stable")],
+        published=dkv().get("grid25") is g and all(
+            dkv().get(m.model_id) is m for m in g.models),
+        parallel_same_forests=sorted(map(str, par.hyper_values)) ==
+        sorted(by_hv) and all(forest_bitwise(m.output,
+                                             by_hv[str(hv)].output)
+                              for hv, m in zip(par.hyper_values,
+                                               par.models)),
+        parallel_launches=got_par == got,
+        random_is_numpy_shuffle=rnd.hyper_values == shuffled[:3],
+        random_launches=got_rnd == grid_launches(shuffled[:3],
+                                                 GRID_RANDOM_TREES),
+        failure_collected=bad.models == [] and
+        [f["params"] for f in bad.failures] == [{"max_depth": -5}] and
+        "Traceback" in bad.failures[0]["stacktrace"])
+    emit(dict(phase="grid", rows=fr.nrows, cols=C, ntrees=GRID_TREES,
+              hyper=GRID_HYPER, wall_s=wall, wall_parallel2_s=wall_par,
+              k1_launches=got[0], k2_launches=got[1],
+              random=dict(combos=rnd.hyper_values, k1_launches=got_rnd[0],
+                          k2_launches=got_rnd[1]),
+              logloss=dict(zip([str(hv) for hv in g.hyper_values], ll)),
+              failure=bad.failures[0]["error"] if bad.failures else None,
+              holds=holds))
+    if not all(holds.values()):
+        raise AssertionError(f"25a: {holds}")
+    return len(g.models) + len(par.models) + len(rnd.models) + len(alone)
+
+
+def segments_25b(X, y, paths) -> int:
+    """25b: one 10-tree GBM a level of a 7-level categorical, as a job;
+    each against a GBM trained alone on its rows; an empty segment."""
+    from h2o_tpu_torch.core.job import DONE, Job, jobs
+    from h2o_tpu_torch.core.store import dkv
+    rng = np.random.default_rng(25)
+    seg = rng.integers(0, SEG_LEVELS, size=len(y)).astype(np.int32)
+    levels = [f"s{j}" for j in range(SEG_LEVELS)]
+    fr = frame(X, y)
+    fr.add("seg", Vec(seg, T_CAT, domain=levels))
+    params = dict(ntrees=SEG_TREES, seed=1)
+
+    def run(dest, cols, segments):
+        job = Job(dest=dest, dest_type="Key<SegmentModels>",
+                  description=f"gbm segment models {dest}")
+        jobs().start(job, lambda j: train_segments(
+            j, GBM, dict(params), None, "y", fr, None, cols, segments,
+            dest, 1))
+        return job, job.join()
+
+    hk.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    job, sm = run("segments25", ["seg"], None)
+    sync()
+    wall = time.perf_counter() - t0
+    got = hist_launches()
+    paths["segments"] = got
+    same = []
+    for j, row in enumerate(sm.rows):
+        sub = fr.slice_rows(seg == j).drop(["seg"])
+        alone = GBM(**params).train(y="y", training_frame=sub)
+        same.append(forest_bitwise(dkv().get(row["model_id"]).output,
+                                   alone.output))
+    empty_fr = Frame(["seg"], [Vec(np.array([0], np.int32), T_CAT,
+                                   domain=["absent"])])
+    _, empty = run("segments25_empty", [], empty_fr)
+    tf = sm.to_frame()
+    holds = dict(
+        job_done=job.status == DONE and job.progress == 1.0 and
+        job.progress_msg == f"{SEG_LEVELS}/{SEG_LEVELS} segments",
+        segments=[r["segment"] for r in sm.rows] ==
+        [{"seg": v} for v in levels],
+        succeeded=all(r["status"] == "SUCCEEDED" for r in sm.rows),
+        each_bitwise_alone=all(same),
+        launches=got == (0, SEG_LEVELS * SEG_TREES * 5),
+        to_frame_columns=tf.names == ["seg", "model", "status", "errors",
+                                      "warnings"] and tf.nrows == SEG_LEVELS
+        and tf.vec("seg").domain == levels,
+        empty_failed=[(r["status"], r["errors"]) for r in empty.rows] ==
+        [("FAILED", "empty segment")],
+        published=dkv().get("segments25") is sm)
+    emit(dict(phase="segments", rows=fr.nrows, levels=SEG_LEVELS,
+              ntrees=SEG_TREES, wall_s=wall, k1_launches=got[0],
+              k2_launches=got[1],
+              rows_per_segment=np.bincount(seg).tolist(), holds=holds))
+    if not all(holds.values()):
+        raise AssertionError(f"25b: {holds}")
+    return SEG_LEVELS * 2
+
+
+def automl_25c(fr: Frame, paths) -> int:
+    """25c: AutoML on the first GRID_AUTOML_ROWS rows; the leaderboard's
+    order and metrics, both ensembles, the leader retrained alone."""
+    sub = fr.slice_rows(slice(0, GRID_AUTOML_ROWS))
+    hk.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    aml = AutoML(**AUTOML).train(y="y", training_frame=sub)
+    sync()
+    wall = time.perf_counter() - t0
+    got = hist_launches()
+    paths["automl"] = got
+    lb = aml.leaderboard
+    rows = lb.rows()
+    metric = lb.to_dict()["sort_metric"]
+    vals = [r[metric] for r in rows]
+    models = {m.model_id: m for m in lb.models}
+    cv_equal = all(
+        r["auc"] == models[r["model_id"]].output[
+            "cross_validation_metrics"]["AUC"]
+        for r in rows if r["algo"] != "stackedensemble")
+    # the leader alone, on the run's fold column (Modulo over the rows)
+    nf = AUTOML["nfolds"]
+    fold = (np.arange(sub.nrows) % nf).astype(np.float32)
+    work = Frame(sub.names + ["__automl_fold__"],
+                 sub.vecs + [Vec(fold)])
+    lead = aml.leader
+    if lead.algo == "stackedensemble":
+        alone = StackedEnsemble(
+            base_models=[str(m.key) for m in lead.output["base_models"]],
+            seed=AUTOML["seed"], model_id="p25_leader_alone").train(
+            y="y", training_frame=work)
+        lead_same = bits_equal(lead.output["metalearner"].output["beta"],
+                               alone.output["metalearner"].output["beta"])
+    else:
+        cls = GLM if lead.algo == "glm" else GBM
+        accepted = cls().params
+        alone = cls(**{k: v for k, v in lead.params.items()
+                       if k in accepted and k != "model_id"}).train(
+            y="y", training_frame=work)
+        lead_same = bits_equal(lead.output["beta"], alone.output["beta"]) \
+            if lead.algo == "glm" else forest_bitwise(lead.output,
+                                                      alone.output)
+    stages = {e["stage"] for e in aml.event_log.events}
+    ids = [r["model_id"] for r in rows]
+    # one K2 launch a level of every tree of each GBM's fold and main fits
+    want_k2 = sum(m.params["max_depth"] * m.params["ntrees"] * (nf + 1)
+                  for m in lb.models if m.algo == "gbm")
+    holds = dict(
+        sorted_by_metric=vals == sorted(vals, reverse=True),
+        rows_are_cv_metrics=cv_equal,
+        both_ensembles=all(f"StackedEnsemble_{n}_p25" in ids
+                           for n in ("BestOfFamily", "AllModels")),
+        events="init" in stages and "done" in stages,
+        leader_alone_bitwise=lead_same,
+        launches=got == (0, want_k2))
+    emit(dict(phase="automl", rows=sub.nrows, cols=C, **AUTOML,
+              wall_s=wall, k1_launches=got[0], k2_launches=got[1],
+              sort_metric=metric, leader=str(lead.key),
+              leaderboard=[{k: r[k] for k in ("model_id", "algo", "auc",
+                                              "logloss",
+                                              "training_time_ms")}
+                           for r in rows],
+              steps=[e["stage"] for e in aml.event_log.events],
+              holds=holds))
+    if not all(holds.values()):
+        raise AssertionError(f"25c: {holds}")
+    return len(rows)
+
+
+def phase_slice19(X, y, fr: Frame, paths) -> None:
+    """25: grid search, segment models, the leaderboard and AutoML; every
+    key published here removed at the end, the store back to its keys
+    before the phase."""
+    from h2o_tpu_torch.core.store import dkv
+    before = set(dkv().keys())
+    walls = {}
+    for name, fn in (("25a", lambda: grid_25a(fr, paths)),
+                     ("25b", lambda: segments_25b(X, y, paths)),
+                     ("25c", lambda: automl_25c(fr, paths))):
+        k0 = set(dkv().keys())
+        t0 = time.perf_counter()
+        fn()
+        walls[name] = dict(wall_s=time.perf_counter() - t0,
+                           keys_published=len(set(dkv().keys()) - k0))
+    published = sorted(set(dkv().keys()) - before)
+    for k in published:
+        dkv().remove(k, force=True)
+    restored = set(dkv().keys()) == before
+    emit(dict(phase="slice19", wall_s=sum(w["wall_s"] for w in
+                                          walls.values()),
+              sub_phases=walls, keys_published=len(published),
+              store_restored=restored))
+    if not restored:
+        raise AssertionError("25: the DKV is not back to its keys")
+
+
 def unpublish(before: set) -> None:
     """Remove every DKV key published since ``before`` (each phase's
     models and frames; the phase's own variables keep what it returns)."""
@@ -5999,6 +6289,10 @@ def main() -> None:
     # -- 24 jobs, the DKV, user functions ----------------------------------
     torch.cuda.empty_cache()
     phase_slice18(X, y, fr, m_def, m_drf, paths)
+    unpublish(base_keys)
+    # -- 25 grid search, segments, the leaderboard, AutoML -----------------
+    torch.cuda.empty_cache()
+    phase_slice19(X, y, fr, paths)
     emit(dict(phase="launches", paths={k: dict(k1=v[0], k2=v[1])
                                        for k, v in paths.items()}))
     sync()

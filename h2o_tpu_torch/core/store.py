@@ -11,8 +11,8 @@ One difference from ``h2o_tpu``: there the process-wide store hangs off
 the cloud object (``cloud().dkv``); the port's ``cloud()`` is a
 ``torch.device`` (core/device.py), so the process-wide store is the
 module singleton :func:`dkv`, which :class:`Scope` and the serving fleet
-(serve/replica.py) read.  Publishing frames and models in it comes with
-a later slice (ROADMAP P13).
+(serve/replica.py) read.  Builds publish their models and frames in it
+(``models/model.py``), and grids, segment models and AutoML runs too.
 """
 
 from __future__ import annotations

@@ -24,9 +24,11 @@ spread over the target, doubled or halved until the exemplar count is
 bracketed, then bisected geometrically, at most 12 trials, keeping the
 trial nearest the target.  The exemplar rows in the original columns
 (each exemplar's first row) with a ``counts`` column form the
-aggregated frame; the reference puts it in the DKV (``:157-158``), the
-port keeps it as ``output["aggregated_frame"]`` (P13 brings the DKV),
-and ``aggregated_frame()`` returns it.  ``predict_raw`` gives each row's
+aggregated frame, published in ``store.dkv()`` as
+``aggregated_<model_id>`` under ``output["output_frame_key"]``, as the
+reference's (``:157-158``); the model keeps it as
+``output["aggregated_frame"]`` too (``save``/``load`` carry it), and
+``aggregated_frame()`` returns it.  ``predict_raw`` gives each row's
 nearest exemplar.  Iteration checkpoints (P14) are refused.
 """
 
@@ -39,9 +41,10 @@ import torch
 
 from h2o_tpu_torch.core.device import DeviceLike, cloud
 from h2o_tpu_torch.core.frame import Frame, Vec
+from h2o_tpu_torch.core.store import Key
 from h2o_tpu_torch.models import metrics as mm
 from h2o_tpu_torch.models.glm import expand_for_scoring, expansion_spec
-from h2o_tpu_torch.models.model import DataInfo, Model, ModelBuilder
+from h2o_tpu_torch.models.model import DataInfo, Model, ModelBuilder, publish
 
 BATCH = 4096
 TRIALS = 12
@@ -140,6 +143,7 @@ def aggregator_from_jax_output(output: Dict, params: Dict,
                counts=np.array(output["counts"]),
                radius_scale=float(output["radius_scale"]),
                expansion_spec=dict(output["expansion_spec"]),
+               output_frame_key=output.get("output_frame_key"),
                aggregated_frame=aggregated)
     m = AggregatorModel(dict(params), out, cloud(device))
     out["training_metrics"] = m.model_metrics()
@@ -210,11 +214,13 @@ class Aggregator(ModelBuilder):
         first_row = np.full(len(ex), -1, np.int64)
         seen = np.unique(assign, return_index=True)
         first_row[seen[0]] = seen[1]
+        of = aggregated_frame(train, first_row, counts)
+        of.key = Key(f"aggregated_{p.get('model_id') or 'frame'}")
+        publish(of.key, of)
         out = dict(x=list(di.x), exemplars_std=ex, num_exemplars=len(ex),
                    counts=counts, radius_scale=float(np.sqrt(radius2)),
-                   expansion_spec=expansion_spec(di),
-                   aggregated_frame=aggregated_frame(train, first_row,
-                                                     counts))
+                   output_frame_key=str(of.key),
+                   expansion_spec=expansion_spec(di), aggregated_frame=of)
         model = self.model_cls(dict(p), out, self.device)
         out["training_metrics"] = model.model_metrics()
         return model

@@ -12,9 +12,10 @@ reference (series or Lentz continued fraction, no scipy).  With
 the product of the two NaN-as-0 columns in float32.  The GLMs' data
 passes run on the model's device, their solves on the host.
 
-The reference puts the full GLM in the DKV (``:156-157``); the port
-keeps it as ``output["full_model"]`` (P13 brings the DKV), with the
-full and each drop-one model's residual deviance and the dispersion.
+The full GLM is published in ``store.dkv()`` under
+``output["full_model_id"]``, as the reference's (``:154-157``), and kept
+as ``output["full_model"]``, with the full and each drop-one model's
+residual deviance and the dispersion.
 ``predict_raw`` raises, as the reference's does.  Iteration checkpoints
 (P14) are refused.
 """
@@ -30,7 +31,7 @@ from h2o_tpu_torch.core.device import DeviceLike, cloud
 from h2o_tpu_torch.core.frame import Frame, Vec
 from h2o_tpu_torch.models import metrics as mm
 from h2o_tpu_torch.models.glm import GLM, glm_from_jax_output
-from h2o_tpu_torch.models.model import DataInfo, Model, ModelBuilder
+from h2o_tpu_torch.models.model import DataInfo, Model, ModelBuilder, publish
 
 
 def _chi2_sf(x: float, df: int) -> float:
@@ -179,8 +180,10 @@ class AnovaGLM(ModelBuilder):
             df = max(ncoef_full - len(m.coef()), 1)
             table.append((t["name"], df, dd, _chi2_sf(dd, df)))
 
+        publish(full.key, full)
         out = dict(anova_table=table, family=family, x=preds,
-                   full_model=full, full_deviance=dev_full,
+                   full_model=full, full_model_id=str(full.key),
+                   full_deviance=dev_full,
                    term_deviances=term_dev, dispersion=disp,
                    glm_fits=len(terms) + 1)
         model = self.model_cls(dict(p, response_column=y), out, dev)

@@ -41,11 +41,11 @@ import torch
 
 from h2o_tpu_torch.core.device import DeviceLike, cloud
 from h2o_tpu_torch.core.frame import Frame, Vec
-from h2o_tpu_torch.core.store import dkv
 from h2o_tpu_torch.models import metrics as mm
 from h2o_tpu_torch.models.distributions import get_distribution
 from h2o_tpu_torch.models.glm import expand_for_scoring, expansion_spec
-from h2o_tpu_torch.models.model import DataInfo, Model, ModelBuilder
+from h2o_tpu_torch.models.model import (DataInfo, Model, ModelBuilder,
+                                        publish)
 from h2o_tpu_torch.ops import prng, statpack
 
 EPS = 1e-10
@@ -499,8 +499,8 @@ class DeepLearning(ModelBuilder):
                            [Vec(W[:, j]) for j in range(W.shape[1])],
                            key=wk)
                 bf = Frame(["bias"], [Vec(np.asarray(layer["b"]))], key=bk)
-                dkv().put(wk, wf)
-                dkv().put(bk, bf)
+                publish(wk, wf)
+                publish(bk, bf)
                 names += [wk, bk]
             model.output["weights_and_biases_keys"] = names
         return model

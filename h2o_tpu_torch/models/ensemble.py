@@ -42,7 +42,7 @@ import torch
 from h2o_tpu_torch.core.device import DeviceLike, cloud
 from h2o_tpu_torch.core.frame import Frame, Vec
 from h2o_tpu_torch.core.store import dkv
-from h2o_tpu_torch.models.model import Model, ModelBuilder
+from h2o_tpu_torch.models.model import Model, ModelBuilder, publish
 
 #: the metalearners: algo -> (module, builder class)
 _METALEARNERS = {
@@ -214,7 +214,7 @@ class StackedEnsemble(ModelBuilder):
         else:
             meta_model = builder._fit(x_meta, y, l1, None)
         meta_model.params["response_column"] = y
-        dkv().put(meta_model.key, meta_model)
+        publish(meta_model.key, meta_model)
         self._update(0.9, "metalearner trained")
 
         out = dict(base_models=base_models, metalearner=meta_model,

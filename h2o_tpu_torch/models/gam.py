@@ -34,9 +34,9 @@ import torch
 
 from h2o_tpu_torch.core.device import DeviceLike, cloud
 from h2o_tpu_torch.core.frame import Frame, Vec
-from h2o_tpu_torch.core.store import Key, dkv
+from h2o_tpu_torch.core.store import Key
 from h2o_tpu_torch.models.glm import GLM, GLMModel, glm_from_jax_output
-from h2o_tpu_torch.models.model import Model, ModelBuilder
+from h2o_tpu_torch.models.model import Model, ModelBuilder, publish
 
 BS_CR, BS_TP, BS_IS, BS_MS = 0, 1, 2, 3
 _BS_NAMES = {BS_CR: "cr", BS_TP: "thin-plate", BS_IS: "monotone-I-spline",
@@ -335,6 +335,6 @@ class GAM(ModelBuilder):
         if p.get("keep_gam_cols"):
             key = f"{model.model_id}_gamified"
             expanded.key = Key(key)
-            dkv().put(key, expanded)
+            publish(key, expanded)
             out["gam_transformed_center_key"] = key
         return model

@@ -28,9 +28,10 @@ Scoring solves X for new rows with Y fixed: 30 prox-gradient iterations
 from 0 at step 1 / max(|Y|^2, 1), under the mask of observed raw values
 (an NA categorical masks its one-hot columns).  ``predict`` gives the
 reconstruction ``reconstr_<col>``, ``transform`` the archetype
-coordinates ``Arch1..Archk``.  The reference publishes the training
-representation X in the DKV; the port keeps it as
-``output["representation_frame"]``.
+coordinates ``Arch1..Archk``.  The training representation X is
+published in ``store.dkv()`` as ``glrm_rep_<model_id>`` under
+``output["representation_key"]``, as the reference's (``:313-315``),
+and kept as ``output["representation_frame"]``.
 
 Refused by name: regularizers other than None, Quadratic, L1 and
 NonNegative (the reference has no prox for them), ``init`` other than
@@ -51,7 +52,7 @@ from h2o_tpu_torch.core.device import DeviceLike, cloud
 from h2o_tpu_torch.core.frame import Frame, Vec
 from h2o_tpu_torch.models import metrics as mm
 from h2o_tpu_torch.models.glm import expand_for_scoring, expansion_spec
-from h2o_tpu_torch.models.model import DataInfo, Model, ModelBuilder
+from h2o_tpu_torch.models.model import DataInfo, Model, ModelBuilder, publish
 from h2o_tpu_torch.models.svd import randomized_range
 from h2o_tpu_torch.ops import prng, statpack
 
@@ -343,11 +344,13 @@ class GLRM(ModelBuilder):
                    iterations=it, step_size=alpha, history=history,
                    feature_names=di.expanded_names,
                    expansion_spec=expansion_spec(di),
-                   representation_frame=Frame(
-                       [f"Arch{i + 1}" for i in range(k)],
-                       [Vec(Xh[:, i]) for i in range(k)]),
                    model_category="DimReduction")
         model = self.model_cls(dict(p), out, dev)
+        xf = Frame([f"Arch{i + 1}" for i in range(k)],
+                   [Vec(Xh[:, i]) for i in range(k)],
+                   key=f"glrm_rep_{model.key}")
+        publish(xf.key, xf)
+        out.update(representation_frame=xf, representation_key=str(xf.key))
         out["training_metrics"] = model.model_metrics()
         self._update(1.0)
         return model

@@ -14,7 +14,9 @@ it; ``train`` joins it.  The body runs on a pool thread with the
 builder's CUDA device current, fits (cross-validating first with
 ``nfolds`` or a ``fold_column``), attaches a ``custom_metric_func``
 (``core/udf.py``) to the training and validation metrics, and publishes
-the model in ``store.dkv()`` under its key.  A body that raises makes
+the model in ``store.dkv()`` under its key, with what ``publish`` held
+back for it (fold models, a builder's output frames), unless the job
+was stopped after its last report.  A body that raises makes
 the job FAILED and ``train`` re-raises it; nothing is retried on
 another device.  Cross-validation publishes, as the reference does, the
 fold models as ``{model_id}_cv_{i}``, the holdout predictions as
@@ -37,6 +39,7 @@ import json
 import os
 import pickle
 import threading
+import time
 import uuid
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -224,6 +227,8 @@ class Model:
     """A trained model: params + output, scoring capable."""
 
     algo = "base"
+    #: the wall of the build that made it (``train``), as the reference's
+    run_time_ms = 0
 
     def __init__(self, params: Dict[str, Any], output: Dict[str, Any],
                  device: torch.device):
@@ -505,7 +510,20 @@ _MODEL_CLASSES = {
 
 
 #: per thread, the job whose body runs there (``ModelBuilder._job``)
+#: and what its build has yet to publish (``publish``)
 _running = threading.local()
+
+
+def publish(key: str, value: Any) -> None:
+    """Put ``value`` in ``store.dkv()`` under ``key``: at once outside a
+    build; inside one (also from a builder it nests on its thread, as a
+    fold model), when the body publishes its model, so a build stopped
+    after its last report publishes nothing."""
+    pending = getattr(_running, "pending", None)
+    if pending is None:
+        dkv().put(key, value)
+    else:
+        pending.append((key, value))
 
 
 class ModelBuilder:
@@ -606,13 +624,13 @@ class ModelBuilder:
             # a thread starts on device 0; another card is made current
             ctx = torch.cuda.device(dev) if dev.type == "cuda" and \
                 (dev.index or 0) != 0 else contextlib.nullcontext()
-            _running.job = j
+            _running.job, _running.pending = j, []
             try:
                 with ctx, torch.set_grad_enabled(grad):
                     return self._train_body(j, x, y, training_frame,
                                             validation_frame, use_cv)
             finally:
-                _running.job = None
+                _running.job = _running.pending = None
 
         jobs().start(job, body)
         return job
@@ -620,6 +638,7 @@ class ModelBuilder:
     def _train_body(self, j: Job, x: List[str], y: Optional[str],
                     train: Frame, valid: Optional[Frame],
                     use_cv: bool) -> Model:
+        t0 = time.time()
         model = self._fit_cv(x, y, train, valid) if use_cv \
             else self._fit(x, y, train, valid)
         model.params["model_id"] = str(j.dest)
@@ -635,6 +654,9 @@ class ModelBuilder:
         # update() publishes nothing
         if j.stop_requested:
             raise JobCancelledException(j.description)
+        model.run_time_ms = int((time.time() - t0) * 1000)
+        for key, value in _running.pending:
+            dkv().put(key, value)
         dkv().put(model.key, model)
         return model
 
@@ -776,23 +798,22 @@ class ModelBuilder:
                                       sd=float(np.std(vals)), values=vals)
         model.output["cross_validation_metrics"] = cvm
         model.output["cross_validation_metrics_summary"] = summary
-        store = dkv()
         if p.get("keep_cross_validation_models", True):
             for m_i in cv_models:
-                store.put(m_i.key, m_i)
+                publish(m_i.key, m_i)
             model.output["cross_validation_models"] = \
                 [str(m.key) for m in cv_models]
         if p.get("keep_cross_validation_predictions"):
             pf = _raw_to_frame(raw_combined,
                                model.output.get("response_domain"))
             pf.key = Key(f"cv_holdout_prediction_{model.key}")
-            store.put(pf.key, pf)
+            publish(pf.key, pf)
             model.output["cross_validation_holdout_predictions_frame_id"] = \
                 str(pf.key)
         if p.get("keep_cross_validation_fold_assignment"):
             ff = Frame(["fold_assignment"], [Vec(fold.astype(np.float32))],
                        key=f"cv_fold_assignment_{model.key}")
-            store.put(ff.key, ff)
+            publish(ff.key, ff)
             model.output["cross_validation_fold_assignment_frame_id"] = \
                 str(ff.key)
         return model

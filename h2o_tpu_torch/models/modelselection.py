@@ -14,9 +14,10 @@ by more than 1e-10, until none does.  ``backward`` starts from every
 predictor and drops the one whose removal scores best, down to
 ``min_predictor_number``.
 
-The reference puts each size's best GLM in the DKV (``:87-92``); the
-port keeps the model itself at ``output["best_models"][size]["model"]``,
-beside its ``predictors``, ``coef`` and ``score`` (P13 brings the DKV).
+Each size's best GLM is published in ``store.dkv()`` under its key,
+``output["best_models"][size]["model_id"]``, as the reference's
+(``:87-92``), and kept at ``output["best_models"][size]["model"]``,
+beside its ``predictors``, ``coef`` and ``score``.
 ``predict_raw`` raises, as the reference's does: score a size's GLM.
 ``p_values_threshold`` runs at 0 only; iteration checkpoints (P14) are
 refused.
@@ -32,7 +33,7 @@ from h2o_tpu_torch.core.device import DeviceLike, cloud
 from h2o_tpu_torch.core.frame import Frame
 from h2o_tpu_torch.models import metrics as mm
 from h2o_tpu_torch.models.glm import GLM, glm_from_jax_output
-from h2o_tpu_torch.models.model import DataInfo, Model, ModelBuilder
+from h2o_tpu_torch.models.model import DataInfo, Model, ModelBuilder, publish
 
 MODES = ("maxr", "maxrsweep", "allsubsets", "forward", "backward")
 
@@ -88,6 +89,7 @@ def modelselection_from_jax_output(output: Dict, params: Dict,
         m = glm_from_jax_output(glm_outputs[size], dict(
             params, response_column=y), dev)
         best[int(size)] = dict(predictors=list(rec["predictors"]), model=m,
+                               model_id=str(m.key),
                                coef=dict(rec["coef"]),
                                score=float(rec["score"]))
     out = dict(mode=output["mode"], best_models=best,
@@ -132,8 +134,10 @@ class ModelSelection(ModelBuilder):
         best_models: Dict[int, Dict] = {}
 
         def record(size: int, subset: List[str], m) -> None:
+            publish(m.key, m)
             best_models[size] = dict(predictors=list(subset), model=m,
-                                     coef=m.coef(), score=_score(m))
+                                     model_id=str(m.key), coef=m.coef(),
+                                     score=_score(m))
 
         if mode != "backward":
             # greedy forward growth; maxr also tries replacing each

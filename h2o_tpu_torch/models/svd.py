@@ -11,10 +11,10 @@ device, each (P, nv) sketch's QR and the projected (nv, nv) Gram's
 eigendecomposition on the host (``ops/linalg``: LAPACK's routines, the
 reference's bits), ``min(max_iterations, 10)`` power iterations.
 
-``keep_u`` (on by default) writes U = X V / d.  The reference publishes
-that frame in the DKV under ``u_key``; the port has no DKV and keeps it
-on the model as ``output["u_frame"]``, as it keeps cross-validation's
-frames.  Scores (``SVD1..SVDnv``) are the expanded rows times V.
+``keep_u`` (on by default) writes U = X V / d, published in
+``store.dkv()`` as ``svd_u_<model_id>`` under ``output["u_key"]``, as the
+reference's (``:135-137``), and kept on the model as
+``output["u_frame"]``.  Scores (``SVD1..SVDnv``) are the expanded rows times V.
 Iteration checkpoints (``recovery_dir``, P14) are refused.
 """
 
@@ -29,7 +29,7 @@ from h2o_tpu_torch.core.device import DeviceLike, cloud
 from h2o_tpu_torch.core.frame import Frame, Vec
 from h2o_tpu_torch.models import metrics as mm
 from h2o_tpu_torch.models.glm import expand_for_scoring, expansion_spec
-from h2o_tpu_torch.models.model import Model, ModelBuilder
+from h2o_tpu_torch.models.model import Model, ModelBuilder, publish
 from h2o_tpu_torch.models.pca import (TRANSFORMS, decomposition_matrix,
                                       gram, scores_frame)
 from h2o_tpu_torch.ops import prng
@@ -129,13 +129,16 @@ class SVD(ModelBuilder):
         out = dict(nv=nv, d=d, v=np.ascontiguousarray(V), v_names=
                    di.expanded_names, expansion_spec=expansion_spec(di),
                    model_category="DimReduction")
+        model = self.model_cls(dict(p), out, dev)
         if p.get("keep_u", True):
             Vd = torch.from_numpy(out["v"]).to(dev)
             dd = torch.from_numpy(np.maximum(d, np.float32(EPS))).to(dev)
             U = ((X @ Vd) / dd[None, :]).cpu().numpy()
-            out["u_frame"] = Frame([f"u{i + 1}" for i in range(nv)],
-                                   [Vec(U[:, i]) for i in range(nv)])
-        model = self.model_cls(dict(p), out, dev)
+            uf = Frame([f"u{i + 1}" for i in range(nv)],
+                       [Vec(U[:, i]) for i in range(nv)],
+                       key=f"svd_u_{model.key}")
+            publish(uf.key, uf)
+            out.update(u_frame=uf, u_key=str(uf.key))
         out["training_metrics"] = model.model_metrics()
         self._update(1.0)
         return model
