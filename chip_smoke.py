@@ -17,7 +17,8 @@ the load breaker and the replica fleet; then the other ingest formats
 (SVMLight with sparse columns feeding a GBM, ARFF, Avro, XLSX/XLS), a
 remote path, a frame snapshot, streaming ingest and the cluster
 timezone; then the data plane below Rapids: map_reduce, quantiles, and
-the sort, filter, take, group-by and merge verbs; then builds run as
+the sort, filter, take, group-by and merge verbs, and the Rapids
+interpreter over them; then builds run as
 jobs, their models and frames published in the DKV and read back by
 key, and a user's distribution and metric.  Every training runs as a
 job of the process registry (core/job.py) and publishes its model in
@@ -494,6 +495,32 @@ prints one JSON line; any failure raises and the exit code is not 0):
               done, the leader retrained alone bitwise; every key
               published in 25 is removed and the store is back to its
               keys before it
+ 26 the Rapids interpreter (h2o_tpu_torch/rapids) on phase 23's frame
+              with a second 7-level categorical k7 and its codes as a
+              numeric column k7n: 26a fourteen expressions of the kinds
+              h2o-py sends through rapids_exec on the card at 1M rows
+              (y made numeric by :=, NA written into a masked selection,
+              h2o.impute by median, ifelse over is.na as a column update,
+              a mask filter, GB on the Zipf key with mean, sd, nrow,
+              median and the mode of c7, a left merge with the right
+              frame, a two-key sort, table of one and of two columns,
+              log1p(abs(x * 2)) over three columns, cumsum, the axis-0
+              mean, quantile at three probabilities), each one's wall and
+              bytes each way, each answer bitwise the port's verb or
+              tensor op called directly on the card; then the same
+              expressions over the first RAPIDS_SUB_ROWS rows on the card
+              and on the CPU, equal (GB's sd to DP_AGG_RTOL); 26b the
+              host routes at RAPIDS_SUB_ROWS rows: a frame with a time
+              column sorted and grouped, a merge on a numeric key against
+              a categorical one, mode of a numeric column, negative row
+              indices, and every 26a expression again with
+              H2O_TPU_DEVICE_MUNGE=0, each equal to the device route (the
+              host route's float64 group mean and sd to DP_AGG_RTOL); the
+              interpreter launches no histogram kernel; 26c the response
+              of 26a's filtered frame made a factor by asfactor and a
+              default 20-tree GBM trained on it (K2 100), its forest
+              bitwise that of a GBM on the same frame built by calling
+              the verbs directly; every key published in 26 is removed
   7 profile - torch.profiler over 2 default trees: device busy share and
               the kernels that take the device time; then 2 QuantilesGlobal
               trees: each histogram kernel's device ms per main-path launch
@@ -503,7 +530,7 @@ prints one JSON line; any failure raises and the exit code is not 0):
               iteration (7 class trees) and one UpliftDRF tree
 
 The kernels line's launches sum every main-path training above (phases
-4, 5, 8-25), each read from counters set to 0 just before it; the
+4, 5, 8-26), each read from counters set to 0 just before it; the
 launches phase lists them path by path (phase 16 as "glm", 0 and 0;
 phase 17's KMeans, DeepLearning and GAM paths 0 and 0, "rulefit" 150
 and 0; phase 18's PCA, SVD, GLRM, Word2Vec, NaiveBayes and CoxPH runs 0
@@ -516,7 +543,8 @@ phase 24's "job_gbm" 0 and 100, "job_gbm_drf_together" 0 and 300,
 "gbm_custom" 0 and 100, "keys_for_objects" 0 and 600; phase 25's
 "grid_cartesian" 180 and 180, "grid_parallel" 180 and 180,
 "grid_random" its GBMs' levels, "segments" 0 and 350, "automl" 0 and
-its GBMs' levels over their fold and main fits).
+its GBMs' levels over their fold and main fits; phase 26's "rapids" 0
+and 0, "rapids_gbm" 0 and 100).
 
 The line before the last holds every kernel's numbers; the last line is
 the device summary.  Needs one CUDA card; exits non-zero without one.
@@ -546,8 +574,8 @@ if not torch.cuda.is_available():
 from h2o_tpu_torch import native  # noqa: E402
 from h2o_tpu_torch.core.avro import write_avro  # noqa: E402
 from h2o_tpu_torch.core.device import set_timezone  # noqa: E402
-from h2o_tpu_torch.core.frame import (T_CAT, T_STR, Frame,  # noqa: E402
-                                      SparseVec, Vec)
+from h2o_tpu_torch.core.frame import (T_CAT, T_NUM, T_STR,  # noqa: E402
+                                      T_TIME, Frame, SparseVec, Vec)
 from h2o_tpu_torch.core.parse import (parse_files,  # noqa: E402
                                       parse_setup)
 from h2o_tpu_torch.core.persist import load_frame, save_frame  # noqa: E402
@@ -615,7 +643,9 @@ from h2o_tpu_torch.serve import (BreakerOpen, NoHealthyReplica,  # noqa: E402
                                  ShedLoad, breaker, fleet, registry)
 from h2o_tpu_torch.serve.replica import reset_fleet  # noqa: E402
 from h2o_tpu_torch.ops import hist_kernels as hk  # noqa: E402
-from h2o_tpu_torch.ops import prng  # noqa: E402
+from h2o_tpu_torch.ops import prng, xlamath  # noqa: E402
+from h2o_tpu_torch.rapids import Session as RapidsSession  # noqa: E402
+from h2o_tpu_torch.rapids import rapids_exec  # noqa: E402
 from h2o_tpu_torch.ops.histogram import hist_plain  # noqa: E402
 from h2o_tpu_torch.ops.linalg import eigh_desc  # noqa: E402
 from h2o_tpu_torch.tools.repeat_check import (all_equal,  # noqa: E402
@@ -6026,6 +6056,397 @@ def phase_slice19(X, y, fr: Frame, paths) -> None:
         raise AssertionError("25: the DKV is not back to its keys")
 
 
+# -- 26: the Rapids interpreter -----------------------------------------------
+
+#: phase 26: the rows of the card-vs-CPU and host-route runs, and the
+#: expressions of 26a in order ({f} the frame, {r} the right frame, {a}
+#: the updated frame, {p} the filtered one: keys in the DKV).  Columns:
+#: x0..x27 0-27, y 28, zkey 29, c7 30, k7 31, k7n 32
+RAPIDS_SUB_ROWS = 100_000
+RAPIDS_PROBS = (0.1, 0.5, 0.9)
+#: 26b: a host route's float64 group mean and variance against the device
+#: route's float32 ones, of the group's mean |x| and mean square
+RAPIDS_ROUTE_TOL = 1e-5
+RAPIDS_26A = (
+    ("y_numeric", "(tmp= {a} (:= {f} (asnumeric (cols {f} 'y')) [28] []))"),
+    ("na_masked_update", "(tmp= {a} (:= {a} NA [3] (> (cols {a} [4]) 2)))"),
+    ("impute_median", "(h2o.impute {a} 3 'median')"),
+    ("ifelse_update", "(tmp= {a} (:= {a} (ifelse (is.na (cols {a} [3])) -1 "
+                      "(cols {a} [3])) [3] []))"),
+    ("filter", "(tmp= {p} (rows {a} (> (cols {a} [0]) 0.5)))"),
+    ("groupby", "(GB {a} [29] mean 1 'all' sd 1 'all' nrow 1 'all' "
+                "median 1 'all' mode 30 'all')"),
+    ("merge_left", "(merge {a} {r} 1 0 [29] [0] 'auto')"),
+    ("sort_two_keys", "(sort {a} [30 0] [1 0])"),
+    ("table_one", "(table (cols {a} [30]))"),
+    ("table_two", "(table (cols {a} [30 31]))"),
+    ("log1p_abs", "(log1p (abs (* (cols {a} [0 1 2]) 2)))"),
+    ("cumsum", "(cumsum (cols {a} [0 1 2]))"),
+    ("mean_axis0", "(mean (cols {a} [0:28]) 1 0)"),
+    ("quantile", "(quantile (cols {a} [0 1 2]) [0.1 0.5 0.9])"),
+)
+#: 26a's group-by aggregates, as groupby_frame takes them
+RAPIDS_GB_AGGS = [("mean", 1, "all"), ("sd", 1, "all"), ("nrow", 1, "all"),
+                  ("median", 1, "all"), ("mode", 30, "all")]
+
+
+def rapids_frames(fr: Frame):
+    """Phase 23's frame and right frame, with a second 7-level
+    categorical ``k7`` and its codes as the numeric column ``k7n``."""
+    f = dp_frame(fr)
+    k7 = np.random.default_rng(53).integers(0, DP_CATS, f.nrows).astype(
+        np.int32)
+    f.add("k7", Vec(k7, T_CAT, domain=[f"m{j}" for j in range(DP_CATS)]))
+    f.add("k7n", Vec(k7.astype(np.float32)))
+    return f, dp_right_frame(f)
+
+
+def rapids_run(f: Frame, r: Frame, device, tag: str) -> dict:
+    """Each expression through rapids_exec in order, on a session on
+    ``device`` over ``f`` and ``r`` published under ``tag``'s keys:
+    ``{name: (answer, wall s, bytes to the device, bytes to the host)}``,
+    the wall ending in a synchronize on the card."""
+    from h2o_tpu_torch.core.store import dkv
+    keys = dict(f=f"f_{tag}", r=f"r_{tag}", a=f"a_{tag}", p=f"p_{tag}")
+    dkv().put(keys["f"], f)
+    dkv().put(keys["r"], r)
+    sess = RapidsSession(f"rapids_{tag}", device=device)
+    card = torch.device(device).type == "cuda"
+    out = {}
+    for name, expr in RAPIDS_26A:
+        TransferStats.reset()
+        if card:
+            sync()
+        t0 = time.perf_counter()
+        res = rapids_exec(expr.format(**keys), sess)
+        if card:
+            sync()
+        wall = time.perf_counter() - t0
+        moved = TransferStats.snapshot()
+        out[name] = (res, wall, moved["to_device"], moved["to_host"])
+    return out
+
+
+def float_bits(x: np.ndarray) -> np.ndarray:
+    """Bits of a float array with every NaN one pattern."""
+    x = np.asarray(x)
+    if x.dtype.kind != "f":
+        return x
+    x = np.where(np.isnan(x), np.nan, x).astype(x.dtype)
+    return x.view(np.uint32 if x.dtype == np.float32 else np.uint64)
+
+
+def rapids_diff(a, b, loose=None) -> list:
+    """Where two answers differ: frames by name, type, domain and bits
+    (NaN where NaN), numbers and lists by value; ``loose`` maps a column
+    name to the relative tolerance it is held to instead, or to (tolerance,
+    scale, power): then each row's value to that power within tolerance
+    times its scale."""
+    loose = loose or {}
+    if isinstance(a, Frame) or isinstance(b, Frame):
+        if not (isinstance(a, Frame) and isinstance(b, Frame)) or \
+                a.names != b.names or a.nrows != b.nrows:
+            return ["<names or rows>"]
+        bad = []
+        for n, va, vb in zip(a.names, a.vecs, b.vecs):
+            if va.type != vb.type or (va.domain or None) != (vb.domain or
+                                                              None):
+                bad.append(n)
+                continue
+            x, w = va.to_numpy(), vb.to_numpy()
+            if n in loose:
+                tol, scale, pw = loose[n] if isinstance(loose[n], tuple) \
+                    else (loose[n], np.abs(w.astype(np.float64)), 1)
+                x, w = x.astype(np.float64) ** pw, w.astype(np.float64) ** pw
+                ok = (np.isnan(x) == np.isnan(w)) & (
+                    np.isnan(w) | (np.abs(x - w) <= tol * scale))
+                if not ok.all():
+                    bad.append(n)
+            elif x.dtype != w.dtype or not np.array_equal(float_bits(x),
+                                                          float_bits(w)):
+                bad.append(n)
+        return bad
+    if isinstance(a, list):
+        return [] if len(a) == len(b) and all(
+            not rapids_diff(x, y) for x, y in zip(a, b)) else ["<list>"]
+    return [] if bits_equal(np.float64(a), np.float64(b)) else ["<value>"]
+
+
+def group_scales(keys: np.ndarray, x: np.ndarray) -> tuple:
+    """Per group of ``keys`` (in sorted order, the verbs' group order),
+    the mean |x| and the root mean square of ``x``: the scales a float32
+    group mean and sd keep their precision to."""
+    _u, inv = np.unique(keys, return_inverse=True)
+    x = x.astype(np.float64)
+    n = np.bincount(inv)
+    return (np.bincount(inv, np.abs(x)) / n,
+            np.sqrt(np.bincount(inv, x * x) / n))
+
+
+def numpy_table(*cols) -> tuple:
+    """numpy's (level codes, counts) of one or two code columns, NA rows
+    dropped."""
+    ok = np.all([c >= 0 for c in cols], axis=0)
+    pairs = np.stack([c[ok] for c in cols], axis=1).astype(np.float64)
+    return np.unique(pairs, axis=0, return_counts=True)
+
+
+def rapids_direct(res: dict, f: Frame, r: Frame) -> dict:
+    """Each 26a answer against the port's verb or tensor op called
+    directly on the card with the same inputs (the host ops against
+    numpy): {name: bitwise equal}."""
+    a1 = res["y_numeric"][0]
+    a2 = res["na_masked_update"][0]
+    a3 = res["ifelse_update"][0]
+    y = f.vec("y").data.astype(np.float32)
+    x3 = a1.vec("x3").data
+    x3na = np.where(a1.vec("x4").data > 2, np.float32(np.nan), x3)
+    med = np.median(x3na[~np.isnan(x3na)].astype(np.float64))
+    t3 = torch.from_numpy(x3na).to(DEV)
+    x3fill = torch.where(torch.isnan(t3), torch.full_like(t3, -1.0),
+                         t3).cpu().numpy()
+    ok = {"y_numeric": a1.vec("y").type == T_NUM and
+          bits_equal(a1.vec("y").data, y),
+          "na_masked_update": bits_equal(float_bits(a2.vec("x3").data),
+                                         float_bits(x3na)),
+          "impute_median": bits_equal(
+              res["impute_median"][0].vec("x3").data,
+              np.where(np.isnan(x3na), med, x3na).astype(np.float32)),
+          "ifelse_update": bits_equal(a3.vec("x3").data, x3fill)}
+    mask = (a3.vec("x0").data > 0.5).astype(np.float32)
+    direct = {
+        "filter": dp_munge.filter_rows(a3, mask, device=DEV),
+        "groupby": dp_munge.groupby_frame(a3, [29], RAPIDS_GB_AGGS,
+                                          device=DEV),
+        "merge_left": dp_munge.merge_frames(a3, r, True, False, [29], [0],
+                                            device=DEV),
+        "sort_two_keys": dp_munge.sort_frame(a3, [30, 0], [True, False],
+                                             device=DEV)}
+    for name, want in direct.items():
+        ok[name] = not rapids_diff(res[name][0], want)
+    c7, k7 = a3.vec("c7").data, a3.vec("k7").data
+    for name, cols in (("table_one", (c7,)), ("table_two", (c7, k7))):
+        got = res[name][0]
+        lv, cnt = numpy_table(*cols)
+        ok[name] = all(bits_equal(got.vecs[j].data, lv[:, j].astype(
+            np.int32)) for j in range(len(cols))) and \
+            bits_equal(got.vecs[-1].data, cnt.astype(np.float32))
+    x = torch.from_numpy(np.stack([a3.vecs[j].as_float() for j in range(3)],
+                                  axis=1)).to(DEV)
+    want = {"log1p_abs": xlamath.log1p(torch.abs(x * torch.full_like(x, 2.0))),
+            "cumsum": xlamath.cumsum(x.T).T}
+    for name, t in want.items():
+        got = np.stack([v.data for v in res[name][0].vecs], axis=1)
+        ok[name] = bits_equal(got, t.cpu().numpy())
+    ok["mean_axis0"] = bits_equal(
+        np.array([v.data[0] for v in res["mean_axis0"][0].vecs]),
+        np.array([np.float32(a3.vecs[j].rollups.mean) for j in range(28)]))
+    q = dp_quantile.quantile(a3.subframe(["x0", "x1", "x2"]),
+                             list(RAPIDS_PROBS), device=DEV)
+    ok["quantile"] = all(bits_equal(res["quantile"][0].vec(
+        f"{c}Quantiles").data, np.asarray(v, np.float32))
+        for c, v in q.items())
+    return ok
+
+
+def rapids_26a(f: Frame, r: Frame, smi: str, paths) -> dict:
+    """26a: the expressions at full width on the card, each against the
+    port's verbs called directly; then card against CPU over the first
+    RAPIDS_SUB_ROWS rows."""
+    hk.reset_launches()
+    res = rapids_run(f, r, DEV, "card")
+    ok = rapids_direct(res, f, r)
+    for name, expr in RAPIDS_26A:
+        out, wall, up, down = res[name]
+        emit(dict(phase="26a_rapids", gpu=smi, name=name, expr=expr,
+                  rows=f.nrows, rows_out=out.nrows if isinstance(out, Frame)
+                  else None, wall_s=wall, to_device_bytes=up,
+                  to_host_bytes=down, direct_bitwise=ok[name]))
+    sub = f.slice_rows(slice(0, RAPIDS_SUB_ROWS))
+    card = rapids_run(sub, r, DEV, "card_sub")
+    cpu = rapids_run(sub, r, "cpu", "cpu_sub")
+    diff = {n: rapids_diff(card[n][0], cpu[n][0], {"sd_x1": DP_AGG_RTOL})
+            for n, _e in RAPIDS_26A}
+    sd_bitwise = bits_equal(card["groupby"][0].vec("sd_x1").data,
+                            cpu["groupby"][0].vec("sd_x1").data)
+    got = hist_launches()
+    no_hist("rapids 26a", got)
+    dp_hold("26a_card_vs_cpu", smi, dict(
+        rows=sub.nrows, differ={n: d for n, d in diff.items() if d},
+        groupby_sd_bitwise=sd_bitwise,
+        card_wall_s=sum(v[1] for v in card.values()),
+        cpu_wall_s=sum(v[1] for v in cpu.values()),
+        direct_not_bitwise=[n for n, v in ok.items() if not v]),
+        all(ok.values()) and not any(diff.values()))
+    paths["rapids"] = got
+    return dict(card_sub=card, sub=sub)
+
+
+def rapids_26b(f: Frame, r: Frame, sub: Frame, card_sub: dict,
+               smi: str) -> None:
+    """26b: the host routes at RAPIDS_SUB_ROWS rows, each against the
+    device route on the frame both take."""
+    n = sub.nrows
+    rng = np.random.default_rng(59)
+    t = 1.6e12 + np.sort(rng.integers(0, 3 * 10 ** 10, n)).astype(np.float64)
+    t[rng.permutation(n)[: n // 100]] = np.nan
+    ft = Frame(sub.names + ["t"], sub.vecs + [Vec(t, T_TIME)])
+    keys = sorted(set(np.unique(r.vec("zkey").data)))
+    rcat = Frame(list(r.names), [Vec(np.searchsorted(np.asarray(
+        keys, np.float32), r.vec("zkey").data).astype(np.int32), T_CAT,
+        domain=[str(np.float32(k)) for k in keys])] + r.vecs[1:])
+    aggs = [("nrow", 0, "all"), ("min", 0, "all"), ("max", 0, "all"),
+            ("median", 0, "all"), ("mean", 0, "all")]
+    cases = (
+        ("time_sort", "(sort {ft} [30 0] [1 0])",
+         lambda: dp_munge.sort_frame(sub, [30, 0], [True, False],
+                                     device=DEV), {}),
+        ("time_groupby", "(GB {ft} [30] nrow 0 'all' min 0 'all' max 0 "
+         "'all' median 0 'all' mean 0 'all')",
+         lambda: dp_munge.groupby_frame(sub, [30], aggs, device=DEV),
+         {"mean_x0": (RAPIDS_ROUTE_TOL, group_scales(
+             sub.vec("c7").data, sub.vec("x0").data)[0], 1)}),
+        ("merge_mixed_keys", "(merge {f} {rc} 1 0 [29] [0] 'auto')",
+         lambda: dp_munge.merge_frames(sub, r, True, False, [29], [0],
+                                       device=DEV), {}),
+        ("numeric_mode", "(GB {f} [30] mode 32 'all' nrow 0 'all')",
+         lambda: dp_munge.groupby_frame(sub, [30], [("mode", 31, "all"),
+                                                    ("nrow", 0, "all")],
+                                        device=DEV), {}),
+        ("negative_rows", f"(rows {{f}} [-1 -2 -3 -{n}])",
+         lambda: dp_munge.take_rows(sub, [n - 1, n - 2, n - 3, 0],
+                                    device=DEV), {}))
+    from h2o_tpu_torch.core.store import dkv
+    for k, v in (("ft_h", ft), ("rc_h", rcat), ("f_h", sub)):
+        dkv().put(k, v)
+    sess = RapidsSession("rapids_host", device=DEV)
+    order = sort_reference(sub, [30, 0], [True, False])
+    for name, expr, direct, loose in cases:
+        TransferStats.reset()
+        sync()
+        t0 = time.perf_counter()
+        got = rapids_exec(expr.format(ft="ft_h", rc="rc_h", f="f_h"), sess)
+        sync()
+        wall = time.perf_counter() - t0
+        moved = TransferStats.snapshot()
+        want = direct()
+        if name == "time_sort":
+            extra = bits_equal(float_bits(got.vec("t").to_numpy()),
+                               float_bits(t[order]))
+            got = got.subframe(sub.names)
+        else:
+            extra = True
+        if name == "numeric_mode":
+            bad = [] if bits_equal(got.vecs[1].data, want.vecs[1].data) \
+                and bits_equal(got.vecs[2].data, want.vecs[2].data) and \
+                not rapids_diff(got.subframe(["c7"]),
+                                want.subframe(["c7"])) else ["mode"]
+        else:
+            bad = rapids_diff(got, want, loose)
+        dp_hold("26b_host_route", smi, dict(
+            name=name, expr=expr, rows=n, rows_out=got.nrows, wall_s=wall,
+            to_device_bytes=moved["to_device"],
+            to_host_bytes=moved["to_host"], differ_from_device_route=bad,
+            time_column_in_order=extra),
+            not bad and extra and moved["to_device"] == 0)
+    # every 26a expression with the host routes
+    os.environ["H2O_TPU_DEVICE_MUNGE"] = "0"
+    try:
+        host = rapids_run(sub, r, DEV, "host_sub")
+    finally:
+        del os.environ["H2O_TPU_DEVICE_MUNGE"]
+    a = card_sub["ifelse_update"][0]
+    mean_abs, rms = group_scales(a.vec("zkey").data, a.vec("x1").data)
+    # sd through its square: a float32 variance keeps its precision to
+    # the mean square, not to itself
+    loose = {"mean_x1": (RAPIDS_ROUTE_TOL, mean_abs, 1),
+             "sd_x1": (RAPIDS_ROUTE_TOL, rms ** 2, 2)}
+    diff = {n: rapids_diff(host[n][0], card_sub[n][0], loose)
+            for n, _e in RAPIDS_26A}
+    dp_hold("26b_all_host_routes", smi, dict(
+        rows=n, differ={k: d for k, d in diff.items() if d},
+        host_wall_s={k: v[1] for k, v in host.items()},
+        device_wall_s={k: v[1] for k, v in card_sub.items()},
+        groupby_mean_bitwise=bits_equal(
+            host["groupby"][0].vec("mean_x1").data,
+            card_sub["groupby"][0].vec("mean_x1").data)),
+        not any(diff.values()))
+
+
+def rapids_direct_frame(f: Frame) -> Frame:
+    """26a's filtered frame with its response a factor, built by calling
+    the verbs and tensor ops directly."""
+    y = f.vec("y").data.astype(np.float32)
+    x3 = np.where(f.vec("x4").data > 2, np.float32(np.nan),
+                  f.vec("x3").data)
+    t3 = torch.from_numpy(x3).to(DEV)
+    x3 = torch.where(torch.isnan(t3), torch.full_like(t3, -1.0),
+                     t3).cpu().numpy()
+    vecs = list(f.vecs)
+    vecs[3] = Vec(x3)
+    vecs[28] = Vec(y)
+    a = Frame(list(f.names), vecs)
+    p = dp_munge.filter_rows(a, (a.vec("x0").data > 0.5).astype(np.float32),
+                             device=DEV)
+    codes = p.vec("y").data.astype(np.int32)
+    p.vecs[28] = Vec(codes, T_CAT, domain=["0", "1"])
+    return p
+
+
+def rapids_26c(f: Frame, smi: str, paths) -> None:
+    """26c: 26a's filtered frame (``p_card`` in the DKV) with its
+    response made a factor through rapids_exec, a default 20-tree GBM on
+    it, and the same GBM on the frame built by the verbs directly."""
+    sess = RapidsSession("rapids_gbm", device=DEV)
+    g = rapids_exec("(tmp= g_card (:= p_card (asfactor (cols p_card 'y')) "
+                    "[28] []))", sess)
+    want = (0, 20 * 5)
+    hk.reset_launches()
+    m, wall = train(g)
+    got = hist_launches()
+    paths["rapids_gbm"] = got
+    direct = rapids_direct_frame(f)
+    frame_bad = rapids_diff(g, direct)
+    m2, wall2 = train(direct)
+    same_trees = forest_bitwise(m.output, m2.output)
+    dp_hold("26c_gbm", smi, dict(
+        rows=g.nrows, y_domain=g.vec("y").domain, wall_s=wall,
+        direct_wall_s=wall2, k1_launches=got[0], k2_launches=got[1],
+        want_launches=want, frame_differs_from_direct=frame_bad,
+        forest_bitwise=same_trees,
+        train_auc=m.output["training_metrics"]["AUC"]),
+        got == want and not frame_bad and same_trees and
+        g.vec("y").domain == ["0", "1"])
+
+
+def phase_slice20(X, y, fr: Frame, smi: str, paths) -> None:
+    """26: the Rapids interpreter on the card; every key published here
+    removed at the end, the store back to its keys before the phase."""
+    from h2o_tpu_torch.core.store import dkv
+    before = set(dkv().keys())
+    t = [time.perf_counter()]
+    f, r = rapids_frames(fr)
+    t.append(time.perf_counter())
+    runs = rapids_26a(f, r, smi, paths)
+    t.append(time.perf_counter())
+    hk.reset_launches()
+    rapids_26b(f, r, runs["sub"], runs["card_sub"], smi)
+    no_hist("rapids 26b", hist_launches())
+    t.append(time.perf_counter())
+    rapids_26c(f, smi, paths)
+    t.append(time.perf_counter())
+    published = sorted(set(dkv().keys()) - before)
+    for k in published:
+        dkv().remove(k, force=True)
+    restored = set(dkv().keys()) == before
+    names = ("frames", "26a", "26b", "26c")
+    emit(dict(phase="phase26_walls", gpu=smi, total_s=t[-1] - t[0],
+              keys_published=len(published), store_restored=restored,
+              **{f"{n}_s": b - a for n, a, b in zip(names, t, t[1:])}))
+    if not restored:
+        raise AssertionError("26: the DKV is not back to its keys")
+
+
 def unpublish(before: set) -> None:
     """Remove every DKV key published since ``before`` (each phase's
     models and frames; the phase's own variables keep what it returns)."""
@@ -6293,6 +6714,10 @@ def main() -> None:
     # -- 25 grid search, segments, the leaderboard, AutoML -----------------
     torch.cuda.empty_cache()
     phase_slice19(X, y, fr, paths)
+    unpublish(base_keys)
+    # -- 26 the Rapids interpreter -------------------------------------------
+    torch.cuda.empty_cache()
+    phase_slice20(X, y, fr, smi, paths)
     emit(dict(phase="launches", paths={k: dict(k1=v[0], k2=v[1])
                                        for k, v in paths.items()}))
     sync()

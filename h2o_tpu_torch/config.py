@@ -22,6 +22,11 @@ so tests can monkeypatch ``os.environ``.
     (1, 128).
 ``H2O_TPU_STREAM_POLL_MS`` — follow-mode re-poll interval of a quiet
     stream source (50 ms; ``config.py:272-274``).
+``H2O_TPU_DEVICE_MUNGE`` — ``0``, ``false`` or ``off`` sends the Rapids
+    munge ops to their host routes; anything else, or unset, keeps the
+    device routes.  The reference reads it in ``core/munge.py:130-134``,
+    not in its ``config.py``, so ``device_munge`` stays out of
+    ``__all__``, the readers that mirror that file.
 
 The other readers of the reference (tiers, the stream holdout, tenants,
 the Rapids planner) come with their slices.
@@ -97,3 +102,10 @@ def serve_max_batch() -> int:
 def stream_poll_ms() -> float:
     """Follow-mode re-poll interval for a quiet stream source (ms)."""
     return float(os.environ.get("H2O_TPU_STREAM_POLL_MS", "50") or 50.0)
+
+
+def device_munge() -> bool:
+    """Whether the Rapids munge ops take their device routes (default)
+    rather than their host routes."""
+    return os.environ.get("H2O_TPU_DEVICE_MUNGE", "1").lower() not in (
+        "0", "false", "off")

@@ -2,7 +2,8 @@
 merge — a port of the one-device routes of ``h2o_tpu/core/munge.py``.
 
 Reference map: ``DEVICE_AGGS`` / ``COMBINABLE_AGGS`` :110-113,
-``mode_device_eligible`` :116-127, ``_factorize_block`` :213-234, the
+``mode_device_eligible`` :116-127, ``device_munge_enabled`` :130-134,
+``_factorize_block`` :213-234, the
 kernel bodies ``_build_sort`` :637, ``_build_factorize`` :648,
 ``_build_group_aggs`` :657-709, ``_build_filter`` :712, ``_build_take``
 :724, ``_build_merge_match`` :737-764 and ``_build_merge_emit``
@@ -24,10 +25,11 @@ codes with NaN -> -1.  ``TransferStats`` counts those bytes.
 The reference pads rows to power-of-two buckets only to bound its XLA
 compiles; eager PyTorch compiles nothing, so the verbs work at the true
 row count.  Its shard-resident collectives (the ``_shard_*`` builders)
-are the multi-device route (ROADMAP P8), and its host routes
-(``rapids/interp.py``) come with the interpreter (P12c): a frame the
-reference's device verbs do not take raises ``ValueError`` by name here,
-and no verb turns to the host on its own.
+are the multi-device route (ROADMAP P8).  The host routes live in the
+Rapids interpreter (``h2o_tpu_torch/rapids/interp.py``), which picks a
+route by the reference's predicates before it calls a verb; a frame the
+device verbs do not take raises ``ValueError`` by name here, and no verb
+turns to the host on its own.
 
 NA and tie semantics (the reference's):
 - sort: NAs first in both directions (descending keys are negated, NA
@@ -51,6 +53,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from h2o_tpu_torch import config
 from h2o_tpu_torch.core.device import DeviceLike, cloud
 from h2o_tpu_torch.core.diag import TransferStats
 from h2o_tpu_torch.core.frame import (T_CAT, T_NUM, Frame, Vec,
@@ -70,8 +73,15 @@ COMBINABLE_AGGS = ("min", "max", "mean", "sum", "sd", "var", "nrow",
                    "count")
 
 _BIG = 1 << 30
-_HOST_ROUTE = ("; the reference runs it on its host route "
-               "(rapids/interp.py), which is not ported yet (ROADMAP P12c)")
+_HOST_ROUTE = ("; rapids_exec takes such a frame on its host route "
+               "(h2o_tpu_torch/rapids/interp.py)")
+
+
+def device_munge_enabled() -> bool:
+    """False when ``H2O_TPU_DEVICE_MUNGE`` is ``0``, ``false`` or ``off``:
+    the Rapids munge ops then take their host routes (the reference's
+    parity oracle); the device routes are the default."""
+    return config.device_munge()
 
 
 def mode_device_eligible(fr: Frame, aggs) -> bool:

@@ -38,7 +38,8 @@ expressions the way XLA does:
   block totals scanned the same way (recursively), and each block's
   exclusive prefix added to its in-block sums.  ``torch.cumsum`` on the
   CPU carries its sum wider than float32 and parts from it from the
-  third term on; on CUDA it is a parallel scan.
+  third term on; on CUDA it is a parallel scan.  ``cumprod(x)`` is
+  the same scan with products (``jnp.cumprod``'s order).
 
 All of it is plain tensor code, the same on every device.
 """
@@ -192,24 +193,36 @@ def sum_leading(x: torch.Tensor) -> torch.Tensor:
 _SCAN_BASE = 16
 
 
+def _scan(x: torch.Tensor, op, ident: float) -> torch.Tensor:
+    """XLA's CPU blocked scan of ``op`` along the last axis, ``ident``
+    its identity (see the module docstring)."""
+    n = x.shape[-1]
+    if n <= _SCAN_BASE:
+        parts = [x[..., 0]]
+        for i in range(1, n):
+            parts.append(op(parts[-1], x[..., i]))
+        return torch.stack(parts, dim=-1) if n else x.clone()
+    nb = -(-n // _SCAN_BASE)
+    pad = nb * _SCAN_BASE - n
+    if pad:
+        x = torch.cat([x, x.new_full(x.shape[:-1] + (pad,), ident)], dim=-1)
+    blk = _scan(x.reshape(x.shape[:-1] + (nb, _SCAN_BASE)), op, ident)
+    pre = _scan(blk[..., -1], op, ident)
+    excl = torch.cat([pre.new_full(pre.shape[:-1] + (1,), ident),
+                      pre[..., :-1]], dim=-1)
+    out = op(blk, excl[..., None])
+    return out.reshape(out.shape[:-2] + (nb * _SCAN_BASE,))[..., :n]
+
+
 def cumsum(x: torch.Tensor) -> torch.Tensor:
     """Prefix sums along the last axis in XLA's CPU order (see the module
     docstring), every row at once: ~16 operations a level of the
     recursion.  Built from slices and ``torch.stack``, so autograd
     differentiates it."""
-    n = x.shape[-1]
-    if n <= _SCAN_BASE:
-        parts = [x[..., 0]]
-        for i in range(1, n):
-            parts.append(parts[-1] + x[..., i])
-        return torch.stack(parts, dim=-1) if n else x.clone()
-    nb = -(-n // _SCAN_BASE)
-    pad = nb * _SCAN_BASE - n
-    if pad:
-        x = torch.cat([x, x.new_zeros(x.shape[:-1] + (pad,))], dim=-1)
-    blk = cumsum(x.reshape(x.shape[:-1] + (nb, _SCAN_BASE)))
-    pre = cumsum(blk[..., -1])
-    excl = torch.cat([pre.new_zeros(pre.shape[:-1] + (1,)), pre[..., :-1]],
-                     dim=-1)
-    out = blk + excl[..., None]
-    return out.reshape(out.shape[:-2] + (nb * _SCAN_BASE,))[..., :n]
+    return _scan(x, torch.add, 0.0)
+
+
+def cumprod(x: torch.Tensor) -> torch.Tensor:
+    """Prefix products along the last axis in the order of
+    ``jnp.cumprod`` on the CPU: ``cumsum``'s blocks with products."""
+    return _scan(x, torch.mul, 1.0)
