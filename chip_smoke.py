@@ -130,7 +130,9 @@ prints one JSON line; any failure raises and the exit code is not 0):
               where f0 > 0): KL with 50 trees of depth 10, then ChiSquared
               and Euclidean with 10: K1 one launch a level, AUUC, ATE and
               qini; 2 trees on the first 100,000 rows equal on the card and
-              on the CPU (rates to 1e-6)
+              on the CPU (rates to 1e-6), and a 2-tree KL forest on the
+              first 25,000 rows weighted uniformly in [0.5, 2) (F9: the
+              split's prefix sums in XLA's order on both devices)
  15 ingest and explain: make_data(1,000,000, 28, seed 0) written as two
               headed CSV files of 500,000 rows (9 significant digits, y as
               b/s), then parse_setup and parse_files through the native
@@ -521,6 +523,27 @@ prints one JSON line; any failure raises and the exit code is not 0):
               default 20-tree GBM trained on it (K2 100), its forest
               bitwise that of a GBM on the same frame built by calling
               the verbs directly; every key published in 26 is removed
+ 27 the Rapids interpreter's string, time, date, text, timezone and
+              model ops on phase 26's frame with a seeded 1M-row string
+              column, a categorical of date labels and calendar columns,
+              beside phase 4's GBM and phase 9's DRF and the RuleFit,
+              Word2Vec and segment models of phases 17, 18 and 25
+              (published again): every string op on the string column
+              and on c7 and k7, strlen, as.character and grep, as.Date
+              and the eight time parts, model.reset.threshold (undone),
+              setTimeZone (restored), fairnessMetrics with c7 protected,
+              predicted.vs.actual.by.var, rulefit.predict.rules, the
+              Word2Vec and segment frames, PermutationVarImp at h2o-py's
+              defaults (10,000 rows, seed 7) and makeLeaderboard of the
+              GBM and DRF on 100,000 rows with every extra column, at 1M
+              rows; strDistance (20,000 rows), tokenize, tf-idf,
+              num_valid_substrings, mktime, moment and isax at 100,000;
+              every expression at 100,000 rows on the card and on the
+              CPU, equal; the host ops move no byte, every permutation's
+              drop equals model_metrics called on the same rows, the
+              fairness counts a numpy recount, week of 2021-01-01 is 1;
+              no histogram kernel runs; every key published in 27 is
+              removed
   7 profile - torch.profiler over 2 default trees: device busy share and
               the kernels that take the device time; then 2 QuantilesGlobal
               trees: each histogram kernel's device ms per main-path launch
@@ -703,6 +726,8 @@ UPLIFT_COLS = 12
 UPLIFT_SHAPES = [(1, 20), (64, 20), (512, 20)]
 OUTLIERS, OUTLIER_SHIFT, OUTLIER_COLS = 10_000, 4.0, 3
 UPLIFT_RUNS = (("KL", 50), ("ChiSquared", 10), ("Euclidean", 10))
+#: 14d: the rows of the weighted KL forest held card against CPU (F9)
+UPLIFT_W_ROWS = 25_000
 EIF_LEVELS = (0, C - 1)
 #: phase 15: the CSV files make_data(R) is written to, the rows explained
 #: and the training AUC of the default GBM on 1M x 28 (phase 4)
@@ -1465,6 +1490,26 @@ def phase_family(X, y, fr: Frame, paths) -> Frame:
     if not all(eq.values()) or diff > 1e-6:
         raise AssertionError(f"UpliftDRF: card and CPU differ {eq}, rates "
                              f"{diff}")
+    # F9: weighted rows, whose sums are fractional and round by their
+    # order (the split's prefix sums are xlamath.cumsum on both devices)
+    sub_w = fr_u.slice_rows(slice(0, UPLIFT_W_ROWS))
+    sub_w.add("w", Vec(np.random.default_rng(17).uniform(
+        0.5, 2.0, sub_w.nrows).astype(np.float32)))
+    kw_w = dict(kw, uplift_metric="KL", weights_column="w")
+    g, wall_g = fit(UpliftDRF, sub_w, device="cuda", **kw_w)
+    c, wall_c = fit(UpliftDRF, sub_w, device="cpu", **kw_w)
+    eq = {k: bool(np.array_equal(g.output[k], c.output[k]))
+          for k in ("split_col", "bitset", "child")}
+    diff = max(float(np.abs(g.output[k] - c.output[k]).max())
+               for k in ("val_t", "val_c"))
+    emit(dict(phase="upliftdrf_weighted_cuda_vs_cpu", rows=UPLIFT_W_ROWS,
+              ntrees=2, metric="KL", weights="uniform [0.5, 2)", equal=eq,
+              rates_max_abs_diff=diff, card_wall_s=wall_g,
+              cpu_wall_s=wall_c,
+              splits=int((g.output["split_col"] >= 0).sum())))
+    if not all(eq.values()) or diff > 1e-6:
+        raise AssertionError(f"weighted UpliftDRF: card and CPU differ {eq}"
+                             f", rates {diff}")
     return fr_u
 
 
@@ -2462,7 +2507,7 @@ def phase_gam(fr: Frame, yt: torch.Tensor, paths) -> None:
         raise AssertionError(f"GAM: card and CPU differ {rec}")
 
 
-def phase_rulefit(fr: Frame, paths) -> None:
+def phase_rulefit(fr: Frame, paths):
     """17d: RuleFit at its defaults: K1 carries every level of the rule
     trees; where the wall goes (the rule trees, the rule frame, the L1
     GLM); card against CPU."""
@@ -2530,10 +2575,12 @@ def phase_rulefit(fr: Frame, paths) -> None:
     if names_g != names_c or not rec["descriptions_equal"] or \
             d_beta > RULEFIT_ATOL:
         raise AssertionError(f"RuleFit: card and CPU differ {rec}")
+    return m
 
 
-def phase_more(X, fr: Frame, paths) -> None:
-    """17: KMeans, DeepLearning, GAM and RuleFit."""
+def phase_more(X, fr: Frame, paths):
+    """17: KMeans, DeepLearning, GAM and RuleFit; returns the RuleFit
+    model, which phase 27 reads."""
     yt = torch.from_numpy(fr.vec("y").as_float()).to(DEV)
     t0 = time.perf_counter()
     phase_kmeans(X, fr, paths)
@@ -2542,11 +2589,12 @@ def phase_more(X, fr: Frame, paths) -> None:
     t2 = time.perf_counter()
     phase_gam(fr, yt, paths)
     t3 = time.perf_counter()
-    phase_rulefit(fr, paths)
+    rf = phase_rulefit(fr, paths)
     t4 = time.perf_counter()
     emit(dict(phase="phase17_walls", kmeans_s=t1 - t0,
               deeplearning_s=t2 - t1, gam_s=t3 - t2, rulefit_s=t4 - t3,
               total_s=t4 - t0))
+    return rf
 
 
 #: 18: the decompositions, GLRM, Word2Vec, NaiveBayes and CoxPH.  PCA's
@@ -2808,7 +2856,7 @@ class W2VProbe:
         w2v_mod.sgns_step = self._orig
 
 
-def phase_word2vec(paths) -> None:
+def phase_word2vec(paths):
     """18c: Word2Vec at the reference's defaults on a 1M-token Zipf
     corpus, 2 epochs; one device step timed; card against CPU."""
     fr_w = Frame(["tokens"], [Vec(zipf_tokens(W2V_TOKENS, W2V_TYPES,
@@ -2873,6 +2921,7 @@ def phase_word2vec(paths) -> None:
     emit(rec)
     if not (rec["vocab_equal"] and same_inputs) or first > 1.0:
         raise AssertionError(f"Word2Vec: card and CPU differ {rec}")
+    return m
 
 
 def label_check(name, g_raw, c_raw) -> dict:
@@ -3072,9 +3121,10 @@ def phase_coxph(X, paths) -> None:
             raise AssertionError(f"CoxPH {ties}: card and CPU differ {rec}")
 
 
-def phase_slice10(X, fr: Frame, paths) -> None:
+def phase_slice10(X, fr: Frame, paths):
     """18: PCA, SVD, GLRM, Word2Vec, NaiveBayes and CoxPH (no histogram
-    kernel: each run's counters and the phase's total must read 0)."""
+    kernel: each run's counters and the phase's total must read 0);
+    returns the Word2Vec model, which phase 27 reads."""
     cov = make_covertype(seed=0, categorical=True)
     total = list(hist_launches())
     reset = hk.reset_launches
@@ -3094,7 +3144,7 @@ def phase_slice10(X, fr: Frame, paths) -> None:
         t.append(time.perf_counter())
         phase_glrm(X, paths)
         t.append(time.perf_counter())
-        phase_word2vec(paths)
+        w2v = phase_word2vec(paths)
         t.append(time.perf_counter())
         phase_naive_bayes(fr, cov, paths)
         t.append(time.perf_counter())
@@ -3109,6 +3159,7 @@ def phase_slice10(X, fr: Frame, paths) -> None:
               glrm_s=t[2] - t[1], word2vec_s=t[3] - t[2],
               naivebayes_s=t[4] - t[3], coxph_s=t[5] - t[4],
               total_s=t[5] - t[0], k1_launches=got[0], k2_launches=got[1]))
+    return w2v
 
 
 #: 19: IsotonicRegression, Aggregator, TargetEncoder, ModelSelection,
@@ -5898,7 +5949,7 @@ def grid_25a(fr: Frame, paths) -> int:
     return len(g.models) + len(par.models) + len(rnd.models) + len(alone)
 
 
-def segments_25b(X, y, paths) -> int:
+def segments_25b(X, y, paths):
     """25b: one 10-tree GBM a level of a 7-level categorical, as a job;
     each against a GBM trained alone on its rows; an empty segment."""
     from h2o_tpu_torch.core.job import DONE, Job, jobs
@@ -5956,7 +6007,7 @@ def segments_25b(X, y, paths) -> int:
               rows_per_segment=np.bincount(seg).tolist(), holds=holds))
     if not all(holds.values()):
         raise AssertionError(f"25b: {holds}")
-    return SEG_LEVELS * 2
+    return sm
 
 
 def automl_25c(fr: Frame, paths) -> int:
@@ -6029,19 +6080,20 @@ def automl_25c(fr: Frame, paths) -> int:
     return len(rows)
 
 
-def phase_slice19(X, y, fr: Frame, paths) -> None:
+def phase_slice19(X, y, fr: Frame, paths):
     """25: grid search, segment models, the leaderboard and AutoML; every
     key published here removed at the end, the store back to its keys
-    before the phase."""
+    before the phase.  Returns 25b's segment models, which phase 27
+    reads."""
     from h2o_tpu_torch.core.store import dkv
     before = set(dkv().keys())
-    walls = {}
+    walls, out = {}, {}
     for name, fn in (("25a", lambda: grid_25a(fr, paths)),
                      ("25b", lambda: segments_25b(X, y, paths)),
                      ("25c", lambda: automl_25c(fr, paths))):
         k0 = set(dkv().keys())
         t0 = time.perf_counter()
-        fn()
+        out[name] = fn()
         walls[name] = dict(wall_s=time.perf_counter() - t0,
                            keys_published=len(set(dkv().keys()) - k0))
     published = sorted(set(dkv().keys()) - before)
@@ -6054,6 +6106,7 @@ def phase_slice19(X, y, fr: Frame, paths) -> None:
               store_restored=restored))
     if not restored:
         raise AssertionError("25: the DKV is not back to its keys")
+    return out["25b"]
 
 
 # -- 26: the Rapids interpreter -----------------------------------------------
@@ -6419,9 +6472,10 @@ def rapids_26c(f: Frame, smi: str, paths) -> None:
         g.vec("y").domain == ["0", "1"])
 
 
-def phase_slice20(X, y, fr: Frame, smi: str, paths) -> None:
+def phase_slice20(X, y, fr: Frame, smi: str, paths) -> Frame:
     """26: the Rapids interpreter on the card; every key published here
-    removed at the end, the store back to its keys before the phase."""
+    removed at the end, the store back to its keys before the phase.
+    Returns 26's frame, which phase 27 reads."""
     from h2o_tpu_torch.core.store import dkv
     before = set(dkv().keys())
     t = [time.perf_counter()]
@@ -6445,6 +6499,360 @@ def phase_slice20(X, y, fr: Frame, smi: str, paths) -> None:
               **{f"{n}_s": b - a for n, a, b in zip(names, t, t[1:])}))
     if not restored:
         raise AssertionError("26: the DKV is not back to its keys")
+    return f
+
+
+# -- 27: the Rapids interpreter's string, time, date, text and model ops -----
+
+#: phase 27: the rows of the cut runs (tokenize, tf-idf,
+#: num_valid_substrings, mktime, moment, isax) and of the card-vs-CPU
+#: holds, and of strDistance (its dynamic programs are Python loops, as
+#: the reference's); the seeded string column's parts and its share of
+#: one-off ids;
+#: h2o-py's PermutationVarImp defaults (n_samples, seed); isax's words and
+#: cardinality over 28 points a series; the rules rulefit.predict.rules
+#: reads
+R27_CUT_ROWS, R27_DIST_ROWS = 100_000, 20_000
+R27_PARTS = ("alpha", "Beta", "gamma", "ß", "délta", "e-f", " pad ", "x,y",
+             "", "Zeta")
+R27_IDS = 0.1
+PVI_SAMPLES, PVI_SEED = 10_000, 7
+ISAX_WORDS, ISAX_CARD = 4, 8
+R27_RULES = 5
+
+
+def string_columns(rows: int, seed: int = 61) -> dict:
+    """A seeded string column ``s`` ("<part>-<part> <part>", a tenth of
+    the rows one-off ids, 1 % NA and 1 % empty), a short second one
+    ``s2``, a categorical ``dd`` of date labels (2000-2023, with a bad
+    label and 2021-02-29), and the numeric year, month and day columns
+    mktime and moment read."""
+    rng = np.random.default_rng(seed)
+    parts = np.asarray(R27_PARTS)
+    a, b, c = (parts[rng.integers(0, len(parts), rows)] for _ in range(3))
+    s = np.char.add(np.char.add(np.char.add(a, "-"), b),
+                    np.char.add(" ", c)).astype(object)
+    ids = rng.uniform(size=rows) < R27_IDS
+    s[ids] = np.char.add("id_", rng.integers(0, 10 ** 6, int(ids.sum()))
+                         .astype(str))
+    u = rng.uniform(size=rows)
+    s[u < 0.01] = None
+    s[(u >= 0.01) & (u < 0.02)] = ""
+    s2 = np.asarray(("alpha", "Beta", "gam", "", "x-y", "id_7"),
+                    object)[rng.integers(0, 6, rows)]
+    days = np.arange(np.datetime64("2000-01-01"), np.datetime64("2024-01-01"))
+    dom = sorted([str(d) for d in days] + ["bad", "2021-02-29"])
+    dd = rng.integers(-1, len(dom), rows).astype(np.int32)
+    yy = rng.integers(1960, 2030, rows).astype(np.float32)
+    mo = rng.integers(0, 13, rows).astype(np.float32)
+    dy = rng.integers(0, 31, rows).astype(np.float32)
+    yy[rng.uniform(size=rows) < 0.01] = np.nan
+    return {"s": Vec(s.tolist(), T_STR), "s2": Vec(s2.tolist(), T_STR),
+            "dd": Vec(dd, T_CAT, domain=dom), "yy": Vec(yy),
+            "mo": Vec(mo), "dy": Vec(dy)}
+
+
+def r27_frame(f: Frame) -> Frame:
+    """Phase 26's frame with phase 27's string, date and calendar
+    columns."""
+    out = Frame(list(f.names), list(f.vecs))
+    for n, v in string_columns(f.nrows).items():
+        out.add(n, v)
+    return out
+
+
+def r27_expressions(rf_ids: list, words: str) -> tuple:
+    """(full width, cut) lists of (name, expression, kind): ``host`` ops
+    must move no byte, ``model`` ops score on the card.  Keys: {f} the
+    frame, {g} its first R27_DIST_ROWS rows, {d} its dates as a time
+    frame, {p} m_def's predictions,
+    {lb} the leaderboard frame, {gbm} {drf} {rf} {w2v} {seg} the
+    models."""
+    full = []
+    for col in ("s", "c7", "k7"):
+        c = f"(cols {{f}} '{col}')"
+        for op, args in (("toupper", ""), ("tolower", ""), ("trim", ""),
+                         ("nchar", ""), ("length", ""),
+                         ("substring", " 1 4"),
+                         ("replacefirst", " 'a' 'A'"), ("sub", " 'l+' '_'"),
+                         ("replaceall", " '[aeiou]' ''"),
+                         ("gsub", r" '(\w)-(\w)' '\2=\1'"),
+                         ("strsplit", " '-'"), ("countmatches", " 'a'"),
+                         ("lstrip", " ' a'"), ("rstrip", "")):
+            full.append((f"{op}_{col}", f"({op} {c}{args})", "host"))
+        full += [(f"strlen_{col}", f"(strlen {c})", "host"),
+                 (f"as_character_{col}", f"(as.character {c})", "host"),
+                 (f"grep_{col}", f"(grep {c} 'a' 1 0 1)", "host")]
+    full += [("as_character_x0", "(as.character (cols {f} 'x0'))", "host"),
+             ("is_character", "(is.character {f})", "host"),
+             ("as_date", "(tmp= {d} (as.Date (cols {f} 'dd') "
+              "'yyyy-MM-dd'))", "host")]
+    full += [(op, f"({op} {{d}})", "host") for op in (
+        "year", "month", "day", "dayOfWeek", "hour", "minute", "second",
+        "week")]
+    full += [("grep_dates", "(grep (cols {f} 'dd') '-02-29$' 0 0 0)",
+              "host"),
+             ("grep_dates_logical", "(grep (cols {f} 'dd') '^20(0|1)' 1 1 1)",
+              "host"),
+             ("list_timezones", "(listTimeZones)", "host"),
+             ("fairness", '(fairnessMetrics {gbm} {f} ["c7"] ["k0"] "s")',
+              "model"),
+             ("pred_vs_actual", "(predicted.vs.actual.by.var {gbm} {f} 'c7' "
+              "{p})", "model"),
+             ("predict_rules", "(rulefit.predict.rules {rf} {f} [%s])" %
+              ", ".join(f'"{r}"' for r in rf_ids), "model"),
+             ("word2vec_frame", "(word2vec.to.frame {w2v})", "model"),
+             ("segments_frame", "(segment_models_as_frame {seg})", "model"),
+             ("permutation_varimp", '(PermutationVarImp {gbm} {f} "AUTO" '
+              f'{PVI_SAMPLES} 1 None {PVI_SEED})', "model"),
+             ("leaderboard", '(makeLeaderboard ["{gbm}", "{drf}"] "{lb}" '
+              '"AUTO" "ALL" "AUTO")', "model")]
+    cut = [(f"str_distance_{m}", f'(strDistance (cols {{g}} \'s\') '
+            f'(cols {{g}} \'s2\') "{m}" {e})', "host")
+           for m, e in (("lv", "True"), ("lcs", "False"),
+                        ("jaccard", "True"))]
+    cut += [("tokenize", "(tokenize (cols {f} ['s', 's2']) ' ')", "host"),
+            ("tf_idf", "(tf-idf (cols {f} ['k7n', 's']) 0 1 True False)",
+             "host"),
+            ("num_valid_substrings",
+             f"(num_valid_substrings (cols {{f}} 's') \"{words}\")", "host"),
+            ("mktime", "(mktime (cols {f} 'yy') (cols {f} 'mo') "
+             "(cols {f} 'dy') 13 30 15 250)", "host"),
+            ("moment", "(moment (cols {f} 'yy') (cols {f} 'mo') "
+             "(cols {f} 'dy') 0 0 0 0)", "host"),
+            ("isax", f"(isax (cols {{f}} [0:28]) {ISAX_WORDS} {ISAX_CARD} "
+             "False)", "host")]
+    return full, cut
+
+
+def r27_run(exprs, keys: dict, device) -> dict:
+    """{name: (answer, wall s, bytes to the device, bytes to the host)} of
+    each expression in order on a session on ``device``; the wall ends in
+    a synchronize on the card."""
+    sess = RapidsSession(f"rapids27_{keys['f']}", device=device)
+    out = {}
+    for name, expr, _kind in exprs:
+        TransferStats.reset()
+        sync()
+        t0 = time.perf_counter()
+        res = rapids_exec(expr.format(**keys), sess)
+        sync()
+        moved = TransferStats.snapshot()
+        out[name] = (res, time.perf_counter() - t0, moved["to_device"],
+                     moved["to_host"])
+    return out
+
+
+def r27_diff(a, b) -> list:
+    """``rapids_diff`` with strings compared by value and a leaderboard's
+    prediction times left out (each run's own clock)."""
+    if isinstance(a, str) or isinstance(b, str):
+        return [] if a == b else ["<str>"]
+    if isinstance(a, Frame) and "predict_time_per_row_ms" in a.names:
+        keep = [n for n in a.names if n != "predict_time_per_row_ms"]
+        a = a.subframe(keep)
+        b = b.subframe(keep) if isinstance(b, Frame) else b
+    return rapids_diff(a, b)
+
+
+def pvi_direct(m, f: Frame) -> tuple:
+    """PermutationVarImp's draws in its order on the same generator, each
+    metric by ``model_metrics`` called directly: (base, metric name,
+    {column: drop}, [base, then each shuffle's metric])."""
+    from h2o_tpu_torch.models.score_keeper import (is_maximizing,
+                                                   resolve_stopping_metric)
+    rng = np.random.default_rng(PVI_SEED)
+    idx = np.sort(rng.choice(f.nrows, size=PVI_SAMPLES, replace=False))
+    work = f.slice_rows(idx)
+    mm_ = m.model_metrics(work)
+    name = resolve_stopping_metric("AUTO", mm_.kind)
+    base = float(mm_[name])
+    drops, seen = {}, [base]
+    for c in m.output["x"]:
+        j = work.names.index(c)
+        v = work.vecs[j]
+        arr = v.to_numpy()[rng.permutation(work.nrows)]
+        shuf = Frame(list(work.names), list(work.vecs))
+        shuf.vecs[j] = Vec(np.asarray(arr, np.int32), T_CAT,
+                           domain=list(v.domain)) if v.is_categorical \
+            else Vec(np.asarray(arr, np.float32), v.type)
+        pv = float(m.model_metrics(shuf)[name])
+        seen.append(pv)
+        d = (base - pv) if is_maximizing(name) else (pv - base)
+        drops[c] = max(d, 0.0)
+    return base, name, drops, seen
+
+
+def fairness_recount(m, f: Frame) -> dict:
+    """numpy's confusion counts of ``m``'s labels (``predict_raw``)
+    against y for each level of c7: {level: (tp, fp, fn, tn)}."""
+    lab = m.predict_raw(f)[:, 0].cpu().numpy().astype(np.int64) == 1
+    act = f.vec("y").to_numpy().astype(np.int64) == 1
+    g = f.vec("c7").to_numpy()
+    out = {}
+    for k, lv in enumerate(f.vec("c7").domain):
+        sel = g == k
+        out[lv] = tuple(int(x.sum()) for x in (
+            sel & lab & act, sel & lab & ~act, sel & ~lab & act,
+            sel & ~lab & ~act))
+    return out
+
+
+def phase_slice21(f26: Frame, smi: str, m_def, m_drf, models: dict) -> None:
+    """27: the string, time, date, text, timezone and model ops of the
+    Rapids interpreter, on phase 26's frame with a seeded string column,
+    a categorical of date labels and calendar columns; the models of
+    phases 4, 9, 17, 18 and 25 published again beside it.  Every key
+    published here is removed at the end and the store is back to its
+    keys; no histogram kernel runs."""
+    from h2o_tpu_torch.core import device as devmod
+    from h2o_tpu_torch.core.store import dkv
+    before = set(dkv().keys())
+    hk.reset_launches()
+    t = [time.perf_counter()]
+    f = r27_frame(f26)
+    sub = f.slice_rows(slice(0, R27_CUT_ROWS))
+    rf, w2v, seg = models["rulefit"], models["word2vec"], models["segments"]
+    for m in (m_def, m_drf, rf, w2v):
+        dkv().put(str(m.key), m)
+    dkv().put(str(seg.key), seg)
+    rf_ids = [str(r[0]) for r in rf.output["rule_importance"]
+              if not str(r[0]).startswith("linear")][:R27_RULES]
+    tmp = tempfile.mkdtemp(prefix="p27_")
+    words = os.path.join(tmp, "words.txt")
+    with open(words, "w") as fh:
+        fh.write("\n".join(R27_PARTS[:6] + ("a", "pad", "id_1", "Zet")))
+    full, cut = r27_expressions(rf_ids, words)
+    base = dict(gbm=str(m_def.key), drf=str(m_drf.key), rf=str(rf.key),
+                w2v=str(w2v.key), seg=str(seg.key))
+
+    def keys(tag, fr):
+        k = dict(base, f=f"f27_{tag}", g=f"g27_{tag}", d=f"d27_{tag}",
+                 p=f"p27_{tag}", lb="lb27")
+        dkv().put(k["f"], fr)
+        dkv().put(k["g"], fr.slice_rows(slice(0, R27_DIST_ROWS)))
+        dkv().put(k["p"], m_def.predict(fr))
+        return k
+
+    dkv().put("lb27", f.slice_rows(slice(0, R27_CUT_ROWS)))
+    # the reference's week of 2021-01-01 is 1 (the ISO week is 53)
+    dkv().put("wk27", Frame(["d"], [Vec(np.zeros(1, np.int32), T_CAT,
+                                        domain=["2021-01-01"])]))
+    t.append(time.perf_counter())
+    # the client's model.reset_threshold, undone
+    had = "default_threshold" in m_def.output
+    thr0 = m_def.output.get("default_threshold")
+    sess = RapidsSession("rapids27_thr", device=DEV)
+    old = rapids_exec(f"(model.reset.threshold {m_def.key} 0.75)", sess)
+    moved_to = m_def.output.get("default_threshold")
+    rapids_exec(f"(model.reset.threshold {m_def.key} 0.5)", sess)
+    if had:
+        m_def.output["default_threshold"] = thr0
+    else:
+        m_def.output.pop("default_threshold")
+    # setTimeZone, set and restored
+    tz0 = devmod.timezone()
+    tz = [rapids_exec("(getTimeZone)", sess),
+          rapids_exec('(setTimeZone "Asia/Kolkata")', sess),
+          rapids_exec("(getTimeZone)", sess)]
+    devmod._timezone = tz0
+    tz_ok = tz == [tz0 or "UTC", "Asia/Kolkata", "Asia/Kolkata"] and \
+        devmod.timezone() == tz0
+    t.append(time.perf_counter())
+    # every metric PermutationVarImp's op reads (its frames hold
+    # PVI_SAMPLES rows), in the order it reads them
+    scored_pvi = []
+    metrics_fn = m_def.model_metrics
+
+    def spy(frame):
+        mm_ = metrics_fn(frame)
+        if frame.nrows == PVI_SAMPLES:
+            scored_pvi.append(mm_)
+        return mm_
+
+    m_def.model_metrics = spy
+    try:
+        card = r27_run(full, keys("card", f), DEV)
+    finally:
+        del m_def.model_metrics
+    t.append(time.perf_counter())
+    k_sub = keys("card_sub", sub)
+    card_sub = r27_run(full + cut, k_sub, DEV)
+    t.append(time.perf_counter())
+    cpu_sub = r27_run(full + cut, keys("cpu_sub", sub), "cpu")
+    t.append(time.perf_counter())
+    for name, expr, kind in full:
+        out, wall, up, down = card[name]
+        emit(dict(phase="27_rapids", gpu=smi, name=name, expr=expr,
+                  kind=kind, rows=f.nrows, wall_s=wall,
+                  rows_out=out.nrows if isinstance(out, Frame) else None,
+                  to_device_bytes=up, to_host_bytes=down))
+    for name, expr, kind in cut:
+        out, wall, up, down = card_sub[name]
+        emit(dict(phase="27_rapids_cut", gpu=smi, name=name, expr=expr,
+                  kind=kind, rows=R27_DIST_ROWS if "{g}" in expr
+                  else sub.nrows, wall_s=wall,
+                  rows_out=out.nrows if isinstance(out, Frame) else None,
+                  to_device_bytes=up, to_host_bytes=down))
+    moved = sorted(n for n, _e, k in full + cut if k == "host" and
+                   any((card if n in card else card_sub)[n][2:]))
+    differ = {n: d for n, _e, _k in full + cut
+              if (d := r27_diff(card_sub[n][0], cpu_sub[n][0]))}
+    base_m, metric, drops, seen = pvi_direct(m_def, f)
+    pvi = card["permutation_varimp"][0]
+    rel = dict(zip((pvi.vecs[0].domain[c] for c in pvi.vecs[0].data),
+                   pvi.vec("Relative Importance").data))
+    pvi_ok = set(rel) == set(drops) and all(
+        bits_equal(np.float32(drops[c]), rel[c]) for c in drops) and \
+        bits_equal(np.asarray([float(mm_[metric]) for mm_ in scored_pvi]),
+                   np.asarray(seen))
+    fm = card["fairness"][0]
+    counts = fairness_recount(m_def, f)
+    fm_ok = all(counts[fm.vec("c7").domain[g]] == tuple(
+        int(fm.vec(k).data[i]) for k in ("tp", "fp", "fn", "tn"))
+        for i, g in enumerate(fm.vec("c7").data)) and \
+        fm.nrows == len(counts)
+    lb = card["leaderboard"][0]
+    pt = lb.vec("predict_time_per_row_ms").data
+    holds = dict(
+        host_ops_move_nothing=not moved,
+        card_equals_cpu=not differ,
+        permutation_metrics_and_drops_bitwise=pvi_ok,
+        fairness_counts=fm_ok,
+        threshold_reset=float(old.vecs[0].data[0]) ==
+        float(np.float32(thr0 if had else 0.5)) and moved_to == 0.75 and
+        m_def.output.get("default_threshold") == thr0,
+        timezone_set_and_restored=tz_ok,
+        leaderboard=lb.nrows == 2 and bool(np.isfinite(pt).all()) and
+        bool((pt > 0).all()),
+        word2vec_rows=card["word2vec_frame"][0].nrows ==
+        len(w2v.output["words"]),
+        segment_rows=card["segments_frame"][0].nrows == len(seg.rows),
+        week_2021_01_01=float(rapids_exec(
+            "(week (as.Date wk27 'yyyy-MM-dd'))", sess).vecs[0].data[0])
+        == 1.0)
+    got = hist_launches()
+    t.append(time.perf_counter())
+    published = sorted(set(dkv().keys()) - before)
+    for k in published:
+        dkv().remove(k, force=True)
+    restored = set(dkv().keys()) == before
+    os.remove(words)
+    os.rmdir(tmp)
+    names = ("frames", "threshold_timezone", "full_width", "card_sub",
+             "cpu_sub", "holds")
+    rec = dict(rows=f.nrows, cut_rows=sub.nrows, holds=holds,
+               differ=differ, moved=moved, pvi_metric=metric,
+               pvi_base=base_m, fairness_groups=fm.nrows,
+               leaderboard_ms_per_row=pt.tolist(),
+               reduced={n: R27_DIST_ROWS if "{g}" in e else sub.nrows
+                        for n, e, _k in cut},
+               k1_launches=got[0], k2_launches=got[1],
+               keys_published=len(published), store_restored=restored,
+               total_s=t[-1] - t[0],
+               **{f"{n}_s": b - a for n, a, b in zip(names, t, t[1:])})
+    dp_hold("phase27", smi, rec, all(holds.values()) and restored and
+            got == (0, 0))
 
 
 def unpublish(before: set) -> None:
@@ -6681,11 +7089,11 @@ def main() -> None:
     unpublish(base_keys)
     # -- 17 KMeans, DeepLearning, GAM, RuleFit --------------------------------
     torch.cuda.empty_cache()
-    phase_more(X, fr, paths)
+    rf = phase_more(X, fr, paths)
     unpublish(base_keys)
     # -- 18 PCA, SVD, GLRM, Word2Vec, NaiveBayes, CoxPH -----------------------
     torch.cuda.empty_cache()
-    phase_slice10(X, fr, paths)
+    w2v = phase_slice10(X, fr, paths)
     unpublish(base_keys)
     # -- 19 IsotonicRegression .. Grep ----------------------------------------
     torch.cuda.empty_cache()
@@ -6713,11 +7121,17 @@ def main() -> None:
     unpublish(base_keys)
     # -- 25 grid search, segments, the leaderboard, AutoML -----------------
     torch.cuda.empty_cache()
-    phase_slice19(X, y, fr, paths)
+    seg = phase_slice19(X, y, fr, paths)
     unpublish(base_keys)
     # -- 26 the Rapids interpreter -------------------------------------------
     torch.cuda.empty_cache()
-    phase_slice20(X, y, fr, smi, paths)
+    f26 = phase_slice20(X, y, fr, smi, paths)
+    unpublish(base_keys)
+    # -- 27 the string, time, date, text and model ops of Rapids ------------
+    torch.cuda.empty_cache()
+    phase_slice21(f26, smi, m_def, m_drf,
+                  dict(rulefit=rf, word2vec=w2v, segments=seg))
+    del f26
     emit(dict(phase="launches", paths={k: dict(k1=v[0], k2=v[1])
                                        for k, v in paths.items()}))
     sync()

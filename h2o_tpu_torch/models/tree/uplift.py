@@ -84,8 +84,9 @@ def find_uplift_splits(hist: torch.Tensor, col_allowed: torch.Tensor,
     L, C, B1, _ = hist.shape
     B = B1 - 1
     dev = hist.device
-    cwt, cwty, cwc, cwcy = (torch.cumsum(hist[..., :B, k], dim=2)
-                            for k in range(4))
+    # the bins are the last axis of each (L, C, B) slot: XLA's scan order
+    # (``jnp.cumsum``'s) on every device, so weighted sums round alike
+    cwt, cwty, cwc, cwcy = (xm.cumsum(hist[..., :B, k]) for k in range(4))
     nat = [hist[..., B, k] for k in range(4)]
     tot = (cwt[..., -1] + nat[0], cwty[..., -1] + nat[1],
            cwc[..., -1] + nat[2], cwcy[..., -1] + nat[3])

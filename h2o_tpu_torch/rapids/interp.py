@@ -1,5 +1,5 @@
 """Rapids — the dataframe expression language behind ``POST /3/Rapids``:
-a port of the first half of ``h2o_tpu/rapids/interp.py``.
+a port of ``h2o_tpu/rapids/interp.py`` but its long tail of prims.
 
 Clients (h2o-py's ``expr.py``, R) send Lisp-style strings such as
 ``(tmp= t1 (mean (cols frame 'x')))``; the interpreter parses them and
@@ -10,9 +10,15 @@ temporaries in the DKV.  Reference map: the parser ``_TOKEN`` ..
 :193-255, ``_reduce_all`` :257-267, ``_col_indices`` / ``_lit``
 :270-287, ``_row_select`` and its host routes :297-348; the op tables
 :362-404; ``_eval`` :415-735; the cumulative ops :745-748; sort, merge,
-group-by and table :751-1099; ``_update`` and ``_impute`` :1234-1320;
-``op_names`` :2994-3014; ``_normalize_numpy_reprs`` and ``rapids_exec``
-:3017-3063.
+group-by and table :751-1099; the string ops and time parts
+:1101-1232; ``_update`` and ``_impute`` :1234-1320; ``_labels_of``
+:1353-1363; ``as.Date``, ``mktime`` and ``moment`` :1473-1537;
+``grep`` and ``strlen`` :1592-1619; ``_numlist_vals`` / ``_mixed_list``
+:1953-1977; ``as.character`` and ``is.character`` :1994-2013;
+``strDistance``, ``tokenize`` and the timezone ops :2271-2369;
+``num_valid_substrings`` .. ``tf-idf`` :2449-2584; ``_model_arg`` and
+the model ops :2587-2916; ``op_names`` :2994-3014;
+``_normalize_numpy_reprs`` and ``rapids_exec`` :3017-3063.
 
 Frames stay on the host (``core/frame.py``).  An elementwise op, ``ifelse``
 and a cumulative op upload the columns they read once, as one float32
@@ -41,9 +47,20 @@ as in the reference.  The reference's ``_dense`` repacks a frame whose
 rows are spread over shards as ragged prefixes; one device holds no such
 frame, so it has no counterpart here.
 
-The string ops, the time parts and the long tail of prims (``_STROPS``,
-``_time_part``, ``_EXTRA_OPS``: :1101-1233, :1328-2992) are not ported
-yet: each raises ``NotImplementedError`` naming ROADMAP P12c-ii.
+The string ops, the time parts, the date and text ops and the timezone
+ops run on the host, in numpy and Python, as the reference runs them:
+they move nothing to or from the device.  A categorical is worked on
+once a level where the answer is a function of the label (its domain
+rewritten, merging labels that collide, or a per-level value gathered
+by code), and a string column once a distinct string.  ``week`` is the
+reference's dispatch: ``(day of year) // 7 + 1``, not the ISO week of
+its ``_op_week``, which its ``_eval`` never reaches.  The model ops read
+models from ``core.store.dkv()`` and score on each model's own device
+through ``predict_raw`` and ``model_metrics``; their bookkeeping is on
+the host, with dicts where the reference looks codes up with
+``list.index`` (the same codes).  The rest of the prims
+(``_EXTRA_OPS``'s long tail) raise ``NotImplementedError`` naming ROADMAP
+P12c-ii.
 
 Where the port's answer differs from the reference's: a binary op on two
 numbers gives a Python float (the reference returns a jax scalar, and its
@@ -60,7 +77,8 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from h2o_tpu_torch.core.device import DeviceLike, cloud
+from h2o_tpu_torch.core.device import (DeviceLike, cloud, set_timezone,
+                                       timezone)
 from h2o_tpu_torch.core.diag import TransferStats
 from h2o_tpu_torch.core.frame import (T_CAT, T_NUM, T_STR, T_TIME, Frame,
                                       Vec, frame_device_ok)
@@ -509,30 +527,23 @@ def _row_select_host(fr: Frame, idx: np.ndarray) -> Frame:
 
 _REDUCERS = ("mean", "sum", "min", "max", "sd", "var", "median")
 
-# the ops of the second interpreter slice (ROADMAP P12c-ii): the string
-# ops, the time parts and the reference's _EXTRA_OPS
 _STROPS = ("toupper", "tolower", "trim", "nchar", "length", "substring",
            "replacefirst", "replaceall", "sub", "gsub", "strsplit",
            "countmatches", "lstrip", "rstrip")
 _TIME_PARTS = ("year", "month", "day", "dayOfWeek", "hour", "minute",
                "second", "week")
-_EXTRA_OPS = (
-    "tf-idf", "segment_models_as_frame", "makeLeaderboard",
-    "model.reset.threshold", "PermutationVarImp",
-    "predicted.vs.actual.by.var", "fairnessMetrics", "isax", "not",
-    "as.character", "is.character", "any.factor", "any.na", "match", "cor",
-    "cut", "entropy", "columnsByType", "filterNACols", "ls", "getrow",
-    "flatten", "rep_len", "t", "sumaxis", "strDistance", "tokenize",
-    "listTimeZones", "setTimeZone", "getTimeZone", "setDomain",
-    "appendLevels", "relevel.by.freq", "week", "num_valid_substrings",
-    "word2vec.to.frame", "rulefit.predict.rules", "scale", "hist",
-    "h2o.runif", "kfold_column", "modulo_kfold_column",
-    "stratified_kfold_column", "as.Date", "mktime", "moment", "which.max",
-    "which.min", "topn", "grep", "strlen", "h2o.fillna", "fillna",
-    "skewness", "kurtosis", "dropdup", "distance", "melt", "pivot",
-    "rank_within_groupby", "apply", "setLevel", "relevel", "difflag1",
-    "prod", "prod.na", "any", "all")
-_LATER = frozenset(_STROPS + _TIME_PARTS + _EXTRA_OPS)
+
+# the long tail of the reference's _EXTRA_OPS, not ported yet (ROADMAP
+# P12c-ii-b): each raises NotImplementedError naming P12c-ii
+_LATER = frozenset((
+    "not", "any.factor", "any.na", "match", "cor", "cut", "entropy",
+    "columnsByType", "filterNACols", "ls", "getrow", "flatten", "rep_len",
+    "t", "sumaxis", "setDomain", "appendLevels", "relevel.by.freq",
+    "scale", "hist", "h2o.runif", "kfold_column", "modulo_kfold_column",
+    "stratified_kfold_column", "which.max", "which.min", "topn",
+    "h2o.fillna", "fillna", "skewness", "kurtosis", "dropdup", "distance",
+    "melt", "pivot", "rank_within_groupby", "apply", "setLevel", "relevel",
+    "difflag1", "prod", "prod.na", "any", "all"))
 
 # every op name _eval dispatches besides the op tables
 _NAMED_OPS = (
@@ -708,6 +719,10 @@ def _eval(node, env: _Env):
         x = torch.where(torch.isnan(m),
                         torch.full_like(m, _CUM_IDENT[op]), m)
         return _numeric_frame(fr.names, _download(_CUMOPS[op](x)))
+    if op in _STROPS:
+        return _string_op(op, node, env)
+    if op in _TIME_PARTS:
+        return _time_part(op, node, env)
     if op == "na.omit":
         return _na_omit(_as_frame(_eval(node[1], env)), env.dev)
     if op == "naCnt":
@@ -739,10 +754,12 @@ def _eval(node, env: _Env):
         return out
     if op == "h2o.impute":
         return _impute(node, env)
+    if op in _EXTRA_OPS:
+        return _EXTRA_OPS[op](node, env)
     if op in _LATER:
         raise NotImplementedError(
-            f"rapids op {op!r}: the string, time and long-tail ops come "
-            "with ROADMAP P12c-ii")
+            f"rapids op {op!r}: the long tail of the prims comes with "
+            "ROADMAP P12c-ii")
     raise NotImplementedError(f"rapids op {op!r}")
 
 
@@ -1264,11 +1281,890 @@ def _impute(node, env):
     return out
 
 
+# ---------------------------------------------------------------------------
+# shared helpers of the string, time and model ops
+# ---------------------------------------------------------------------------
+
+
+def _labels_of(v: Vec) -> List[Optional[str]]:
+    """The label string of each row of a string or categorical column
+    (None for NA)."""
+    if v.type == T_STR:
+        return [None if x is None else str(x) for x in v.host_data]
+    if v.is_categorical:
+        dom = list(v.domain or [])
+        codes = np.asarray(v.to_numpy())[: v.nrows]
+        lut = np.asarray(dom + [None], dtype=object)
+        return lut[np.where(codes >= 0, codes, len(dom))].tolist()
+    raise TypeError("expected a string/categorical column")
+
+
+def _numlist_vals(node, env):
+    """A bracket list's numbers (the reference's ``cut`` reads its breaks
+    so; that op comes with P12c-ii-b)."""
+    return [float(x) for x in _mixed_list(node, env)]
+
+
+def _mixed_list(node, env):
+    """A bracket list as Python values, strings kept as strings (a span
+    ``lo:hi`` gives lo..hi inclusive, as the reference reads it)."""
+    if isinstance(node, tuple) and node[0] == "numlist":
+        out = []
+        for item in node[1]:
+            if isinstance(item, tuple) and item[0] == "span":
+                lo, hi = item[1], item[2]
+                out.extend(float(x) for x in range(int(lo), int(hi) + 1))
+            elif isinstance(item, tuple):
+                out.append(item[1])
+            else:
+                out.append(item)
+        return out
+    if isinstance(node, tuple) and node[0] == "str":
+        return [node[1]]
+    ev = _eval(node, env)
+    if ev is None:
+        return []
+    if isinstance(ev, (int, float, str)):
+        return [ev]
+    return list(ev)
+
+
+def _model_arg(node, env):
+    """The model a node names, from the DKV."""
+    mid = str(_lit(node))
+    m = dkv().get(mid)
+    if m is None:
+        raise ValueError(f"model {mid!r} not found")
+    return m
+
+
+def _distinct_labels(v: Vec):
+    """(the distinct labels of a string or categorical column, None for
+    NA among them; each row's index into them).  The ops below compute a
+    function of the label once a distinct label and gather it to the
+    rows: the reference's per-row answers, as the functions are pure."""
+    if v.is_categorical:
+        dom = list(v.domain or [])
+        codes = np.asarray(v.to_numpy())[: v.nrows]
+        return dom + [None], np.where(codes >= 0, codes, len(dom))
+    if v.type != T_STR:
+        raise TypeError("expected a string/categorical column")
+    index: Dict[Any, int] = {}
+    inv = np.fromiter((index.setdefault(x, len(index))
+                       for x in v.host_data), np.int64, count=v.nrows)
+    return [None if x is None else str(x) for x in index], inv
+
+
+def _label_floats(v: Vec, fn) -> Vec:
+    """A float32 column of ``fn`` of each row's label, NaN for NA."""
+    labels, inv = _distinct_labels(v)
+    return Vec(np.asarray([np.nan if s is None else fn(s) for s in labels],
+                          np.float32)[inv])
+
+
+# ---------------------------------------------------------------------------
+# string ops (ast/prims/string/*), on the host
+# ---------------------------------------------------------------------------
+
+
+def _map_strings(v: Vec, fn) -> Vec:
+    """A str -> str function over a column: a string column maps its
+    cells, a categorical its domain (the reference's in-place domain
+    rewrite); labels that collide merge, their codes remapped to the
+    sorted new domain."""
+    if v.type == T_STR:
+        labels, inv = _distinct_labels(v)
+        return Vec(np.asarray([None if s is None else fn(s) for s in labels],
+                              object)[inv].tolist(), T_STR)
+    if v.is_categorical:
+        new_dom = [fn(d) for d in v.domain]
+        uniq = sorted(set(new_dom))
+        lut = {d: i for i, d in enumerate(uniq)}
+        remap = np.asarray([lut[d] for d in new_dom], np.int32)
+        codes = v.to_numpy()
+        new_codes = np.where(codes >= 0, remap[np.clip(codes, 0, None)], -1)
+        return Vec(new_codes.astype(np.int32), T_CAT, domain=uniq)
+    raise TypeError("string op on a numeric column")
+
+
+def _string_op(op, node, env):
+    fr = _as_frame(_eval(node[1], env))
+    args = [_lit(x) if isinstance(x, tuple) else x for x in node[2:]]
+    if op in ("nchar", "length"):
+        return Frame(list(fr.names), [_label_floats(v, len)
+                                      for v in fr.vecs])
+    if op == "countmatches":
+        pat = str(args[0])
+        return Frame(list(fr.names),
+                     [_label_floats(v, lambda s: s.count(pat))
+                      for v in fr.vecs])
+    if op == "strsplit":
+        return _strsplit(fr.vecs[0], str(args[0]))
+    if op == "substring":
+        lo = int(args[0])
+        hi = int(args[1]) if len(args) > 1 and args[1] is not None else None
+
+        def fn(s):
+            return s[lo:hi]
+    elif op in ("replacefirst", "sub"):
+        pat, rep = str(args[0]), str(args[1])
+
+        def fn(s):
+            return re.sub(pat, rep, s, count=1)
+    elif op in ("replaceall", "gsub"):
+        pat, rep = str(args[0]), str(args[1])
+
+        def fn(s):
+            return re.sub(pat, rep, s)
+    elif op == "trim":
+        fn = str.strip
+    elif op in ("lstrip", "rstrip"):
+        chars = str(args[0]) if args else None
+        strip = str.lstrip if op == "lstrip" else str.rstrip
+
+        def fn(s):
+            return strip(s, chars)
+    elif op == "toupper":
+        fn = str.upper
+    else:                                               # tolower
+        fn = str.lower
+    return Frame(list(fr.names), [_map_strings(v, fn) for v in fr.vecs])
+
+
+def _strsplit(v: Vec, pat: str) -> Frame:
+    """One categorical column a part, as wide as the row with the most
+    parts; each column's domain its sorted parts."""
+    labels, inv = _distinct_labels(v)
+    # only the labels that rows hold count: a level no row holds adds
+    # neither parts nor width
+    held, inv = np.unique(inv, return_inverse=True)
+    vals = [None if labels[i] is None else re.split(pat, labels[i])
+            for i in held]
+    width = max((len(x) for x in vals if x), default=1)
+    cols = []
+    for j in range(width):
+        col = [x[j] if x and j < len(x) else None for x in vals]
+        dom = sorted({c for c in col if c is not None})
+        lut = {d: i for i, d in enumerate(dom)}
+        codes = np.asarray([lut.get(c, -1) if c is not None else -1
+                            for c in col], np.int32)
+        cols.append(Vec(codes[inv], T_CAT, domain=dom))
+    return Frame([f"C{j + 1}" for j in range(width)], cols)
+
+
+# ---------------------------------------------------------------------------
+# time parts and dates, on the host over the exact float64 milliseconds
+# ---------------------------------------------------------------------------
+
+
+def _time_part(op, node, env):
+    """A calendar part of each cell's epoch milliseconds (UTC).  ``week``
+    is ``(day of year) // 7 + 1``, as the reference's dispatch computes
+    it: its ISO-week op is never reached."""
+    fr = _as_frame(_eval(node[1], env))
+    out = []
+    for v in fr.vecs:
+        ms = np.asarray(v.to_numpy(), np.float64)
+        ok = ~np.isnan(ms)
+        dt = np.full(len(ms), np.datetime64("NaT"), "datetime64[ms]")
+        dt[ok] = np.asarray(ms[ok], "int64").view("datetime64[ms]")
+        Y = dt.astype("datetime64[Y]")
+        M = dt.astype("datetime64[M]")
+        D = dt.astype("datetime64[D]")
+        if op == "year":
+            vals = Y.astype(int) + 1970
+        elif op == "month":
+            vals = (M - Y).astype(int) + 1
+        elif op == "day":
+            vals = (D - M).astype(int) + 1
+        elif op == "dayOfWeek":
+            vals = (D.astype(int) + 3) % 7          # 1970-01-01: Thursday
+        elif op == "hour":
+            vals = (dt - D).astype("timedelta64[h]").astype(int)
+        elif op == "minute":
+            vals = (dt - D).astype("timedelta64[m]").astype(int) % 60
+        elif op == "second":
+            vals = (dt - D).astype("timedelta64[s]").astype(int) % 60
+        else:                                       # week
+            vals = (D - Y).astype(int) // 7 + 1
+        out.append(Vec(np.where(ok, vals, np.nan).astype(np.float32)))
+    return Frame(list(fr.names), out)
+
+
+def _op_as_date(node, env):
+    """(as.Date fr format): string and categorical columns parsed to
+    epoch milliseconds (SimpleDateFormat's letters mapped to strptime's;
+    NaN where a label does not parse), numeric and time columns cut to
+    the day."""
+    import datetime as _dt
+    fr = _as_frame(_eval(node[1], env))
+    fmt = _lit(node[2])
+    py_fmt = (str(fmt).replace("yyyy", "%Y").replace("yy", "%y")
+              .replace("MM", "%m").replace("dd", "%d")
+              .replace("HH", "%H").replace("mm", "%M").replace("ss", "%S"))
+
+    def parse_ms(s):
+        try:
+            dt = _dt.datetime.strptime(s, py_fmt)
+            return dt.replace(tzinfo=_dt.timezone.utc).timestamp() * 1000.0
+        except ValueError:
+            return np.nan
+
+    out = []
+    for v in fr.vecs:
+        if v.type == T_TIME or (v.is_numeric and not v.is_categorical):
+            ms = np.asarray(v.to_numpy(), np.float64)[: fr.nrows]
+            day = np.floor(ms / 86400000.0) * 86400000.0
+            out.append(Vec(np.where(np.isnan(ms), np.nan, day), T_TIME))
+        else:
+            labels, inv = _distinct_labels(v)
+            out.append(Vec(np.asarray([np.nan if s is None else parse_ms(s)
+                                       for s in labels], np.float64)[inv],
+                           T_TIME))
+    return Frame(list(fr.names), out)
+
+
+def _mktime_like(node, env, zero_based: bool):
+    """(mktime y M d H m s ms) and (moment ...): numbers or one-column
+    frames to epoch milliseconds (UTC); mktime's month and day are
+    0-based (AstMktime.java), moment's 1-based.  NaN where a cell makes
+    no date."""
+    import datetime as _dt
+    args = [_eval(a, env) for a in node[1:8]]
+    while len(args) < 7:
+        args.append(0.0)
+    nrows = max([a.nrows for a in args if isinstance(a, Frame)], default=1)
+
+    def col(a):
+        if isinstance(a, Frame):
+            return np.asarray(a.vecs[0].to_numpy(), np.float64)[:nrows]
+        return np.full(nrows, float(a) if a is not None else 0.0)
+
+    y, mo, d, h, mi, s, ms = (col(a) for a in args)
+    off = 1 if zero_based else 0
+    out = np.full(nrows, np.nan)
+    for i in range(nrows):
+        try:
+            dt = _dt.datetime(int(y[i]), int(mo[i]) + off, int(d[i]) + off,
+                              int(h[i]), int(mi[i]), int(s[i]),
+                              tzinfo=_dt.timezone.utc)
+            out[i] = dt.timestamp() * 1000.0 + float(ms[i])
+        except (ValueError, OverflowError):
+            out[i] = np.nan
+    return Frame(["mktime"], [Vec(out, T_TIME)])
+
+
+# ---------------------------------------------------------------------------
+# grep, strlen, characters, distances, tokens, tf-idf, timezones
+# ---------------------------------------------------------------------------
+
+
+def _op_grep(node, env):
+    """(grep fr regex ignore_case invert output_logical): the rows whose
+    label matches, as indices or as a 0/1 column."""
+    fr = _as_frame(_eval(node[1], env))
+    pat = _lit(node[2])
+    icase = bool(int(_eval(node[3], env))) if len(node) > 3 else False
+    invert = bool(int(_eval(node[4], env))) if len(node) > 4 else False
+    logical = bool(int(_eval(node[5], env))) if len(node) > 5 else False
+    rx = re.compile(str(pat), re.IGNORECASE if icase else 0)
+    labels, inv = _distinct_labels(fr.vecs[0])
+    hit = np.asarray([s is not None and bool(rx.search(s))
+                      for s in labels], bool)[inv]
+    if invert:
+        hit = ~hit
+    if logical:
+        return Frame([fr.names[0]], [Vec(hit.astype(np.float32))])
+    return Frame([fr.names[0]],
+                 [Vec(np.flatnonzero(hit).astype(np.float64))])
+
+
+def _op_strlen(node, env):
+    fr = _as_frame(_eval(node[1], env))
+    return Frame(list(fr.names), [_label_floats(v, len) for v in fr.vecs])
+
+
+def _op_as_character(node, env):
+    """(as.character fr): labels of a categorical; a number by
+    ``str(int(x))`` when whole, else ``repr`` of its float64 value (a
+    float32 0.1 is '0.10000000149011612')."""
+    fr = _as_frame(_eval(node[1], env))
+    vecs = []
+    for v in fr.vecs:
+        if v.type == T_STR:
+            vecs.append(v)
+        elif v.is_categorical:
+            vecs.append(Vec(_labels_of(v), T_STR))
+        else:
+            x = np.asarray(v.to_numpy(), np.float64)
+            whole = (np.isfinite(x) & (x == np.floor(x))).tolist()
+            vecs.append(Vec([None if c != c else
+                             (str(int(c)) if w else repr(c))
+                             for c, w in zip(x.tolist(), whole)], T_STR))
+    return Frame(list(fr.names), vecs)
+
+
+def _op_is_character(node, env):
+    fr = _as_frame(_eval(node[1], env))
+    return [float(v.type == T_STR) for v in fr.vecs]
+
+
+def _levenshtein(a: str, b: str) -> float:
+    if a == b:
+        return 0.0
+    prev = list(range(len(b) + 1))
+    for i, ca in enumerate(a, 1):
+        cur = [i]
+        for j, cb in enumerate(b, 1):
+            cur.append(min(prev[j] + 1, cur[j - 1] + 1,
+                           prev[j - 1] + (ca != cb)))
+        prev = cur
+    return float(prev[-1])
+
+
+def _lcs_len(a: str, b: str) -> int:
+    prev = [0] * (len(b) + 1)
+    for ca in a:
+        cur = [0]
+        for j, cb in enumerate(b, 1):
+            cur.append(prev[j - 1] + 1 if ca == cb
+                       else max(prev[j], cur[j - 1]))
+        prev = cur
+    return prev[-1]
+
+
+def _op_str_distance(node, env):
+    """(strDistance fr y measure compare_empty): Levenshtein (``lv``),
+    the LCS distance or Jaccard's over character sets, row by row; NaN
+    for NA, and for an empty string unless ``compare_empty``."""
+    fx = _as_frame(_eval(node[1], env))
+    fy = _as_frame(_eval(node[2], env))
+    measure = str(_lit(node[3])).lower()
+    cmp_empty = bool(_eval(node[4], env))
+
+    def dist(a, b):
+        if a is None or b is None:
+            return np.nan
+        if (not a or not b) and not cmp_empty:
+            return np.nan
+        if measure in ("lv", "levenshtein"):
+            return _levenshtein(a, b)
+        if measure == "lcs":
+            return float(len(a) + len(b) - 2 * _lcs_len(a, b))
+        if measure == "jaccard":
+            sa, sb = set(a), set(b)
+            u = sa | sb
+            return 1.0 - (len(sa & sb) / len(u) if u else 1.0)
+        raise ValueError(f"strDistance measure {measure!r} not "
+                         "supported (lv, lcs, jaccard)")
+
+    la = _labels_of(fx.vecs[0])
+    lb = _labels_of(fy.vecs[0])
+    vals = np.asarray([dist(a, b) for a, b in zip(la, lb)], np.float32)
+    return Frame(["distance"], [Vec(vals)])
+
+
+def _op_tokenize(node, env):
+    """(tokenize fr split): every string cell split into one word column,
+    an NA row after each source row (Word2Vec's input)."""
+    fr = _as_frame(_eval(node[1], env))
+    rx = re.compile(str(_lit(node[2])))
+    col_labels = [_labels_of(v) if v.type == T_STR or v.is_categorical
+                  else None for v in fr.vecs]
+    out: List[Optional[str]] = []
+    for i in range(fr.nrows):
+        for labels in col_labels:
+            s = labels[i] if labels is not None else None
+            if s:
+                out.extend(t for t in rx.split(s) if t)
+        out.append(None)
+    return Frame(["C1"], [Vec(out, T_STR)])
+
+
+def _op_num_valid_substrings(node, env):
+    """(num_valid_substrings fr path): per cell, how many of its
+    substrings are lines of the words file."""
+    fr = _as_frame(_eval(node[1], env))
+    with open(str(_lit(node[2]))) as f:
+        words = {ln.strip() for ln in f if ln.strip()}
+
+    def count(s):
+        return float(sum(s[i:j] in words for i in range(len(s))
+                         for j in range(i + 1, len(s) + 1)))
+
+    return Frame(list(fr.names), [_label_floats(v, count) for v in fr.vecs])
+
+
+def _op_tf_idf(node, env):
+    """(tf-idf fr doc_id_idx text_idx preprocess case_sensitive):
+    [DocID, Word, TF, IDF, TF_IDF] rows sorted by (doc, word), IDF =
+    log((N + 1) / (df + 1)); ``preprocess`` splits texts on whitespace,
+    else a text is one word."""
+    from collections import Counter
+    fr = _as_frame(_eval(node[1], env))
+    doc_i = int(_eval(node[2], env))
+    text_i = int(_eval(node[3], env))
+    preprocess = bool(_eval(node[4], env))
+    case_sensitive = bool(_eval(node[5], env))
+    dv, tv = fr.vecs[doc_i], fr.vecs[text_i]
+    doc_ids = dv.to_numpy()
+    if tv.host_data is not None:
+        texts = ["" if s is None else str(s) for s in tv.host_data]
+    elif tv.is_categorical:
+        texts = ["" if s is None else s for s in _labels_of(tv)]
+    else:
+        raise ValueError("tf-idf wants a string/categorical text column")
+    tf: Counter = Counter()
+    doc_words: Dict[str, set] = {}
+    for d, t in zip(doc_ids, texts):
+        d = float(d)
+        if not case_sensitive:
+            t = t.lower()
+        for w in (t.split() if preprocess else ([t] if t else [])):
+            tf[(d, w)] += 1
+            doc_words.setdefault(w, set()).add(d)
+    n_docs = len(set(float(d) for d in doc_ids))
+    rows = sorted(tf.items())
+    words_dom = sorted(doc_words)
+    widx = {w: i for i, w in enumerate(words_dom)}
+    out_tf = np.asarray([c for _k, c in rows], np.float32)
+    out_idf = np.asarray(
+        [math.log((n_docs + 1.0) / (len(doc_words[w]) + 1.0))
+         for (_d, w), _c in rows], np.float32)
+    return Frame(
+        ["DocID", "Word", "TF", "IDF", "TF_IDF"],
+        [Vec(np.asarray([d for (d, _w), _c in rows], np.float32)),
+         Vec(np.asarray([widx[w] for (_d, w), _c in rows], np.int32),
+             T_CAT, domain=words_dom),
+         Vec(out_tf), Vec(out_idf), Vec(out_tf * out_idf)])
+
+
+def _op_list_timezones(node, env):
+    import zoneinfo
+    zones = sorted(zoneinfo.available_timezones())
+    return Frame(["Timezones"], [Vec(np.arange(len(zones), dtype=np.int32),
+                                     T_CAT, domain=zones)])
+
+
+def _op_set_timezone(node, env):
+    """(setTimeZone tz): the cluster timezone that naive date strings are
+    parsed in (``core.device.set_timezone``, which refuses an unknown
+    name)."""
+    tz = _lit(node[1])
+    set_timezone(tz)
+    return tz
+
+
+def _op_get_timezone(node, env):
+    return timezone() or "UTC"
+
+
+# ---------------------------------------------------------------------------
+# ops over models in the DKV; a model scores on its own device
+# ---------------------------------------------------------------------------
+
+
+def _op_reset_threshold(node, env):
+    """(model.reset.threshold model thr): set a binomial model's label
+    threshold and return the old one."""
+    m = _model_arg(node[1], env)
+    thr = float(_eval(node[2], env))
+    old = float(m.output.get("default_threshold", 0.5))
+    if not 0.0 < thr < 1.0:
+        raise ValueError(f"threshold must be in (0,1), got {thr}")
+    m.output["default_threshold"] = thr
+    return Frame(["threshold"], [Vec(np.asarray([old], np.float32))])
+
+
+def _op_w2v_to_frame(node, env):
+    """(word2vec.to.frame model): [Word, V1..VD]."""
+    from h2o_tpu_torch.models.word2vec import Word2VecModel
+    m = dkv().get(_lit(node[1]))
+    if not isinstance(m, Word2VecModel):
+        raise ValueError(f"no word2vec model {_lit(node[1])!r}")
+    words = list(m.output["words"])
+    W = np.asarray(m.output["vectors"], np.float32)
+    vecs = [Vec(np.arange(len(words), dtype=np.int32), T_CAT,
+                domain=[str(w) for w in words])]
+    vecs += [Vec(W[:, j]) for j in range(W.shape[1])]
+    return Frame(["Word"] + [f"V{i + 1}" for i in range(W.shape[1])], vecs)
+
+
+def _op_segment_models_as_frame(node, env):
+    """(segment_models_as_frame key): one row a segment."""
+    from h2o_tpu_torch.models.segment import SegmentModels
+    key = _lit(node[1])
+    sm = dkv().get(key)
+    if not isinstance(sm, SegmentModels):
+        raise ValueError(f"no segment models under key {key}")
+    return sm.to_frame()
+
+
+def _op_rulefit_predict_rules(node, env):
+    """(rulefit.predict.rules model fr [rule_ids]): a 0/1 column a rule,
+    1 where the row satisfies the rule."""
+    m = dkv().get(_lit(node[1]))
+    fr = _as_frame(_eval(node[2], env))
+    rule_ids = [str(s) for s in _mixed_list(node[3], env)]
+    if m is None or m.output.get("rule_importance") is None:
+        raise ValueError("rulefit.predict.rules needs a RuleFit model")
+    rows = {str(r[0]): r for r in m.output["rule_importance"]}
+    out_names, out_vecs = [], []
+    for rid in rule_ids:
+        if rid not in rows:
+            raise ValueError(f"unknown rule id {rid!r}")
+        out_names.append(rid)
+        out_vecs.append(Vec(_eval_rule_text(str(rows[rid][3]), fr)
+                            .astype(np.float32)))
+    return Frame(out_names, out_vecs)
+
+
+def _eval_rule_text(rule: str, fr: Frame) -> np.ndarray:
+    """A rendered RuleFit rule over a frame: conjunctions of ``a < 1.5``
+    comparisons (NA fails) and ``x in {l1, l2}`` level sets."""
+    mask = np.ones(fr.nrows, bool)
+    for cond in rule.split("&"):
+        cond = cond.strip()
+        if not cond or cond.lower() == "linear":
+            continue
+        m_in = re.match(r"(\S+)\s+in\s+\{([^}]*)\}", cond)
+        if m_in:
+            levels = {s.strip() for s in m_in.group(2).split(",")}
+            mask &= np.asarray([s in levels if s is not None else False
+                                for s in _labels_of(fr.vec(m_in.group(1)))],
+                               bool)
+            continue
+        m_cmp = re.match(r"(\S+)\s*(<=|>=|<|>)\s*(-?[\d.eE+]+)", cond)
+        if m_cmp:
+            col, op_s, thr = m_cmp.groups()
+            x = np.asarray(fr.vec(col).to_numpy(), np.float64)
+            thr = float(thr)
+            cmp = {"<": x < thr, "<=": x <= thr, ">": x > thr,
+                   ">=": x >= thr}[op_s]
+            mask &= np.where(np.isnan(x), False, cmp)
+            continue
+        raise ValueError(f"cannot evaluate rule fragment {cond!r}")
+    return mask
+
+
+def _op_pred_vs_actual_by_var(node, env):
+    """(predicted.vs.actual.by.var model fr variable predicted): the mean
+    prediction (the predictions frame's last column) and the mean
+    response for each level of a categorical."""
+    m = _model_arg(node[1], env)
+    fr = _as_frame(_eval(node[2], env))
+    var = str(_lit(node[3]))
+    pf = _as_frame(_eval(node[4], env))
+    if var not in fr.names:
+        raise ValueError(f"column {var!r} not in frame")
+    v = fr.vec(var)
+    if not v.is_categorical:
+        raise ValueError("predicted.vs.actual.by.var wants a "
+                         "categorical variable")
+    codes = np.asarray(v.to_numpy(), np.int64)
+    pred = np.asarray(pf.vecs[-1].to_numpy(), np.float64)[: fr.nrows]
+    yv = fr.vec(m.params.get("response_column"))
+    act = np.asarray(yv.as_float() if yv.is_categorical else yv.to_numpy(),
+                     np.float64)[: fr.nrows]
+    card = len(v.domain or [])
+    rows_p, rows_a = [], []
+    for k in range(card):
+        sel = codes == k
+        okp = sel & ~np.isnan(pred)
+        oka = sel & ~np.isnan(act)
+        rows_p.append(float(pred[okp].mean()) if okp.any() else math.nan)
+        rows_a.append(float(act[oka].mean()) if oka.any() else math.nan)
+    return Frame([var, "predicted", "actual"],
+                 [Vec(np.arange(card, dtype=np.int32), T_CAT,
+                      domain=list(v.domain)),
+                  Vec(np.asarray(rows_p, np.float32)),
+                  Vec(np.asarray(rows_a, np.float32))])
+
+
+def _op_fairness_metrics(node, env):
+    """(fairnessMetrics model fr protected_cols reference favorable_class):
+    for each combination of the protected columns' levels present in
+    the frame, the confusion counts of the model's labels against the
+    response, the rates, and the adverse-impact ratio of its selected
+    ratio against the reference group's."""
+    import itertools
+    m = _model_arg(node[1], env)
+    fr = _as_frame(_eval(node[2], env))
+    prot = [str(s) for s in _mixed_list(node[3], env)]
+    ref_levels = [str(s) for s in _mixed_list(node[4], env)]
+    favorable = str(_lit(node[5]))
+    yv = fr.vec(m.params.get("response_column"))
+    dom = list(yv.domain or [])
+    if len(dom) != 2:
+        raise ValueError("fairnessMetrics supports binomial models "
+                         f"(response has {len(dom)} levels)")
+    if favorable not in dom:
+        raise ValueError(f"favorable_class {favorable!r} not in response "
+                         f"domain {dom}")
+    fav = dom.index(favorable)
+    raw = m.predict_raw(fr)[:, 0].cpu().numpy()
+    # the model's own label decides selection, whichever class is
+    # favorable
+    pred_fav = raw.astype(np.int64) == fav
+    act_fav = np.asarray(yv.to_numpy(), np.int64) == fav
+    groups = [np.asarray(fr.vec(c).to_numpy(), np.int64) for c in prot]
+    doms = [list(fr.vec(c).domain or []) for c in prot]
+
+    def rates(sel):
+        n = int(sel.sum())
+        if n == 0:
+            return None
+        tp = int((sel & pred_fav & act_fav).sum())
+        fp = int((sel & pred_fav & ~act_fav).sum())
+        fn = int((sel & ~pred_fav & act_fav).sum())
+        tn = int((sel & ~pred_fav & ~act_fav).sum())
+        return dict(total=n, tp=tp, fp=fp, fn=fn, tn=tn,
+                    selected=(tp + fp) / n, tpr=tp / max(tp + fn, 1),
+                    fpr=fp / max(fp + tn, 1), accuracy=(tp + tn) / n)
+
+    ref_sel = np.ones(fr.nrows, bool)
+    if ref_levels:
+        for g, d, lev in zip(groups, doms, ref_levels):
+            ref_sel &= g == (d.index(lev) if lev in d else -2)
+    ref_r = rates(ref_sel) or dict(selected=1.0)
+    cols: Dict[str, list] = {c: [] for c in prot}
+    met: Dict[str, list] = {k: [] for k in (
+        "total", "tp", "fp", "fn", "tn", "selectedRatio", "tpr", "fpr",
+        "accuracy", "AIR_selectedRatio")}
+    for combo in itertools.product(*[range(len(d)) for d in doms]):
+        sel = np.ones(fr.nrows, bool)
+        for g, k in zip(groups, combo):
+            sel &= g == k
+        r = rates(sel)
+        if r is None:
+            continue
+        for c, k, d in zip(prot, combo, doms):
+            cols[c].append(d[k])
+        for k in ("total", "tp", "fp", "fn", "tn", "tpr", "fpr",
+                  "accuracy"):
+            met[k].append(r[k])
+        met["selectedRatio"].append(r["selected"])
+        met["AIR_selectedRatio"].append(
+            r["selected"] / max(ref_r["selected"], 1e-12))
+    names, vecs = [], []
+    for c in prot:
+        d = sorted(set(cols[c]))
+        lut = {x: i for i, x in enumerate(d)}
+        vecs.append(Vec(np.asarray([lut[x] for x in cols[c]], np.int32),
+                        T_CAT, domain=d))
+        names.append(c)
+    for k, vals in met.items():
+        names.append(k)
+        vecs.append(Vec(np.asarray(vals, np.float32)))
+    return Frame(names, vecs)
+
+
+def _op_permutation_varimp(node, env):
+    """(PermutationVarImp model fr metric n_samples n_repeats features
+    seed): how much a metric degrades when one column's rows are
+    shuffled (hex/PermutationVarImp.java).  One generator,
+    ``default_rng(seed)``, draws the row sample and then every
+    permutation, in the reference's order; the model scores each
+    shuffled frame on its own device."""
+    from h2o_tpu_torch.models.score_keeper import (is_maximizing,
+                                                   resolve_stopping_metric)
+    m = _model_arg(node[1], env)
+    fr = _as_frame(_eval(node[2], env))
+    metric = str(_lit(node[3]) or "AUTO")
+    n_samples = int(_eval(node[4], env) or -1)
+    n_repeats = max(int(_eval(node[5], env) or 1), 1)
+    feats_node = node[6]
+    features = [str(s) for s in _mixed_list(feats_node, env)] \
+        if not (isinstance(feats_node, tuple) and feats_node[0] == "id" and
+                feats_node[1] == "None") else []
+    seed = int(_eval(node[7], env) or -1)
+    rng = np.random.default_rng(seed if seed >= 0 else None)
+    work = fr
+    if 0 < n_samples < fr.nrows:
+        idx = rng.choice(fr.nrows, size=n_samples, replace=False)
+        work = _row_select_host(fr, np.sort(idx))
+    x = [c for c in m.output.get("x", []) if c in work.names]
+    features = features or x
+
+    def metric_of(frame):
+        mm_ = m.model_metrics(frame)
+        name = metric
+        if name.upper() == "AUTO":
+            name = resolve_stopping_metric("AUTO", mm_.kind)
+        v = mm_.get(name)
+        if v is None:
+            v = mm_.get(name.upper())
+        if v is None:
+            v = mm_.get(name.lower())
+        if v is None:
+            raise ValueError(f"metric {metric!r} not available")
+        return float(v), name
+
+    base, name = metric_of(work)
+    maximize = is_maximizing(name)
+    rows = []
+    for c in features:
+        drops = []
+        j = work.names.index(c)
+        v = work.vec(c)
+        for _ in range(n_repeats):
+            arr = v.to_numpy()[rng.permutation(work.nrows)]
+            shuf = Frame(list(work.names), list(work.vecs))
+            shuf.vecs[j] = Vec(np.asarray(arr, np.int32), T_CAT,
+                               domain=list(v.domain)) \
+                if v.is_categorical else Vec(np.asarray(arr, np.float32),
+                                             v.type)
+            pv, _ = metric_of(shuf)
+            drops.append((base - pv) if maximize else (pv - base))
+        rows.append((c, [max(d, 0.0) for d in drops]))
+    dom = [r[0] for r in rows]
+    var = Vec(np.arange(len(dom), dtype=np.int32), T_CAT, domain=dom)
+    if n_repeats > 1:
+        return Frame(["Variable"] + [f"Run {i + 1}" for i in
+                                     range(n_repeats)],
+                     [var] + [Vec(np.asarray([r[1][i] for r in rows],
+                                             np.float32))
+                              for i in range(n_repeats)])
+    rel = np.asarray([r[1][0] for r in rows], np.float64)
+    mx, tot = max(rel.max(), 1e-30), max(rel.sum(), 1e-30)
+    return Frame(["Variable", "Relative Importance", "Scaled Importance",
+                  "Percentage"],
+                 [var, Vec(rel.astype(np.float32)),
+                  Vec((rel / mx).astype(np.float32)),
+                  Vec((rel / tot).astype(np.float32))])
+
+
+def _op_isax(node, env):
+    """(isax fr num_words max_cardinality optimize_card): each row
+    z-normalised, averaged over ``num_words`` equal segments (PAA) and
+    each average given its symbol among the standard normal's
+    ``max_cardinality`` quantiles; the row's iSAX word as a
+    categorical."""
+    from scipy.special import ndtri
+    fr = _as_frame(_eval(node[1], env))
+    num_words = int(_eval(node[2], env))
+    card = int(_eval(node[3], env))
+    if bool(_eval(node[4], env)):
+        raise NotImplementedError(
+            "isax optimize_card=True (per-word cardinality reduction) is "
+            "not implemented; pass optimize_card=False")
+    if num_words <= 0 or card <= 1:
+        raise ValueError("isax: num_words > 0 and max_cardinality > 1")
+    X = np.stack([v.as_float() for v in fr.vecs], axis=1).astype(np.float64)
+    C = X.shape[1]
+    mu = np.nanmean(X, axis=1, keepdims=True)
+    sd = np.nanstd(X, axis=1, keepdims=True)
+    Z = (X - mu) / np.where(sd == 0, 1.0, sd)
+    edges = np.linspace(0, C, num_words + 1).astype(int)
+    paa = np.stack([np.nanmean(Z[:, edges[i]: max(edges[i + 1],
+                                                  edges[i] + 1)], axis=1)
+                    for i in range(num_words)], axis=1)
+    brk = ndtri(np.arange(1, card) / card)
+    sym = np.searchsorted(brk, np.nan_to_num(paa))
+    # a word a distinct row of symbols, gathered to the rows
+    rows_u, inv = np.unique(sym, axis=0, return_inverse=True)
+    words = ["_".join(f"{int(s)}^{card}" for s in row) for row in rows_u]
+    dom = sorted(set(words))
+    lut = {w: i for i, w in enumerate(dom)}
+    codes = np.asarray([lut[w] for w in words], np.int32)
+    return Frame(["iSAX_index"], [Vec(codes[inv.ravel()], T_CAT,
+                                      domain=dom)])
+
+
+def _op_make_leaderboard(node, env):
+    """(makeLeaderboard [model_ids] lb_frame_key sort_metric
+    extra_columns scoring_data) over ``models/leaderboard.py``;
+    ``predict_time_per_row_ms`` times a prediction of the leaderboard
+    frame until its scores are on the host."""
+    import time
+    from h2o_tpu_torch.models.leaderboard import Leaderboard
+    ids = [str(s) for s in _mixed_list(node[1], env)]
+    lb_key = str(_lit(node[2]) or "")
+    sort_metric = str(_lit(node[3]) or "AUTO")
+    extra_cols = [str(s).lower() for s in _mixed_list(node[4], env)]
+    scoring_data = str(_lit(node[5]) or "AUTO").lower()
+    lb_frame = dkv().get(lb_key) if lb_key else None
+    models = []
+    for mid in ids:
+        m = dkv().get(mid)
+        if m is None:
+            raise ValueError(f"makeLeaderboard: model {mid!r} not found")
+        models.append(m)
+    lb = Leaderboard(sort_metric=None if sort_metric.upper() == "AUTO"
+                     else sort_metric.lower(), leaderboard_frame=lb_frame,
+                     scoring_data=scoring_data)
+    lb.add(*models)
+    rows = lb.rows()
+    if not rows:
+        raise ValueError("makeLeaderboard: no models")
+    if "all" in extra_cols:
+        extra_cols = ["training_time_ms", "predict_time_per_row_ms", "algo"]
+    if "predict_time_per_row_ms" in extra_cols:
+        for r_, m in zip(rows, lb.sorted_models()):
+            score_fr = lb_frame if lb_frame is not None and lb_frame.nrows \
+                else dkv().get(str(m.params.get("training_frame") or ""))
+            if score_fr is None:
+                r_["predict_time_per_row_ms"] = math.nan
+                continue
+            t0 = time.perf_counter()
+            m.predict_raw(score_fr).cpu()
+            r_["predict_time_per_row_ms"] = (
+                (time.perf_counter() - t0) * 1000.0 / max(score_fr.nrows, 1))
+    drop = {"algo"} - set(extra_cols)
+    if "training_time_ms" not in extra_cols:
+        drop.add("training_time_ms")
+    out_names, vecs = [], []
+    for nname in (k for k in rows[0] if k not in drop):
+        vals = [r[nname] for r in rows]
+        if nname in ("model_id", "algo"):
+            labels = [str(v) for v in vals]
+            uniq = sorted(set(labels))
+            lut = {x: i for i, x in enumerate(uniq)}
+            vecs.append(Vec(np.asarray([lut[x] for x in labels], np.int32),
+                            T_CAT, domain=uniq))
+        else:
+            vecs.append(Vec(np.asarray(
+                [np.nan if v is None else float(v) for v in vals],
+                np.float32)))
+        out_names.append(nname)
+    return Frame(out_names, vecs)
+
+
+# the ported part of the reference's _EXTRA_OPS ("week" is dispatched as a
+# time part before this table is read, as in the reference)
+_EXTRA_OPS = {
+    "tf-idf": _op_tf_idf,
+    "segment_models_as_frame": _op_segment_models_as_frame,
+    "makeLeaderboard": _op_make_leaderboard,
+    "model.reset.threshold": _op_reset_threshold,
+    "PermutationVarImp": _op_permutation_varimp,
+    "predicted.vs.actual.by.var": _op_pred_vs_actual_by_var,
+    "fairnessMetrics": _op_fairness_metrics,
+    "isax": _op_isax,
+    "as.character": _op_as_character,
+    "is.character": _op_is_character,
+    "strDistance": _op_str_distance,
+    "tokenize": _op_tokenize,
+    "listTimeZones": _op_list_timezones,
+    "setTimeZone": _op_set_timezone,
+    "getTimeZone": _op_get_timezone,
+    "num_valid_substrings": _op_num_valid_substrings,
+    "word2vec.to.frame": _op_w2v_to_frame,
+    "rulefit.predict.rules": _op_rulefit_predict_rules,
+    "as.Date": _op_as_date,
+    "mktime": lambda n, e: _mktime_like(n, e, zero_based=True),
+    "moment": lambda n, e: _mktime_like(n, e, zero_based=False),
+    "grep": _op_grep,
+    "strlen": _op_strlen,
+}
+
+
 def op_names() -> List[str]:
     """Every op name this interpreter dispatches (GET /99/Rapids/help);
     the P12c-ii ops it refuses are not among them."""
     return sorted(set(_BINOPS) | set(_UNOPS) | set(_CUMOPS) |
-                  set(_NAMED_OPS))
+                  set(_NAMED_OPS) | set(_STROPS) | set(_TIME_PARTS) |
+                  set(_EXTRA_OPS))
 
 
 _NUMPY_REPR = re.compile(

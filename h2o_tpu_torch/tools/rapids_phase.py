@@ -1,16 +1,22 @@
 #!/usr/bin/env python3
-"""Phase 26 of ``chip_smoke.py`` alone: the Rapids interpreter on the
-port.
+"""Phase 26 or 27 of ``chip_smoke.py`` alone: the Rapids interpreter on
+the port.
 
-    python3 h2o_tpu_torch/tools/rapids_phase.py [--cpu]
+    python3 h2o_tpu_torch/tools/rapids_phase.py [--cpu] [--phase 26|27]
 
 On the card it builds the histogram kernels, makes ``chip_smoke.py``'s
-seeded 1,000,000 x 28 frame and runs ``phase_slice20`` (26a-26c), one
-JSON line an expression and a hold, then the launch counts path by path.
-``--cpu`` rehearses the phase on the CPU at 20,000 rows (5,000 for the
-card-against-CPU and host-route runs and the right frame): ``cloud(None)``
-and ``"cuda"`` map to the CPU, and each plain histogram call is counted
-as its kernel's launch, so the launch holds read what the card would
+seeded 1,000,000 x 28 frame and runs ``phase_slice20`` (26a-26c, the
+default), one JSON line an expression and a hold, then the launch counts
+path by path; or ``phase_slice21`` (27: the string, time, date, text and
+model ops), after training the models it reads: the default GBM and a
+2-tree DRF on the frame, RuleFit at its defaults on the first 100,000
+rows, a one-epoch Word2Vec on phase 18's 100,000-token corpus and phase
+25b's segment GBMs.  ``--cpu`` rehearses the phase on the CPU at 20,000
+rows (5,000 for phase 26's card-against-CPU and host-route runs and the
+right frame, and for phase 27's cut runs; 1,000 for its
+strDistance): ``cloud(None)`` and
+``"cuda"`` map to the CPU, and each plain histogram call is counted as
+its kernel's launch, so the launch holds read what the card would
 count.  It gives no device number.
 """
 
@@ -55,7 +61,9 @@ def main() -> None:
         hmod.hist_plain = counted
         cs.DEV = torch.device("cpu")
         cs.sync = lambda: None
-        cs.RAPIDS_SUB_ROWS = cs.DP_RIGHT_ROWS = 5_000
+        cs.RAPIDS_SUB_ROWS = cs.DP_RIGHT_ROWS = cs.R27_CUT_ROWS = 5_000
+        cs.R27_DIST_ROWS = 1_000
+        cs.PVI_SAMPLES = 2_000
         rows, smi = 20_000, "cpu rehearsal"
     else:
         cs.hk.build()
@@ -64,12 +72,37 @@ def main() -> None:
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True).stdout.strip().splitlines()[0]
+    phase = sys.argv[sys.argv.index("--phase") + 1] \
+        if "--phase" in sys.argv else "26"
     X, y = cs.make_data(rows, cs.C, seed=0)
+    fr = cs.frame(X, y)
     paths = {}
     t0 = time.perf_counter()
-    cs.phase_slice20(X, y, cs.frame(X, y), smi, paths)
+    if phase == "26":
+        cs.phase_slice20(X, y, fr, smi, paths)
+    else:
+        models = phase27_models(cs, X, y, fr, paths)
+        t0 = time.perf_counter()
+        cs.phase_slice21(cs.rapids_frames(fr)[0], smi, *models)
     cs.emit(dict(phase="rapids_done", seconds=time.perf_counter() - t0,
                  paths={k: list(v) for k, v in paths.items()}))
+
+
+def phase27_models(cs, X, y, fr, paths) -> tuple:
+    """The models phase 27 reads, trained here: (GBM, DRF, {rulefit,
+    word2vec, segments})."""
+    import warnings
+    from h2o_tpu_torch.core.frame import T_STR, Frame, Vec
+    m_def, _ = cs.train(fr)
+    m_drf, _ = cs.train_drf(fr, ntrees=2)
+    rf, _ = cs.fit(cs.RuleFit, fr.slice_rows(slice(0, 100_000)), seed=1)
+    corpus = Frame(["tokens"], [Vec(cs.zipf_tokens(
+        cs.W2V_SUB_TOKENS, cs.W2V_TYPES, cs.W2V_SENTENCE, seed=2), T_STR)])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        w2v, _ = cs.fit(cs.Word2Vec, corpus, epochs=1, seed=1)
+    seg = cs.segments_25b(X, y, paths)
+    return m_def, m_drf, dict(rulefit=rf, word2vec=w2v, segments=seg)
 
 
 if __name__ == "__main__":

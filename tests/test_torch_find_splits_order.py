@@ -28,10 +28,11 @@ Held here, on the CPU:
   softplus increments in XLA's order, the softplus in XLA's ``exp`` and
   ``log1p``: ``xlamath.softplus``) from the same params bitwise the
   reference's; ``xlamath.exp`` and ``softplus`` bitwise ``jax.numpy``'s;
-- UpliftDRF's prefix sums (``uplift.py``) stay ``torch.cumsum``: a
-  probe of 12 KL forests on 800 rows, with and without fractional
-  weights, found no tree that it decided otherwise than XLA's order
-  (0/1 counts sum exactly in any order); the weighted case is held here;
+- UpliftDRF's prefix sums (``uplift.py``) take the same
+  ``xlamath.cumsum`` (F9): 0/1 counts sum exactly in any order, but
+  with fractional weights ``torch.cumsum`` rounded otherwise, and
+  ``tests/test_torch_uplift.py``'s weighted cases parted from the
+  reference's trees and rates; a weighted KL forest is held here too;
 - ``hold_gbm_forest``, which the node-array and CV tests share, holds a
   GBM's trees against the reference's where the two packages' table
   sums (added in different orders) leave them determined.
@@ -294,10 +295,9 @@ def test_ordinal_thresholds_bitwise():
 
 
 def test_weighted_uplift_trees_equal_reference(cl):
-    """UpliftDRF keeps ``torch.cumsum``: its 0/1 counts sum exactly in
-    any order, and with fractional weights, where the sums round by the
-    order, a weighted KL forest still equals the reference's tree for
-    tree."""
+    """UpliftDRF's prefix sums in XLA's order (``xlamath.cumsum``): with
+    fractional weights, where the sums round by their order, a weighted
+    KL forest equals the reference's tree for tree."""
     from h2o_tpu.models.tree.uplift import UpliftDRF as JUplift
     from h2o_tpu_torch.models.tree.uplift import UpliftDRF
     rng = np.random.default_rng(0)

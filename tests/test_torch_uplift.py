@@ -150,3 +150,110 @@ def test_builder_checks():
     with pytest.raises(ValueError, match="cross-validation"):
         UpliftDRF(device="cpu", nfolds=3).train(x=xs, y="y",
                                                 training_frame=pf)
+
+
+def _weighted_frames(seed: int):
+    """The 3,000-row treatment-effect data with weights uniform in
+    [0.5, 2): fractional sums, whose rounding depends on their order."""
+    rng = np.random.default_rng(seed)
+    n = 3000
+    X = rng.normal(size=(n, 3)).astype(np.float32)
+    treat = rng.integers(0, 2, n).astype(np.int32)
+    base = 1 / (1 + np.exp(-X[:, 1]))
+    py = np.clip(base * 0.4 + treat * 0.4 * (X[:, 0] > 0), 0, 1)
+    y = (rng.uniform(size=n) < py).astype(np.int32)
+    w = rng.uniform(0.5, 2.0, n).astype(np.float32)
+    xs = ["x0", "x1", "x2"]
+    names = xs + ["w", "treatment", "y"]
+    dom = ["0", "1"]
+    jf = JFrame(names, [JVec(X[:, j]) for j in range(3)] +
+                [JVec(w), JVec(treat, J_CAT, domain=dom),
+                 JVec(y, J_CAT, domain=dom)])
+    pf = Frame(names, [Vec(X[:, j]) for j in range(3)] +
+               [Vec(w), Vec(treat, T_CAT, domain=dom),
+                Vec(y, T_CAT, domain=dom)])
+    return jf, pf, xs
+
+
+
+WEIGHTED = [(seed, m) for seed in (0, 1, 2)
+            for m in ("KL", "ChiSquared", "Euclidean")]
+
+
+def _port_table(bins, leaf, stats, n_leaves, nbins, *_a, **_k):
+    """The reference's histogram replaced by the port's table of the same
+    rows, computed on the host: both packages' split finders then read
+    one table."""
+    import jax
+    import jax.numpy as jnp
+    from h2o_tpu_torch.ops.histogram import histogram_build
+
+    def host(b, lf, st):
+        return histogram_build(torch.from_numpy(np.array(b)),
+                               torch.from_numpy(np.array(lf)),
+                               torch.from_numpy(np.array(st)),
+                               n_leaves, nbins).numpy()
+    shape = (n_leaves, bins.shape[1], nbins + 1, stats.shape[1])
+    return jax.pure_callback(host, jax.ShapeDtypeStruct(shape, jnp.float32),
+                             bins, leaf, stats)
+
+
+@pytest.fixture(scope="module")
+def weighted(cl):
+    """Per (seed, metric): the reference's forest, the reference's forest
+    grown on the port's tables, and the port's forest (5 trees of depth
+    5, f32 stats)."""
+    import h2o_tpu.models.tree.uplift as ju
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("H2O_TPU_STATS_DTYPE", "f32")
+        for seed, metric in WEIGHTED:
+            jf, pf, xs = _weighted_frames(seed)
+            kw = dict(treatment_column="treatment", uplift_metric=metric,
+                      ntrees=5, max_depth=5, seed=seed, weights_column="w")
+            own = JUplift(**kw).train(x=xs, y="y", training_frame=jf)
+            pm = UpliftDRF(device="cpu", **kw).train(x=xs, y="y",
+                                                     training_frame=pf)
+            out[seed, metric] = [own, None, pm, jf, xs, kw]
+        # the jitted forest traces the table function once per metric:
+        # clear its cache before and after the swap
+        ju._train_uplift_forest.clear_cache()
+        try:
+            mp.setattr(ju, "histogram_build_traced", _port_table)
+            for k, v in out.items():
+                _own, _, _pm, jf, xs, kw = v
+                v[1] = JUplift(**kw).train(x=xs, y="y", training_frame=jf)
+        finally:
+            mp.undo()
+            ju._train_uplift_forest.clear_cache()
+    return out
+
+
+@pytest.mark.parametrize("case", WEIGHTED, ids=lambda c: f"{c[0]}-{c[1]}")
+def test_weighted_trees_equal_reference(weighted, case):
+    """Weighted rows (F9): with the split's prefix sums in XLA's order
+    (``xlamath.cumsum``) the port grows the reference's trees.  Its leaf
+    rates are not held here: each package sums its histogram table in
+    its own order (the port in float64, cast once; the reference in
+    float32 over its mesh), which leaves up to 1.13e-6 between the
+    rates of the 3 x 3 cases."""
+    own, _, pm = weighted[case][:3]
+    for k in ("split_col", "bitset", "child"):
+        np.testing.assert_array_equal(pm.output[k],
+                                      np.asarray(own.output[k]), err_msg=k)
+    assert (pm.output["split_col"] >= 0).sum() > 20
+
+
+@pytest.mark.parametrize("case", WEIGHTED, ids=lambda c: f"{c[0]}-{c[1]}")
+def test_weighted_rates_equal_on_one_table(weighted, case):
+    """The same forests with the reference reading the port's tables:
+    trees equal and every leaf's treatment and control rates within
+    ``TOL`` (they come out equal), so nothing but the tables' summation
+    order parts the two packages."""
+    _, fed, pm = weighted[case][:3]
+    for k in ("split_col", "bitset", "child"):
+        np.testing.assert_array_equal(pm.output[k],
+                                      np.asarray(fed.output[k]), err_msg=k)
+    for k in ("val_t", "val_c"):
+        np.testing.assert_allclose(pm.output[k], np.asarray(fed.output[k]),
+                                   rtol=0, atol=TOL, err_msg=k)
