@@ -166,7 +166,8 @@ prints one JSON line; any failure raises and the exit code is not 0):
               40-level categoricals (52 predictors): multinomial at its
               defaults (7 one-vs-rest IRLSM passes an iteration), the
               joint-softmax L_BFGS at alpha 0, lambda 0, and ordinal
-              (10,000 Adam steps): logloss reproduced by predict();
+              at max_iterations 10 (2,000 Adam steps; its default 50
+              gives 10,000): logloss reproduced by predict();
               the ordinal thresholds' increments as one CUDA graph
               bitwise the CPU's arithmetic, ms a call beside eager;
               16e gaussian, poisson, gamma, tweedie, quasibinomial,
@@ -189,7 +190,8 @@ prints one JSON line; any failure raises and the exit code is not 0):
               categoricals; the first 100,000 rows on the card and on the
               CPU: equal iterations and assignments, centers within 1e-5;
               17b DeepLearning at H2O-3's defaults (hidden [200, 200],
-              Rectifier, ADADELTA; 3 of their 10 epochs: 2,929 steps of 1,024 rows):
+              Rectifier, ADADELTA; 1 of their 10 epochs: 976 steps of
+              1,024 rows):
               wall, ms a step, training AUC reproduced by predict(); rate/
               momentum and RectifierWithDropout for 1 epoch; an autoencoder
               (hidden [20], 1 epoch) and anomaly() over the 1M rows; card
@@ -222,7 +224,7 @@ prints one JSON line; any failure raises and the exit code is not 0):
               18c Word2Vec at the reference's defaults (vec_size 100,
               window 5, 5 negatives, batches of 4,096, min_word_freq 5)
               on a seeded Zipf corpus of 1,000,000 tokens over 30,000
-              types in sentences of 20, 2 epochs of the default 5: wall,
+              types in sentences of 20, 1 epoch of the default 5: wall,
               pairs/s, a device step's ms, the host's share;
               18d NaiveBayes on the 1M x 28 frame and on covertype (7
               classes, wild and soil categorical): walls, predict() walls;
@@ -440,9 +442,12 @@ prints one JSON line; any failure raises and the exit code is not 0):
               23g F8's repeat check (h2o_tpu_torch/tools/repeat_check.py):
               a weighted binomial GBM (AUC stopping, scoring every tree)
               and a weighted 7-class GBM on 100,000 rows, three trainings
-              each, and KMeans' and GLRM's steps three times at one state:
+              each, KMeans' and GLRM's steps three times at one state, and
+              three weighted binomial GLMs by IRLSM and by L-BFGS and
+              three one-step DeepLearning trainings on the same rows:
               histories, tree counts, varimp, the AUC bins and threshold
-              table, the confusion matrix bitwise; K2 5 launches a tree
+              table, the confusion matrix, the betas and the network's
+              weights bitwise; K2 5 launches a tree
  24 jobs, the DKV and user functions (core/job.py, core/store.py,
               core/udf.py), each part printing its wall, its K2 launches
               and its holds:
@@ -544,6 +549,26 @@ prints one JSON line; any failure raises and the exit code is not 0):
               fairness counts a numpy recount, week of 2021-01-01 is 1;
               no histogram kernel runs; every key published in 27 is
               removed
+ 28 the Rapids interpreter's frame and statistics ops on phase 26's
+              frame with w0..w3 (x0..x3 with 3 % NA in runs): 28a each
+              op at 1M rows (R28_FULL: hist, runif, the fold columns,
+              which.max/min, topn, the moments, prod, any, all, cor,
+              sumaxis, fillna, dropdup, melt, pivot, rank_within_groupby,
+              difflag1, rep_len, cut and the level, domain, match and
+              introspection ops, apply, scale and not), entropy and match
+              over a string column at R28_CUT_ROWS, t at R28_T_ROWS,
+              distance at R28_DIST_ROWS; the host ops move no byte, the
+              device ops (scale, not, apply with a device body) bitwise
+              the same torch arithmetic on the card; 28b every expression
+              at R28_CUT_ROWS rows on the card and on the CPU, equal, with
+              each device op's bytes each way; 28c the first R28_CUT_ROWS
+              rows munged by Rapids on the card and on the CPU (fillna,
+              scale, cut and relevel, a stratified fold column), equal,
+              the fold column numpy's, and a 10-tree GBM cross-validated
+              on it (K2 200); the same GBM with R28_CV_TREES trees on the
+              first R28_CV_ROWS rows on the card (K2 60) and on the CPU,
+              CV metrics within R28_CV_TOL; every key published in 28 is
+              removed
   7 profile - torch.profiler over 2 default trees: device busy share and
               the kernels that take the device time; then 2 QuantilesGlobal
               trees: each histogram kernel's device ms per main-path launch
@@ -553,7 +578,7 @@ prints one JSON line; any failure raises and the exit code is not 0):
               iteration (7 class trees) and one UpliftDRF tree
 
 The kernels line's launches sum every main-path training above (phases
-4, 5, 8-26), each read from counters set to 0 just before it; the
+4, 5, 8-28), each read from counters set to 0 just before it; the
 launches phase lists them path by path (phase 16 as "glm", 0 and 0;
 phase 17's KMeans, DeepLearning and GAM paths 0 and 0, "rulefit" 150
 and 0; phase 18's PCA, SVD, GLRM, Word2Vec, NaiveBayes and CoxPH runs 0
@@ -567,7 +592,8 @@ phase 24's "job_gbm" 0 and 100, "job_gbm_drf_together" 0 and 300,
 "grid_cartesian" 180 and 180, "grid_parallel" 180 and 180,
 "grid_random" its GBMs' levels, "segments" 0 and 350, "automl" 0 and
 its GBMs' levels over their fold and main fits; phase 26's "rapids" 0
-and 0, "rapids_gbm" 0 and 100).
+and 0, "rapids_gbm" 0 and 100; phase 28's "rapids_frame_ops" 0 and 0,
+"rapids_cv_gbm" 0 and 200, "rapids_cv_gbm_card_vs_cpu" 0 and 60).
 
 The line before the last holds every kernel's numbers; the last line is
 the device summary.  Needs one CUDA card; exits non-zero without one.
@@ -1927,6 +1953,9 @@ def phase_loop(paths) -> None:
 #: cuBLAS's order on the card and in the CPU BLAS's order here)
 GLM_ATOL = 1e-4
 GLM_SE_RTOL = 1e-4
+#: 16d: the ordinal GLM's max_iterations, 200 Adam steps each (its
+#: default 50 gives 10,000 steps, ~35 s: cut for the script's time limit)
+ORDINAL_ITERS = 10
 #: 16e: the families held card against CPU, with their parameters
 GLM_FAMILIES = {"gaussian": {}, "poisson": {}, "gamma": {},
                 "tweedie": dict(tweedie_power=1.3), "quasibinomial": {},
@@ -2148,7 +2177,8 @@ def phase_glm(X, y, fr: Frame, paths) -> None:
     for name, kw in (("glm_multinomial", {}),
                      ("glm_multinomial_lbfgs",
                       dict(solver="L_BFGS", alpha=0.0, lambda_=0.0)),
-                     ("glm_ordinal", dict(family="ordinal"))):
+                     ("glm_ordinal", dict(family="ordinal",
+                                          max_iterations=ORDINAL_ITERS))):
         m, wall, b, pr = fit_glm(cov, **kw)
         tm = m.output["training_metrics"]
         pm = multinomial_metrics(glm_probs(m, cov), ycov)
@@ -2157,7 +2187,8 @@ def phase_glm(X, y, fr: Frame, paths) -> None:
                   classes=len(COV_COUNTS), params=kw,
                   solver=m.params["_solver_resolved"],
                   iterations=getattr(b, "_last_iters", None),
-                  adam_steps=200 * 50 if name == "glm_ordinal" else None,
+                  adam_steps=200 * ORDINAL_ITERS if name == "glm_ordinal"
+                  else None,
                   wall_s=wall, logloss=tm["logloss"], err=tm["err"],
                   mean_per_class_error=tm["mean_per_class_error"],
                   predict_logloss=pm["logloss"], **pr))
@@ -2270,9 +2301,9 @@ def phase_glm(X, y, fr: Frame, paths) -> None:
 #: 17a: KMeans's k and iterations on the 1M x 28 frame, k on covertype
 KM_K, KM_ITERS, KM_COV_K = 10, 10, 7
 #: 17b: DeepLearning at H2O-3's defaults (hidden [200, 200], Rectifier,
-#: ADADELTA) cut from 10 epochs to 3 = 2,929 steps of 1,024 rows (the
+#: ADADELTA) cut from 10 epochs to 1 = 976 steps of 1,024 rows (the
 #: script's time limit); the 1-epoch variants
-DL_EPOCHS = 3.0
+DL_EPOCHS = 1.0
 DL_VARIANTS = {"momentum": dict(adaptive_rate=False, rate=0.005,
                                 momentum_start=0.5, momentum_stable=0.99,
                                 momentum_ramp=1e6),
@@ -2603,7 +2634,7 @@ DECOMP_K, GLRM_K, GLRM_NAN = 10, 10, 0.10
 #: 18c: the seeded Zipf corpus (tokens, types, tokens a sentence) and the
 #: epochs run (the reference's default is 5: cut, the host pair loop is
 #: the reference's own Python loop)
-W2V_TOKENS, W2V_TYPES, W2V_SENTENCE, W2V_EPOCHS = 1_000_000, 30_000, 20, 2
+W2V_TOKENS, W2V_TYPES, W2V_SENTENCE, W2V_EPOCHS = 1_000_000, 30_000, 20, 1
 W2V_SUB_TOKENS = 100_000
 #: 18e: the share of censored rows the censoring rate aims at
 COX_CENSORED = 0.3
@@ -2858,7 +2889,7 @@ class W2VProbe:
 
 def phase_word2vec(paths):
     """18c: Word2Vec at the reference's defaults on a 1M-token Zipf
-    corpus, 2 epochs; one device step timed; card against CPU."""
+    corpus, W2V_EPOCHS epochs; one device step timed; card against CPU."""
     fr_w = Frame(["tokens"], [Vec(zipf_tokens(W2V_TOKENS, W2V_TYPES,
                                               W2V_SENTENCE), T_STR)])
     kw = dict(epochs=W2V_EPOCHS, seed=1)
@@ -6855,6 +6886,337 @@ def phase_slice21(f26: Frame, smi: str, m_def, m_drf, models: dict) -> None:
             got == (0, 0))
 
 
+# -- 28: the Rapids interpreter's frame and statistics ops -------------------
+
+#: phase 28: the rows of the cut runs (the string ops over 28's string
+#: column), of ``t`` and of ``distance``'s two frames, and of the
+#: card-vs-CPU runs and 28c's GBM; the share of the w columns' cells NA
+#: (runs of one and two); 28c's folds, fold seed and trees; the rows and
+#: trees of its card-against-CPU CV GBMs (a 100,000-row, 10-tree CV GBM
+#: takes 34.9 s on the CPU of an H100 machine with 8 cores) and their CV
+#: metrics' tolerance, phase 13f's for scoring histories
+R28_CUT_ROWS, R28_T_ROWS, R28_DIST_ROWS = 100_000, 10_000, 1_000
+R28_NA = 0.03
+R28_FOLDS, R28_FOLD_SEED, R28_TREES = 3, 42, 10
+R28_CV_ROWS, R28_CV_TREES = 10_000, 3
+R28_CV_TOL = 1e-5
+#: 28's columns: x0..x27 0-27, y 28, zkey 29, c7 30, k7 31, k7n 32,
+#: w0..w3 33-36 (x0..x3 with NA runs), and s 37 at the cut
+R28_W = "[33 34 35 36]"
+#: (name, expression, kind): a ``host`` op must move no byte, a
+#: ``device`` op its columns once each way; {f} the frame
+R28_FULL = (
+    ("hist_sturges", "(hist (cols {f} 'x0') 'sturges')", "host"),
+    ("hist_breaks", "(hist (cols {f} 'w1') [-4 -2 -1 0 1 2 4])", "host"),
+    ("runif", "(h2o.runif {f} 28)", "host"),
+    ("kfold", "(kfold_column {f} 5 28)", "host"),
+    ("modulo_kfold", "(modulo_kfold_column {f} 5)", "host"),
+    ("stratified_kfold", "(stratified_kfold_column (cols {f} 'y') 3 42)",
+     "host"),
+    ("which_max", "(which.max (cols {f} [0:28]) True 0)", "host"),
+    ("which_min_rows", "(which.min (cols {f} [0:8]) True 1)", "host"),
+    ("topn", "(topn {f} 0 1 1)", "host"),
+    ("skewness", "(skewness (cols {f} [0:4]) True)", "host"),
+    ("kurtosis", f"(kurtosis (cols {{f}} {R28_W}) True)", "host"),
+    ("prod_na", "(prod.na (cols {f} 'k7n'))", "host"),
+    ("any", f"(any (cols {{f}} {R28_W}))", "host"),
+    ("all", "(all (cols {f} 'k7n'))", "host"),
+    ("cor_pearson", f"(cor (cols {{f}} [0 1 2 3]) (cols {{f}} {R28_W}) "
+     "'complete.obs' 'Pearson')", "host"),
+    ("cor_spearman", "(cor (cols {f} 'x0') (cols {f} 'w0') 'complete.obs' "
+     "'Spearman')", "host"),
+    ("sumaxis_cols", "(sumaxis (cols {f} [0:8]) True 0)", "host"),
+    ("sumaxis_rows", f"(sumaxis (cols {{f}} {R28_W}) False 1)", "host"),
+    ("fillna", f"(h2o.fillna (cols {{f}} {R28_W}) 'forward' 0 1)", "host"),
+    ("fillna_backward_rows", f"(h2o.fillna (cols {{f}} {R28_W}) 'backward' "
+     "1 2)", "host"),
+    ("dropdup", "(dropdup {f} ['zkey'] 'first')", "host"),
+    ("dropdup_last", "(dropdup {f} ['c7', 'k7'] 'last')", "host"),
+    ("melt", "(melt {f} ['zkey'] ['x0', 'x1'] 'variable' 'value' False)",
+     "host"),
+    ("pivot", "(pivot {f} ['zkey'] ['k7'] ['x0'])", "host"),
+    ("rank_within_groupby", "(rank_within_groupby {f} ['c7'] ['x0'] [1] "
+     "'rank' 0)", "host"),
+    ("difflag1", "(difflag1 (cols {f} [0 1 2 3]))", "host"),
+    ("rep_len", "(rep_len (cols {f} 'c7') 2000000)", "host"),
+    ("cut", "(cut (cols {f} 'x0') [-10 -1 0 1 10] [] True True 3)", "host"),
+    ("set_level", "(setLevel (cols {f} 'c7') 'k3')", "host"),
+    ("relevel", "(relevel (cols {f} 'c7') 'k6')", "host"),
+    ("set_domain", "(setDomain (cols {f} 'k7') False ['a', 'b', 'c', 'd', "
+     "'e', 'f', 'g'])", "host"),
+    ("append_levels", "(appendLevels (cols {f} 'c7') False ['k7', 'k8'])",
+     "host"),
+    ("relevel_by_freq", "(relevel.by.freq (cols {f} ['c7', 'k7']) None 3)",
+     "host"),
+    ("match_numbers", "(match (cols {f} 'k7n') [6 2 4 2] 0 None)", "host"),
+    ("match_levels", "(match (cols {f} 'c7') ['k1', 'k5'] NaN None)", "host"),
+    ("any_factor", "(any.factor {f})", "host"),
+    ("any_na", "(any.na {f})", "host"),
+    ("columns_by_type", "(columnsByType {f} 'categorical')", "host"),
+    ("filter_na_cols", "(filterNACols {f} 0.005)", "host"),
+    ("ls", "(ls)", "host"),
+    ("getrow", "(getrow (mean (cols {f} [0:28]) 1 0))", "host"),
+    ("flatten", "(flatten (cols {f} 'c7'))", "host"),
+    ("apply_rows", "(apply (cols {f} [0:8]) 1 {{ x . (mean x) }})",
+     "host"),
+    ("apply_cols_host", "(apply (cols {f} [0:28]) 2 {{ x . (max x) }})",
+     "host"),
+    ("scale", "(scale (cols {f} [0:28]) True True)", "device"),
+    ("scale_lists", "(scale (cols {f} [0 1 2 3]) [0.5 -0.25 0 1] "
+     "[2 4 0.5 1])", "device"),
+    ("not", f"(not (cols {{f}} {R28_W}))", "device"),
+    ("apply_cols_device", f"(apply (cols {{f}} {R28_W}) 2 {{{{ x . (abs x) "
+     "}})", "device"),
+)
+#: the cut expressions: {g} the first R28_CUT_ROWS rows with the string
+#: column, {t} the first R28_T_ROWS, {d} the first R28_DIST_ROWS
+R28_CUT = (
+    ("entropy", "(entropy (cols {g} 's'))", "host"),
+    ("match_strings", "(match (cols {g} 's') ['alpha-Beta gamma', '', "
+     "'id_7'] 0 None)", "host"),
+    ("transpose", "(t (cols {t} [0:8]))", "host"),
+    ("distance_l2", "(distance (cols {d} [0:28]) (cols {d} [0:28]) 'l2')",
+     "host"),
+    ("distance_cosine", "(distance (cols {d} [0:28]) (cols {d} [0:28]) "
+     "'cosine')", "host"),
+)
+#: 28c's munging, in order ({s} the GBM's rows, {k} the key suffix)
+R28_MUNGE = (
+    ("fillna", "(tmp= m28{k} (h2o.fillna (cols {s} [33 34 35 36 4:24]) "
+     "'forward' 0 1))"),
+    ("scale", "(tmp= s28{k} (scale m28{k} True True))"),
+    ("cut_relevel", "(tmp= b28{k} (relevel (cut (cols {s} 'x0') "
+     "[-10 -1 0 1 10] [] True True 3) '(0,1]'))"),
+    ("stratified_folds", "(tmp= k28{k} (stratified_kfold_column "
+     f"(cols {{s}} 'y') {R28_FOLDS} {R28_FOLD_SEED}))"),
+    ("frame", "(tmp= g28{k} (cbind s28{k} b28{k} (cols {s} 'y') k28{k}))"),
+)
+
+
+def r28_frame(f: Frame) -> Frame:
+    """Phase 26's frame with w0..w3: x0..x3 with R28_NA of their cells NA,
+    in runs of one and two (seed 71)."""
+    rng = np.random.default_rng(71)
+    out = Frame(list(f.names), list(f.vecs))
+    n = f.nrows
+    for j in range(4):
+        x = f.vec(f"x{j}").data.copy()
+        start = rng.uniform(size=n) < R28_NA / 1.5
+        x[start | np.roll(start & (rng.uniform(size=n) < 0.5), 1)] = np.nan
+        out.add(f"w{j}", Vec(x))
+    return out
+
+
+def r28_run(exprs, keys: dict, device) -> dict:
+    """{name: (answer, wall s, bytes to the device, bytes to the host)} of
+    each expression in order on a session on ``device``."""
+    sess = RapidsSession(f"rapids28_{keys['f']}", device=device)
+    out = {}
+    for name, expr, _kind in exprs:
+        TransferStats.reset()
+        sync()
+        t0 = time.perf_counter()
+        res = rapids_exec(expr.format(**keys), sess)
+        sync()
+        moved = TransferStats.snapshot()
+        out[name] = (res, time.perf_counter() - t0, moved["to_device"],
+                     moved["to_host"])
+    return out
+
+
+def r28_direct(res: dict, f: Frame) -> dict:
+    """28a's device answers at full width against the same arithmetic in
+    torch on the card: {name: bitwise equal}."""
+    def cols(idx):
+        return torch.from_numpy(np.stack([f.vecs[j].as_float() for j in idx],
+                                         axis=1)).to(DEV)
+
+    def row(vals):
+        return torch.tensor(np.asarray(vals, np.float32), device=DEV)[None]
+
+    x = cols(range(28))
+    r = [f.vecs[j].rollups for j in range(28)]
+    want = {"scale": (x - row([q.mean for q in r])) /
+            row([q.sigma or 1.0 for q in r]),
+            "scale_lists": (cols(range(4)) - row([0.5, -0.25, 0, 1])) /
+            row([2, 4, 0.5, 1])}
+    w = cols(range(33, 37))
+    want["not"] = torch.where(torch.isnan(w), w, (w == 0).float())
+    want["apply_cols_device"] = torch.abs(w)
+    return {k: bits_equal(float_bits(np.stack(
+        [v.data for v in res[k][0].vecs[-t.shape[1]:]], axis=1)),
+        float_bits(t.cpu().numpy())) for k, t in want.items()}
+
+
+def r28_fold_reference(y: np.ndarray) -> np.ndarray:
+    """numpy's stratified folds of the codes ``y``: each class's rows
+    shuffled by one default_rng(R28_FOLD_SEED), classes in sorted order,
+    dealt round-robin."""
+    rng = np.random.default_rng(R28_FOLD_SEED)
+    fold = np.zeros(len(y), np.float32)
+    for k in np.unique(y[y >= 0]):
+        idx = np.flatnonzero(y == k)
+        rng.shuffle(idx)
+        fold[idx] = np.arange(len(idx)) % R28_FOLDS
+    return fold
+
+
+def rapids_28c(f: Frame, smi: str, paths) -> None:
+    """28c: the first R28_CUT_ROWS rows munged by Rapids on the card and on
+    the CPU (fillna, scale, cut and relevel, a stratified fold column),
+    then a GBM cross-validated on that fold column on each."""
+    from h2o_tpu_torch.core.store import dkv
+    sub = f.slice_rows(slice(0, R28_CUT_ROWS))
+    dkv().put("f28_gbm", sub)
+    frames, walls = {}, {}
+    for tag, dev in (("card", DEV), ("cpu", "cpu")):
+        sess = RapidsSession(f"rapids28c_{tag}", device=dev)
+        for name, expr in R28_MUNGE:
+            sync()
+            t0 = time.perf_counter()
+            frames[tag] = rapids_exec(expr.format(s="f28_gbm",
+                                                  k=f"_{tag}"), sess)
+            sync()
+            walls[f"{tag}_{name}_s"] = time.perf_counter() - t0
+    g, g_cpu = frames["card"], frames["cpu"]
+    frame_bad = rapids_diff(g, g_cpu)
+    fold_ok = bits_equal(g.vec("fold").data,
+                         r28_fold_reference(sub.vec("y").data)) and \
+        bits_equal(g.vec("fold").data, g_cpu.vec("fold").data)
+    kw = dict(max_depth=5, seed=1, fold_column="fold")
+    m, wall, got = launched(fit, cls=GBM, fr=g, ntrees=R28_TREES, **kw)
+    paths["rapids_cv_gbm"] = got
+    want = (0, (R28_FOLDS + 1) * R28_TREES * 5)
+    # card against CPU: the first R28_CV_ROWS rows of each munged frame
+    pair = {}
+    for tag, fr_, dev in (("card", g, DEV), ("cpu", g_cpu, "cpu")):
+        hk.reset_launches()
+        pair[tag] = fit(GBM, fr_.slice_rows(slice(0, R28_CV_ROWS)),
+                        device=dev, ntrees=R28_CV_TREES, **kw)
+        if tag == "card":
+            paths["rapids_cv_gbm_card_vs_cpu"] = hist_launches()
+    (mc, wall_pc), (m_cpu, wall_cpu) = pair["card"], pair["cpu"]
+    cv, cv_cpu = (x.output["cross_validation_metrics"] for x in (mc, m_cpu))
+    sm, sm_cpu = (x.output["cross_validation_metrics_summary"]
+                  for x in (mc, m_cpu))
+    diffs = {k: abs(float(cv[k]) - float(cv_cpu[k]))
+             for k in ("AUC", "logloss", "mse", "pr_auc",
+                       "mean_per_class_error")}
+    diffs.update({f"summary_{k}_mean": abs(sm[k]["mean"] - sm_cpu[k]["mean"])
+                  for k in sm if k in sm_cpu})
+    worst = max(diffs.values())
+    pair_want = (0, (R28_FOLDS + 1) * R28_CV_TREES * 5)
+    x0 = g.vec("x0")
+    cv_main = m.output["cross_validation_metrics"]
+    dp_hold("28c_munged_cv_gbm", smi, dict(
+        rows=g.nrows, cols=g.ncols, folds=R28_FOLDS, ntrees=R28_TREES,
+        x0_domain=x0.domain, frame_differs_card_cpu=frame_bad,
+        fold_bitwise=fold_ok, wall_s=wall, k1_launches=got[0],
+        k2_launches=got[1], want_launches=want,
+        cv_auc=float(cv_main["AUC"]), cv_logloss=float(cv_main["logloss"]),
+        fold_models=len(m.output["cross_validation_models"]),
+        card_vs_cpu=dict(rows=R28_CV_ROWS, ntrees=R28_CV_TREES,
+                         card_wall_s=wall_pc, cpu_wall_s=wall_cpu,
+                         launches=paths["rapids_cv_gbm_card_vs_cpu"],
+                         cv_auc=float(cv["AUC"]),
+                         cv_auc_cpu=float(cv_cpu["AUC"]),
+                         cv_max_abs_diff=worst, cv_tol=R28_CV_TOL),
+        **walls),
+        not frame_bad and fold_ok and got == want and worst <= R28_CV_TOL
+        and paths["rapids_cv_gbm_card_vs_cpu"] == pair_want and
+        x0.is_categorical and x0.domain[0] == "(0,1]" and
+        len(m.output["cross_validation_models"]) == R28_FOLDS and
+        0.5 < float(cv_main["AUC"]) <= 1.0)
+
+
+def phase_slice22(f26: Frame, smi: str, paths) -> None:
+    """28: the frame and statistics ops of the Rapids interpreter on phase
+    26's frame with NA runs in w0..w3: 28a every op at full width (the
+    cut ones at their rows), the host ops moving no byte and the device
+    ops bitwise the same torch arithmetic on the card; 28b every
+    expression at R28_CUT_ROWS rows on the card and on the CPU, equal,
+    with each device op's bytes; 28c the munged, cross-validated GBM.
+    Every key published here is removed at the end."""
+    from h2o_tpu_torch.core.store import dkv
+    before = set(dkv().keys())
+    hk.reset_launches()
+    t = [time.perf_counter()]
+    f = r28_frame(f26)
+    sub = f.slice_rows(slice(0, R28_CUT_ROWS))
+    sub.add("s", string_columns(sub.nrows)["s"])
+
+    def keys(tag, fr, g):
+        k = dict(f=f"f28_{tag}", g=f"g28_{tag}", t=f"t28_{tag}",
+                 d=f"d28_{tag}")
+        dkv().put(k["f"], fr)
+        dkv().put(k["g"], g)
+        dkv().put(k["t"], g.slice_rows(slice(0, R28_T_ROWS)))
+        dkv().put(k["d"], g.slice_rows(slice(0, R28_DIST_ROWS)))
+        return k
+
+    k_full = keys("card", f, sub)
+    k_sub = keys("card_sub", sub, sub)
+    k_cpu = keys("cpu_sub", sub, sub)
+    t.append(time.perf_counter())
+    card = r28_run(R28_FULL + R28_CUT, k_full, DEV)
+    t.append(time.perf_counter())
+    direct = r28_direct(card, f)
+    card_sub = r28_run(R28_FULL + R28_CUT, k_sub, DEV)
+    cpu_sub = r28_run(R28_FULL + R28_CUT, k_cpu, "cpu")
+    t.append(time.perf_counter())
+    got = hist_launches()
+    no_hist("rapids 28a/28b", got)
+    paths["rapids_frame_ops"] = got
+    rows = {n: f.nrows for n, _e, _k in R28_FULL}
+    rows.update({n: R28_T_ROWS if "{t}" in e else R28_DIST_ROWS
+                 if "{d}" in e else R28_CUT_ROWS for n, e, _k in R28_CUT})
+    for name, expr, kind in R28_FULL + R28_CUT:
+        out, wall, up, down = card[name]
+        emit(dict(phase="28a_rapids", gpu=smi, name=name, expr=expr,
+                  kind=kind, rows=rows[name],
+                  rows_out=out.nrows if isinstance(out, Frame) else None,
+                  wall_s=wall, to_device_bytes=up, to_host_bytes=down))
+    moved = sorted(n for n, _e, k in R28_FULL + R28_CUT if k == "host" and
+                   any(card[n][2:] + card_sub[n][2:]))
+    device_bytes = {n: dict(card_to_device=card_sub[n][2],
+                            card_to_host=card_sub[n][3],
+                            cpu_to_device=cpu_sub[n][2],
+                            cpu_to_host=cpu_sub[n][3])
+                    for n, _e, k in R28_FULL if k == "device"}
+    unmoved = sorted(n for n, v in device_bytes.items()
+                     if not v["card_to_host"] or not v["card_to_device"])
+    differ = {n: d for n, _e, _k in R28_FULL + R28_CUT
+              if (d := r27_diff(card_sub[n][0], cpu_sub[n][0]))}
+    dp_hold("28b_card_vs_cpu", smi, dict(
+        rows=sub.nrows, differ=differ, device_bytes=device_bytes,
+        device_walls_s={n: (card_sub[n][1], cpu_sub[n][1])
+                        for n in device_bytes}),
+        not differ and not unmoved)
+    t.append(time.perf_counter())
+    hk.reset_launches()
+    rapids_28c(f, smi, paths)
+    t.append(time.perf_counter())
+    published = sorted(set(dkv().keys()) - before)
+    for k in published:
+        dkv().remove(k, force=True)
+    restored = set(dkv().keys()) == before
+    names = ("frames", "full_width", "card_cpu", "holds", "cv_gbm")
+    rec = dict(rows=f.nrows, cut_rows=sub.nrows,
+               host_ops_moving_bytes=moved, device_ops_not_moving=unmoved,
+               device_direct_bitwise=direct,
+               reduced=dict(string_ops=R28_CUT_ROWS, transpose=R28_T_ROWS,
+                            distance=R28_DIST_ROWS,
+                            card_vs_cpu=R28_CUT_ROWS,
+                            cv_gbm=R28_CUT_ROWS,
+                            cv_gbm_card_vs_cpu=(R28_CV_ROWS, R28_CV_TREES)),
+               expr_walls_s={n: card[n][1] for n, _e, _k in R28_FULL},
+               keys_published=len(published), store_restored=restored,
+               total_s=t[-1] - t[0],
+               **{f"{n}_s": b - a for n, a, b in zip(names, t, t[1:])})
+    dp_hold("phase28", smi, rec, not moved and not unmoved and
+            all(direct.values()) and restored)
+
+
 def unpublish(before: set) -> None:
     """Remove every DKV key published since ``before`` (each phase's
     models and frames; the phase's own variables keep what it returns)."""
@@ -7131,6 +7493,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_slice21(f26, smi, m_def, m_drf,
                   dict(rulefit=rf, word2vec=w2v, segments=seg))
+    unpublish(base_keys)
+    # -- 28 the frame and statistics ops of Rapids, a munged CV GBM ---------
+    torch.cuda.empty_cache()
+    phase_slice22(f26, smi, paths)
     del f26
     emit(dict(phase="launches", paths={k: dict(k1=v[0], k2=v[1])
                                        for k, v in paths.items()}))

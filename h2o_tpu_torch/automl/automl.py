@@ -38,7 +38,7 @@ from h2o_tpu_torch.core.job import Job, jobs
 from h2o_tpu_torch.core.log import get_logger
 from h2o_tpu_torch.core.store import Key, dkv
 from h2o_tpu_torch.models.leaderboard import Leaderboard
-from h2o_tpu_torch.models.model import Model
+from h2o_tpu_torch.models.model import Model, in_caller_threads
 from h2o_tpu_torch.models.registry import builder_class
 
 log = get_logger("automl")
@@ -220,9 +220,9 @@ class AutoML:
         self._job = job
         dkv().put(self.project_name, self)
         dkv().put(self.key, self)
-        jobs().start(job, lambda j: self._run(j, x, y, training_frame,
-                                              validation_frame,
-                                              leaderboard_frame))
+        jobs().start(job, in_caller_threads(
+            lambda j: self._run(j, x, y, training_frame, validation_frame,
+                                leaderboard_frame)))
         return job
 
     def train(self, x=None, y=None, training_frame=None,

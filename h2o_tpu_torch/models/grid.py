@@ -41,7 +41,7 @@ from h2o_tpu_torch.core.device import DeviceLike, cloud
 from h2o_tpu_torch.core.job import Job, jobs
 from h2o_tpu_torch.core.log import get_logger
 from h2o_tpu_torch.core.store import Key, dkv
-from h2o_tpu_torch.models.model import _rehome
+from h2o_tpu_torch.models.model import _rehome, in_caller_threads
 from h2o_tpu_torch.models.score_keeper import (is_maximizing, metric_value,
                                                resolve_stopping_metric)
 
@@ -164,8 +164,8 @@ class GridSearch:
         job = Job(dest=self.grid_id, dest_type="Key<Grid>",
                   description=f"grid {self.grid_id} over "
                               f"{list(self.hyper_params)}")
-        jobs().start(job, lambda j: self._run(j, x, y, training_frame,
-                                              validation_frame))
+        jobs().start(job, in_caller_threads(
+            lambda j: self._run(j, x, y, training_frame, validation_frame)))
         return job
 
     def train(self, x=None, y=None, training_frame=None,

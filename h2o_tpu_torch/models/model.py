@@ -41,7 +41,7 @@ import pickle
 import threading
 import time
 import uuid
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -526,6 +526,23 @@ def publish(key: str, value: Any) -> None:
         pending.append((key, value))
 
 
+def in_caller_threads(body: Callable[[Job], Any]) -> Callable[[Job], Any]:
+    """A job body that runs under the calling thread's intra-op thread
+    count and grad mode: a pool thread keeps the count it last ran with
+    (and a CPU sum's order follows it: MKL's transposed ``sgemv``, the
+    GLM's [X,1]'Wz, splits its rows over its threads), and grad mode is
+    per thread."""
+    n_threads, grad = torch.get_num_threads(), torch.is_grad_enabled()
+
+    def run(j: Job):
+        if torch.get_num_threads() != n_threads:
+            torch.set_num_threads(n_threads)
+        with torch.set_grad_enabled(grad):
+            return body(j)
+
+    return run
+
+
 class ModelBuilder:
     """Train lifecycle: params -> validate -> ``_fit`` -> Model."""
 
@@ -613,26 +630,20 @@ class ModelBuilder:
         job = Job(dest=self.params["model_id"], dest_type="Key<Model>",
                   description=self._job_description(training_frame))
         dev = self.device
-        # per-thread state the caller's thread would have trained under:
-        # pool threads keep the intra-op thread count they started with,
-        # and grad mode is per thread
-        n_threads, grad = torch.get_num_threads(), torch.is_grad_enabled()
 
         def body(j: Job) -> Model:
-            if torch.get_num_threads() != n_threads:
-                torch.set_num_threads(n_threads)
             # a thread starts on device 0; another card is made current
             ctx = torch.cuda.device(dev) if dev.type == "cuda" and \
                 (dev.index or 0) != 0 else contextlib.nullcontext()
             _running.job, _running.pending = j, []
             try:
-                with ctx, torch.set_grad_enabled(grad):
+                with ctx:
                     return self._train_body(j, x, y, training_frame,
                                             validation_frame, use_cv)
             finally:
                 _running.job = _running.pending = None
 
-        jobs().start(job, body)
+        jobs().start(job, in_caller_threads(body))
         return job
 
     def _train_body(self, j: Job, x: List[str], y: Optional[str],

@@ -58,9 +58,24 @@ its ``_op_week``, which its ``_eval`` never reaches.  The model ops read
 models from ``core.store.dkv()`` and score on each model's own device
 through ``predict_raw`` and ``model_metrics``; their bookkeeping is on
 the host, with dicts where the reference looks codes up with
-``list.index`` (the same codes).  The rest of the prims
-(``_EXTRA_OPS``'s long tail) raise ``NotImplementedError`` naming ROADMAP
-P12c-ii.
+``list.index`` (the same codes).
+
+The frame and statistics ops (reference :1328-1472, :1539-1591,
+:1622-1993, :2016-2270, :2372-2435) run where the reference runs them.
+``scale`` and ``not`` compute on the session's device (one upload of the
+columns read, one download), and ``apply`` binds each column, or the
+transposed rows, in ``_Env.locals`` and evaluates its lambda's body
+through ``_eval``, so a device op there runs on the session's device.
+The rest are numpy on the host and move nothing: ``hist``, the fold
+columns and ``h2o.runif`` (numpy's ``default_rng(seed)`` in the
+reference's call order), ``which.max``/``which.min``, ``topn``, the
+moments, ``prod``, ``any``/``all``, ``cor``, ``sumaxis``, ``entropy``,
+the reshaping and row ops and the level and domain ops.  Where the
+reference loops over rows only to copy or count values (``fillna``,
+``dropdup``, ``pivot``, ``rank_within_groupby``, ``match``,
+``relevel.by.freq``'s tail, ``cor``'s tie ranks), the port does it in
+whole-array steps with the same answers; ``entropy`` is computed once a
+distinct label.
 
 Where the port's answer differs from the reference's: a binary op on two
 numbers gives a Python float (the reference returns a jax scalar, and its
@@ -203,6 +218,7 @@ class _Env:
     def __init__(self, session: Session, device: torch.device):
         self.s = session
         self.dev = device
+        self.locals: Dict[str, Any] = {}    # apply's lambda arguments
 
 
 def _as_frame(v) -> Frame:
@@ -219,13 +235,24 @@ def _lit(node):
     return node
 
 
-def _col_indices(fr: Frame, sel) -> List[int]:
+def _col_indices(fr: Frame, sel, names_first: bool = False) -> List[int]:
+    """Column indices of a selector: a bracket list, a name or a number.
+    A bracket list is read as numbers (spans, strings that parse as
+    numbers), else as names; with ``names_first`` (the frame ops that
+    take column lists: dropdup, melt, pivot, rank_within_groupby) a list
+    whose first entry is a string is read as names."""
     if isinstance(sel, tuple) and sel[0] == "numlist":
+        items = sel[1]
+        if names_first:
+            if items and isinstance(items[0], tuple) and \
+                    items[0][0] == "str":
+                return [fr.names.index(_lit(x)) for x in items]
+            return _expand_numlist(items)
         try:
-            return _expand_numlist(sel[1])
+            return _expand_numlist(items)
         except (TypeError, ValueError):
             # string names in the list
-            return [fr.names.index(_lit(x)) for x in sel[1]]
+            return [fr.names.index(_lit(x)) for x in items]
     if isinstance(sel, tuple) and sel[0] == "str":
         return [fr.names.index(sel[1])]
     if isinstance(sel, float):
@@ -533,18 +560,6 @@ _STROPS = ("toupper", "tolower", "trim", "nchar", "length", "substring",
 _TIME_PARTS = ("year", "month", "day", "dayOfWeek", "hour", "minute",
                "second", "week")
 
-# the long tail of the reference's _EXTRA_OPS, not ported yet (ROADMAP
-# P12c-ii-b): each raises NotImplementedError naming P12c-ii
-_LATER = frozenset((
-    "not", "any.factor", "any.na", "match", "cor", "cut", "entropy",
-    "columnsByType", "filterNACols", "ls", "getrow", "flatten", "rep_len",
-    "t", "sumaxis", "setDomain", "appendLevels", "relevel.by.freq",
-    "scale", "hist", "h2o.runif", "kfold_column", "modulo_kfold_column",
-    "stratified_kfold_column", "which.max", "which.min", "topn",
-    "h2o.fillna", "fillna", "skewness", "kurtosis", "dropdup", "distance",
-    "melt", "pivot", "rank_within_groupby", "apply", "setLevel", "relevel",
-    "difflag1", "prod", "prod.na", "any", "all"))
-
 # every op name _eval dispatches besides the op tables
 _NAMED_OPS = (
     "tmp=", "rm", "rm_fr", "cols", "cols_py", "rows", "rows_py", "nrow",
@@ -574,6 +589,8 @@ def _eval(node, env: _Env):
                 return 0.0
             if name in ("NA", "NaN", "nan"):
                 return float("nan")
+            if name in env.locals:
+                return env.locals[name]
             return s.lookup(name)
         if tag == "numlist":
             return node
@@ -727,9 +744,7 @@ def _eval(node, env: _Env):
         return _na_omit(_as_frame(_eval(node[1], env)), env.dev)
     if op == "naCnt":
         fr = _as_frame(_eval(node[1], env))
-        return [float(sum(x is None for x in v.host_data))
-                if v.host_data is not None else float(v.rollups.nacnt)
-                for v in fr.vecs]
+        return [float(_na_count(v)) for v in fr.vecs]
     if op == "which":
         fr = _as_frame(_eval(node[1], env))
         d = np.asarray(fr.vecs[0].to_numpy())
@@ -756,10 +771,6 @@ def _eval(node, env: _Env):
         return _impute(node, env)
     if op in _EXTRA_OPS:
         return _EXTRA_OPS[op](node, env)
-    if op in _LATER:
-        raise NotImplementedError(
-            f"rapids op {op!r}: the long tail of the prims comes with "
-            "ROADMAP P12c-ii")
     raise NotImplementedError(f"rapids op {op!r}")
 
 
@@ -1300,8 +1311,7 @@ def _labels_of(v: Vec) -> List[Optional[str]]:
 
 
 def _numlist_vals(node, env):
-    """A bracket list's numbers (the reference's ``cut`` reads its breaks
-    so; that op comes with P12c-ii-b)."""
+    """A bracket list's numbers (``cut`` reads its breaks so)."""
     return [float(x) for x in _mixed_list(node, env)]
 
 
@@ -2130,8 +2140,864 @@ def _op_make_leaderboard(node, env):
     return Frame(out_names, vecs)
 
 
-# the ported part of the reference's _EXTRA_OPS ("week" is dispatched as a
-# time part before this table is read, as in the reference)
+# ---------------------------------------------------------------------------
+# frame and statistics ops (ast/prims/**): scale and not on the device,
+# the rest on the host
+# ---------------------------------------------------------------------------
+
+
+def _host_matrix(fr: Frame) -> np.ndarray:
+    """(rows, cols) float32 of every column's ``as_float``, on the host
+    (the reference's ``as_matrix`` read back; a string column raises its
+    type, an AttributeError)."""
+    for n, v in zip(fr.names, fr.vecs):
+        if v.data is None:
+            raise AttributeError(f"{n!r} is a {v.type} column: no numeric "
+                                 "payload")
+    if not fr.vecs:
+        return np.zeros((fr.nrows, 0), np.float32)
+    return np.stack([v.as_float() for v in fr.vecs], axis=1)
+
+
+def _upload_row(like: torch.Tensor, vals) -> torch.Tensor:
+    """A (1, len(vals)) float32 row of numbers on ``like``'s device: one
+    operand a column, so that the card divides as the CPU does."""
+    row = np.asarray(vals, np.float32)[None, :]
+    TransferStats.note("to_device", row.nbytes)
+    return torch.from_numpy(row).to(like.device)
+
+
+def _op_scale(node, env):
+    """(scale fr center scale): the numeric columns centred and scaled in
+    float32 on the device; ``center``/``scale`` a flag (the column's
+    rollup mean, its sigma or 1 where that is 0) or a number a column."""
+    fr = _as_frame(_eval(node[1], env))
+    num_idx = [j for j, v in enumerate(fr.vecs) if v.is_numeric]
+
+    def spec(arg, rollup):
+        if isinstance(arg, tuple) and arg[0] == "numlist":
+            return [float(x) for x in arg[1]]
+        # evaluated, so that bare True/False ids read as 1.0/0.0
+        return [rollup(fr.vecs[j].rollups) for j in num_idx] \
+            if _eval(arg, env) else None
+
+    centers = spec(node[2], lambda r: float(r.mean))
+    scales = spec(node[3], lambda r: float(r.sigma) or 1.0)
+    out_vecs = list(fr.vecs)
+    if not num_idx:
+        return Frame(list(fr.names), out_vecs)
+    m = _upload(fr, env.dev, num_idx)
+    if centers is not None:
+        m = m - _upload_row(m, [centers[k] for k in range(len(num_idx))])
+    if scales is not None:
+        m = m / _upload_row(m, [scales[k] or 1.0
+                                for k in range(len(num_idx))])
+    out = _download(m)
+    for k, j in enumerate(num_idx):
+        out_vecs[j] = Vec(np.ascontiguousarray(out[:, k]))
+    return Frame(list(fr.names), out_vecs)
+
+
+def _op_not(node, env):
+    """(not x): a number's logical not, or on the device each cell's: NaN
+    where NaN, else 1 where 0."""
+    fr = _eval(node[1], env)
+    if isinstance(fr, (int, float)):
+        return float(not fr)
+    fr = _as_frame(fr)
+    for n, v in zip(fr.names, fr.vecs):
+        if v.data is None:          # the reference's isnan refuses it so
+            raise TypeError(f"isnan requires ndarray or scalar arguments, "
+                            f"got {n!r}, a {v.type} column")
+    m = _upload(fr, env.dev)
+    out = torch.where(torch.isnan(m), torch.full_like(m, math.nan),
+                      (m == 0).to(torch.float32))
+    return _numeric_frame(fr.names, _download(out))
+
+
+def _op_hist(node, env):
+    """(hist x breaks): [breaks, counts, mids_true, mids], the counts and
+    mids after a leading NA row; ``breaks`` a list, a bin count or
+    Sturges' (the default), Rice's or the square-root rule."""
+    fr = _as_frame(_eval(node[1], env))
+    v = fr.vecs[0]
+    if not v.is_numeric:
+        raise ValueError("hist only applies to single numeric columns")
+    d = np.asarray(v.to_numpy(), np.float64)[: fr.nrows]
+    d = d[~np.isnan(d)]
+    a = node[2]
+    if isinstance(a, tuple) and a[0] == "numlist":
+        brks = np.asarray([float(x) for x in a[1]], np.float64)
+    else:
+        if isinstance(a, tuple) and a[0] == "str":
+            algo = a[1].lower()
+            n = len(d)
+            if algo == "rice":
+                nb = int(np.ceil(2 * n ** (1.0 / 3)))
+            elif algo == "sqrt":
+                nb = int(np.ceil(np.sqrt(n)))
+            else:
+                nb = int(np.ceil(np.log2(n) + 1))
+        else:
+            nb = int(a)
+        brks = np.linspace(d.min(), d.max(), nb + 1)
+    counts, _ = np.histogram(d, bins=brks)
+    mids = 0.5 * (brks[:-1] + brks[1:])
+    # each bin's own mean, in the reference's order (the last bin closed)
+    mids_true = np.array([
+        d[(d >= brks[i]) & (d <= brks[i + 1] if i == len(brks) - 2
+                            else d < brks[i + 1])].mean()
+        if counts[i] else np.nan for i in range(len(brks) - 1)])
+    return Frame(
+        ["breaks", "counts", "mids_true", "mids"],
+        [Vec(brks.astype(np.float32)),
+         Vec(np.concatenate([[np.nan], counts]).astype(np.float32)),
+         Vec(np.concatenate([[np.nan], mids_true]).astype(np.float32)),
+         Vec(np.concatenate([[np.nan], mids]).astype(np.float32))])
+
+
+def _rng(seed: int) -> np.random.Generator:
+    """numpy's generator of a Rapids seed (below 0: from entropy)."""
+    return np.random.default_rng(None if seed < 0 else seed)
+
+
+def _op_runif(node, env):
+    """(h2o.runif fr seed): a uniform draw a row."""
+    fr = _as_frame(_eval(node[1], env))
+    rng = _rng(int(_eval(node[2], env)))
+    return Frame(["rnd"], [Vec(rng.uniform(size=fr.nrows)
+                               .astype(np.float32))])
+
+
+def _op_kfold(node, env):
+    """(kfold_column fr n seed): a fold in 0..n-1 drawn a row."""
+    fr = _as_frame(_eval(node[1], env))
+    n = int(_eval(node[2], env))
+    rng = _rng(int(_eval(node[3], env)) if len(node) > 3 else -1)
+    return Frame(["fold"], [Vec(rng.integers(0, n, fr.nrows)
+                                .astype(np.float32))])
+
+
+def _op_modulo_kfold(node, env):
+    """(modulo_kfold_column fr n): row i in fold i mod n."""
+    fr = _as_frame(_eval(node[1], env))
+    n = int(_eval(node[2], env))
+    return Frame(["fold"], [Vec((np.arange(fr.nrows) % n)
+                                .astype(np.float32))])
+
+
+def _op_stratified_kfold(node, env):
+    """(stratified_kfold_column y n seed): each class's rows shuffled
+    (classes in sorted order, one generator) and dealt round-robin into
+    the folds; numeric NA rows stay in fold 0 (a categorical's NA code is
+    a class of its own)."""
+    fr = _as_frame(_eval(node[1], env))
+    n = int(_eval(node[2], env))
+    seed = int(_eval(node[3], env)) if len(node) > 3 else -1
+    y = np.asarray(fr.vecs[0].to_numpy())[: fr.nrows]
+    rng = _rng(seed)
+    fold = np.zeros(fr.nrows, np.float32)
+    for k in np.unique(y[~np.isnan(y.astype(np.float64))]):
+        idx = np.flatnonzero(y == k)
+        rng.shuffle(idx)
+        fold[idx] = np.arange(len(idx)) % n
+    return Frame(["fold"], [Vec(fold)])
+
+
+def _op_which_extreme(op, node, env):
+    """(which.max fr skipna axis), (which.min ...): axis 0 a one-row frame
+    of each numeric column's row index, axis 1 a column of each row's
+    column index; without ``skipna`` an NA gives NA."""
+    fr = _as_frame(_eval(node[1], env))
+    skipna = bool(_eval(node[2], env)) if len(node) > 2 else True
+    axis = int(_eval(node[3], env)) if len(node) > 3 else 0
+    arg = np.nanargmax if op == "which.max" else np.nanargmin
+    arg_strict = np.argmax if op == "which.max" else np.argmin
+    if axis == 1:
+        num = [j for j, v in enumerate(fr.vecs) if v.is_numeric]
+        mat = np.stack([np.asarray(fr.vecs[j].to_numpy(),
+                                   np.float64)[: fr.nrows]
+                        for j in num], axis=1)
+        nanrow = np.isnan(mat).all(axis=1) if skipna \
+            else np.isnan(mat).any(axis=1)
+        safe = np.where(np.isnan(mat), -np.inf if op == "which.max"
+                        else np.inf, mat) if skipna else mat
+        idx = arg_strict(safe, axis=1).astype(np.float64)
+        return Frame([op], [Vec(np.where(nanrow, np.nan, idx))])
+    vecs, names = [], []
+    for n, v in zip(fr.names, fr.vecs):
+        if not v.is_numeric:
+            continue
+        names.append(n)
+        d = np.asarray(v.to_numpy(), np.float64)[: fr.nrows]
+        if np.isnan(d).all() or (not skipna and np.isnan(d).any()):
+            vecs.append(Vec(np.asarray([np.nan], np.float32)))
+            continue
+        vecs.append(Vec(np.asarray([float(arg(d))], np.float32)))
+    return Frame(names, vecs)
+
+
+def _op_topn(node, env):
+    """(topn fr col nPercent grabTopN): [row index, value] of the top (1)
+    or bottom (-1) ``nPercent`` of a column's values, a stable order."""
+    fr = _as_frame(_eval(node[1], env))
+    col = int(_eval(node[2], env))
+    npct = float(_eval(node[3], env))
+    top = int(_eval(node[4], env)) >= 0
+    d = np.asarray(fr.vecs[col].to_numpy(), np.float64)[: fr.nrows]
+    ok = np.flatnonzero(~np.isnan(d))
+    k = max(1, int(round(npct / 100.0 * len(ok))))
+    order = ok[np.argsort(d[ok], kind="stable")]
+    chosen = order[-k:][::-1] if top else order[:k]
+    return Frame(["Row Indices", fr.names[col]],
+                 [Vec(chosen.astype(np.float64)),
+                  Vec(d[chosen].astype(np.float32))])
+
+
+def _op_fillna(node, env):
+    """(h2o.fillna fr method axis maxlen): forward or backward fill along
+    the rows (axis 0) or the columns (axis 1), a run of at most
+    ``maxlen`` NAs after a value; every column comes back float32."""
+    fr = _as_frame(_eval(node[1], env))
+    method = str(_lit(node[2])).lower()
+    axis = int(_eval(node[3], env))
+    maxlen = int(_eval(node[4], env))
+    mat = np.stack([np.asarray(v.to_numpy(), np.float64)[: fr.nrows]
+                    for v in fr.vecs], axis=1)
+    if axis == 1:
+        mat = mat.T
+    if method.startswith("back"):
+        mat = mat[::-1]
+    # each cell's last value at or above it, and how many NAs it is on
+    n = mat.shape[0]
+    na = np.isnan(mat)
+    pos = np.arange(n)[:, None]
+    last = np.maximum.accumulate(np.where(na, -1, pos), axis=0)
+    fill = na & (last >= 0) & (pos - last <= maxlen)
+    mat = np.where(fill, np.take_along_axis(mat, np.maximum(last, 0),
+                                            axis=0), mat)
+    if method.startswith("back"):
+        mat = mat[::-1]
+    if axis == 1:
+        mat = mat.T
+    return Frame(list(fr.names),
+                 [Vec(mat[:, j].astype(np.float32))
+                  for j in range(mat.shape[1])])
+
+
+def _moments_reduce(op, node, env):
+    """(skewness fr na_rm), (kurtosis fr na_rm): sample moments over the
+    sample variance; kurtosis is not the excess."""
+    fr = _as_frame(_eval(node[1], env))
+
+    def red(v):
+        d = np.asarray(v.to_numpy(), np.float64)[: v.nrows]
+        d = d[~np.isnan(d)]
+        n = len(d)
+        if n < 2:
+            return float("nan")
+        m = d.mean()
+        s2 = ((d - m) ** 2).sum() / (n - 1)
+        if op == "skewness":
+            return float(((d - m) ** 3).mean() / s2 ** 1.5)
+        return float(((d - m) ** 4).mean() / s2 ** 2)
+
+    return _reduce_all(red, fr)
+
+
+def _group_codes(fr: Frame, cols: List[int]) -> np.ndarray:
+    """Each row's group code over the key columns, ``_key_codes``'
+    inverse, from 1-d factorizations: each column's sorted distinct keys
+    (NaN as ``_key_codes``' -inf sentinel) give a code, and the codes
+    combined in column order sort the rows as ``_key_codes``' row sort
+    does, code for code (a sort of values, not of rows)."""
+    combined = np.zeros(fr.nrows, np.int64)
+    width = 1
+    for j in cols:
+        v = fr.vecs[j]
+        d = np.asarray(v.to_numpy(), np.float64)
+        if not v.is_categorical:
+            d = np.where(np.isnan(d), -np.inf, d)
+        uniq, inv = np.unique(d, return_inverse=True)
+        width *= max(len(uniq), 1)
+        if width >= 1 << 62:        # the combined code would overflow
+            return _key_codes(fr, cols)[1]
+        combined = combined * len(uniq) + inv.ravel()
+    return np.unique(combined, return_inverse=True)[1].ravel()
+
+
+def _op_dropdup(node, env):
+    """(dropdup fr [cols] keep): the first (or last) row of each key."""
+    fr = _as_frame(_eval(node[1], env))
+    cols = _col_indices(fr, node[2], names_first=True)
+    keep = str(_lit(node[3])).strip().lower() if len(node) > 3 else "first"
+    inv = _group_codes(fr, cols)
+    keep_mask = np.zeros(fr.nrows, bool)
+    if keep == "last":
+        first_from_end = np.unique(inv[::-1], return_index=True)[1]
+        keep_mask[len(inv) - 1 - first_from_end] = True
+    else:
+        keep_mask[np.unique(inv, return_index=True)[1]] = True
+    return fr.slice_rows(keep_mask)
+
+
+def _op_distance(node, env):
+    """(distance x y measure): the (rows of x, rows of y) matrix of l2,
+    l1, cosine or squared-cosine values, in float64."""
+    X = _as_frame(_eval(node[1], env))
+    Y = _as_frame(_eval(node[2], env))
+    measure = str(_lit(node[3])).lower()
+    A = np.stack([np.asarray(v.to_numpy(), np.float64)[: X.nrows]
+                  for v in X.vecs], axis=1)
+    B = np.stack([np.asarray(v.to_numpy(), np.float64)[: Y.nrows]
+                  for v in Y.vecs], axis=1)
+    if measure in ("l2", "euclidean"):
+        D = np.sqrt(np.maximum(
+            (A * A).sum(1)[:, None] + (B * B).sum(1)[None, :]
+            - 2 * A @ B.T, 0.0))
+    elif measure in ("l1", "manhattan"):
+        D = np.abs(A[:, None, :] - B[None, :, :]).sum(axis=2)
+    elif measure in ("cosine", "cosine_sq"):
+        na = np.linalg.norm(A, axis=1)
+        nb = np.linalg.norm(B, axis=1)
+        C = (A @ B.T) / np.maximum(na[:, None] * nb[None, :], 1e-12)
+        D = C * C if measure == "cosine_sq" else C
+    else:
+        raise ValueError(f"unknown distance measure {measure!r}")
+    return Frame([f"C{j + 1}" for j in range(D.shape[1])],
+                 [Vec(D[:, j].astype(np.float32))
+                  for j in range(D.shape[1])])
+
+
+def _op_melt(node, env):
+    """(melt fr [id_vars] [value_vars] var_name value_name skipna): one
+    row a (row, value column), the value columns' names a categorical."""
+    fr = _as_frame(_eval(node[1], env))
+    id_idx = _col_indices(fr, node[2], names_first=True)
+    if isinstance(node[3], tuple) and node[3][0] == "numlist" and \
+            not node[3][1]:
+        val_idx = [j for j in range(fr.ncols) if j not in id_idx]
+    else:
+        val_idx = _col_indices(fr, node[3], names_first=True)
+    var_name = _lit(node[4]) if len(node) > 4 else "variable"
+    value_name = _lit(node[5]) if len(node) > 5 else "value"
+    skipna = bool(int(_eval(node[6], env))) if len(node) > 6 else False
+    n = fr.nrows
+    ids, var_col, val_col = [], [], []
+    for k, j in enumerate(val_idx):
+        d = np.asarray(fr.vecs[j].to_numpy(), np.float64)[:n]
+        keep = ~np.isnan(d) if skipna else np.ones(n, bool)
+        ids.append(np.flatnonzero(keep))
+        var_col.append(np.full(int(keep.sum()), k, np.int32))
+        val_col.append(d[keep])
+    row_idx = np.concatenate(ids) if ids else np.zeros(0, np.int64)
+    names, vecs = [], []
+    for j in id_idx:
+        v = fr.vecs[j]
+        d = v.to_numpy()[row_idx]
+        vecs.append(Vec(d.astype(np.int32), T_CAT, domain=list(v.domain))
+                    if v.is_categorical else Vec(d, v.type))
+        names.append(fr.names[j])
+    names += [var_name, value_name]
+    vecs += [Vec(np.concatenate(var_col) if var_col else
+                 np.zeros(0, np.int32), T_CAT,
+                 domain=[fr.names[j] for j in val_idx]),
+             Vec((np.concatenate(val_col) if val_col else
+                  np.zeros(0)).astype(np.float32))]
+    return Frame(names, vecs)
+
+
+def _op_pivot(node, env):
+    """(pivot fr index column value): one row a distinct index value, one
+    column a distinct non-NA column value; a cell holds the value of the
+    last row with its pair, NA where none has."""
+    fr = _as_frame(_eval(node[1], env))
+    i_j = _col_indices(fr, node[2], names_first=True)[0]
+    c_j = _col_indices(fr, node[3], names_first=True)[0]
+    v_j = _col_indices(fr, node[4], names_first=True)[0]
+    iv, cv, vv = fr.vecs[i_j], fr.vecs[c_j], fr.vecs[v_j]
+    ivals = np.asarray(iv.to_numpy(), np.float64)[: fr.nrows]
+    cvals = np.asarray(cv.to_numpy(), np.float64)[: fr.nrows]
+    vvals = np.asarray(vv.to_numpy(), np.float64)[: fr.nrows]
+    uniq_i, inv_i = np.unique(ivals, return_inverse=True)
+    uniq_c = np.unique(cvals[~np.isnan(cvals)])
+    out = np.full((len(uniq_i), len(uniq_c)), np.nan)
+    ok = ~np.isnan(cvals)
+    cell = inv_i.ravel()[ok] * len(uniq_c) + \
+        np.searchsorted(uniq_c, cvals[ok])
+    # the last row of each cell writes it
+    last = len(cell) - 1 - np.unique(cell[::-1], return_index=True)[1]
+    out.reshape(-1)[cell[last]] = vvals[ok][last]
+    col_labels = ([cv.domain[int(c)] for c in uniq_c]
+                  if cv.is_categorical else
+                  [str(int(c)) if c == int(c) else str(c) for c in uniq_c])
+    first = Vec(uniq_i.astype(np.int32), T_CAT, domain=list(iv.domain)) \
+        if iv.is_categorical else Vec(uniq_i.astype(np.float32), iv.type)
+    return Frame([fr.names[i_j]] + list(col_labels),
+                 [first] + [Vec(out[:, k].astype(np.float32))
+                            for k in range(len(uniq_c))])
+
+
+def _op_rank_within_gb(node, env):
+    """(rank_within_groupby fr [gb_cols] [sort_cols] [ascending] new_col
+    final_sort): each row's 1-based place within its group in the sort
+    order (NAs first, as ``sort``); ``final_sort`` sorts the frame by the
+    group and sort columns."""
+    fr = _as_frame(_eval(node[1], env))
+    gcols = _col_indices(fr, node[2], names_first=True)
+    scols = _col_indices(fr, node[3], names_first=True)
+    asc = [bool(int(x)) for x in node[4][1]] if isinstance(node[4], tuple) \
+        else [True] * len(scols)
+    new_col = _lit(node[5]) if len(node) > 5 else "rank"
+    final_sort = bool(int(_eval(node[6], env))) if len(node) > 6 else False
+    ginv = _group_codes(fr, gcols)
+    order = _sort_keys(fr, scols, asc)
+    # the rows in sort order, grouped (stable): a row's rank is its
+    # distance from its group's first row, plus one
+    by_group = order[np.argsort(ginv[order], kind="stable")]
+    g = ginv[by_group]
+    rank = np.zeros(fr.nrows, np.float32)
+    rank[by_group] = np.arange(len(g)) - np.searchsorted(g, g) + 1
+    out = Frame(list(fr.names), list(fr.vecs))
+    out.add(new_col, Vec(rank))
+    if final_sort:
+        out = out.slice_rows(_sort_keys(out, gcols + scols,
+                                        [True] * len(gcols) + asc))
+    return out
+
+
+_ROW_REDUCERS = {"mean": np.nanmean, "sum": np.nansum, "min": np.nanmin,
+                 "max": np.nanmax, "median": np.nanmedian,
+                 "sd": lambda m, axis: np.nanstd(m, axis=axis, ddof=1)}
+
+
+def _op_apply(node, env):
+    """(apply fr margin { args . body }): the client's lambda over each
+    column (margin 2, the column bound to the argument) or each row
+    (margin 1: a reducer body on the rows directly, else the body over
+    the transposed frame, at most 100,000 rows)."""
+    fr = _as_frame(_eval(node[1], env))
+    margin = int(_eval(node[2], env))
+    rest = node[3:]
+    if not (isinstance(rest[0], tuple) and _lit(rest[0]) == "{"):
+        raise ValueError("apply expects a lambda { args . body }")
+    i = 1
+    args = []
+    while _lit(rest[i]) != ".":
+        args.append(_lit(rest[i]))
+        i += 1
+    body = rest[i + 1]
+    if margin == 2:
+        cols = []
+        for j, v in enumerate(fr.vecs):
+            env.locals[args[0]] = Frame([fr.names[j]], [v])
+            try:
+                r = _eval(body, env)
+            finally:
+                env.locals.pop(args[0], None)
+            cols.append((fr.names[j], r.vecs[0] if isinstance(r, Frame)
+                         else Vec(np.asarray([float(r)], np.float32))))
+        nr = max(v.nrows for _, v in cols)
+        return Frame([n for n, _ in cols],
+                     [v if v.nrows == nr else
+                      Vec(np.resize(np.asarray(v.to_numpy()), nr))
+                      for _, v in cols])
+    mat = np.stack([np.asarray(v.to_numpy(), np.float64)[: fr.nrows]
+                    for v in fr.vecs], axis=1)
+    if isinstance(body, list) and len(body) == 2 and \
+            _lit(body[0]) in _ROW_REDUCERS and \
+            isinstance(body[1], tuple) and _lit(body[1]) == args[0]:
+        vals = _ROW_REDUCERS[_lit(body[0])](mat, axis=1)
+        return Frame(["apply"], [Vec(vals.astype(np.float32))])
+    if fr.nrows > 100_000:
+        raise ValueError(
+            "apply(axis=1) with a non-reducer lambda materializes one "
+            "column per row; limit is 100k rows — rewrite with "
+            "column-wise ops or a supported row reducer "
+            "(mean/sum/min/max/median/sd)")
+    env.locals[args[0]] = Frame(
+        [f"C{i + 1}" for i in range(mat.shape[0])],
+        [Vec(mat[i].astype(np.float32)) for i in range(mat.shape[0])])
+    try:
+        r = _eval(body, env)
+    finally:
+        env.locals.pop(args[0], None)
+    if isinstance(r, Frame):
+        vals = [float(np.asarray(v.to_numpy())[0]) if v.nrows == 1 else
+                np.nan for v in r.vecs]
+        return Frame(["apply"], [Vec(np.asarray(vals, np.float32))])
+    if isinstance(r, list):
+        return Frame(["apply"], [Vec(np.asarray(r, np.float32))])
+    return Frame(["apply"], [Vec(np.full(fr.nrows, float(r), np.float32))])
+
+
+def _op_set_level(node, env):
+    """(setLevel fr level): every row set to one level."""
+    fr = _as_frame(_eval(node[1], env))
+    level = _lit(node[2])
+    v = fr.vecs[0]
+    if not v.is_categorical:
+        raise ValueError("setLevel requires a categorical column")
+    if level not in (v.domain or []):
+        raise ValueError(f"level {level!r} not in domain")
+    return Frame(list(fr.names),
+                 [Vec(np.full(fr.nrows, v.domain.index(level), np.int32),
+                      T_CAT, domain=list(v.domain))])
+
+
+def _op_relevel(node, env):
+    """(relevel fr level): ``level`` first, the others in their order."""
+    fr = _as_frame(_eval(node[1], env))
+    level = _lit(node[2])
+    v = fr.vecs[0]
+    if not v.is_categorical or level not in (v.domain or []):
+        raise ValueError(f"relevel: {level!r} not a level")
+    new_dom = [level] + [d for d in v.domain if d != level]
+    remap = _domain_remap(v.domain, new_dom)
+    codes = np.asarray(v.to_numpy())
+    return Frame(list(fr.names), [Vec(
+        np.where(codes >= 0, remap[np.clip(codes, 0, None)], -1)
+        .astype(np.int32), T_CAT, domain=new_dom)])
+
+
+def _op_difflag1(node, env):
+    """(difflag1 fr): x[i] - x[i-1], NA in the first row."""
+    fr = _as_frame(_eval(node[1], env))
+    out = []
+    for v in fr.vecs:
+        d = np.asarray(v.to_numpy(), np.float64)[: fr.nrows]
+        out.append(Vec(np.concatenate([[np.nan], np.diff(d)])
+                       .astype(np.float32)))
+    return Frame(list(fr.names), out)
+
+
+def _op_prod(node, env, na_rm: bool):
+    fr = _as_frame(_eval(node[1], env))
+
+    def red(v):
+        d = np.asarray(v.to_numpy(), np.float64)[: v.nrows]
+        if na_rm:
+            d = d[~np.isnan(d)]
+        return float(np.prod(d))
+
+    return _reduce_all(red, fr)
+
+
+def _op_any_all(node, env, which: str):
+    """(any fr), (all fr): over every column's non-NA cells."""
+    fr = _as_frame(_eval(node[1], env))
+    vals = []
+    for v in fr.vecs:
+        d = np.asarray(v.to_numpy(), np.float64)[: v.nrows]
+        d = d[~np.isnan(d)]
+        vals.append(bool((d != 0).any() if which == "any"
+                         else (d != 0).all()))
+    return float(any(vals) if which == "any" else all(vals))
+
+
+def _op_any_factor(node, env):
+    fr = _as_frame(_eval(node[1], env))
+    return float(any(v.is_categorical for v in fr.vecs))
+
+
+def _na_count(v: Vec) -> int:
+    """NA cells of a column: None strings, NaN numbers, -1 codes."""
+    if v.host_data is not None:
+        return sum(x is None for x in v.host_data)
+    return v.rollups.nacnt
+
+
+def _op_any_na(node, env):
+    fr = _as_frame(_eval(node[1], env))
+    return float(any(_na_count(v) > 0 for v in fr.vecs))
+
+
+def _op_match(node, env):
+    """(match fr table nomatch incomparables): each row's 1-based place
+    in ``table`` (the first occurrence wins), ``nomatch`` where absent
+    or NA; labels are matched as strings, numbers as floats."""
+    fr = _as_frame(_eval(node[1], env))
+    table = _mixed_list(node[2], env)
+    nomatch = _eval(node[3], env)
+    nomatch = float("nan") if nomatch is None else float(nomatch)
+    v = fr.vecs[0]
+    if v.is_categorical or v.type == T_STR:
+        key, labels_fn = str, _distinct_labels
+    else:
+        key = float
+
+        def labels_fn(vec):
+            u, inv = np.unique(np.asarray(vec.to_numpy(), np.float64),
+                               return_inverse=True)
+            return [None if np.isnan(x) else float(x) for x in u], inv
+    lut: Dict[Any, int] = {}
+    for i, t in enumerate(table):
+        lut.setdefault(key(t), i + 1)
+    labels, inv = labels_fn(v)
+    vals = np.asarray([nomatch if s is None else lut.get(s, nomatch)
+                       for s in labels], np.float32)
+    return Frame(["match"], [Vec(vals[np.asarray(inv).ravel()])])
+
+
+def _rank_avg(col: np.ndarray) -> np.ndarray:
+    """Ranks from 1, ties given their mean rank (R's ``average``); NaN
+    stays NaN.  A tie's mean of consecutive ranks is (first + last) / 2,
+    exactly."""
+    out = np.full(col.shape, np.nan)
+    ok = ~np.isnan(col)
+    v = col[ok]
+    order = np.argsort(v, kind="stable")
+    sv = v[order]
+    # the first and last sorted position of each run of equal values
+    new = np.concatenate([[True], sv[1:] != sv[:-1]]) if len(sv) else \
+        np.zeros(0, bool)
+    run = np.cumsum(new) - 1
+    first = np.flatnonzero(new)
+    last = np.append(first[1:], len(sv)) - 1
+    ranks = np.empty(len(v))
+    ranks[order] = (first[run] + last[run] + 2) / 2.0
+    out[ok] = ranks
+    return out
+
+
+def _op_cor(node, env):
+    """(cor x y use method): Pearson or Spearman in float64; ``use``
+    everything (an NA makes NaN) or complete.obs (rows with an NA
+    dropped).  One number for two columns, else a frame."""
+    fx = _as_frame(_eval(node[1], env))
+    fy = _as_frame(_eval(node[2], env))
+    use = str(_lit(node[3])).lower()
+    method = str(_lit(node[4])).lower()
+    X = _host_matrix(fx).astype(np.float64)
+    Y = _host_matrix(fy).astype(np.float64)
+    if use in ("complete.obs", "na.or.complete"):
+        ok = ~(np.isnan(X).any(axis=1) | np.isnan(Y).any(axis=1))
+        X, Y = X[ok], Y[ok]
+    elif use != "everything":
+        raise ValueError(f"cor: use={use!r} not supported "
+                         "(everything, complete.obs)")
+    if method == "spearman":
+        X = np.stack([_rank_avg(X[:, j]) for j in range(X.shape[1])], 1)
+        Y = np.stack([_rank_avg(Y[:, j]) for j in range(Y.shape[1])], 1)
+    elif method != "pearson":
+        raise ValueError(f"cor: method={method!r} not supported "
+                         "(Pearson, Spearman)")
+    Xc = X - X.mean(axis=0)
+    Yc = Y - Y.mean(axis=0)
+    denom = np.outer(np.sqrt((Xc ** 2).sum(axis=0)),
+                     np.sqrt((Yc ** 2).sum(axis=0)))
+    C = (Xc.T @ Yc) / np.maximum(denom, 1e-300)
+    if C.size == 1:
+        return float(C[0, 0])
+    return Frame(list(fy.names), [Vec(C[:, j].astype(np.float32))
+                                  for j in range(C.shape[1])])
+
+
+def _op_cut(node, env):
+    """(cut fr [breaks] [labels] include_lowest right dig_lab): a numeric
+    column binned into a categorical, labels ``(a,b]`` (``%.<dig>g``)
+    unless given; NA outside the breaks."""
+    fr = _as_frame(_eval(node[1], env))
+    breaks = _numlist_vals(node[2], env)
+    labels = [str(s) for s in _mixed_list(node[3], env)] or None
+    include_lowest = bool(_eval(node[4], env))
+    right = bool(_eval(node[5], env))
+    dig = int(_eval(node[6], env))
+    x = np.asarray(fr.vecs[0].to_numpy(), np.float64)
+    b = np.asarray(breaks, np.float64)
+    if right:
+        codes = np.searchsorted(b, x, side="left") - 1
+        if include_lowest:
+            codes = np.where(x == b[0], 0, codes)
+    else:
+        codes = np.searchsorted(b, x, side="right") - 1
+        codes = np.where(x == b[-1], len(b) - 2, codes)
+    codes = np.where(np.isnan(x) | (codes < 0) | (codes > len(b) - 2),
+                     -1, codes).astype(np.int32)
+    if labels and len(labels) != len(b) - 1:
+        raise ValueError(f"cut: {len(labels)} labels for {len(b) - 1} bins")
+    if not labels:
+        fmt = f"%.{dig}g"
+        lb, rb = ("(", "]") if right else ("[", ")")
+        labels = [f"{lb}{fmt % b[i]},{fmt % b[i + 1]}{rb}"
+                  for i in range(len(b) - 1)]
+        if include_lowest and right:
+            labels[0] = "[" + labels[0][1:]
+    return Frame(list(fr.names), [Vec(codes, T_CAT, domain=labels)])
+
+
+def _entropy(s: str) -> float:
+    """Shannon entropy in bits of a string's characters, summed in the
+    order they first appear."""
+    counts: Dict[str, int] = {}
+    for ch in s:
+        counts[ch] = counts.get(ch, 0) + 1
+    n = len(s)
+    return -sum(c / n * math.log2(c / n) for c in counts.values())
+
+
+def _op_entropy(node, env):
+    fr = _as_frame(_eval(node[1], env))
+    return Frame(list(fr.names), [_label_floats(v, _entropy)
+                                  for v in fr.vecs])
+
+
+def _op_columns_by_type(node, env):
+    """(columnsByType fr type): the 0-based indices of the columns of a
+    kind (numeric, categorical, string, time, uuid, bad)."""
+    fr = _as_frame(_eval(node[1], env))
+    want = str(_lit(node[2])).lower()
+    return [float(j) for j, v in enumerate(fr.vecs) if {
+        "numeric": v.is_numeric, "categorical": v.is_categorical,
+        "string": v.type == T_STR, "time": v.type == T_TIME,
+        "uuid": v.type == "uuid", "bad": v.type == "bad"}.get(want, False)]
+
+
+def _op_filter_na_cols(node, env):
+    """(filterNACols fr frac): the 1-based indices of the columns with at
+    most ``frac`` of their rows NA."""
+    fr = _as_frame(_eval(node[1], env))
+    frac = float(_eval(node[2], env))
+    return [float(j + 1) for j, v in enumerate(fr.vecs)
+            if _na_count(v) <= frac * fr.nrows]
+
+
+def _op_ls(node, env):
+    """(ls): the DKV's keys, sorted, as a categorical."""
+    keys = sorted(str(k) for k in dkv().keys()) or ["<empty>"]
+    return Frame(["key"], [Vec(np.arange(len(keys), dtype=np.int32), T_CAT,
+                               domain=keys)])
+
+
+def _op_getrow(node, env):
+    """(getrow fr): a one-row frame's values, a list even of one."""
+    fr = _as_frame(_eval(node[1], env))
+    if fr.nrows != 1:
+        raise ValueError("getrow works on single-row frames only")
+    return [float(v.as_float()[0]) for v in fr.vecs]
+
+
+def _op_flatten(node, env):
+    """(flatten x): a number, or a frame's first cell as a number or a
+    label."""
+    fr = _eval(node[1], env)
+    if isinstance(fr, (int, float)):
+        return float(fr)
+    v = _as_frame(fr).vecs[0]
+    if v.type == T_STR:
+        return str(v.host_data[0])
+    if v.is_categorical:
+        lab = _labels_of(v)[0]
+        return str(lab) if lab is not None else float("nan")
+    return float(v.as_float()[0])
+
+
+def _op_rep_len(node, env):
+    """(rep_len x length): a number, or a frame's first column, recycled
+    to ``length`` rows."""
+    src = _eval(node[1], env)
+    length = int(_eval(node[2], env))
+    if isinstance(src, (int, float)):
+        return Frame(["C1"], [Vec(np.full(length, float(src), np.float32))])
+    fr = _as_frame(src)
+    v = fr.vecs[0]
+    arr = np.asarray(v.to_numpy())
+    reps = int(np.ceil(length / max(len(arr), 1)))
+    out = np.tile(arr, reps)[:length].astype(np.float32)
+    if v.is_categorical:
+        return Frame([fr.names[0]], [Vec(out.astype(np.int32), T_CAT,
+                                         domain=list(v.domain))])
+    return Frame([fr.names[0]], [Vec(out)])
+
+
+def _op_transpose(node, env):
+    fr = _as_frame(_eval(node[1], env))
+    X = _host_matrix(fr).T
+    return Frame([f"C{i + 1}" for i in range(X.shape[1])],
+                 [Vec(X[:, j].astype(np.float32))
+                  for j in range(X.shape[1])])
+
+
+def _op_sumaxis(node, env):
+    """(sumaxis fr skipna axis): a list of column sums (axis 0) or a
+    column of row sums (axis 1), in float64."""
+    fr = _as_frame(_eval(node[1], env))
+    skipna = bool(_eval(node[2], env))
+    axis = int(_eval(node[3], env))
+    X = _host_matrix(fr).astype(np.float64)
+    f = np.nansum if skipna else np.sum
+    if axis == 0:
+        return [float(f(X[:, j])) for j in range(X.shape[1])]
+    return Frame(["sum"], [Vec(f(X, axis=1).astype(np.float32))])
+
+
+def _op_set_domain(node, env):
+    """(setDomain fr in_place [labels]): a categorical's labels replaced,
+    its codes kept."""
+    fr = _as_frame(_eval(node[1], env))
+    labels = _mixed_list(node[3], env)
+    v = fr.vecs[0]
+    if not v.is_categorical:
+        raise ValueError("setDomain needs a categorical column")
+    if len(labels) < len(v.domain or []):
+        raise ValueError(f"setDomain: {len(labels)} labels for "
+                         f"{len(v.domain or [])} levels")
+    return Frame(list(fr.names), [Vec(np.asarray(v.to_numpy(), np.int32),
+                                      T_CAT, domain=[str(s) for s in labels])])
+
+
+def _op_append_levels(node, env):
+    """(appendLevels fr in_place [labels]): the labels not yet levels
+    appended to the domain."""
+    fr = _as_frame(_eval(node[1], env))
+    labels = _mixed_list(node[3], env)
+    v = fr.vecs[0]
+    if not v.is_categorical:
+        raise ValueError("appendLevels needs a categorical column")
+    dom = list(v.domain or [])
+    for lab in labels:
+        if str(lab) not in dom:
+            dom.append(str(lab))
+    return Frame(list(fr.names), [Vec(np.asarray(v.to_numpy(), np.int32),
+                                      T_CAT, domain=dom)])
+
+
+def _op_relevel_by_freq(node, env):
+    """(relevel.by.freq fr weights top_n): each categorical's levels by
+    (weighted) count, most frequent first; with ``top_n`` > 0 only the
+    top ``top_n`` move to the front, the rest keep their order."""
+    fr = _as_frame(_eval(node[1], env))
+    wcol = _lit(node[2])
+    top_n = int(_eval(node[3], env))
+    out_vecs = []
+    for v in fr.vecs:
+        if not v.is_categorical:
+            out_vecs.append(v)
+            continue
+        codes = np.asarray(v.to_numpy(), np.int64)
+        w = np.ones(len(codes))
+        if wcol and wcol in fr.names:
+            w = np.asarray(fr.vec(wcol).to_numpy(), np.float64)
+        card = len(v.domain or [])
+        freq = np.zeros(card)
+        ok = codes >= 0
+        np.add.at(freq, codes[ok], w[ok])
+        order = np.argsort(-freq, kind="stable")
+        if top_n > 0:
+            head = order[:top_n]
+            rest = np.setdiff1d(np.arange(card), head)
+            order = np.concatenate([head, rest]) if len(rest) else head
+        remap = np.empty(card, np.int64)
+        remap[order] = np.arange(card)
+        new_codes = np.where(ok, remap[np.clip(codes, 0, card - 1)],
+                             -1).astype(np.int32)
+        out_vecs.append(Vec(new_codes, T_CAT,
+                            domain=[str(v.domain[i]) for i in order]))
+    return Frame(list(fr.names), out_vecs)
+
+
+# the reference's _EXTRA_OPS ("week" is dispatched as a time part before
+# this table is read, as in the reference)
 _EXTRA_OPS = {
     "tf-idf": _op_tf_idf,
     "segment_models_as_frame": _op_segment_models_as_frame,
@@ -2156,12 +3022,55 @@ _EXTRA_OPS = {
     "moment": lambda n, e: _mktime_like(n, e, zero_based=False),
     "grep": _op_grep,
     "strlen": _op_strlen,
+    "not": _op_not,
+    "any.factor": _op_any_factor,
+    "any.na": _op_any_na,
+    "match": _op_match,
+    "cor": _op_cor,
+    "cut": _op_cut,
+    "entropy": _op_entropy,
+    "columnsByType": _op_columns_by_type,
+    "filterNACols": _op_filter_na_cols,
+    "ls": _op_ls,
+    "getrow": _op_getrow,
+    "flatten": _op_flatten,
+    "rep_len": _op_rep_len,
+    "t": _op_transpose,
+    "sumaxis": _op_sumaxis,
+    "setDomain": _op_set_domain,
+    "appendLevels": _op_append_levels,
+    "relevel.by.freq": _op_relevel_by_freq,
+    "scale": _op_scale,
+    "hist": _op_hist,
+    "h2o.runif": _op_runif,
+    "kfold_column": _op_kfold,
+    "modulo_kfold_column": _op_modulo_kfold,
+    "stratified_kfold_column": _op_stratified_kfold,
+    "which.max": lambda n, e: _op_which_extreme("which.max", n, e),
+    "which.min": lambda n, e: _op_which_extreme("which.min", n, e),
+    "topn": _op_topn,
+    "h2o.fillna": _op_fillna,
+    "fillna": _op_fillna,
+    "skewness": lambda n, e: _moments_reduce("skewness", n, e),
+    "kurtosis": lambda n, e: _moments_reduce("kurtosis", n, e),
+    "dropdup": _op_dropdup,
+    "distance": _op_distance,
+    "melt": _op_melt,
+    "pivot": _op_pivot,
+    "rank_within_groupby": _op_rank_within_gb,
+    "apply": _op_apply,
+    "setLevel": _op_set_level,
+    "relevel": _op_relevel,
+    "difflag1": _op_difflag1,
+    "prod": lambda n, e: _op_prod(n, e, na_rm=False),
+    "prod.na": lambda n, e: _op_prod(n, e, na_rm=True),
+    "any": lambda n, e: _op_any_all(n, e, "any"),
+    "all": lambda n, e: _op_any_all(n, e, "all"),
 }
 
 
 def op_names() -> List[str]:
-    """Every op name this interpreter dispatches (GET /99/Rapids/help);
-    the P12c-ii ops it refuses are not among them."""
+    """Every op name this interpreter dispatches (GET /99/Rapids/help)."""
     return sorted(set(_BINOPS) | set(_UNOPS) | set(_CUMOPS) |
                   set(_NAMED_OPS) | set(_STROPS) | set(_TIME_PARTS) |
                   set(_EXTRA_OPS))

@@ -22,8 +22,12 @@ training metrics (the threshold table built from the AUC bins ``pos`` /
 the final model's ``pos`` / ``neg`` bins are recomputed ``--runs`` times.
 Then KMeans' Lloyd step and GLRM's alternating step and objective, the
 GEMMs of ``models/kmeans.py`` and ``models/glrm.py``, run ``--runs``
-times at one state.  Fractional weights make the sums order-dependent in
-their last place, so an ``index_add_`` (atomics on the card) shows here.
+times at one state.  Then ``--runs`` trainings each of a weighted
+binomial GLM by IRLSM and by L-BFGS (their betas, iterations, deviances)
+and of one DeepLearning step (its weights and biases: ``epochs`` sized to
+one minibatch of 1,024 rows) on the same weighted rows.  Fractional
+weights make the sums order-dependent in their last place, so an
+``index_add_`` (atomics on the card) shows here.
 
 Prints the card's name and power limit, one JSON line per case (which
 parts repeated bitwise, and where a part moved, its largest difference)
@@ -53,6 +57,10 @@ MULTINOMIAL = dict(ntrees=10, max_depth=5, seed=1, weights_column="w",
                    stopping_rounds=3, score_tree_interval=1)
 KM_K = 10
 GLRM_K = 10
+GLM_SOLVERS = {"glm_irlsm": dict(solver="IRLSM"),
+               "glm_lbfgs": dict(solver="L_BFGS")}
+#: one step: DeepLearning takes max(1, epochs * rows / 1,024) minibatches
+DL = dict(hidden=[200, 200], epochs=1024 / ROWS, seed=1)
 
 
 def weighted(fr, seed: int = WEIGHT_SEED):
@@ -227,6 +235,39 @@ def glrm_repeat(fr, runs: int, device) -> dict:
                 **compare(parts))
 
 
+def glm_repeat(name: str, fr, kw: dict, runs: int, device) -> dict:
+    """``runs`` weighted binomial GLM fits by one solver: what
+    repeated."""
+    from h2o_tpu_torch.models.glm import GLM
+    parts, walls = [], []
+    for _ in range(runs):
+        m, wall = _train(GLM, fr, dict(family="binomial",
+                                       weights_column="w", **kw), device)
+        walls.append(wall)
+        out = m.output
+        parts.append(dict(beta=_plain(out["beta"]),
+                          iterations=_plain(out.get("iterations")),
+                          residual_deviance=_plain(
+                              out.get("residual_deviance"))))
+    return dict(case=name, rows=fr.nrows, runs=runs, walls_s=walls,
+                **compare(parts))
+
+
+def dl_repeat(fr, runs: int, device) -> dict:
+    """``runs`` one-step DeepLearning trainings: their weights and
+    biases."""
+    from h2o_tpu_torch.models.deeplearning import DeepLearning
+    parts, walls = [], []
+    for _ in range(runs):
+        m, wall = _train(DeepLearning, fr, dict(DL, weights_column="w"),
+                         device)
+        walls.append(wall)
+        parts.append(dict(steps=int(m.output["steps"]),
+                          weights=_plain(m.output["weights"])))
+    return dict(case="deeplearning_step", rows=fr.nrows, runs=runs,
+                steps=parts[0]["steps"], walls_s=walls, **compare(parts))
+
+
 def repeat_check(fr, cov, runs: int = 3, device="cuda") -> list:
     """Every case of the probe on ``fr`` (a 1M x 28 binomial frame) and
     ``cov`` (the covertype-shaped frame); a list of records."""
@@ -237,7 +278,9 @@ def repeat_check(fr, cov, runs: int = 3, device="cuda") -> list:
             gbm_repeat("multinomial_gbm_weighted", fc, MULTINOMIAL, runs,
                        dev),
             kmeans_repeat(fb, runs, dev),
-            glrm_repeat(fb, runs, dev)]
+            glrm_repeat(fb, runs, dev)] + \
+        [glm_repeat(name, fb, kw, runs, dev)
+         for name, kw in GLM_SOLVERS.items()] + [dl_repeat(fb, runs, dev)]
 
 
 def metric_costs(device, reps: int = 20) -> list:

@@ -235,3 +235,43 @@ def test_leader_retrained_alone_is_bitwise(run):
         a, b = np.asarray(alone.output[k]), np.asarray(base.output[k])
         assert a.shape == b.shape and \
             np.array_equal(a.view(np.uint8), b.view(np.uint8)), k
+
+
+@pytest.mark.parametrize("runner", ["automl", "grid"])
+def test_search_jobs_run_under_the_callers_thread_count(monkeypatch,
+                                                        runner):
+    """A pool thread keeps the intra-op thread count it last ran with.
+    AutoML's and the grid's job bodies take the caller's, as a builder's
+    does: the AutoML leader GLM's [X,1]'Wz (MKL's transposed ``sgemv``)
+    splits its rows over its threads, so a run on a pool thread left at
+    8 threads and its retrain at 1 parted in the last bits."""
+    import threading
+    from h2o_tpu_torch.core.job import Job, jobs
+    from h2o_tpu_torch.models.grid import GridSearch
+    # every live pool thread (at least one) left at 8 threads
+    n = max(jobs()._pool.live_workers, 1)
+    gate = threading.Barrier(n)
+
+    def warm(j):
+        torch.set_num_threads(8)
+        gate.wait(timeout=30)
+        return torch.get_num_threads()
+
+    seen = []
+    try:
+        warmed = [jobs().start(Job(description="warm"), warm)
+                  for _ in range(n)]
+        assert [j.join(timeout=60) for j in warmed] == [8] * n
+    finally:
+        torch.set_num_threads(1)
+    if runner == "automl":
+        monkeypatch.setattr(AutoML, "_run", lambda self, j, *a: seen.append(
+            torch.get_num_threads()))
+        AutoML(device="cpu", **dict(_CASE, project_name="threads")).train(
+            y="y", training_frame=_bin_frames()[1])
+    else:
+        monkeypatch.setattr(GridSearch, "_run", lambda self, j, *a:
+                            seen.append(torch.get_num_threads()))
+        GridSearch("glm", {"alpha": [0.0]}, device="cpu").train(
+            y="y", training_frame=_bin_frames()[1])
+    assert seen == [1]

@@ -604,21 +604,46 @@ def test_literals(frames):
 # ----------------------------------------------------------------- refusals
 
 
-@pytest.mark.parametrize("op", sorted(ti._LATER))
+#: the ops the port refused by name until ROADMAP P12c-ii-b ported them
+P12C_II_B = (
+    "not", "any.factor", "any.na", "match", "cor", "cut", "entropy",
+    "columnsByType", "filterNACols", "ls", "getrow", "flatten", "rep_len",
+    "t", "sumaxis", "setDomain", "appendLevels", "relevel.by.freq",
+    "scale", "hist", "h2o.runif", "kfold_column", "modulo_kfold_column",
+    "stratified_kfold_column", "which.max", "which.min", "topn",
+    "h2o.fillna", "fillna", "skewness", "kurtosis", "dropdup", "distance",
+    "melt", "pivot", "rank_within_groupby", "apply", "setLevel", "relevel",
+    "difflag1", "prod", "prod.na", "any", "all")
+
+
+@pytest.mark.parametrize("op", P12C_II_B)
 def test_later_ops_raise_by_name(frames, op):
-    with pytest.raises(NotImplementedError, match=r"P12c-ii"):
-        ti.rapids_exec(f"({op} rx)", device="cpu")
+    """Each op the port refused by name until P12c-ii-b, called bare on a
+    frame as ``(op rx)``, now gives the reference's answer or raises the
+    reference's exception type (``ls`` lists each package's own DKV)."""
+    from h2o_tpu.rapids.interp import Session, rapids_exec
+    expr = f"({op} rx)"
+    try:
+        ref = rapids_exec(expr, Session("_ref"))
+    except Exception as e:      # noqa: BLE001 - the port must match it
+        with pytest.raises(type(e)):
+            ti.rapids_exec(expr, device="cpu")
+        return
+    port = ti.rapids_exec(expr, device="cpu")
+    if op == "ls":
+        assert port.names == ref.names == ["key"]
+        assert "rx" in port.vecs[0].domain and "rx" in ref.vecs[0].domain
+        return
+    same(port, ref)
 
 
 def test_op_names():
-    """The port lists what it dispatches; with the refused ops it covers
-    every op the reference names."""
+    """The port dispatches every op the reference names (its source scan
+    also picks up a regex fragment, which is no op)."""
     from h2o_tpu.rapids.interp import op_names
-    mine = set(ti.op_names())
+    assert not hasattr(ti, "_LATER")
     ref = {n for n in op_names() if not n.startswith("(")}
-    assert not mine & ti._LATER
-    assert mine <= ref
-    assert ref <= mine | ti._LATER, sorted(ref - mine - ti._LATER)
+    assert set(ti.op_names()) == ref, sorted(set(ti.op_names()) ^ ref)
 
 
 def test_unknown_op_raises(frames):

@@ -402,8 +402,10 @@ def test_host_ops_move_nothing(pub, tmp_path):
 
 
 def test_the_later_ops_and_the_op_names():
+    """P12c-ii-a's 45 ops and P12c-ii-b's 44 are dispatched; none is
+    refused any more."""
     ported = set(ti._STROPS) | set(ti._TIME_PARTS) | set(ti._EXTRA_OPS)
-    assert len(ported) == 45 and len(ti._LATER) == 44
+    assert len(ported) == 45 + 44 and not hasattr(ti, "_LATER")
     assert ported <= set(ti.op_names())
 
 
