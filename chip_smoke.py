@@ -569,6 +569,23 @@ prints one JSON line; any failure raises and the exit code is not 0):
               first R28_CV_ROWS rows on the card (K2 60) and on the CPU,
               CV metrics within R28_CV_TOL; every key published in 28 is
               removed
+ 29 the Rapids planner on phase 26's frame: 29a the four region shapes
+              (R29_SHAPES: filter -> sort, na.omit of a filter -> two-key
+              sort, filter -> na.omit, filter -> group-by on the Zipf key)
+              at 1M rows, each fused (H2O_TPU_RAPIDS_FUSE=1) bitwise the
+              same expression run verb by verb (=0); 29b each shape's two
+              walls, bytes each way and planner counters: the fused bytes
+              one upload of the columns the region reads and one download
+              of its result, one region fused a run, no planner error and
+              no fallback; 29c the card's regions (the variable unset: the
+              card fuses by default) equal the CPU's fused regions on the
+              first R29_SUB_ROWS rows (the group sd to DP_AGG_RTOL), a
+              region OOM drill (H2O_TPU_CHAOS_REGION_OOM_TRANSIENT=1)
+              degrading one region to the eager chain bitwise, counted,
+              then fusing again, and a 10-tree GBM on the fused
+              filter -> sort frame (K2 50); the planner counters over
+              phases 26-28 (none of their expressions fuses); every key
+              published in 29 is removed
   7 profile - torch.profiler over 2 default trees: device busy share and
               the kernels that take the device time; then 2 QuantilesGlobal
               trees: each histogram kernel's device ms per main-path launch
@@ -578,7 +595,7 @@ prints one JSON line; any failure raises and the exit code is not 0):
               iteration (7 class trees) and one UpliftDRF tree
 
 The kernels line's launches sum every main-path training above (phases
-4, 5, 8-28), each read from counters set to 0 just before it; the
+4, 5, 8-29), each read from counters set to 0 just before it; the
 launches phase lists them path by path (phase 16 as "glm", 0 and 0;
 phase 17's KMeans, DeepLearning and GAM paths 0 and 0, "rulefit" 150
 and 0; phase 18's PCA, SVD, GLRM, Word2Vec, NaiveBayes and CoxPH runs 0
@@ -593,12 +610,14 @@ phase 24's "job_gbm" 0 and 100, "job_gbm_drf_together" 0 and 300,
 "grid_random" its GBMs' levels, "segments" 0 and 350, "automl" 0 and
 its GBMs' levels over their fold and main fits; phase 26's "rapids" 0
 and 0, "rapids_gbm" 0 and 100; phase 28's "rapids_frame_ops" 0 and 0,
-"rapids_cv_gbm" 0 and 200, "rapids_cv_gbm_card_vs_cpu" 0 and 60).
+"rapids_cv_gbm" 0 and 200, "rapids_cv_gbm_card_vs_cpu" 0 and 60; phase
+29's "rapids_planner" 0 and 0, "rapids_fused_gbm" 0 and 50).
 
 The line before the last holds every kernel's numbers; the last line is
 the device summary.  Needs one CUDA card; exits non-zero without one.
 """
 
+import contextlib
 import http.server
 import json
 import os
@@ -695,6 +714,7 @@ from h2o_tpu_torch.ops import hist_kernels as hk  # noqa: E402
 from h2o_tpu_torch.ops import prng, xlamath  # noqa: E402
 from h2o_tpu_torch.rapids import Session as RapidsSession  # noqa: E402
 from h2o_tpu_torch.rapids import rapids_exec  # noqa: E402
+from h2o_tpu_torch.rapids.plan import PlanStats  # noqa: E402
 from h2o_tpu_torch.ops.histogram import hist_plain  # noqa: E402
 from h2o_tpu_torch.ops.linalg import eigh_desc  # noqa: E402
 from h2o_tpu_torch.tools.repeat_check import (all_equal,  # noqa: E402
@@ -7217,6 +7237,211 @@ def phase_slice22(f26: Frame, smi: str, paths) -> None:
             all(direct.values()) and restored)
 
 
+# -- 29: the Rapids planner: filter and na.omit chains fused -----------------
+
+#: phase 29: the region shapes of tests/test_rapids_plan.py on phase 26's
+#: frame (x0..x27 0-27, y 28, zkey 29, c7 30, k7 31, k7n 32), its y read as
+#: x1, its categorical as c7 and its group key as the Zipf key; each with
+#: the columns its region reads (None: every column); {f} the frame
+R29_SHAPES = (
+    ("filter_sort", "(sort (rows {f} (> (cols {f} [1]) 0.5)) [0] [1])",
+     None),
+    ("naomit_filter_sort", "(sort (na.omit (rows {f} (> (cols {f} [1]) 0)))"
+     " [30 0] [0 1])", None),
+    ("filter_only", "(na.omit (rows {f} (> (cols {f} [1]) -0.5)))", None),
+    ("filter_gb", "(GB (rows {f} (<= (cols {f} [1]) 1)) [29] mean 0 'all' "
+     "nrow 0 'all' sum 1 'all' sd 0 'all' min 0 'all' max 0 'all')",
+     (0, 1, 29)),
+)
+#: the rows of 29c's card-against-CPU runs and drill, and the GBM's trees
+R29_SUB_ROWS = 100_000
+R29_TREES = 10
+
+
+@contextlib.contextmanager
+def env_set(var: str, value):
+    """Set (a value) or unset (None) one environment variable for a block,
+    then put back what was there."""
+    def put(v):
+        if v is None:
+            os.environ.pop(var, None)
+        else:
+            os.environ[var] = v
+
+    saved = os.environ.get(var)
+    put(value)
+    try:
+        yield
+    finally:
+        put(saved)
+
+
+def plan_delta(before: dict) -> dict:
+    """The planner counters moved since the snapshot ``before``."""
+    after = PlanStats.snapshot()
+    d = {k: after[k] - before[k] for k in after if k != "kinds"}
+    d["kinds"] = {k: v - before["kinds"].get(k, 0)
+                  for k, v in after["kinds"].items()
+                  if v != before["kinds"].get(k, 0)}
+    return d
+
+
+def r29_run(expr: str, key: str, device, fuse) -> dict:
+    """One expression on a session on ``device`` with
+    H2O_TPU_RAPIDS_FUSE set to ``fuse`` (None: unset): its answer, wall
+    (ending in a synchronize), bytes each way and planner counters."""
+    sess = RapidsSession(f"rapids29_{key}", device=device)
+    with env_set("H2O_TPU_RAPIDS_FUSE", fuse):
+        before = PlanStats.snapshot()
+        TransferStats.reset()
+        sync()
+        t0 = time.perf_counter()
+        out = rapids_exec(expr.format(f=key), sess)
+        sync()
+        wall = time.perf_counter() - t0
+        moved = TransferStats.snapshot()
+        counts = plan_delta(before)
+    return dict(out=out, wall_s=wall, to_device=moved["to_device"],
+                to_host=moved["to_host"], plan=counts)
+
+
+def fused_bytes(f: Frame, reads, out: Frame) -> tuple:
+    """(bytes up, bytes down) of one region: one float32 upload of the
+    columns it reads, one float32 download of its result."""
+    cols = f.ncols if reads is None else len(reads)
+    return f.nrows * cols * 4, out.nrows * out.ncols * 4
+
+
+def clean_region(d: dict, kind: str) -> bool:
+    """One region of ``kind`` fused, no planner error, no fallback."""
+    return d["regions_fused"] == 1 and d["kinds"] == {kind: 1} and \
+        d["planner_errors"] == 0 and d["fallbacks_unfused"] == 0
+
+
+def region_kind(name: str) -> str:
+    return name if name in ("filter_only", "filter_gb") else "filter_sort"
+
+
+def rapids_29ab(f: Frame, smi: str) -> dict:
+    """29a/29b: each shape at full width fused and verb by verb, bitwise
+    equal, with walls, bytes and counters; returns the fused answers.
+    Each shape runs once on both routes at R29_SUB_ROWS rows first, so
+    no wall times a first launch."""
+    for _name, expr, _reads in R29_SHAPES:
+        for fuse in ("1", "0"):
+            r29_run(expr, "f29_sub", DEV, fuse)
+    fused = {}
+    for name, expr, reads in R29_SHAPES:
+        fu = r29_run(expr, "f29", DEV, "1")
+        ea = r29_run(expr, "f29", DEV, "0")
+        bad = rapids_diff(fu["out"], ea["out"])
+        want = fused_bytes(f, reads, fu["out"])
+        moved = (fu["to_device"], fu["to_host"])
+        dp_hold("29ab_region", smi, dict(
+            name=name, expr=expr, rows=f.nrows, rows_out=fu["out"].nrows,
+            fused=dict(wall_s=fu["wall_s"], to_device_bytes=moved[0],
+                       to_host_bytes=moved[1], plan=fu["plan"]),
+            eager=dict(wall_s=ea["wall_s"], to_device_bytes=ea["to_device"],
+                       to_host_bytes=ea["to_host"], plan=ea["plan"]),
+            want_fused_bytes=want, differ_fused_eager=bad),
+            not bad and moved == want and
+            clean_region(fu["plan"], region_kind(name)) and
+            not any(v for k, v in ea["plan"].items() if k != "kinds") and
+            ea["to_device"] > moved[0] and ea["to_host"] > moved[1])
+        fused[name] = fu["out"]
+    return fused
+
+
+def rapids_29c(f: Frame, smi: str, fused: dict, paths) -> None:
+    """29c: the card against the CPU on the first R29_SUB_ROWS rows, the
+    region OOM drill and a GBM on the fused filter -> sort frame."""
+    from h2o_tpu_torch.core import oom
+    rows = min(f.nrows, R29_SUB_ROWS)
+    card_fuses = DEV.type == "cuda"
+    differ, walls, defaults = {}, {}, {}
+    for name, expr, _reads in R29_SHAPES:
+        card = r29_run(expr, "f29_sub", DEV, None)
+        cpu = r29_run(expr, "f29_sub", "cpu", "1")
+        loose = {"sd_x0": DP_AGG_RTOL} if name == "filter_gb" else None
+        differ[name] = rapids_diff(card["out"], cpu["out"], loose)
+        walls[name] = (card["wall_s"], cpu["wall_s"])
+        defaults[name] = card["plan"]["regions_fused"] == int(card_fuses) \
+            and clean_region(cpu["plan"], region_kind(name))
+    dp_hold("29c_card_vs_cpu", smi, dict(
+        rows=rows, card_default_fuses=card_fuses,
+        differ={k: v for k, v in differ.items() if v},
+        card_cpu_walls_s=walls, default_route_ok=defaults),
+        not any(differ.values()) and all(defaults.values()))
+    # the drill: one transient region OOM, degraded to the eager chain
+    name, expr, _reads = R29_SHAPES[1]
+    eager = r29_run(expr, "f29_sub", DEV, "0")
+    oom.reset_stats()
+    with env_set("H2O_TPU_CHAOS_REGION_OOM_TRANSIENT", "1"):
+        chaos_mod.reset()                 # chaos() reads the variable anew
+        try:
+            degraded = r29_run(expr, "f29_sub", DEV, "1")
+            injected = chaos_mod.chaos().injected_region_ooms
+            again = r29_run(expr, "f29_sub", DEV, "1")
+        finally:
+            chaos_mod.reset()
+    rung = oom.stats()["sites"].get("rapids.fuse", {})
+    d1, d2 = degraded["plan"], again["plan"]
+    bad = rapids_diff(degraded["out"], eager["out"]) + \
+        rapids_diff(again["out"], eager["out"])
+    dp_hold("29c_region_oom_drill", smi, dict(
+        name=name, rows=rows, injected_region_ooms=injected,
+        unfused_fallbacks=rung.get("unfused_fallbacks", 0),
+        degraded_plan=d1, again_plan=d2, differ_from_eager=bad,
+        degraded_wall_s=degraded["wall_s"], again_wall_s=again["wall_s"]),
+        not bad and injected == 1 and rung.get("unfused_fallbacks") == 1 and
+        d1["fallbacks_unfused"] == 1 and d1["regions_fused"] == 0 and
+        d1["planner_errors"] == 0 and clean_region(d2, "filter_sort"))
+    oom.reset_stats()
+    # a GBM on the fused filter -> sort frame
+    g = fused["filter_sort"]
+    m, wall, got = launched(train, fr=g, ntrees=R29_TREES)
+    paths["rapids_fused_gbm"] = got
+    auc = m.output["training_metrics"]["AUC"]
+    want = (0, R29_TREES * 5)
+    dp_hold("29c_fused_frame_gbm", smi, dict(
+        rows=g.nrows, ntrees=R29_TREES, wall_s=wall, train_auc=auc,
+        k1_launches=got[0], k2_launches=got[1], want_launches=want),
+        got == want and 0.5 < auc <= 1.0 and
+        bool(np.isfinite(m.output["value"]).all()))
+
+
+def phase_slice23(f26: Frame, smi: str, paths, before_26=None) -> None:
+    """29: the Rapids planner on phase 26's frame; ``before_26``, the
+    planner counters before phase 26, gives 26-28's.  Every key
+    published here is removed at the end."""
+    from h2o_tpu_torch.core.store import dkv
+    before = set(dkv().keys())
+    prior = plan_delta(before_26) if before_26 is not None else None
+    t = [time.perf_counter()]
+    dkv().put("f29", f26)
+    dkv().put("f29_sub", f26.slice_rows(slice(0, R29_SUB_ROWS)))
+    hk.reset_launches()
+    fused = rapids_29ab(f26, smi)
+    got = hist_launches()
+    no_hist("rapids 29ab", got)
+    t.append(time.perf_counter())
+    rapids_29c(f26, smi, fused, paths)
+    paths["rapids_planner"] = got
+    t.append(time.perf_counter())
+    published = sorted(set(dkv().keys()) - before)
+    for k in published:
+        dkv().remove(k, force=True)
+    restored = set(dkv().keys()) == before
+    dp_hold("phase29", smi, dict(
+        rows=f26.nrows, sub_rows=R29_SUB_ROWS,
+        reduced=dict(card_vs_cpu=R29_SUB_ROWS, drill=R29_SUB_ROWS,
+                     gbm_trees=R29_TREES),
+        plan_counts_phases_26_28=prior, keys_published=len(published),
+        store_restored=restored, total_s=t[-1] - t[0],
+        **{f"{n}_s": b - a for n, a, b in zip(("29ab", "29c"), t, t[1:])}),
+        restored and (prior is None or prior["regions_fused"] == 0))
+
+
 def unpublish(before: set) -> None:
     """Remove every DKV key published since ``before`` (each phase's
     models and frames; the phase's own variables keep what it returns)."""
@@ -7487,6 +7712,7 @@ def main() -> None:
     unpublish(base_keys)
     # -- 26 the Rapids interpreter -------------------------------------------
     torch.cuda.empty_cache()
+    plan_before_26 = PlanStats.snapshot()
     f26 = phase_slice20(X, y, fr, smi, paths)
     unpublish(base_keys)
     # -- 27 the string, time, date, text and model ops of Rapids ------------
@@ -7497,6 +7723,10 @@ def main() -> None:
     # -- 28 the frame and statistics ops of Rapids, a munged CV GBM ---------
     torch.cuda.empty_cache()
     phase_slice22(f26, smi, paths)
+    unpublish(base_keys)
+    # -- 29 the Rapids planner: chains fused into one region ---------------
+    torch.cuda.empty_cache()
+    phase_slice23(f26, smi, paths, plan_before_26)
     del f26
     emit(dict(phase="launches", paths={k: dict(k1=v[0], k2=v[1])
                                        for k, v in paths.items()}))

@@ -27,14 +27,32 @@ so tests can monkeypatch ``os.environ``.
     device routes.  The reference reads it in ``core/munge.py:130-134``,
     not in its ``config.py``, so ``device_munge`` stays out of
     ``__all__``, the readers that mirror that file.
+``H2O_TPU_SHARD_MUNGE`` — ``0``, ``false`` or ``off`` sends the
+    reference's munge verbs to its global kernels, and its Rapids planner
+    then declines every region (``core/munge.py:137-143`` there).  One
+    device has no shard collectives, so the port reads it only for the
+    planner's gate: the same environment takes the same route in both
+    packages.
+``H2O_TPU_RAPIDS_FUSE`` — the Rapids planner's lever
+    (``rapids/plan.py``): ``1``/``on`` fuses every fusable region, ``0``/
+    ``off`` runs every verb alone, unset defers to ``H2O_TPU_AUTOTUNE``
+    and the session's device (``config.py:187-193``).
+``H2O_TPU_RAPIDS_FUSE_MAX_VERBS`` — the most verbs one fused region
+    takes, at least 2 (8; ``config.py:196-200``).
+``H2O_TPU_AUTOTUNE`` — ``off``/``0``, ``force`` or ``auto`` (unset);
+    read by ``autotune_mode`` and the levers' ``tri_state`` spellings, as
+    ``core/autotune.py:96-133`` reads them.  The rest of the autotuner
+    comes with ROADMAP P14b.
 
-The other readers of the reference (tiers, the stream holdout, tenants,
-the Rapids planner) come with their slices.
+The readers of the last four, like ``device_munge``, stay out of
+``__all__``.  The other readers of the reference (tiers, the stream
+holdout, tenants) come with their slices.
 """
 
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 __all__ = ["hbm_budget", "serve_replicas", "breaker_soft", "breaker_hard", "breaker_open_secs", "breaker_probes", "breaker_interval_ms", "breaker_stall_soft", "serve_adaptive_default", "serve_min_batch", "serve_max_batch", "stream_poll_ms"]
 
@@ -109,3 +127,55 @@ def device_munge() -> bool:
     rather than their host routes."""
     return os.environ.get("H2O_TPU_DEVICE_MUNGE", "1").lower() not in (
         "0", "false", "off")
+
+
+def shard_munge() -> bool:
+    """False when ``H2O_TPU_SHARD_MUNGE`` is ``0``, ``false`` or ``off``."""
+    return os.environ.get("H2O_TPU_SHARD_MUNGE", "1").lower() not in (
+        "0", "false", "off")
+
+
+def rapids_fuse_mode() -> str:
+    """``auto`` (defer to the lever) | ``on``/``1`` | ``off``/``0``."""
+    v = os.environ.get("H2O_TPU_RAPIDS_FUSE", "").lower()
+    if v in ("1", "on", "true", "yes"):
+        return "on"
+    if v in ("0", "off", "false", "no"):
+        return "off"
+    return "auto"
+
+
+def rapids_fuse_max_verbs() -> int:
+    """Max verbs per fused region (longer chains split at the cap)."""
+    return max(2, int(os.environ.get("H2O_TPU_RAPIDS_FUSE_MAX_VERBS",
+                                     "8") or 8))
+
+
+_TRUE = ("1", "on", "true", "yes")
+_FALSE = ("0", "off", "false", "no")
+
+
+def _env_value(var: str) -> str:
+    return os.environ.get(var, "").strip().lower()
+
+
+def tri_state(var: str) -> Optional[bool]:
+    """1/on -> forced True, 0/off -> forced False, auto/unset/other ->
+    None (defer to the measured decision)."""
+    v = _env_value(var)
+    if v in _TRUE:
+        return True
+    if v in _FALSE:
+        return False
+    return None
+
+
+def autotune_mode() -> str:
+    """``H2O_TPU_AUTOTUNE``: ``off`` (0) = reference variants everywhere,
+    ``force`` = measure on any device, default ``auto``."""
+    v = _env_value("H2O_TPU_AUTOTUNE")
+    if v in _FALSE:
+        return "off"
+    if v == "force":
+        return "force"
+    return "auto"

@@ -84,6 +84,15 @@ def device_munge_enabled() -> bool:
     return config.device_munge()
 
 
+def shard_munge_enabled() -> bool:
+    """False when ``H2O_TPU_SHARD_MUNGE`` is ``0``, ``false`` or ``off``.
+    The reference's verbs then run as global kernels instead of shard
+    collectives; one device has only the global form, so here the gate
+    decides only whether the Rapids planner fuses (the reference's
+    planner declines without its collectives)."""
+    return config.shard_munge()
+
+
 def mode_device_eligible(fr: Frame, aggs) -> bool:
     """True when every ``mode`` aggregate targets a categorical column
     with a domain (any cardinality)."""
@@ -409,13 +418,22 @@ def groupby_frame(fr: Frame, gcols: Sequence[int],
                          "code space to count in" + _HOST_ROUTE)
     dev = cloud(device)
     gcols = [int(j) for j in gcols]
-    acols = [int(c) for _a, c, _na in aggs]
-    read = sorted(set(gcols) | set(acols))
-    pos = {j: i for i, j in enumerate(read)}
+    read = sorted(set(gcols) | {int(c) for _a, c, _na in aggs})
     pay = _upload(fr, read, dev)
+    valid = torch.ones(fr.nrows, dtype=torch.bool, device=dev)
+    return _group_rows(fr, pay, read, valid, gcols, aggs)
+
+
+def _group_rows(fr: Frame, pay: torch.Tensor, read: Sequence[int],
+                valid: torch.Tensor, gcols: Sequence[int],
+                aggs: Sequence[Tuple[str, int, str]]) -> Frame:
+    """``groupby_frame`` over the rows ``valid`` marks, from ``pay``, the
+    transport matrix of the columns ``read`` (sorted); the table comes
+    back to the host in one download."""
+    pos = {j: i for i, j in enumerate(read)}
+    acols = [int(c) for _a, c, _na in aggs]
     keys = _factor_key_matrix(pay[:, [pos[j] for j in gcols]],
                               [fr.vecs[j].is_categorical for j in gcols])
-    valid = torch.ones(fr.nrows, dtype=torch.bool, device=dev)
     inv, order, G = _factorize_block(keys, valid)
     vals = pay[:, [pos[c] for c in acols]]
     for a, c in enumerate(acols):                  # as_float: NA codes NaN

@@ -9,8 +9,9 @@ temporaries in the DKV.  Reference map: the parser ``_TOKEN`` ..
 ``_as_frame`` :132-137, ``_string_compare`` :152-186, ``_elementwise``
 :193-255, ``_reduce_all`` :257-267, ``_col_indices`` / ``_lit``
 :270-287, ``_row_select`` and its host routes :297-348; the op tables
-:362-404; ``_eval`` :415-735; the cumulative ops :745-748; sort, merge,
-group-by and table :751-1099; the string ops and time parts
+:362-404; ``_offer_plan`` :406-413; ``_eval`` :415-735; the cumulative
+ops :745-748; sort, merge, group-by and table :751-1099; the string ops
+and time parts
 :1101-1232; ``_update`` and ``_impute`` :1234-1320; ``_labels_of``
 :1353-1363; ``as.Date``, ``mktime`` and ``moment`` :1473-1537;
 ``grep`` and ``strlen`` :1592-1619; ``_numlist_vals`` / ``_mixed_list``
@@ -40,8 +41,13 @@ launched, by the reference's own predicates: ``device_munge_enabled()``
 (``H2O_TPU_DEVICE_MUNGE``), ``frame_device_ok``, ``merge_device_ok``,
 ``DEVICE_AGGS`` with ``mode_device_eligible``, and non-negative indices.
 A verb that fails on the device raises: no error sends a frame to a host
-route (the reference's OOM ladder, ``core/oom.py``, and its lazy planner,
-``rapids/plan.py``, come with later slices).  ``table``, ``:=``,
+route (the reference's OOM ladder around each verb, ``core/oom.py``,
+comes with ROADMAP P14a).  Before its eager handler runs, ``rows``,
+``sort``, ``GB`` and ``na.omit`` offer their node to the planner
+(``rapids/plan.py``, ``_offer_plan``), which runs a chain of filter and
+``na.omit`` stages with its sort, group-by or last filter as one region
+(``core/fuse.py``): one upload and one download, bitwise the eager
+chain's frame.  ``table``, ``:=``,
 ``h2o.impute``, ``asfactor``, ``which`` and the binds compute on the host,
 as in the reference.  The reference's ``_dense`` repacks a frame whose
 rows are spread over shards as ragged prefixes; one device holds no such
@@ -571,6 +577,15 @@ _NAMED_OPS = (
     "anyfactor", "is.numeric", ":=", "append", "h2o.impute")
 
 
+def _offer_plan(op, node, env):
+    """Offer a fusable terminal verb to the planner (``rapids/plan.py``)
+    before the eager handler runs: the fused region's frame, or None
+    (the eager path, also the planner's parity oracle, then runs).  The
+    planner is imported here, not at the top: it imports this module."""
+    from h2o_tpu_torch.rapids.plan import try_plan
+    return try_plan(op, node, env, _eval)
+
+
 def _eval(node, env: _Env):
     s = env.s
     if isinstance(node, float):
@@ -612,6 +627,9 @@ def _eval(node, env: _Env):
         idxs = _col_indices(fr, sel)
         return fr.subframe([fr.names[i] for i in idxs])
     if op in ("rows", "rows_py"):
+        fused = _offer_plan(op, node, env)
+        if fused is not None:
+            return fused
         fr = _as_frame(_eval(node[1], env))
         sel = node[2]
         if isinstance(sel, list):
@@ -723,11 +741,13 @@ def _eval(node, env: _Env):
     if op == "assign":
         return s.assign(_lit(node[1]), _as_frame(_eval(node[2], env)))
     if op == "sort":
-        return _sort(node, env)
+        fused = _offer_plan(op, node, env)
+        return fused if fused is not None else _sort(node, env)
     if op == "merge":
         return _merge(node, env)
     if op in ("GB", "groupby"):
-        return _groupby(node, env)
+        fused = _offer_plan(op, node, env)
+        return fused if fused is not None else _groupby(node, env)
     if op == "table":
         return _table(node, env)
     if op in _CUMOPS:
@@ -741,6 +761,9 @@ def _eval(node, env: _Env):
     if op in _TIME_PARTS:
         return _time_part(op, node, env)
     if op == "na.omit":
+        fused = _offer_plan(op, node, env)
+        if fused is not None:
+            return fused
         return _na_omit(_as_frame(_eval(node[1], env)), env.dev)
     if op == "naCnt":
         fr = _as_frame(_eval(node[1], env))

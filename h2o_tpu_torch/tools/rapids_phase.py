@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Phase 26, 27 or 28 of ``chip_smoke.py`` alone: the Rapids interpreter
-on the port.
+"""Phase 26, 27, 28 or 29 of ``chip_smoke.py`` alone: the Rapids
+interpreter on the port.
 
-    python3 h2o_tpu_torch/tools/rapids_phase.py [--cpu] [--phase 26|27|28]
+    python3 h2o_tpu_torch/tools/rapids_phase.py [--cpu] [--phase 26|27|28|29]
 
 On the card it builds the histogram kernels, makes ``chip_smoke.py``'s
 seeded 1,000,000 x 28 frame and runs ``phase_slice20`` (26a-26c, the
@@ -12,10 +12,14 @@ model ops), after training the models it reads: the default GBM and a
 2-tree DRF on the frame, RuleFit at its defaults on the first 100,000
 rows, a one-epoch Word2Vec on phase 18's 100,000-token corpus and phase
 25b's segment GBMs; or ``phase_slice22`` (28: the frame and statistics
-ops and the munged, cross-validated GBM) on phase 26's frame.  ``--cpu``
-rehearses the phase on the CPU at 20,000 rows (5,000 for phase 26's
-card-against-CPU and host-route runs and the right frame, for phase
-27's cut runs and for phase 28's cut, card-against-CPU and GBM rows;
+ops and the munged, cross-validated GBM) on phase 26's frame; or
+``phase_slice23`` (29: the planner's fused regions against the same
+expressions run verb by verb, the drill and the GBM on a fused frame)
+on phase 26's frame.  ``--cpu`` rehearses the phase on the CPU at
+20,000 rows (5,000 for phase 26's card-against-CPU and host-route runs
+and the right frame, for phase 27's cut runs, for phase 28's cut,
+card-against-CPU and GBM rows and for phase 29's card-against-CPU rows
+and drill;
 1,000 for phase 27's strDistance and 28's ``t``, 200 for 28's
 ``distance``): ``cloud(None)`` and
 ``"cuda"`` map to the CPU, and each plain histogram call is counted as
@@ -68,6 +72,7 @@ def main() -> None:
         cs.R27_DIST_ROWS = cs.R28_T_ROWS = 1_000
         cs.R28_CUT_ROWS, cs.R28_DIST_ROWS, cs.R28_CV_ROWS = 5_000, 200, 2_000
         cs.PVI_SAMPLES = 2_000
+        cs.R29_SUB_ROWS = 5_000
         rows, smi = 20_000, "cpu rehearsal"
     else:
         cs.hk.build()
@@ -86,6 +91,8 @@ def main() -> None:
         cs.phase_slice20(X, y, fr, smi, paths)
     elif phase == "28":
         cs.phase_slice22(cs.rapids_frames(fr)[0], smi, paths)
+    elif phase == "29":
+        cs.phase_slice23(cs.rapids_frames(fr)[0], smi, paths)
     else:
         models = phase27_models(cs, X, y, fr, paths)
         t0 = time.perf_counter()
