@@ -586,6 +586,30 @@ prints one JSON line; any failure raises and the exit code is not 0):
               filter -> sort frame (K2 50); the planner counters over
               phases 26-28 (none of their expressions fuses); every key
               published in 29 is removed
+ 30 the executable store and the OOM ladder: 30a the default GBM, the
+              DRF and phase 16's GLM deployed on one ScoringEngine each:
+              WARM30 warmed, one CUDA graph captured a bucket (each
+              capture timed), then REQ30 requests of 1..4 rows
+              round-robin and two 1,024-row batches a deployment, every
+              answer bitwise the eager predict of the same padded rows,
+              the forests' bitwise the eager predict of the unpadded rows
+              (GLM within GLM_UNPADDED_ATOL), store hits equal to the
+              engine calls, no capture after warm, p50/p99 a bucket
+              beside the eager predict's, one GBM request's device
+              operations and launch calls through its graph and eager,
+              and evicting the graphs frees their buffers; 30b the chaos injector's
+              transient OOMs at fixed counts: serve.predict swept once,
+              shrunk twice, then the host scorer (HOST_ATOL); a 10-tree
+              GBM in blocks of 5 shrunk to blocks of 1, its forest
+              bitwise the undisturbed one (K2 100 for the two); sort and
+              group-by on phase 23's 1M-row frame (DRILL_COLS) on their
+              host rungs, bitwise the device's; the terminal rung failing
+              a job with OOMError, the next job succeeding; every site's
+              counters pinned; 30c an allocation of twice the card's
+              memory: a device OOM, the ladder's OOMError, the process
+              alive and its allocated bytes as before.  The ladder's
+              counters outside the drill must show no host fallback and
+              no terminal OOM, before phase 29, before 30b and at the end
   7 profile - torch.profiler over 2 default trees: device busy share and
               the kernels that take the device time; then 2 QuantilesGlobal
               trees: each histogram kernel's device ms per main-path launch
@@ -595,7 +619,7 @@ prints one JSON line; any failure raises and the exit code is not 0):
               iteration (7 class trees) and one UpliftDRF tree
 
 The kernels line's launches sum every main-path training above (phases
-4, 5, 8-29), each read from counters set to 0 just before it; the
+4, 5, 8-30), each read from counters set to 0 just before it; the
 launches phase lists them path by path (phase 16 as "glm", 0 and 0;
 phase 17's KMeans, DeepLearning and GAM paths 0 and 0, "rulefit" 150
 and 0; phase 18's PCA, SVD, GLRM, Word2Vec, NaiveBayes and CoxPH runs 0
@@ -611,7 +635,8 @@ phase 24's "job_gbm" 0 and 100, "job_gbm_drf_together" 0 and 300,
 its GBMs' levels over their fold and main fits; phase 26's "rapids" 0
 and 0, "rapids_gbm" 0 and 100; phase 28's "rapids_frame_ops" 0 and 0,
 "rapids_cv_gbm" 0 and 200, "rapids_cv_gbm_card_vs_cpu" 0 and 60; phase
-29's "rapids_planner" 0 and 0, "rapids_fused_gbm" 0 and 50).
+29's "rapids_planner" 0 and 0, "rapids_fused_gbm" 0 and 50; phase 30's
+"oom_drill_gbm" 0 and 100).
 
 The line before the last holds every kernel's numbers; the last line is
 the device summary.  Needs one CUDA card; exits non-zero without one.
@@ -705,7 +730,10 @@ from h2o_tpu_torch.core import chaos as chaos_mod  # noqa: E402
 from h2o_tpu_torch.core import mrtask  # noqa: E402
 from h2o_tpu_torch.core import munge as dp_munge  # noqa: E402
 from h2o_tpu_torch.core import quantile as dp_quantile  # noqa: E402
-from h2o_tpu_torch.core.diag import TimeLine, TransferStats  # noqa: E402
+from h2o_tpu_torch.core import oom  # noqa: E402
+from h2o_tpu_torch.core.diag import (DispatchStats, TimeLine,  # noqa: E402
+                                     TransferStats)
+from h2o_tpu_torch.core.exec_store import bucket_pow2, exec_store  # noqa: E402
 from h2o_tpu_torch.serve import (BreakerOpen, NoHealthyReplica,  # noqa: E402
                                  QueueFull, ScoringEngine, ServingConfig,
                                  ShedLoad, breaker, fleet, registry)
@@ -7442,6 +7470,447 @@ def phase_slice23(f26: Frame, smi: str, paths, before_26=None) -> None:
         restored and (prior is None or prior["regions_fused"] == 0))
 
 
+# ---------------------------------------------------------------------------
+# 30 the executable store's CUDA graphs and the OOM ladder
+# ---------------------------------------------------------------------------
+
+#: 30a: the buckets each deployment warms (the 1-4-row requests land in
+#: 1, 2 and 4, the batches in 1,024, so no request captures a graph);
+#: requests in all over the three deployments, 1..REQ30_MAX rows each,
+#: and 1,024-row batches a deployment
+WARM30 = (1, 2, 4, 32, 1024)
+REQ30, REQ30_MAX, BATCHES30 = 200, 4, 2
+#: a forest's eager predict timed alone on the first EAGER30 requests of
+#: each bucket (every GLM request is)
+EAGER30 = 6
+#: GLM's graph against its eager predict on the unpadded rows: cuBLAS may
+#: pick another GEMV algorithm at another row count (the padded bucket is
+#: held bitwise)
+GLM_UNPADDED_ATOL = 1e-5
+#: the host scorer (the serve ladder's rung (c)) against the card
+HOST_ATOL = 1e-5
+#: 30b: the tree.block drill's GBM (10 trees in blocks of 5 at 1M x 28),
+#: and the columns of phase 23's frame the munge drill sorts and groups
+DRILL_TREES, DRILL_BLOCK = 10, 5
+DRILL_COLS = ["zkey", "c7", "x0", "x1", "x2"]
+DRILL_SORT = "(sort f30 [0 2] [1 1])"
+DRILL_GB = '(GB f30 [0] nrow 2 "all" min 2 "all" max 2 "all")'
+
+
+def rungs(**kw) -> dict:
+    """One site's full rung counters: ``kw``, every other rung 0."""
+    return {r: kw.get(r, 0) for r in oom._RUNGS}
+
+
+def oom_outside(where: str) -> dict:
+    """The ladder's totals; fails if any site outside the drill fell to
+    its host rung or ended terminal: no rung may hide the device."""
+    s = oom.stats()
+    bad = {k: d for k, d in s["sites"].items()
+           if d["host_fallbacks"] or d["terminal"]}
+    if bad:
+        raise AssertionError(f"{where}: OOM ladder sites fell to the host "
+                             f"or ended terminal outside the drill: {bad}")
+    return {k: v for k, v in s.items() if k != "sites"}
+
+
+def padded(X: np.ndarray) -> np.ndarray:
+    """X's rows zero-padded to their power-of-two bucket, as float32."""
+    n = X.shape[0]
+    Xp = np.zeros((bucket_pow2(n), X.shape[1]), np.float32)
+    Xp[:n] = X
+    return Xp
+
+
+def eager_raw(m, X: np.ndarray) -> np.ndarray:
+    """The model's eager device predict of X's rows, on the host."""
+    return m.predict_raw_array(torch.from_numpy(
+        np.asarray(X, np.float32)).to(DEV)).cpu().numpy()
+
+
+def serve_counts(store) -> tuple:
+    """(store hits, store misses, serve compiles) now."""
+    return (store.hits, store.misses,
+            DispatchStats.snapshot()["compiles"].get("serve", 0))
+
+
+def request_ops(calls: dict) -> dict:
+    """Device operations and host launch calls of one call of each
+    ``calls[name]``, all under one torch.profiler session (a session
+    costs seconds).  Each call runs inside a ``record_function`` range
+    ending in a synchronize, and a host event belongs to the range its
+    start falls in; on the card a ``spin_kernel`` (``torch.cuda._sleep``)
+    after each call marks its end in device order, since device times
+    are aligned to the host clock only approximately."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    on_card = DEV.type == "cuda"
+    sync()
+    acts = [ProfilerActivity.CPU] + \
+        ([ProfilerActivity.CUDA] if on_card else [])
+    with profile(activities=acts) as prof:
+        for name, fn in calls.items():
+            with record_function(f"request:{name}"):
+                fn()
+                sync()
+            if on_card:
+                torch.cuda._sleep(1)
+                sync()
+    evs = list(prof.events())
+    dev = sorted((ev for ev in evs
+                  if ev.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda ev: ev.time_range.start)
+    counts, n = [], 0
+    for ev in dev:
+        if "spin_kernel" in ev.name:
+            counts.append(n)
+            n = 0
+        else:
+            n += 1
+    out = {}
+    for i, name in enumerate(calls):
+        # the range's host event (the profiler also lists its device
+        # annotation under the same name)
+        t0, t1 = [(ev.time_range.start, ev.time_range.end) for ev in evs
+                  if ev.name == f"request:{name}" and ev.device_type ==
+                  torch.autograd.DeviceType.CPU][0]
+        api = {}
+        for ev in evs:
+            if t0 <= ev.time_range.start <= t1 and ev.name.startswith(
+                    ("cudaLaunchKernel", "cuLaunchKernel",
+                     "cudaGraphLaunch", "cudaMemcpy")):
+                api[ev.name] = api.get(ev.name, 0) + 1
+        out[name] = dict(device_ops=counts[i] if len(counts) == len(calls)
+                         else None, host_launch_calls=sum(api.values()),
+                         by_call=api)
+    return out
+
+
+def pct(v, q) -> float:
+    return float(np.percentile(v, q)) if v else float("nan")
+
+
+def store_30a(models: dict, X: np.ndarray, smi: str) -> dict:
+    """30a: each deployment warms WARM30 (one capture a bucket, each
+    timed), then REQ30 requests of 1..REQ30_MAX rows round-robin and
+    BATCHES30 1,024-row batches a deployment: every answer bitwise the
+    eager predict of the same padded rows (GLM's each request alone:
+    cuBLAS picks its GEMV by shape; a forest's over every request's
+    padded rows at once, as a forest scores each row alone), the
+    forests' bitwise the eager predict of the unpadded rows (GLM within
+    GLM_UNPADDED_ATOL), store hits equal to the engine calls, no compile
+    after warm; p50/p99 a bucket beside the eager predict's (timed on
+    every GLM request and on the first EAGER30 of a forest's bucket);
+    one GBM request's operations through its graph and eager; then
+    evicting the graphs frees their buffers."""
+    store = exec_store()
+    t = {"start": time.perf_counter()}
+    engs = {name: ScoringEngine() for name in models}
+    cols = {name: [int(c[1:]) for c in m.output["x"]]
+            for name, m in models.items()}
+    for name, m in models.items():       # device constants uploaded
+        eager_raw(m, padded(X[:1, cols[name]]))
+    captures, warm_ok = {}, True
+    for name, m in models.items():
+        h0, m0, c0 = serve_counts(store)
+        captures[name] = {}
+        for b in WARM30:
+            sync()
+            t0 = time.perf_counter()
+            engs[name].warm(m, 30, (b,))
+            sync()
+            captures[name][str(b)] = time.perf_counter() - t0
+        h1, m1, c1 = serve_counts(store)
+        warm_ok &= (m1 - m0, c1 - c0, h1 - h0) == (len(WARM30),) * 2 + (0,)
+        warm_ok &= engs[name].buckets_for(m.model_id, 30) == list(WARM30)
+    t["warm"] = time.perf_counter()
+    rng = np.random.default_rng(30)
+    names = list(models)
+    sizes = rng.integers(1, REQ30_MAX + 1, size=REQ30)
+    starts = rng.integers(0, X.shape[0] - REQ30_MAX, size=REQ30)
+    calls = [(names[i % len(names)], int(s), int(n))
+             for i, (n, s) in enumerate(zip(sizes, starts))]
+    calls += [(name, j * 1024, 1024) for name in names
+              for j in range(BATCHES30)]
+    lat = {name: {"graph": {}, "eager": {}} for name in names}
+    answers = {name: [] for name in names}
+    h0, m0, c0 = serve_counts(store)
+    for name, s, n in calls:
+        t0 = time.perf_counter()
+        ans = engs[name].predict(models[name], 30,
+                                 X[s:s + n, cols[name]].astype(np.float64))
+        t1 = time.perf_counter()
+        lat[name]["graph"].setdefault(str(bucket_pow2(n)), []).append(
+            (t1 - t0) * 1e3)
+        answers[name].append((s, n, ans))
+    h1, m1, c1 = serve_counts(store)
+    flat = (h1 - h0, m1 - m0, c1 - c0) == (len(calls), 0, 0)
+    t["traffic"] = time.perf_counter()
+    mism, unpadded = 0, {}
+    for name, m in models.items():
+        reqs = answers[name]
+        # (the CPU's SIMD kernels round a row by its place in the batch,
+        # so there every request is checked alone)
+        alone = name == "glm" or DEV.type != "cuda"
+        for s, n, ans in reqs:            # eager, timed alone
+            b = str(bucket_pow2(n))
+            if not alone and len(lat[name]["eager"].get(b, ())) >= EAGER30:
+                continue
+            t0 = time.perf_counter()
+            want = eager_raw(m, padded(X[s:s + n, cols[name]]))
+            lat[name]["eager"].setdefault(b, []).append(
+                (time.perf_counter() - t0) * 1e3)
+            mism += not bits_equal(ans, want[:n])
+        if not alone:                     # every request's padded rows
+            pads = [padded(X[s:s + n, cols[name]]) for s, n, _ in reqs]
+            want = eager_raw(m, np.concatenate(pads))
+            at = np.cumsum([0] + [p.shape[0] for p in pads])
+            mism += sum(not bits_equal(ans, want[o:o + n])
+                        for (_s, n, ans), o in zip(reqs, at))
+        rows = np.concatenate([X[s:s + n, cols[name]] for s, n, _ in reqs])
+        want = eager_raw(m, rows)
+        got = np.concatenate([a for _, _, a in reqs])
+        unpadded[name] = dict(
+            bitwise=bits_equal(got, want),
+            max_abs_diff=float(np.abs(got.astype(np.float64) -
+                                      want).max()))
+    unpadded_ok = DEV.type != "cuda" or all(
+        unpadded[k]["bitwise"] for k in names if k != "glm") and \
+        unpadded["glm"]["max_abs_diff"] <= GLM_UNPADDED_ATOL
+    t["check"] = time.perf_counter()
+    m, Xr = models["gbm"], X[:REQ30_MAX, cols["gbm"]]
+    ops = request_ops(dict(
+        graph=lambda: engs["gbm"].predict(m, 30, Xr.astype(np.float64)),
+        eager=lambda: eager_raw(m, padded(Xr))))
+    t["profile"] = time.perf_counter()
+    buckets = {name: {b: dict(
+        requests=len(v), p50_ms=pct(v, 50), p99_ms=pct(v, 99),
+        eager_timed=len(lat[name]["eager"][b]),
+        eager_p50_ms=pct(lat[name]["eager"][b], 50),
+        eager_p99_ms=pct(lat[name]["eager"][b], 99))
+        for b, v in sorted(lat[name]["graph"].items(), key=lambda kv:
+                           int(kv[0]))} for name in names}
+    # eviction frees each graph's static inputs and output buffers (the
+    # caching allocator hands out blocks in multiples of 512 bytes)
+    entries = [e for k, e in list(store._entries.items())
+               if k[:2] == ("serve", "predict") and k[3] == 30]
+    held = sum(-(-t_.numel() * t_.element_size() // 512) * 512
+               for e in entries if hasattr(e, "_static")
+               for t_ in e._static + [e._out])
+    graphs = sum(1 for e in entries if hasattr(e, "graph"))
+    del entries
+    sync()
+    alloc0, res0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    for name, m in models.items():
+        engs[name].evict(m.model_id, 30)
+    sync()
+    alloc1 = torch.cuda.memory_allocated()
+    torch.cuda.empty_cache()
+    res1 = torch.cuda.memory_reserved()
+    st = store.stats()
+    # beyond the buffers, the last graph of the process gives back the
+    # generator's graph-safe seed and offset (two 512-byte blocks)
+    freed_ok = 0 <= alloc0 - alloc1 - held <= 1024 and \
+        st["entries"] <= st["capacity"]
+    t["evict"] = time.perf_counter()
+    rec = dict(models={k: m.model_id for k, m in models.items()},
+               warm_buckets=list(WARM30), capture_s=captures,
+               graphs=graphs, requests=REQ30, batches_1024=BATCHES30 *
+               len(names), engine_calls=len(calls), mismatched=mism,
+               store_hits=h1 - h0, misses_after_warm=m1 - m0,
+               compiles_after_warm=c1 - c0, unpadded=unpadded,
+               buckets=buckets, one_gbm_request=ops,
+               phase20_device_ops=2293, evicted_bytes=held,
+               allocated_freed=alloc0 - alloc1,
+               reserved_before_after_empty_cache=[res0, res1],
+               store=dict(entries=st["entries"], capacity=st["capacity"],
+                          graph_entries=st["graph_entries"]),
+               walls_s={k: t[k] - t[p] for p, k in zip(
+                   list(t), list(t)[1:])})
+    dp_hold("30a_engine_store", smi, rec, warm_ok and not mism and flat and
+            unpadded_ok and freed_ok)
+    return rec
+
+
+def drill_30b(models: dict, X: np.ndarray, fr: Frame, smi: str,
+              paths) -> dict:
+    """30b: the chaos injector's transient OOMs at fixed counts at each
+    ladder site; every site's counters pinned."""
+    from h2o_tpu_torch.core.job import FAILED, Job, jobs
+    from h2o_tpu_torch.core.store import dkv
+    res, ok = {}, True
+
+    def site(name):
+        return oom.stats()["sites"].get(name, {})
+
+    def drilled(n, fn):
+        chaos_mod.configure(oom_transient=n, seed=0)
+        try:
+            return fn()
+        finally:
+            chaos_mod.reset()
+
+    # serve.predict: one OOM swept; a persisting one shrinks, then host
+    m, eng = models["gbm"], ScoringEngine()
+    Xs = X[:16, [int(c[1:]) for c in m.output["x"]]].astype(np.float64)
+    want = eng.predict(m, 31, Xs)
+    one = drilled(1, lambda: eng.predict(m, 31, Xs))
+    s1 = site("serve.predict")
+    oom.reset_stats()
+    four = drilled(4, lambda: eng.predict(m, 31, Xs))
+    s4 = site("serve.predict")
+    oom.reset_stats()
+    host = drilled(1000, lambda: eng.predict(m, 31, Xs))
+    sh = site("serve.predict")
+    oom.reset_stats()
+    host_diff = float(np.abs(host - want).max())
+    ok_s = bits_equal(one, want) and bits_equal(four, want) and \
+        host_diff <= HOST_ATOL and s1 == rungs(oom_events=1, sweeps=1) and \
+        s4 == rungs(oom_events=4, sweeps=2, shrinks=2) and \
+        sh == rungs(oom_events=7, sweeps=2, shrinks=4, host_fallbacks=1) \
+        and eng.stats()["fallback_batches"] == 1
+    eng.evict(m.model_id, 31)
+    res["serve_predict"] = dict(rows=16, transient_1=s1, transient_4=s4,
+                                persisting=sh, host_max_abs_diff=host_diff,
+                                ok=ok_s)
+    ok &= ok_s
+    # tree.block: a 10-tree GBM in blocks of 5 shrinks, forest bitwise
+    kw = dict(ntrees=DRILL_TREES, score_tree_interval=DRILL_BLOCK)
+    hk.reset_launches()
+    clean, wall0 = train(fr, **kw)
+    shrunk, wall1 = drilled(4, lambda: train(fr, **kw))
+    got = hist_launches()
+    paths["oom_drill_gbm"] = got
+    sb = site("tree.block")
+    oom.reset_stats()
+    ok_t = forest_bitwise(clean.output, shrunk.output) and \
+        sb == rungs(oom_events=4, sweeps=2, shrinks=2) and \
+        got == (0, 2 * DRILL_TREES * 5)
+    res["tree_block"] = dict(ntrees=DRILL_TREES, block=DRILL_BLOCK,
+                             counters=sb, launches=got, wall_s=[wall0, wall1],
+                             ok=ok_t)
+    ok &= ok_t
+    # munge.sort and munge.groupby: the host rung bitwise the device's
+    f30 = dp_frame(fr)
+    f30 = Frame(DRILL_COLS, [f30.vec(c) for c in DRILL_COLS])
+    dkv().put("f30", f30)
+    try:
+        for expr, name in ((DRILL_SORT, "munge.sort"),
+                           (DRILL_GB, "munge.groupby")):
+            sess = RapidsSession("s30", device=DEV)
+            sync()
+            t0 = time.perf_counter()
+            dev_out = rapids_exec(expr, sess)
+            sync()
+            t1 = time.perf_counter()
+            host_out = drilled(1000, lambda: rapids_exec(expr, sess))
+            t2 = time.perf_counter()
+            sm = site(name)
+            oom.reset_stats()
+            bad = frame_bits_equal(dev_out, host_out) if \
+                dev_out.names == host_out.names and \
+                dev_out.nrows == host_out.nrows else ["shape"]
+            ok_m = not bad and sm == rungs(oom_events=3, sweeps=2,
+                                            host_fallbacks=1)
+            res[name] = dict(rows=f30.nrows, rows_out=dev_out.nrows,
+                             counters=sm, differ=bad, device_s=t1 - t0,
+                             host_s=t2 - t1, ok=ok_m)
+            ok &= ok_m
+    finally:
+        dkv().remove("f30", force=True)
+    # the terminal rung fails its job; the next job succeeds
+    Xt = torch.from_numpy(Xs.astype(np.float32)).to(DEV)
+    job = Job(description="30b terminal drill")
+    chaos_mod.configure(oom_transient=1000, seed=0)
+    try:
+        jobs().start(job, lambda j: oom.oom_ladder(
+            "drill.terminal", lambda: m.predict_raw_array(Xt)))
+        try:
+            job.join(timeout=60)
+            raised = None
+        except oom.OOMError as e:
+            raised = str(e)[:160]
+    finally:
+        chaos_mod.reset()
+    nxt = Job(description="30b after the terminal drill")
+    jobs().start(nxt, lambda j: eng.predict(m, 31, Xs))
+    after = nxt.join(timeout=60)
+    eng.evict(m.model_id, 31)
+    st = site("drill.terminal")
+    oom.reset_stats()
+    ok_j = raised is not None and job.status == FAILED and \
+        bits_equal(after, want) and \
+        st == rungs(oom_events=3, sweeps=2, terminal=1)
+    res["terminal"] = dict(error=raised, status=job.status, counters=st,
+                           next_job_bitwise=bits_equal(after, want), ok=ok_j)
+    ok &= ok_j
+    dp_hold("30b_ladder_drill", smi, res, ok)
+    return res
+
+
+def real_oom_30c(smi: str) -> dict:
+    """30c: an allocation larger than the card: classified a device OOM,
+    the ladder ends in OOMError, the process lives on and the allocated
+    bytes return to their level before."""
+    sync()
+    before = torch.cuda.memory_allocated()
+    _free, total = torch.cuda.mem_get_info()
+    n = int(total) * 2
+
+    def alloc():
+        return torch.empty(n, dtype=torch.uint8, device=DEV)
+
+    try:
+        alloc()
+        classified, kind = False, None
+    except Exception as e:  # noqa: BLE001 — classified below
+        classified, kind = oom.is_device_oom(e), type(e).__name__
+    try:
+        oom.oom_ladder("drill.real", alloc)
+        terminal = None
+    except oom.OOMError as e:
+        terminal = str(e)[:200]
+    sync()
+    after = torch.cuda.memory_allocated()
+    s = oom.stats()["sites"].get("drill.real", {})
+    oom.reset_stats()
+    alive = bits_equal(torch.ones(4, device=DEV).sum().cpu(),
+                       torch.tensor(4.0))
+    rec = dict(bytes_asked=n, card_bytes=int(total), error=kind,
+               classified=classified, terminal=terminal, counters=s,
+               allocated_before=before, allocated_after=after, alive=alive)
+    dp_hold("30c_real_oom", smi, rec, classified and terminal is not None
+            and s == rungs(oom_events=3, sweeps=2, terminal=1) and
+            after == before and alive)
+    return rec
+
+
+def phase_slice24(X, fr: Frame, models: dict, smi: str, paths) -> None:
+    """30: the serving engine's CUDA graphs through the executable store
+    (30a), the OOM ladder drill at every site (30b) and a real device
+    OOM (30c).  ``models``: "gbm", "drf" and "glm" deployments trained
+    on the card.  The ladder's counters outside the drill are checked
+    before it and zeroed after it."""
+    t = [time.perf_counter()]
+    hk.reset_launches()
+    store_30a(models, X, smi)
+    no_hist("phase 30a", hist_launches())
+    t.append(time.perf_counter())
+    outside = oom_outside("before phase 30b")
+    oom.reset_stats()
+    drill_30b(models, X, fr, smi, paths)
+    t.append(time.perf_counter())
+    if DEV.type == "cuda":
+        real_oom_30c(smi)
+    t.append(time.perf_counter())
+    oom.reset_stats()
+    dp_hold("phase30", smi, dict(
+        oom_outside_before=outside, total_s=t[-1] - t[0],
+        reduced=dict(drill_columns=len(DRILL_COLS),
+                     drill_trees=DRILL_TREES),
+        **{f"{n}_s": b - a for n, a, b in zip(("30a", "30b", "30c"), t,
+                                               t[1:])}), True)
+
+
 def unpublish(before: set) -> None:
     """Remove every DKV key published since ``before`` (each phase's
     models and frames; the phase's own variables keep what it returns)."""
@@ -7726,8 +8195,15 @@ def main() -> None:
     unpublish(base_keys)
     # -- 29 the Rapids planner: chains fused into one region ---------------
     torch.cuda.empty_cache()
+    oom_outside("before phase 29")        # 29's region drill zeroes them
     phase_slice23(f26, smi, paths, plan_before_26)
     del f26
+    unpublish(base_keys)
+    # -- 30 the engine's CUDA graphs, the OOM ladder drill ------------------
+    torch.cuda.empty_cache()
+    phase_slice24(X, fr, dict(gbm=m_def, drf=m_drf, glm=KEEP["glm"]), smi,
+                  paths)
+    unpublish(base_keys)
     emit(dict(phase="launches", paths={k: dict(k1=v[0], k2=v[1])
                                        for k, v in paths.items()}))
     sync()
@@ -7842,6 +8318,7 @@ def main() -> None:
                     library_ms=tot["library_ms"], int16_ms=tot["int16_ms"],
                     frontier=block(front, L=4096, B=20), **more)
 
+    emit(dict(phase="oom_outside_the_drill", **oom_outside("the end")))
     emit(dict(phase="done", seconds=time.perf_counter() - t_start))
     print(smi, flush=True)
     emit({"kernels": [

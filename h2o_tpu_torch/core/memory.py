@@ -1,7 +1,10 @@
 """Memory telemetry — the half of ``h2o_tpu/core/memory.py`` the serving
-breaker reads: :class:`MemoryManager` with its ``budget``,
-:meth:`MemoryManager.pressure` (the keys of ``memory.py:700-710``) and
-the process-wide :func:`manager`.
+breaker and the OOM ladder read: :class:`MemoryManager` with its
+``budget``, :meth:`MemoryManager.pressure` (the keys of
+``memory.py:700-710``), :meth:`MemoryManager.sweep` (rung (a) of
+``core/oom.py``'s ladder, ``memory.py:512``), :meth:`MemoryManager.stats`
+(the keys the ladder's terminal diagnostic reads) and the process-wide
+:func:`manager`.
 
 The reference's manager is a three-tier store (device, host, persist)
 that registers every frame column's device bytes, spills the least
@@ -16,6 +19,8 @@ the tiered store is ROADMAP P14.
 from __future__ import annotations
 
 from typing import Optional
+
+import torch
 
 from h2o_tpu_torch.core.lockwitness import make_lock
 
@@ -41,6 +46,22 @@ class MemoryManager:
         return {"hbm_frac": 0.0, "resident_bytes": 0, "valid_bytes": 0,
                 "demand_page_stalls": 0, "pages_in": 0, "pages_out": 0,
                 "spills": 0}
+
+    def sweep(self) -> int:
+        """Rung (a) of the OOM ladder: spill every resident column and
+        return the bytes freed.  The manager holds nothing at budget 0,
+        so it spills 0 bytes; on CUDA it first has PyTorch's caching
+        allocator hand its cached free blocks back to the device, which
+        is what a retry after an out-of-memory error can use."""
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            torch.cuda.empty_cache()
+        return 0
+
+    def stats(self) -> dict:
+        """What is resident (nothing at budget 0) and the budget, as the
+        reference's ``stats()`` names them for the ladder's diagnostic."""
+        return {"resident_bytes": 0, "budget": self.budget,
+                "resident_vecs": 0, "largest_holders": [], "spills": 0}
 
 
 _manager: Optional[MemoryManager] = None

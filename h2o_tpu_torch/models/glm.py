@@ -718,14 +718,18 @@ class GLMModel(Model):
         return self._raw_from_expanded(
             expand_array(X, out["expansion_spec"], out.get("x")))
 
+    def _const(self, key: str) -> torch.Tensor:
+        """``output[key]`` as float32 on the model's device, uploaded once
+        (``Model.device_const``)."""
+        return self.device_const(key, (self.output[key],), lambda a: (
+            torch.tensor(np.asarray(a, _F32), device=self.device)))
+
     def _raw_from_expanded(self, X: torch.Tensor) -> torch.Tensor:
         out = self.output
         dom = out.get("response_domain")
-        dev = X.device
         if out.get("is_ordinal"):
-            beta = torch.tensor(np.asarray(out["beta"], _F32), device=dev)
-            thr = torch.tensor(np.asarray(out["ordinal_thresholds"], _F32),
-                                  device=dev)
+            beta = self._const("beta")
+            thr = self._const("ordinal_thresholds")
             eta = X @ beta[:-1] + beta[-1]
             c = torch.sigmoid(thr[None, :] - eta[:, None])
             c = torch.cat([torch.zeros_like(c[:, :1]), c,
@@ -735,13 +739,13 @@ class GLMModel(Model):
             label = torch.argmax(P_, dim=1).to(torch.float32)
             return torch.cat([label[:, None], P_], dim=1)
         if out.get("is_multinomial"):
-            B = torch.tensor(np.asarray(out["beta_multinomial"], _F32),
-                                device=dev)                      # (K, P+1)
+            B = self._const("beta_multinomial")                 # (K, P+1)
             eta = X @ B[:, :-1].T + B[:, -1][None, :]
             P_ = torch.softmax(eta, dim=1)
             label = torch.argmax(P_, dim=1).to(torch.float32)
             return torch.cat([label[:, None], P_], dim=1)
-        eta = _eta(X, np.asarray(out["beta"], _F32))
+        b = self._const("beta")
+        eta = X @ b[:-1] + b[-1]
         fam = _family(out["family_resolved"],
                       self.params.get("tweedie_power", 1.5),
                       self.params.get("theta") or 1.0)

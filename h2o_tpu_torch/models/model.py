@@ -273,6 +273,43 @@ class Model:
         raise NotImplementedError(
             f"{self.algo} has no device array-predict fast path")
 
+    # -- device constants (the arrays a device predict reads) --------------
+
+    _dev_lock = threading.Lock()
+
+    def device_const(self, name: str, srcs: tuple, make: Callable):
+        """``make(*srcs)`` — tensors of host arrays in ``output`` on the
+        model's device — uploaded once and kept in a cache the model
+        owns.  Every device predict reads its constants here, so
+        ``predict_raw``, ``predict_raw_array`` and the serving engine's
+        graphs compute the same bits, and a capture (which may not copy
+        from host memory) finds them uploaded.  An entry is valid while
+        ``srcs`` are the same objects and the model's device the same:
+        replacing an output array uploads it again."""
+        with Model._dev_lock:
+            cache = self.__dict__.setdefault("_dev_consts", {})
+            ent = cache.get(name)
+        if ent is not None and ent[1] == self.device and \
+                len(ent[0]) == len(srcs) and \
+                all(a is b for a, b in zip(ent[0], srcs)):
+            return ent[2]
+        val = make(*srcs)
+        with Model._dev_lock:
+            self.__dict__.setdefault("_dev_consts", {})[name] = (
+                srcs, self.device, val)
+        return val
+
+    def device_consts(self) -> list:
+        """What the cache holds now (a captured graph keeps it alive)."""
+        with Model._dev_lock:
+            return [e[2] for e in self.__dict__.get("_dev_consts",
+                                                    {}).values()]
+
+    def clear_device_consts(self) -> None:
+        """Drop the cache (a retrain or a checkpoint resume)."""
+        with Model._dev_lock:
+            self.__dict__.pop("_dev_consts", None)
+
     def has_device_predict(self) -> bool:
         """Whether the model's family overrides ``predict_raw_array``
         (decided by type, so a failure inside a device predict raises

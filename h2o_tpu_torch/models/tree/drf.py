@@ -62,9 +62,8 @@ class DRFModel(Model):
         model's device, no Frame."""
         out = self.output
         m = torch.as_tensor(X, dtype=torch.float32, device=self.device)
-        bins = st.bin_matrix(m, out["split_points"], out["is_cat"],
-                             st.model_fine_na(out))
-        return raw_from_votes(st.forest_score_out(bins, out),
+        return raw_from_votes(st.forest_score_model(st.model_bins(self, m),
+                                                    self),
                               int(out["ntrees_actual"]),
                               out.get("response_domain"),
                               threshold=float(out.get("default_threshold",

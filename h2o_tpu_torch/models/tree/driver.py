@@ -13,11 +13,17 @@ link-scale F is carried across blocks and each block adds only its own
 trees (one ``shared_tree.forest_score``), so a build scores O(T) trees
 in all, never the whole model again.
 
+Every block runs under the OOM ladder at the site ``tree.block``
+(``core/oom.py``; reference ``driver.py:247-263`` and ``:340-365``): the
+one-call path sweeps and retries; the block loop also halves the block,
+for the rest of the run.  Trees are keyed by their absolute index, so a
+shrunk run's forest is bitwise the undisturbed one.  Nothing is donated,
+so a retry re-reads its block's F as it was.
+
 Left out, each on purpose:
 
-- the OOM ladder, chaos injection, ``TimeLine``/``DispatchStats`` and
-  the memory-tier demotion of the raw frame come with the runtime
-  services (P14);
+- chaos slice loss, ``TimeLine``/``DispatchStats`` and the memory-tier
+  demotion of the raw frame come with the runtime services (P14b);
 - ``recovery_dir``/``checkpoint_interval`` (iteration-level recovery)
   raise ``NotImplementedError`` naming P14 (``shared_tree.check_slice``);
 - the asynchronous double-buffering (block t+1 launched before block t
@@ -39,6 +45,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from h2o_tpu_torch.core.oom import oom_ladder
 from h2o_tpu_torch.models.score_keeper import ScoreKeeper
 from h2o_tpu_torch.models.tree.engine import (TrainedForest, pool_size,
                                               train_forest)
@@ -199,19 +206,36 @@ def run_tree_driver(p: Dict, train_kwargs: Dict, F0: torch.Tensor, key,
                f"{prior_trees + done + n} trees")
 
     if scorer is None:
-        # single-dispatch path: the whole forest in one call
-        tf = train_forest(F0=F0, key=key, ntrees=ntrees, t0=prior_trees,
-                          progress=tree_done, **train_kwargs)
+        # single-dispatch path: the whole forest in one call; the OOM
+        # ladder can sweep and retry but has no block to shrink
+        tf = oom_ladder("tree.block", lambda: train_forest(
+            F0=F0, key=key, ntrees=ntrees, t0=prior_trees,
+            progress=tree_done, **train_kwargs))
     else:
         block = interval if interval > 0 else max(1, min(ntrees, 10))
         prefix = "validation_" if scorer.is_validation else "training_"
         blocks: List[TrainedForest] = []
         F = F0
         while done < ntrees:
-            n = min(block, ntrees - done)
-            tf = train_forest(F0=F, key=key, ntrees=n,
-                              t0=prior_trees + done, progress=tree_done,
-                              **train_kwargs)
+            state = {"n": min(block, ntrees - done)}
+
+            def attempt(F_in=F):
+                return train_forest(F0=F_in, key=key, ntrees=state["n"],
+                                    t0=prior_trees + done,
+                                    progress=tree_done, **train_kwargs)
+
+            def shrink() -> bool:
+                # OOM-ladder rung (b): halve the block; the smaller
+                # quantum sticks for the rest of the run
+                nonlocal block
+                if state["n"] <= 1:
+                    return False
+                state["n"] //= 2
+                block = min(block, state["n"])
+                return True
+
+            tf = oom_ladder("tree.block", attempt, shrink=shrink)
+            n = state["n"]
             F = tf.f_final
             blocks.append(tf)
             done += n
@@ -241,4 +265,6 @@ def run_tree_driver(p: Dict, train_kwargs: Dict, F0: torch.Tensor, key,
     model.output["varimp"] = vi if prior_vi is None else prior_vi + vi
     for name in ("thr_bin", "na_left", "node_gain", "node_w"):
         _set_node_array(model, name, getattr(tf, name).cpu().numpy())
+    # a device predict of the half-made model may have cached its arrays
+    model.clear_device_consts()
     return model

@@ -67,12 +67,10 @@ class GBMModel(Model):
 
     def _forest_F(self, m: torch.Tensor) -> torch.Tensor:
         """(rows, C) raw matrix -> link-scale forest sum."""
-        out = self.output
-        bins = st.bin_matrix(m, out["split_points"], out["is_cat"],
-                             st.model_fine_na(out))
-        f0 = torch.tensor(np.asarray(out["f0"], np.float32),
-                          device=m.device)
-        return st.forest_score_out(bins, out) + f0[None, :]
+        f0 = self.device_const("f0", (self.output["f0"],), lambda a: (
+            torch.tensor(np.asarray(a, np.float32), device=self.device)))
+        return st.forest_score_model(st.model_bins(self, m), self) + \
+            f0[None, :]
 
     def _raw_from_F(self, F: torch.Tensor) -> torch.Tensor:
         if self.output.get("distribution_resolved") == "custom" and \

@@ -442,6 +442,33 @@ def forest_score_out(bins: torch.Tensor, out: Dict,
                         **_forest_args(out, bins.device))
 
 
+_FOREST_KEYS = ("split_col", "bitset", "value", "child", "thr_bin",
+                "na_left")
+
+
+def model_bins(model, m: torch.Tensor) -> torch.Tensor:
+    """``bin_matrix`` of a model's binning, its split points and
+    categorical flags read from the model's device-constant cache."""
+    out, dev = model.output, model.device
+
+    def upload(sp, cat):
+        return (torch.tensor(np.asarray(sp, np.float32), device=dev),
+                torch.tensor(np.asarray(cat, bool), device=dev))
+    sp, cat = model.device_const("bins", (out["split_points"],
+                                          out["is_cat"]), upload)
+    return _bin_all(m, sp, cat, model_fine_na(out))
+
+
+def forest_score_model(bins: torch.Tensor, model) -> torch.Tensor:
+    """``forest_score_out`` of a model's whole forest, its node arrays
+    read from the model's device-constant cache."""
+    out = model.output
+    args = model.device_const(
+        "forest", tuple(out.get(k) for k in _FOREST_KEYS),
+        lambda *_: _forest_args(out, model.device))
+    return forest_score(bins, depth=int(out["max_depth"]), **args)
+
+
 def forest_accumulate(F: torch.Tensor, bins: torch.Tensor, out: Dict,
                       depth: int) -> torch.Tensor:
     """``F`` plus a model's trees added one iteration at a time in tree

@@ -40,9 +40,11 @@ reference's parity oracle).  The route is chosen before anything is
 launched, by the reference's own predicates: ``device_munge_enabled()``
 (``H2O_TPU_DEVICE_MUNGE``), ``frame_device_ok``, ``merge_device_ok``,
 ``DEVICE_AGGS`` with ``mode_device_eligible``, and non-negative indices.
-A verb that fails on the device raises: no error sends a frame to a host
-route (the reference's OOM ladder around each verb, ``core/oom.py``,
-comes with ROADMAP P14a).  Before its eager handler runs, ``rows``,
+Each device verb runs under the OOM ladder (``core/oom.py``; sites
+``munge.filter``, ``munge.take``, ``munge.sort``, ``munge.merge``,
+``munge.groupby``): a device OOM sweeps and retries, then runs the
+verb's host route (rung (c)); every other error of a device verb
+reaches the caller.  Before its eager handler runs, ``rows``,
 ``sort``, ``GB`` and ``na.omit`` offer their node to the planner
 (``rapids/plan.py``, ``_offer_plan``), which runs a chain of filter and
 ``na.omit`` stages with its sort, group-by or last filter as one region
@@ -108,6 +110,7 @@ from h2o_tpu_torch.core.munge import (DEVICE_AGGS, device_munge_enabled,
                                       merge_device_ok, merge_frames,
                                       mode_device_eligible, sort_frame,
                                       take_rows)
+from h2o_tpu_torch.core.oom import oom_ladder
 from h2o_tpu_torch.core.quantile import quantile, quantile_vec
 from h2o_tpu_torch.core.store import Key, dkv
 from h2o_tpu_torch.ops import xlamath
@@ -519,8 +522,11 @@ def _row_select(fr: Frame, sel, dev) -> Frame:
         mv = sel.vecs[0]
         if device_munge_enabled() and frame_device_ok(fr) and \
                 mv.data is not None:
-            # the rows compact on the device (core/munge.filter_rows)
-            return filter_rows(fr, mv.data, device=dev)
+            # the rows compact on the device (core/munge.filter_rows);
+            # out of device memory the ladder ends in the host route
+            return oom_ladder(
+                "munge.filter", lambda: filter_rows(fr, mv.data, device=dev),
+                host_fallback=lambda: _row_select_mask_host(fr, mv))
         return _row_select_mask_host(fr, mv)
     if isinstance(sel, tuple) and sel[0] == "numlist":
         idx = np.asarray(_expand_numlist(sel[1]), np.int64)
@@ -531,7 +537,9 @@ def _row_select(fr: Frame, sel, dev) -> Frame:
     if device_munge_enabled() and frame_device_ok(fr) and \
             np.all(idx >= 0):
         # an index list gathers on the device (core/munge.take_rows)
-        return take_rows(fr, idx, device=dev)
+        return oom_ladder(
+            "munge.take", lambda: take_rows(fr, idx, device=dev),
+            host_fallback=lambda: _row_select_host(fr, idx))
     return _row_select_host(fr, idx)
 
 
@@ -936,7 +944,9 @@ def _sort(node, env):
     asc = [bool(int(x)) for x in node[3][1]] if len(node) > 3 \
         else [True] * len(idxs)
     if device_munge_enabled() and frame_device_ok(fr):
-        return sort_frame(fr, idxs, asc, device=env.dev)
+        return oom_ladder(
+            "munge.sort", lambda: sort_frame(fr, idxs, asc, device=env.dev),
+            host_fallback=lambda: _sort_host(fr, idxs, asc))
     return _sort_host(fr, idxs, asc)
 
 
@@ -977,7 +987,12 @@ def _merge(node, env):
         by_x = [L.names.index(n) for n in common]
         by_y = [R.names.index(n) for n in common]
     if device_munge_enabled() and merge_device_ok(L, R, by_x, by_y):
-        return merge_frames(L, R, all_x, all_y, by_x, by_y, device=env.dev)
+        return oom_ladder(
+            "munge.merge",
+            lambda: merge_frames(L, R, all_x, all_y, by_x, by_y,
+                                 device=env.dev),
+            host_fallback=lambda: _merge_host(L, R, all_x, all_y, by_x,
+                                              by_y))
     return _merge_host(L, R, all_x, all_y, by_x, by_y)
 
 
@@ -1112,7 +1127,10 @@ def _groupby(node, env):
     if device_munge_enabled() and frame_device_ok(fr) and \
             all(a in DEVICE_AGGS for a, _c, _n in aggs) and \
             mode_device_eligible(fr, aggs):
-        return groupby_frame(fr, gcols, aggs, device=env.dev)
+        return oom_ladder(
+            "munge.groupby",
+            lambda: groupby_frame(fr, gcols, aggs, device=env.dev),
+            host_fallback=lambda: _groupby_host(fr, gcols, aggs))
     return _groupby_host(fr, gcols, aggs)
 
 

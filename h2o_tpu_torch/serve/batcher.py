@@ -32,11 +32,9 @@ lost or double-scored across the switch (test_serving.py hammers this).
 :class:`AdaptiveBatchTuner` retunes ``max_batch``/``max_delay_ms`` from
 measured queue depth and batch fill, autotuner-style (windowed
 observations, then one measured decision).  Moves are bounded to the
-pow2 buckets of the engine (``serve/engine.py`` ``_bucket``) between
-``H2O_TPU_SERVE_MIN_BATCH`` and ``H2O_TPU_SERVE_MAX_BATCH``.  The
-reference bounds them so that XLA compiles no new program; the port's
-engine scores a batch at its own row count, and the tuner keeps the
-reference's decisions all the same.
+pow2 buckets the engine captures (``core/exec_store.py``
+``bucket_pow2``) between ``H2O_TPU_SERVE_MIN_BATCH`` and
+``H2O_TPU_SERVE_MAX_BATCH``, so a move never needs a new graph.
 
 The worker thread scores through ``score_fn``; the registry's batch
 bodies name the model's device there, since the current CUDA device is
@@ -52,10 +50,10 @@ from concurrent.futures import Future
 from typing import Callable, List, Optional, Sequence
 
 from h2o_tpu_torch.core.diag import TimeLine
+from h2o_tpu_torch.core.exec_store import bucket_pow2
 from h2o_tpu_torch.core.lockwitness import make_lock
 from h2o_tpu_torch.core.log import get_logger
 from h2o_tpu_torch.core.resilience import Deadline
-from h2o_tpu_torch.serve.engine import _bucket
 
 log = get_logger("serve")
 
@@ -224,7 +222,7 @@ class MicroBatcher:
 
 
 def _pow2(n: int) -> int:
-    return _bucket(max(1, int(n)))
+    return bucket_pow2(max(1, int(n)))
 
 
 class AdaptiveBatchTuner:

@@ -68,6 +68,7 @@ import numpy as np
 import torch
 
 from h2o_tpu_torch.core.diag import TimeLine
+from h2o_tpu_torch.core.exec_store import bucket_pow2
 from h2o_tpu_torch.core.lockwitness import make_lock
 from h2o_tpu_torch.core.log import get_logger
 from h2o_tpu_torch.core.resilience import Deadline
@@ -75,7 +76,7 @@ from h2o_tpu_torch.serve.batcher import (AdaptiveBatchTuner,
                                          BatcherStopped, MicroBatcher,
                                          QueueFull)
 from h2o_tpu_torch.serve.breaker import BreakerOpen, LoadBreaker, ShedLoad
-from h2o_tpu_torch.serve.engine import ScoringEngine, _bucket
+from h2o_tpu_torch.serve.engine import ScoringEngine
 
 log = get_logger("serve")
 
@@ -539,7 +540,7 @@ class ServingRegistry:
         """Breaker SHEDDING entry: halve the batch quantum (pow2, floor
         1) — smaller dispatches mean smaller transient HBM while the
         pressure lasts."""
-        cur = _bucket(max(1, dep.batcher.max_batch))
+        cur = bucket_pow2(max(1, dep.batcher.max_batch))
         new = max(1, cur // 2)
         dep.batcher.configure(max_batch=new)
         TimeLine.record("serve", "batch_shrink", deployment=dep.name,

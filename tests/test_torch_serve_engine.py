@@ -15,15 +15,17 @@
   unseen levels, missing keys, None, numbers given as strings and
   unparseable values;
 - the engine's answers for n in {1, 3, 17, 64, 100} rows equal
-  ``predict_raw_array`` on the same rows bitwise (the card is held so
-  in ``chip_smoke.py`` phase 20d); ``buckets_for``, ``evict`` and
-  ``stats`` report the buckets, the LRU capacity bounds the table;
+  ``predict_raw_array`` on the same rows padded with zeros to their
+  power-of-two bucket, bitwise (the card holds its graphs so in
+  ``chip_smoke.py`` phases 20d and 30a); ``buckets_for``, ``evict`` and
+  ``stats`` report the buckets the executable store holds, and the
+  store's LRU capacity bounds them;
 - KMeans, with no device predict, is answered by the host scorer and
   counted in ``fallback_batches``;
 - chaos slow-score at p = 1 delays ``predict`` by its ms and counts;
 - a ``warm`` whose predict raises, raises (the reference moves such a
-  version to the numpy scorer); out of device memory the batch splits
-  into halved chunks, and at one row the error is raised.
+  version to the numpy scorer); out of device memory the batch walks
+  the reference's ladder: sweeps, halved chunks, then the host scorer.
 """
 
 import copy
@@ -131,33 +133,50 @@ def test_encode_rows_equals_reference():
 
 @pytest.mark.parametrize("name", sorted(FAST))
 def test_engine_answers_equal_unbucketed(name):
-    """The engine's answer is ``predict_raw_array`` on the same rows,
-    bitwise, and each batch is recorded under its power-of-two
-    bucket."""
+    """The engine pads a batch with zero rows to its power-of-two bucket
+    and slices the padding off: its answer is ``predict_raw_array`` on
+    the same padded rows, bitwise, and each bucket is one entry of the
+    executable store (on the CPU the eager predict)."""
+    from h2o_tpu_torch.core.exec_store import exec_store
     _, cm, _ = carried(name)
     eng = ScoringEngine()
     X = _raw_X()
     for n in (1, 3, 17, 64, 100):
         got = eng.predict(cm, 1, X[:n])
-        np.testing.assert_array_equal(got, cm.predict_raw_array(X[:n]).numpy())
+        b = 1 if n == 1 else 1 << (n - 1).bit_length()
+        Xp = np.zeros((b, X.shape[1]), np.float32)
+        Xp[:n] = X[:n]
+        np.testing.assert_array_equal(
+            got, cm.predict_raw_array(Xp).numpy()[:n])
     assert eng.buckets_for(cm.model_id, 1) == [1, 4, 32, 64, 128]
     assert eng.stats() == {"compiled_cache_entries": 5, "compiled_total": 5,
-                           "cache_capacity": 256, "device_batches": 5,
-                           "fallback_batches": 0}
+                           "cache_capacity": 256, "store_disk_hits": 0,
+                           "device_batches": 5, "fallback_batches": 0}
+    assert {k[4] for k in exec_store().keys()
+            if k[:4] == ("serve", "predict", cm.model_id, 1)} == \
+        {1, 4, 32, 64, 128}
     eng.evict(cm.model_id, 1)
     assert eng.buckets_for(cm.model_id, 1) == []
     assert eng.stats()["compiled_cache_entries"] == 0
+    assert not [k for k in exec_store().keys()
+                if k[:4] == ("serve", "predict", cm.model_id, 1)]
 
 
-def test_warm_capacity_and_lru():
+def test_warm_capacity_and_lru(monkeypatch):
+    """The store's LRU bound is the engine's: with room for two entries,
+    warming three buckets keeps the last two, and the engine reports
+    only what the store still holds."""
+    from h2o_tpu_torch.core import exec_store as es
     _, cm, _ = carried("gbm")
+    assert es.ExecStore().max_entries == 256
+    monkeypatch.setattr(es, "_STORE", es.ExecStore(max_entries=2))
     eng = ScoringEngine()
-    assert eng.capacity == 256
-    eng.capacity = 2
     eng.warm(cm, 0, (1, 32, 1000))
     assert eng.buckets_for(cm.model_id, 0) == [32, 1024]
     assert eng.stats()["compiled_total"] == 3
+    assert eng.stats()["cache_capacity"] == 2
     assert eng.stats()["device_batches"] == 0
+    assert es.exec_store().evictions == 1
     assert eng.supports(cm) and eng.has_device_predict(cm)
 
 
@@ -203,22 +222,44 @@ def test_warm_raises_instead_of_falling_back(monkeypatch):
 
 
 def test_oom_halves_the_chunk_then_raises(monkeypatch):
+    """A device OOM walks the reference's ladder at ``serve.predict``:
+    two sweeps, then the batch in halved chunks, and at chunks of one
+    row the host scorer, counted in ``fallback_batches``."""
+    from h2o_tpu_torch.core import oom as p_oom
+    from h2o_tpu_torch.core.exec_store import exec_store
     _, cm, _ = carried("gbm")
     monkeypatch.setattr(ScoringEngine, "has_device_predict",
                         staticmethod(lambda m: True))
+    p_oom.reset_stats()
     oom = torch.cuda.OutOfMemoryError("out of memory")
     X = _raw_X()[:20]
     eng = ScoringEngine()
-    got = eng.predict(_Failing(cm, oom, max_rows=8), 0, X)
-    np.testing.assert_array_equal(got, cm.predict_raw_array(X).numpy())
-    # 20 rows: bucket 32 fails, chunks of 10 (bucket 16) fail, chunks
-    # of 5 (bucket 8) answer
-    assert eng.buckets_for("failing", 0) == [8, 16, 32]
-    assert eng.stats()["device_batches"] == 4
-    assert eng.stats()["fallback_batches"] == 0
-    with pytest.raises(torch.cuda.OutOfMemoryError):
-        eng.predict(_Failing(cm, oom, max_rows=0), 1, X)
-    assert eng.stats()["fallback_batches"] == 0
+    try:
+        got = eng.predict(_Failing(cm, oom, max_rows=8), 0, X)
+        # 20 rows: bucket 32 fails (and twice more after a sweep),
+        # chunks of 10 (bucket 16) fail, chunks of 5 (bucket 8) answer
+        want = np.concatenate([eng.predict(cm, 0, X[i:i + 5])
+                               for i in range(0, 20, 5)])
+        np.testing.assert_array_equal(got, want)
+        assert eng.buckets_for("failing", 0) == [8, 16, 32]
+        assert p_oom.stats()["sites"]["serve.predict"] == dict(
+            oom_events=4, sweeps=2, shrinks=2, host_fallbacks=0,
+            kernel_fallbacks=0, unfused_fallbacks=0, terminal=0)
+        assert eng.stats()["device_batches"] == 4 + 4
+        assert eng.stats()["fallback_batches"] == 0
+        p_oom.reset_stats()
+        host = eng.predict(_Failing(cm, oom, max_rows=0), 1, X)
+        np.testing.assert_array_equal(host, eng._predict_host(cm, 0, X))
+        np.testing.assert_allclose(host, want, rtol=0, atol=1e-5)
+        # 20 -> 10 -> 5 -> 2 -> 1 rows: four shrinks, then the host
+        assert p_oom.stats()["sites"]["serve.predict"] == dict(
+            oom_events=7, sweeps=2, shrinks=4, host_fallbacks=1,
+            kernel_fallbacks=0, unfused_fallbacks=0, terminal=0)
+        assert eng.stats()["fallback_batches"] == 2
+    finally:
+        p_oom.reset_stats()
+        for v in (0, 1):
+            eng.evict("failing", v)
 
 
 def test_chaos_slow_score_delays_predict():
