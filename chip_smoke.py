@@ -20,7 +20,9 @@ timezone; then the data plane below Rapids: map_reduce, quantiles, and
 the sort, filter, take, group-by and merge verbs, and the Rapids
 interpreter over them; then builds run as
 jobs, their models and frames published in the DKV and read back by
-key, and a user's distribution and metric.  Every training runs as a
+key, and a user's distribution and metric; then builds killed and
+resumed from their recovery snapshots and iteration checkpoints.  Every
+training runs as a
 job of the process registry (core/job.py) and publishes its model in
 the DKV; main removes what each phase published once it returns.
 Phases (each
@@ -610,6 +612,40 @@ prints one JSON line; any failure raises and the exit code is not 0):
               alive and its allocated bytes as before.  The ladder's
               counters outside the drill must show no host fallback and
               no terminal OOM, before phase 29, before 30b and at the end
+ 31 recovery: builds killed by an exception nothing catches (Crash,
+              raised from the driver's train_forest, GLM's _irlsm_pass or
+              _lbfgs_minimize, DeepLearning's train_block or a grid
+              builder's _fit) and resumed by auto_recover; 31a the default
+              GBM of REC_TREES trees at 1M x 28 in checkpoint blocks of
+              REC_BLOCK, killed as block REC_KILL_BLOCK launches:
+              pending_recoveries finds one snapshot with an iteration
+              checkpoint at 50 trees, the resumed forest (split_col,
+              bitset, value, thr_bin, na_left) and predict_raw over the
+              frame bitwise the uninterrupted build's with recovery_dir
+              and without it, the resume launching K2 only for the 50
+              remaining trees (250); then a QuantilesGlobal GBM of
+              REC_QG_TREES trees on the first REC_SUB_ROWS rows killed at
+              tree 10 (the resume's K1 50); 31b a default DRF of
+              REC_DRF_TREES trees (depth 20) in blocks of REC_DRF_BLOCK,
+              killed at its second block, the same holds (K2 80 in the
+              resume); 31c a binomial IRLSM GLM at 1M x 28 killed at its
+              third iteration (checkpoint at iteration 1), an L-BFGS
+              lambda search (REC_LBFGS_LAMBDAS lambdas, alpha 0) on
+              REC_SUB_ROWS rows killed in its third solve, DeepLearning
+              (REC_DL_STEPS steps at its defaults) on REC_SUB_ROWS rows
+              killed after its first block: coefficients or weights
+              bitwise the uninterrupted run's; 31d a grid of four
+              20-tree GBMs (REC_GRID) on REC_SUB_ROWS rows killed in its
+              third model, the DKV cleared of it and its models, then
+              auto_recover, and resume_grid's job on a second killed
+              copy: four models each, the first two loaded from disk,
+              forests, metrics and leaderboard order the uninterrupted
+              grid's, the resume training two models (K2 200); 31e the
+              persist chaos soak (two transient faults a write): a frame
+              snapshot round trip and a 20-tree GBM with checkpoints
+              complete, retries >= injected faults, no give-up.  Each
+              frame snapshot's and checkpoint's MB and seconds, and the
+              walls of every run, are printed
   7 profile - torch.profiler over 2 default trees: device busy share and
               the kernels that take the device time; then 2 QuantilesGlobal
               trees: each histogram kernel's device ms per main-path launch
@@ -636,7 +672,10 @@ its GBMs' levels over their fold and main fits; phase 26's "rapids" 0
 and 0, "rapids_gbm" 0 and 100; phase 28's "rapids_frame_ops" 0 and 0,
 "rapids_cv_gbm" 0 and 200, "rapids_cv_gbm_card_vs_cpu" 0 and 60; phase
 29's "rapids_planner" 0 and 0, "rapids_fused_gbm" 0 and 50; phase 30's
-"oom_drill_gbm" 0 and 100).
+"oom_drill_gbm" 0 and 100; phase 31's "recovery_gbm*" 0 and 1,500
+(four runs), "recovery_gbm_quantiles_global*" 300 and 0,
+"recovery_drf*" 0 and 360, "recovery_grid" 0 and 1,200,
+"recovery_soak" 0 and 100, its GLM and DeepLearning runs 0 and 0).
 
 The line before the last holds every kernel's numbers; the last line is
 the device summary.  Needs one CUDA card; exits non-zero without one.
@@ -7911,6 +7950,400 @@ def phase_slice24(X, fr: Frame, models: dict, smi: str, paths) -> None:
                                                t[1:])}), True)
 
 
+#: 31: the recovery drill.  31a the default GBM (REC_TREES trees in
+#: blocks of REC_BLOCK, killed as block REC_KILL_BLOCK launches), then
+#: a QuantilesGlobal GBM on the first REC_SUB_ROWS rows; 31b a default
+#: DRF (depth 20) of REC_DRF_TREES trees in blocks of REC_DRF_BLOCK;
+#: 31c GLM killed at IRLSM pass REC_IRLSM_KILL (the lambda_max pass is
+#: the first), L-BFGS over REC_LBFGS_LAMBDAS lambdas killed in the
+#: REC_LBFGS_KILL-th solve, DeepLearning (REC_DL_STEPS steps of 1,024
+#: rows at its defaults) killed as its second block starts; 31d a grid
+#: of four GBMs killed in its third model; 31e the persist chaos soak
+REC_TREES, REC_BLOCK, REC_KILL_BLOCK = 100, 10, 6
+REC_SUB_ROWS, REC_QG_TREES, REC_QG_BLOCK = 100_000, 20, 10
+REC_DRF_TREES, REC_DRF_BLOCK = 6, 2
+REC_IRLSM_KILL = 3
+REC_LBFGS_LAMBDAS, REC_LBFGS_KILL = 5, 3
+REC_DL_STEPS = 390       # two blocks of steps (BLOCK_STEPS 200)
+REC_GRID = {"learn_rate": [0.05, 0.1, 0.2, 0.3]}
+REC_GRID_TREES = 20
+REC_SOAK_TREES = 20
+
+
+class Crash(BaseException):
+    """The process dying: not an Exception, so nothing absorbs it."""
+
+
+@contextlib.contextmanager
+def killed_at(module, name: str, call: int):
+    """``module.name`` raises ``Crash`` at its ``call``-th call; put
+    back on exit."""
+    orig = getattr(module, name)
+    seen = {"n": 0}
+
+    def dying(*a, **k):
+        seen["n"] += 1
+        if seen["n"] == call:
+            raise Crash(f"{name} call {call}")
+        return orig(*a, **k)
+
+    setattr(module, name, dying)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+@contextlib.contextmanager
+def recovery_io(log: dict):
+    """Each snapshot's (MB, s) and each iteration checkpoint's, timed
+    around ``Recovery.begin`` and ``save_iteration``."""
+    from h2o_tpu_torch.core.recovery import Recovery
+
+    def du(path: str) -> float:
+        n = 0
+        for root, _, files in os.walk(path):
+            n += sum(os.path.getsize(os.path.join(root, f)) for f in files)
+        return n / 2 ** 20
+
+    orig_b, orig_s = Recovery.begin, Recovery.save_iteration
+
+    def begin(self, *a, **k):
+        t0 = time.perf_counter()
+        orig_b(self, *a, **k)
+        log.setdefault("snapshot", []).append(
+            (du(os.path.join(self.dir, "train")), time.perf_counter() - t0))
+
+    def save(self, *a, **k):
+        t0 = time.perf_counter()
+        orig_s(self, *a, **k)
+        log.setdefault("checkpoint", []).append(
+            (os.path.getsize(os.path.join(self.dir, "iter.pkl")) / 2 ** 20,
+             time.perf_counter() - t0))
+
+    Recovery.begin, Recovery.save_iteration = begin, save
+    try:
+        yield
+    finally:
+        Recovery.begin, Recovery.save_iteration = orig_b, orig_s
+
+
+def io_summary(log: dict) -> dict:
+    out = {}
+    for k, v in log.items():
+        mb = [a for a, _ in v]
+        sec = [b for _, b in v]
+        out[k] = dict(n=len(v), mb_max=max(mb), mb_sum=sum(mb),
+                      s_max=max(sec), s_sum=sum(sec))
+    return out
+
+
+def timed_launches(fn):
+    """(result, wall, (K1, K2) launched) of ``fn()``, the counters set
+    to 0 just before it."""
+    hk.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t0, hist_launches()
+
+
+def bits_same(a, b) -> bool:
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and a.dtype == b.dtype and \
+        a.tobytes() == b.tobytes()
+
+
+def forest_bits(m, ref, fr: Frame) -> dict:
+    """Which of the forest arrays and ``predict_raw`` over ``fr`` are
+    bitwise ``ref``'s."""
+    out = {k: bits_same(m.output[k], ref.output[k])
+           for k in ("split_col", "bitset", "value", "thr_bin", "na_left")}
+    out["predict_raw"] = bits_same(m.predict_raw(fr).cpu().numpy(),
+                                   ref.predict_raw(fr).cpu().numpy())
+    return out
+
+
+def tree_drill(name: str, cls, fr: Frame, kw: dict, block: int, kill: int,
+               rec_root: str, smi: str, paths) -> dict:
+    """One killed and resumed forest: ``kw`` trained without a recovery,
+    with one, and killed as its ``kill``-th block launches, then
+    ``auto_recover``; the resumed forest bitwise both uninterrupted ones,
+    the resume launching only the remaining trees' levels."""
+    from h2o_tpu_torch.core.recovery import auto_recover, pending_recoveries
+    from h2o_tpu_torch.models.tree import driver as tree_driver
+    ntrees = kw["ntrees"]
+    plain, w_plain, l_plain = timed_launches(
+        lambda: cls(**kw).train(y="y", training_frame=fr))
+    with_rec, w_rec, l_rec = timed_launches(
+        lambda: cls(recovery_dir=os.path.join(rec_root, "u"),
+                    checkpoint_interval=block, **kw).train(
+            y="y", training_frame=fr))
+    d = os.path.join(rec_root, "k")
+
+    def die():
+        with killed_at(tree_driver, "train_forest", kill):
+            try:
+                cls(recovery_dir=d, checkpoint_interval=block,
+                    model_id=f"rec_{name}", **kw).train(
+                    y="y", training_frame=fr)
+            except Crash:
+                return True
+        return False
+
+    crashed, w_kill, l_kill = timed_launches(die)
+    pend = pending_recoveries(d)
+    done = (kill - 1) * block
+    snap_ok = crashed and len(pend) == 1 and \
+        pend[0]["has_iteration_checkpoint"] and \
+        pend[0]["iteration"]["trees_done"] == done
+    res, w_res, l_res = timed_launches(lambda: auto_recover(d))
+    m = res[0]
+    per_tree = tuple(v // ntrees for v in l_plain)
+    want_resume = tuple(v * (ntrees - done) for v in per_tree)
+    vs_rec = forest_bits(m, with_rec, fr)
+    vs_plain = forest_bits(m, plain, fr)
+    rec = dict(rows=fr.nrows, ntrees=ntrees, block=block,
+               killed_at_block=kill, trees_checkpointed=done,
+               snapshot_found=snap_ok, resumed_key=str(m.key),
+               ntrees_actual=m.output["ntrees_actual"],
+               bitwise_vs_uninterrupted_recovery=vs_rec,
+               bitwise_vs_no_recovery=vs_plain,
+               walls_s=dict(no_recovery=w_plain, uninterrupted=w_rec,
+                            killed=w_kill, resumed=w_res),
+               launches=dict(no_recovery=l_plain, uninterrupted=l_rec,
+                             killed=l_kill, resumed=l_res,
+                             resumed_want=want_resume),
+               pending_after=len(pending_recoveries(d)))
+    for k, v in (("", l_plain), ("_uninterrupted", l_rec),
+                 ("_killed", l_kill), ("_resumed", l_res)):
+        paths[f"recovery_{name}{k}"] = v
+    dp_hold(f"31_{name}", smi, rec,
+            snap_ok and all(vs_rec.values()) and all(vs_plain.values())
+            and l_res == want_resume and sum(want_resume) > 0
+            and l_rec == l_plain and m.output["ntrees_actual"] == ntrees
+            and rec["pending_after"] == 0)
+    return rec
+
+
+def model_drill(name: str, make, fr: Frame, kill_mod, kill_name: str,
+                kill_at: int, same, rec_root: str, smi: str, paths,
+                meta_want: dict) -> dict:
+    """One killed and resumed model: ``make(**extra)`` builds the
+    builder; trained uninterrupted, then with a recovery killed at
+    ``kill_mod.kill_name``'s ``kill_at``-th call and resumed by
+    ``auto_recover``; ``same(a, b)`` holds the two models bitwise."""
+    from h2o_tpu_torch.core.recovery import auto_recover, pending_recoveries
+    plain, w_plain, l_plain = timed_launches(
+        lambda: make().train(y="y", training_frame=fr))
+    d = os.path.join(rec_root, name)
+
+    def die():
+        with killed_at(kill_mod, kill_name, kill_at):
+            try:
+                make(recovery_dir=d, model_id=f"rec_{name}").train(
+                    y="y", training_frame=fr)
+            except Crash:
+                return True
+        return False
+
+    crashed, w_kill, l_kill = timed_launches(die)
+    pend = pending_recoveries(d)
+    it = pend[0].get("iteration") or {} if pend else {}
+    meta_ok = crashed and len(pend) == 1 and \
+        pend[0]["has_iteration_checkpoint"] and \
+        all(it.get(k) == v for k, v in meta_want.items())
+    res, w_res, l_res = timed_launches(lambda: auto_recover(d))
+    if not res:
+        raise AssertionError(f"31 {name}: nothing to resume ({pend})")
+    bits = same(res[0], plain)
+    rec = dict(rows=fr.nrows, iteration=it, snapshot_found=meta_ok,
+               bitwise=bits, walls_s=dict(uninterrupted=w_plain,
+                                          killed=w_kill, resumed=w_res),
+               pending_after=len(pending_recoveries(d)))
+    paths[f"recovery_{name}"] = tuple(
+        a + b + c for a, b, c in zip(l_plain, l_kill, l_res))
+    dp_hold(f"31_{name}", smi, rec,
+            meta_ok and all(bits.values()) and rec["pending_after"] == 0)
+    return rec
+
+
+def grid_drill(fr: Frame, rec_root: str, smi: str, paths) -> dict:
+    """31d: four GBMs killed in the third model; ``dkv()`` cleared of
+    the grid and its models as a restart would leave it; ``auto_recover``
+    and, on a second killed copy, ``resume_grid`` resume it."""
+    from h2o_tpu_torch.core.recovery import (auto_recover,
+                                             pending_recoveries, resume_grid)
+    from h2o_tpu_torch.core.store import dkv
+    base = dict(ntrees=REC_GRID_TREES, max_depth=5, seed=1)
+    want, w_want, l_want = timed_launches(lambda: GridSearch(
+        "gbm", REC_GRID, grid_id="rec_grid_want", **base).train(
+        y="y", training_frame=fr))
+    calls = {"n": 0}
+
+    class DyingGBM(GBM):
+        def _fit(self, *a, **k):
+            calls["n"] += 1
+            if calls["n"] == 3:
+                raise Crash("grid model 3")
+            return super()._fit(*a, **k)
+
+    def killed(grid_id: str, d: str):
+        calls["n"] = 0
+        try:
+            GridSearch(DyingGBM, REC_GRID, grid_id=grid_id, recovery_dir=d,
+                       **base).train(y="y", training_frame=fr)
+        except Crash:
+            pass
+        g = dkv().get(grid_id)
+        done = [(str(m.key), m.output["split_col"].copy())
+                for m in g.models]
+        dkv().remove(grid_id, force=True)
+        for m in g.models:
+            dkv().remove(str(m.key), force=True)
+        return done
+
+    def same_grid(g, done) -> dict:
+        loaded = {str(m.key): m for m in g.models}
+        order = [float(m.params["learn_rate"]) for m in g.sorted_models()]
+        want_order = [float(m.params["learn_rate"])
+                      for m in want.sorted_models()]
+        by_rate = {float(m.params["learn_rate"]): m for m in want.models}
+        from h2o_tpu_torch.models.grid import _model_sort_metric
+        metric = g.sort_metric or "logloss"
+        return dict(
+            models=len(g.models), loaded_from_disk=all(
+                k in loaded and bits_same(loaded[k].output["split_col"], sc)
+                for k, sc in done),
+            leaderboard_order=order == want_order,
+            metrics_equal=all(
+                _model_sort_metric(m, metric) == _model_sort_metric(
+                    by_rate[float(m.params["learn_rate"])], metric)
+                for m in g.models),
+            forests_bitwise=all(bits_same(
+                m.output["value"], by_rate[float(
+                    m.params["learn_rate"])].output["value"])
+                for m in g.models))
+
+    d1, d2 = os.path.join(rec_root, "g1"), os.path.join(rec_root, "g2")
+    done1, w_kill, l_kill = timed_launches(lambda: killed("rec_grid", d1))
+    g1, w_auto, l_auto = timed_launches(lambda: auto_recover(d1)[0])
+    done2, w_kill2, l_kill2 = timed_launches(
+        lambda: killed("rec_grid2", d2))
+    g2, w_job, l_job = timed_launches(
+        lambda: resume_grid("rec_grid2", d2).join())
+    a, b = same_grid(g1, done1), same_grid(g2, done2)
+    per_model = tuple(v // len(REC_GRID["learn_rate"]) for v in l_want)
+    rec = dict(rows=fr.nrows, killed_models_done=[len(done1), len(done2)],
+               auto_recover=a, resume_grid=b,
+               resumed_launches=[l_auto, l_job],
+               resumed_want=tuple(2 * v for v in per_model),
+               walls_s=dict(uninterrupted=w_want, killed=w_kill,
+                            auto_recover=w_auto, killed_copy=w_kill2,
+                            resume_grid=w_job),
+               pending_after=len(pending_recoveries(d1)) +
+               len(pending_recoveries(d2)))
+    paths["recovery_grid"] = tuple(
+        sum(v) for v in zip(l_want, l_kill, l_auto, l_kill2, l_job))
+    dp_hold("31d_grid", smi, rec,
+            len(done1) == len(done2) == 2 and rec["pending_after"] == 0
+            and all(x == 4 if k == "models" else x is True
+                    for r in (a, b) for k, x in r.items())
+            and l_auto == l_job == rec["resumed_want"])
+    return rec
+
+
+def soak_31e(fr: Frame, rec_root: str, smi: str, paths) -> dict:
+    """31e: tests/test_chaos.py's persist soak: two transient faults a
+    write, through a frame snapshot and a GBM with checkpoints."""
+    from h2o_tpu_torch.core import resilience
+    from h2o_tpu_torch.core.recovery import pending_recoveries
+    resilience.reset_stats()
+    chaos_mod.configure(persist_transient=2, seed=0)
+    try:
+        save_frame(fr, os.path.join(rec_root, "snap"))
+        back = load_frame(os.path.join(rec_root, "snap"))
+        same = bits_same(back.vec("x0").data, fr.vec("x0").data)
+        d = os.path.join(rec_root, "soak")
+        m, wall, got = timed_launches(lambda: GBM(
+            ntrees=REC_SOAK_TREES, max_depth=5, seed=1, recovery_dir=d,
+            checkpoint_interval=REC_BLOCK).train(y="y", training_frame=fr))
+        c, stt = chaos_mod.chaos(), resilience.stats()
+        rec = dict(rows=fr.nrows, injected=c.injected_persist, **stt,
+                   frame_round_trip=same, wall_s=wall,
+                   ntrees_actual=m.output["ntrees_actual"],
+                   pending_after=len(pending_recoveries(d)))
+    finally:
+        chaos_mod.reset()
+    paths["recovery_soak"] = got
+    dp_hold("31e_persist_soak", smi, rec,
+            same and rec["injected"] >= 6
+            and rec["retries"] >= rec["injected"]
+            and rec["recoveries"] >= 3 and rec["giveups"] == 0
+            and rec["ntrees_actual"] == REC_SOAK_TREES
+            and rec["pending_after"] == 0)
+    return rec
+
+
+def phase_slice25(fr: Frame, smi: str, paths) -> None:
+    """31: recovery snapshots and iteration checkpoints: builds killed
+    by an exception nothing absorbs and resumed by ``auto_recover``
+    (31a-c), a killed grid resumed (31d), the persist chaos soak (31e).
+    Every resumed build is held bitwise against its uninterrupted run."""
+    from h2o_tpu_torch.models import deeplearning as dl_mod
+    t = [time.perf_counter()]
+    io = {}
+    sub = fr.slice_rows(slice(0, REC_SUB_ROWS))
+
+    def same_glm(a, b):
+        return dict(beta=bits_same(a.output["beta"], b.output["beta"]))
+
+    def same_dl(a, b):
+        return {f"layer{i}": bits_same(x["W"], y["W"]) and
+                bits_same(x["b"], y["b"])
+                for i, (x, y) in enumerate(zip(a.output["weights"],
+                                               b.output["weights"]))}
+
+    with tempfile.TemporaryDirectory() as root, recovery_io(io):
+        tree_drill("gbm", GBM, fr, dict(ntrees=REC_TREES, max_depth=5,
+                                        seed=1), REC_BLOCK, REC_KILL_BLOCK,
+                   os.path.join(root, "a"), smi, paths)
+        tree_drill("gbm_quantiles_global", GBM, sub, dict(
+            ntrees=REC_QG_TREES, max_depth=5, seed=1,
+            histogram_type="QuantilesGlobal", nbins=64), REC_QG_BLOCK, 2,
+                   os.path.join(root, "q"), smi, paths)
+        t.append(time.perf_counter())
+        tree_drill("drf", DRF, fr, dict(ntrees=REC_DRF_TREES, seed=1),
+                   REC_DRF_BLOCK, 2, os.path.join(root, "b"), smi, paths)
+        t.append(time.perf_counter())
+        model_drill("glm_irlsm", lambda **k: GLM(family="binomial", **k),
+                    fr, glm_mod, "_irlsm_pass", REC_IRLSM_KILL, same_glm,
+                    os.path.join(root, "c"), smi, paths,
+                    dict(kind="glm-irlsm", iteration=REC_IRLSM_KILL - 2))
+        model_drill("glm_lbfgs", lambda **k: GLM(
+            family="binomial", solver="L_BFGS", alpha=0.0,
+            lambda_search=True, nlambdas=REC_LBFGS_LAMBDAS, **k),
+                    sub, glm_mod, "_lbfgs_minimize", REC_LBFGS_KILL,
+                    same_glm, os.path.join(root, "c"), smi, paths,
+                    dict(kind="glm-lbfgs"))
+        epochs = (REC_DL_STEPS + 0.5) * 1024 / sub.nrows
+        model_drill("deeplearning", lambda **k: DeepLearning(
+            epochs=epochs, seed=1, reproducible=True, **k),
+                    sub, dl_mod, "train_block", 2, same_dl,
+                    os.path.join(root, "c"), smi, paths,
+                    dict(kind="dl", step=dl_mod.BLOCK_STEPS))
+        t.append(time.perf_counter())
+        grid_drill(sub, os.path.join(root, "d"), smi, paths)
+        t.append(time.perf_counter())
+        soak_31e(sub, os.path.join(root, "e"), smi, paths)
+        t.append(time.perf_counter())
+    dp_hold("phase31", smi, dict(
+        io=io_summary(io), total_s=t[-1] - t[0],
+        reduced=dict(sub_rows=REC_SUB_ROWS, drf_trees=REC_DRF_TREES),
+        **{f"31{n}_s": b - a for n, a, b in zip("abcde", t, t[1:])}), True)
+
+
 def unpublish(before: set) -> None:
     """Remove every DKV key published since ``before`` (each phase's
     models and frames; the phase's own variables keep what it returns)."""
@@ -8203,6 +8636,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_slice24(X, fr, dict(gbm=m_def, drf=m_drf, glm=KEEP["glm"]), smi,
                   paths)
+    unpublish(base_keys)
+    # -- 31 recovery snapshots and iteration checkpoints -----------------
+    torch.cuda.empty_cache()
+    phase_slice25(fr, smi, paths)
     unpublish(base_keys)
     emit(dict(phase="launches", paths={k: dict(k1=v[0], k2=v[1])
                                        for k, v in paths.items()}))

@@ -140,8 +140,10 @@ def write_bytes(uri: str, data: bytes) -> None:
 
 # -- frame snapshots (FramePersist) -----------------------------------------
 
-def save_frame(frame: Frame, dir_uri: str) -> str:
-    """Snapshot a frame to ``<dir>/frame.json`` + ``<dir>/columns.npz``."""
+def save_frame(frame: Frame, dir_uri: str, compressed: bool = True) -> str:
+    """Snapshot a frame to ``<dir>/frame.json`` + ``<dir>/columns.npz``,
+    deflated as the reference's unless ``compressed`` is False (both
+    packages' loaders read either)."""
     meta = {"key": None, "names": frame.names,
             "types": frame.types(), "nrows": frame.nrows,
             "domains": [v.domain for v in frame.vecs]}
@@ -155,7 +157,7 @@ def save_frame(frame: Frame, dir_uri: str) -> str:
             arrays[f"c_{n}"] = v.to_numpy()
     meta["strings"] = strings
     buf = io.BytesIO()
-    np.savez_compressed(buf, **arrays)
+    (np.savez_compressed if compressed else np.savez)(buf, **arrays)
     write_bytes(f"{dir_uri}/columns.npz", buf.getvalue())
     write_bytes(f"{dir_uri}/frame.json",
                 json.dumps(meta).encode())

@@ -29,7 +29,8 @@ aggregated frame, published in ``store.dkv()`` as
 reference's (``:157-158``); the model keeps it as
 ``output["aggregated_frame"]`` too (``save``/``load`` carry it), and
 ``aggregated_frame()`` returns it.  ``predict_raw`` gives each row's
-nearest exemplar.  Iteration checkpoints (P14) are refused.
+nearest exemplar.  ``recovery_dir`` snapshots the build
+(``models/model.py``), as the reference's does; no iteration checkpoint.
 """
 
 from __future__ import annotations
@@ -172,7 +173,6 @@ class Aggregator(ModelBuilder):
 
     def _fit(self, x: List[str], y: Optional[str], train: Frame,
              valid: Optional[Frame] = None) -> AggregatorModel:
-        self.refuse_iteration_checkpoints()
         p = self.params
         di = DataInfo(train, x, None, self.device, mode="expanded",
                       standardize=(str(p["transform"]).upper() in

@@ -16,8 +16,9 @@ The full GLM is published in ``store.dkv()`` under
 ``output["full_model_id"]``, as the reference's (``:154-157``), and kept
 as ``output["full_model"]``, with the full and each drop-one model's
 residual deviance and the dispersion.
-``predict_raw`` raises, as the reference's does.  Iteration checkpoints
-(P14) are refused.
+``predict_raw`` raises, as the reference's does.  ``recovery_dir``
+snapshots the build (``models/model.py``), as the reference's does; no
+iteration checkpoint.
 """
 
 from __future__ import annotations
@@ -134,7 +135,6 @@ class AnovaGLM(ModelBuilder):
 
     def _fit(self, x: List[str], y: str, train: Frame,
              valid: Optional[Frame] = None) -> AnovaGLMModel:
-        self.refuse_iteration_checkpoints()
         p = self.params
         dev = self.device
         di = DataInfo(train, x, y, dev, mode="tree")

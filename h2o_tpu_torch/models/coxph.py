@@ -25,8 +25,9 @@ log-likelihood moves by less than 10^-lre of its size, after
 ``max_iterations`` at most.  The covariance is the float64 inverse of the
 final Hessian; the concordance is Harrell's C on the
 host over at most 4,000 rows drawn by ``default_rng(0)``.  Scores are the
-centered linear predictor. Iteration checkpoints (``recovery_dir``, P14) and
-cross-validation are refused.
+centered linear predictor.  Cross-validation is refused;
+``recovery_dir`` snapshots the build (``models/model.py``), as the
+reference's does, with no iteration checkpoint.
 """
 
 from __future__ import annotations
@@ -200,7 +201,6 @@ class CoxPH(ModelBuilder):
 
     def _fit(self, x: List[str], y: str, train: Frame,
              valid: Optional[Frame] = None) -> CoxPHModel:
-        self.refuse_iteration_checkpoints()
         p = self.params
         dev = self.device
         stop_col, start_col = p.get("stop_column"), p.get("start_column")

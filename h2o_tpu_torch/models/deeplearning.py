@@ -26,9 +26,12 @@ reference's one-wide model axis.  ``export_weights_and_biases``
 publishes each layer's weight and bias frames in ``store.dkv()``
 (``{model_id}_weights_{i}``, ``{model_id}_biases_{i}``).  Each block of
 steps reports progress to the build's job (its heartbeat, and where a
-cancel lands).  Refused by name: iteration checkpoints
-(``recovery_dir``, P14) and ``model_parallel`` over several cards (P8).  No histogram kernel: DeepLearning reaches no Pallas kernel
-in the reference either.
+cancel lands).  With a ``recovery_dir`` (``models/model.py``) each block
+ends in an iteration checkpoint (weights, optimizer state, key; the
+reference's ``deeplearning.py:414-460``) from which a resumed build
+continues.  Refused by name: ``model_parallel`` over several cards
+(P8).  No histogram kernel: DeepLearning reaches no Pallas kernel in
+the reference either.
 """
 
 from __future__ import annotations
@@ -69,6 +72,19 @@ def init_params(key, layer_sizes: List[int], device) -> List[Dict]:
         b = torch.zeros(fan_out, dtype=torch.float32, device=device)
         params.append({"W": W, "b": b})
     return params
+
+
+def _tree_map(fn, obj):
+    """``fn`` over the leaves of nested lists and dicts."""
+    if isinstance(obj, dict):
+        return {k: _tree_map(fn, v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_tree_map(fn, v) for v in obj]
+    return fn(obj)
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
 
 
 def _div(x: torch.Tensor, c: float) -> torch.Tensor:
@@ -378,10 +394,6 @@ class DeepLearning(ModelBuilder):
         return p
 
     def _check_slice(self, p: Dict) -> None:
-        if p.get("recovery_dir") or int(p.get("checkpoint_interval") or 0):
-            raise NotImplementedError(
-                "deeplearning: recovery_dir/checkpoint_interval (iteration "
-                "recovery) comes with the runtime services (P14)")
         if p.get("model_parallel") and self.device.type == "cuda" and \
                 torch.cuda.device_count() > 1:
             raise NotImplementedError(
@@ -458,6 +470,20 @@ class DeepLearning(ModelBuilder):
             max_w2=float(p["max_w2"]))
         block = min(steps, BLOCK_STEPS)
         done = 0
+        # a resumed build continues from the last block's checkpoint:
+        # weights, optimizer state and key as they were
+        rec = self._recovery
+        if rec is not None:
+            st = rec.load_iteration()
+            if st and st.get("kind") == "dl" and \
+                    st.get("steps") == steps and st.get("sizes") == sizes:
+                done = int(st["done"])
+                params = _tree_map(lambda a: torch.from_numpy(a).to(dev),
+                                   st["params"])
+                opt_state = _tree_map(
+                    lambda a: torch.from_numpy(a).to(dev), st["opt"])
+                key = st["key"]
+                self._update(done / steps, f"resumed at step {done}/{steps}")
         while done < steps:
             n = min(block, steps - done)
             key, sub = prng.split(key)
@@ -468,6 +494,13 @@ class DeepLearning(ModelBuilder):
             if self._job is not None:
                 self._update(done / steps, f"step {done}/{steps} "
                                            f"loss={float(loss):.4f}")
+            if rec is not None:
+                rec.save_iteration(
+                    {"kind": "dl", "steps": steps, "sizes": sizes,
+                     "done": done, "params": _tree_map(_host, params),
+                     "opt": _tree_map(_host, opt_state),
+                     "key": np.asarray(key)},
+                    meta={"kind": "dl", "step": done, "steps": steps})
 
         out = dict(
             x=list(di.x), expansion_spec=expansion_spec(di),

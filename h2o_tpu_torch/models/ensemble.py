@@ -28,8 +28,9 @@ metalearner on their predictions, on the model's device.  The honest
 metrics are the metalearner's on the level-one frame:
 ``cross_validation_metrics`` in CV mode, else ``validation_metrics``
 when no validation frame was given.  The genmodel MOJO nests the
-metalearner's and base models' artifacts (``mojo/genmodel.py``);
-iteration checkpoints (P14) are refused.
+metalearner's and base models' artifacts (``mojo/genmodel.py``).
+``recovery_dir`` snapshots the build (``models/model.py``), as the
+reference's does; no iteration checkpoint.
 """
 
 from __future__ import annotations
@@ -190,7 +191,6 @@ class StackedEnsemble(ModelBuilder):
 
     def _fit(self, x: List[str], y: str, train: Frame,
              valid: Optional[Frame] = None) -> StackedEnsembleModel:
-        self.refuse_iteration_checkpoints()
         p = self.params
         base_models = [_resolve_model(m) for m in p["base_models"]]
         if not base_models:

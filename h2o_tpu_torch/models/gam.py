@@ -21,8 +21,9 @@ float32 basis values, once per smoother.  Scoring re-expands a frame
 with the stored knots and training means.  ``keep_gam_cols`` publishes
 the expanded training frame in ``store.dkv()`` as
 ``{model_id}_gamified`` (``output["gam_transformed_center_key"]``, the
-reference's ``gam.py:322-330``).  Refused by name: iteration
-checkpoints (``recovery_dir``, P14).
+reference's ``gam.py:322-330``).  ``recovery_dir`` snapshots the build
+(``models/model.py``); the inner GLM is a builder of its own, without
+the snapshot's iteration checkpoints, as in the reference.
 """
 
 from __future__ import annotations
@@ -246,10 +247,6 @@ class GAM(ModelBuilder):
     def _fit(self, x: List[str], y: str, train: Frame,
              valid: Optional[Frame] = None) -> GAMModel:
         p = self.params
-        if p.get("recovery_dir") or int(p.get("checkpoint_interval") or 0):
-            raise NotImplementedError(
-                "gam: recovery_dir/checkpoint_interval comes with the "
-                "runtime services (P14)")
         gam_cols = list(p.get("gam_columns") or [])
         if not gam_cols:
             raise ValueError("GAM requires gam_columns")

@@ -25,9 +25,14 @@ here it spares the card the ~8 tiny launches per coordinate of 50 COD
 sweeps.  This is the same code whatever the device, not a fallback: a
 data pass that fails on the card raises.
 
-Not in the port yet, each refused by name: iteration checkpoints
-(``recovery_dir``) and the stream refresh's warm start
-(``_warm_start_beta``), which come with the runtime services (P14).
+With a ``recovery_dir`` (``models/model.py``), IRLSM checkpoints its
+beta after every iteration and L-BFGS after every lambda's solve, and a
+resumed build restarts from the checkpointed beta at the lambda it was
+written for (reference ``glm.py:1030-1070``, ``:1100-1120``): the
+lambda path's position is not carried, as in the reference, so a
+lambda search resumes from its first lambda.  Not in the port yet,
+refused by name: the stream refresh's warm start (``_warm_start_beta``,
+P14).
 ``beta_constraints`` may be a Frame, a dict, or the key of a frame in
 ``store.dkv()``; ``custom_metric_func`` is attached by the job body
 (``models/model.py``).  The reference's executable store and OOM ladder (``_solver_
@@ -555,6 +560,19 @@ def _ordinal_gd(params0, X, yk, wa, n_obs, l1, l2, pen_dev, proj_mask, *,
 # the expansion helpers
 # ---------------------------------------------------------------------------
 
+def _glm_checkpoint(rec, beta: np.ndarray, lam: float) -> Optional[Dict]:
+    """The recovery's GLM checkpoint when it was written for a beta of
+    this shape at this lambda, else None."""
+    if rec is None:
+        return None
+    st = rec.load_iteration()
+    if st and st.get("kind") == "glm" and \
+            np.shape(st["beta"]) == np.shape(beta) and \
+            np.isclose(st.get("lam", -1.0), float(lam), rtol=1e-12, atol=0.0):
+        return st
+    return None
+
+
 def _beta_constraint_rows(bc) -> List[tuple]:
     """The beta_constraints input (a dict, or a Frame of names and
     lower/upper bounds) as (name, lower, upper) tuples."""
@@ -851,11 +869,6 @@ class GLM(ModelBuilder):
                 "eta = X beta + b0 without it — so its model equals the "
                 "model without the offset; the port gives an error instead "
                 "of that silent result")
-        if p.get("recovery_dir") or int(p.get("checkpoint_interval") or 0):
-            raise NotImplementedError(
-                "glm: recovery_dir/checkpoint_interval (iteration "
-                "checkpoints) is not in the port yet; it comes with the "
-                "runtime services (P14)")
         if p.get("_warm_start_beta") is not None:
             raise NotImplementedError(
                 "glm: the stream refresh's warm start (_warm_start_beta) "
@@ -1081,6 +1094,13 @@ class GLM(ModelBuilder):
         lo, hi = p.get("_beta_lo"), p.get("_beta_hi")
         dev_prev, dev = None, None
         self._last_iters = 0
+        # a resumed solve restarts from the beta checkpointed at this
+        # lambda (the warm start converges to the same optimum)
+        rec = self._recovery
+        st = _glm_checkpoint(rec, beta, lam)
+        if st is not None:
+            beta = np.asarray(st["beta"], _F32)
+            first_pass = None      # computed at another beta
         for it in range(max_iter):
             if it == 0 and first_pass is not None:
                 G, q, dev = first_pass
@@ -1099,6 +1119,12 @@ class GLM(ModelBuilder):
                 beta_new = _chol_solve(G, q, l2)
             delta = float(np.max(np.abs(beta_new - beta)))
             beta = beta_new
+            if rec is not None:
+                rec.save_iteration(
+                    {"kind": "glm", "lam": float(lam),
+                     "beta": np.asarray(beta), "it": it},
+                    meta={"kind": "glm-irlsm", "iteration": it,
+                          "lambda": float(lam)})
             if dev_prev is not None and fam.name == "gaussian":
                 break  # gaussian converges in one weighted solve
             if delta < float(p["beta_epsilon"]):
@@ -1126,10 +1152,22 @@ class GLM(ModelBuilder):
                                p["tweedie_power"],
                                float(p.get("theta") or 1.0), l2,
                                pen=p.get("_penalty"))
+        # checkpointed once a lambda's solve: a warm-started beta
+        # reconverges at once, so the two-loop state is not kept
+        rec = self._recovery
+        st = _glm_checkpoint(rec, beta, lam)
+        if st is not None:
+            beta = np.asarray(st["beta"], _F32)
         beta_np, _f, iters = _lbfgs_minimize(
             vg, np.asarray(beta, np.float64), max_iter,
             gtol=float(p.get("gradient_epsilon") or 0) or 1e-7)
         self._last_iters = iters
+        if rec is not None:
+            rec.save_iteration(
+                {"kind": "glm", "lam": float(lam),
+                 "beta": np.asarray(beta_np), "it": iters},
+                meta={"kind": "glm-lbfgs", "iteration": iters,
+                      "lambda": float(lam)})
         beta = np.asarray(beta_np, _F32)
         return beta, _deviance_at(X, yv, w, valid_m, beta, fam)
 

@@ -38,7 +38,8 @@ NonNegative (the reference has no prox for them), ``init`` other than
 SVD and Random (the reference trains PlusPlus and User from a random
 init), ``transform`` other than NONE and STANDARDIZE (the reference
 ignores DEMEAN), and the reference's own fixed ``multi_loss`` and
-``recover_svd``, and iteration checkpoints (``recovery_dir``, P14).
+``recover_svd``.  ``recovery_dir`` snapshots the build
+(``models/model.py``), as the reference's does; no iteration checkpoint.
 """
 
 from __future__ import annotations
@@ -279,7 +280,6 @@ class GLRM(ModelBuilder):
 
     def _fit(self, x: List[str], y: Optional[str], train: Frame,
              valid: Optional[Frame] = None) -> GLRMModel:
-        self.refuse_iteration_checkpoints()
         p = self.params
         dev = self.device
         di = DataInfo(train, x, None, dev, mode="expanded",

@@ -81,7 +81,6 @@ class Grep(ModelBuilder):
 
     def _fit(self, x: List[str], y: Optional[str], train,
              valid: Optional[Frame] = None) -> GrepModel:
-        self.refuse_iteration_checkpoints()
         p = self.params
         if not p.get("regex"):
             raise ValueError("regex is missing")

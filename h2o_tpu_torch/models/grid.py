@@ -1,6 +1,7 @@
 """Grid search over hyper-parameter spaces — port of
 ``h2o_tpu/models/grid.py`` (``Grid`` :54-98, ``GridSearch`` :101-300,
-``get_grid``, ``export_grid``, ``import_grid`` :313-361; reference
+``resume_from_recovery`` :298-326, ``get_grid``, ``export_grid``,
+``import_grid`` :313-361; reference
 hex/grid/GridSearch.java:70, HyperSpaceWalker.java:213-215,
 HyperSpaceSearchCriteria.java, hex/grid/Grid.java).
 
@@ -19,9 +20,14 @@ runs as a job of ``core/job.py``'s registry, and each model as the job
 its builder's ``train`` starts (on the builder's device: ``cuda:0``
 unless ``device="cpu"`` is among the base params).  ``parallelism=N``
 trains batches of N combos on a thread pool; the stop criteria are
-read at batch boundaries.  ``recovery_dir`` (and with it
-``resume_from_recovery``) comes with the runtime services (P14b) and is
-refused by name.
+read at batch boundaries.
+
+With ``recovery_dir`` the search snapshots its params and training frame
+before the first model (``core/recovery.py``), saves every finished
+model into the snapshot (``Model.save``) and deletes it when the walk
+ends; after a crash ``auto_recover`` (or ``resume_grid``, as a job)
+calls ``resume_from_recovery``, which publishes the finished models in
+a new grid and trains only the remaining combinations.
 """
 
 from __future__ import annotations
@@ -121,10 +127,6 @@ class GridSearch:
                  grid_id: Optional[str] = None,
                  recovery_dir: Optional[str] = None,
                  parallelism: int = 1, **base_params):
-        if recovery_dir:
-            raise NotImplementedError(
-                "GridSearch: recovery_dir (and resume_from_recovery) comes "
-                "with recovery and iteration checkpoints (ROADMAP P14b)")
         if isinstance(builder_cls, str):
             from h2o_tpu_torch.models.registry import builder_class
             builder_cls = builder_class(builder_cls)
@@ -137,6 +139,8 @@ class GridSearch:
         self.strategy = sc.pop("strategy", "Cartesian")
         self.criteria = sc
         self.base_params = base_params
+        self.recovery_dir = recovery_dir
+        self._resuming = False
         self.grid_id = grid_id or str(Key.make(f"grid_{builder_cls.algo}"))
 
     # -- walkers (HyperSpaceWalker.java:213-215) ---------------------------
@@ -178,6 +182,20 @@ class GridSearch:
         if grid is None:
             grid = Grid(self.grid_id, self.builder_cls.algo,
                         list(self.hyper_params))
+        rec = None
+        if self.recovery_dir:
+            from h2o_tpu_torch.core.recovery import Recovery, _jsonable
+            rec = Recovery(self.recovery_dir, "grid", self.grid_id,
+                           self.base_params.get("device"))
+            if not self._resuming:
+                rec.begin(dict(self.base_params), train, extra=_jsonable(
+                    dict(algo=self.builder_cls.algo,
+                         hyper_params={k: [_py(v) for v in vs] for k, vs
+                                       in self.hyper_params.items()},
+                         strategy=self.strategy,
+                         criteria=_jsonable(self.criteria),
+                         base_params=_jsonable(self.base_params),
+                         x=list(x) if x is not None else None, y=y)))
         combos = self._combos()
         # skip combos already trained (a grid id given again)
         done = {tuple(sorted(hv.items())) for hv in grid.hyper_values}
@@ -206,6 +224,10 @@ class GridSearch:
                     grid.hyper_values.append(dict(combo))
                     grid.models.append(m)
                 dkv().put(m.key, m)
+                if rec is not None:
+                    # model_done rewrites info.json: one writer at a time
+                    with append_lock:
+                        rec.model_done(m)
                 return m
             except Exception as e:  # noqa: BLE001 — grid collects failures
                 log.warning("grid model failed (%s): %s", combo, e)
@@ -277,7 +299,42 @@ class GridSearch:
             if pool is not None:
                 pool.shutdown(wait=True)
         dkv().put(grid.key, grid)
+        if rec is not None:
+            rec.done()
         return grid
+
+    # -- recovery (the Recovery.autoRecover target) ------------------------
+
+    @classmethod
+    def resume_from_recovery(cls, info: Dict, train, done_models,
+                             sync: bool = True, device: DeviceLike = None):
+        """Rebuild the search from a recovery snapshot, publish its
+        finished models in a new grid and train only the remaining
+        combinations on ``device`` (``cuda:0`` by default); with
+        ``sync=False`` return the search's ``Job``
+        (hex/faulttolerance/Recovery.java:21-86, R's
+        ``h2o.resumeGrid``)."""
+        extra = info["extra"]
+        base = dict(extra["base_params"])
+        base["device"] = device
+        gs = cls(extra["algo"], extra["hyper_params"],
+                 dict(extra["criteria"], strategy=extra["strategy"]),
+                 grid_id=info["job_id"],
+                 recovery_dir=os.path.dirname(info["dir"]), **base)
+        gs._resuming = True
+        hyper = list(extra["hyper_params"])
+        grid = Grid(gs.grid_id, extra["algo"], hyper)
+        grid.models = list(done_models)
+        grid.hyper_values = [{k: m.params.get(k) for k in hyper}
+                             for m in done_models]
+        dkv().put(grid.key, grid)
+        run = gs.train if sync else gs.train_async
+        return run(x=extra.get("x"), y=extra.get("y"), training_frame=train)
+
+
+def _py(v):
+    """A numpy scalar as a Python scalar, for the snapshot's JSON."""
+    return v.item() if hasattr(v, "item") else v
 
 
 def get_grid(grid_id: str) -> Optional[Grid]:

@@ -17,8 +17,9 @@ A predictor is admissible when both indices reach their thresholds
 table is sorted by the sum of the two.  ``top_n_features`` caps the
 predictors, in frame order.  The GBMs run with the builder's ``seed``
 (each draws its own key from it when it is < 0, as in the reference).
-``predict_raw`` raises, as the reference's does.  Iteration checkpoints
-(P14) are refused.
+``predict_raw`` raises, as the reference's does.  ``recovery_dir``
+snapshots the build (``models/model.py``), as the reference's does; no
+iteration checkpoint.
 """
 
 from __future__ import annotations
@@ -105,7 +106,6 @@ class Infogram(ModelBuilder):
 
     def _fit(self, x: List[str], y: str, train: Frame,
              valid: Optional[Frame] = None) -> InfogramModel:
-        self.refuse_iteration_checkpoints()
         p = self.params
         dev = self.device
         protected = list(p.get("protected_columns") or [])

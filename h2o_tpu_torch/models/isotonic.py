@@ -15,7 +15,8 @@ knot spacing of at most ``spacing(eps)`` taking the left value, else
 ``fp[i-1] + (delta / dx) * df`` as the one fused multiply-add XLA
 contracts it to (``ops/xlamath.fma``), so a prediction equals the
 reference's bit for bit.  The metrics are the regression ones
-(``Model.metrics_from_raw``).  Iteration checkpoints (P14) are refused;
+(``Model.metrics_from_raw``).  ``recovery_dir`` snapshots the build
+(``models/model.py``), with no iteration checkpoint, as the reference's;
 the MOJO form (``IsotonicCalibrator``) is ``mojo/genmodel.py``'s.
 """
 
@@ -131,7 +132,6 @@ class IsotonicRegression(ModelBuilder):
 
     def _fit(self, x: List[str], y: str, train: Frame,
              valid: Optional[Frame] = None) -> IsotonicRegressionModel:
-        self.refuse_iteration_checkpoints()
         p = self.params
         di = DataInfo(train, x, y, self.device, mode="tree",
                       weights=p.get("weights_column"))

@@ -148,10 +148,6 @@ class KMeans(ModelBuilder):
     def _fit(self, x: List[str], y: Optional[str], train: Frame,
              valid: Optional[Frame] = None) -> KMeansModel:
         p = self.params
-        if p.get("recovery_dir") or int(p.get("checkpoint_interval") or 0):
-            raise NotImplementedError(
-                "kmeans: recovery_dir/checkpoint_interval comes with the "
-                "runtime services (P14)")
         dev = self.device
         di = DataInfo(train, x, None, dev, mode="expanded",
                       standardize=bool(p["standardize"]),

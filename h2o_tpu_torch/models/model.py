@@ -28,6 +28,17 @@ fold models as ``{model_id}_cv_{i}``, the holdout predictions as
 port ``Model``, the key of one in the DKV, or the path of a file
 ``Model.save`` wrote.  Frames hold no padded rows, so the holdout
 predictions need no padding either.
+
+With ``recovery_dir`` (reference ``:437-443``, ``:477-490``, ``:525``),
+``train_async`` snapshots the params and the training frame before the
+build (``core/recovery.py`` ``Recovery.begin``, unless the builder is
+resuming one) and the body deletes the snapshot after a successful
+build; the builder's ``_recovery`` is what the GBM, DRF, GLM and
+DeepLearning drivers write their iteration checkpoints to, every
+``checkpoint_interval`` units (trees for the tree drivers; 0 = the
+driver's default).  Fold models build without it, and so does a build
+without a training frame (Generic's import, whose reference builder
+never snapshots; Grep over a file).
 """
 
 from __future__ import annotations
@@ -594,6 +605,11 @@ class ModelBuilder:
     #: values; strings compare case-insensitively with -_ collapsed):
     #: anything else raises instead of being ignored
     ENGINE_FIXED: Dict[str, tuple] = {}
+    #: the build's recovery snapshot (``core/recovery.py``), set by
+    #: ``train_async`` when ``recovery_dir`` is given; the builders
+    #: ``auto_recover`` makes set ``_recovery_resuming``
+    _recovery = None
+    _recovery_resuming = False
 
     def __init__(self, device: DeviceLike = None, **params):
         self.params = self.default_params()
@@ -667,6 +683,20 @@ class ModelBuilder:
         job = Job(dest=self.params["model_id"], dest_type="Key<Model>",
                   description=self._job_description(training_frame))
         dev = self.device
+        # job-level fault tolerance: the params and the training frame
+        # first; the drivers add iteration checkpoints
+        rec = None
+        if self.params.get("recovery_dir") and \
+                isinstance(training_frame, Frame):
+            from h2o_tpu_torch.core.recovery import Recovery
+            rec = Recovery(self.params["recovery_dir"], "model",
+                           self.params["model_id"], dev)
+            if not self._recovery_resuming:
+                rec.begin({k: v for k, v in self.params.items()
+                           if not str(k).startswith("_")},
+                          training_frame,
+                          extra={"algo": self.algo, "x": list(x), "y": y})
+        self._recovery = rec
 
         def body(j: Job) -> Model:
             # a thread starts on device 0; another card is made current
@@ -676,7 +706,7 @@ class ModelBuilder:
             try:
                 with ctx:
                     return self._train_body(j, x, y, training_frame,
-                                            validation_frame, use_cv)
+                                            validation_frame, use_cv, rec)
             finally:
                 _running.job = _running.pending = None
 
@@ -685,7 +715,7 @@ class ModelBuilder:
 
     def _train_body(self, j: Job, x: List[str], y: Optional[str],
                     train: Frame, valid: Optional[Frame],
-                    use_cv: bool) -> Model:
+                    use_cv: bool, rec=None) -> Model:
         t0 = time.time()
         model = self._fit_cv(x, y, train, valid) if use_cv \
             else self._fit(x, y, train, valid)
@@ -703,6 +733,8 @@ class ModelBuilder:
         if j.stop_requested:
             raise JobCancelledException(j.description)
         model.run_time_ms = int((time.time() - t0) * 1000)
+        if rec is not None:
+            rec.done()          # success: drop the snapshot
         for key, value in _running.pending:
             dkv().put(key, value)
         dkv().put(model.key, model)
@@ -811,6 +843,7 @@ class ModelBuilder:
                               weights_column=wname, checkpoint=None,
                               recovery_dir=None,
                               model_id=f"{cv_base}_cv_{i + 1}")
+            sub._recovery = None
             self._update(i / (nfolds + 1.0), f"CV model {i + 1}/{nfolds}")
             m_i = sub._fit(x, y, fr_i, fr_hold)
             cv_models.append(m_i)
@@ -865,16 +898,6 @@ class ModelBuilder:
             model.output["cross_validation_fold_assignment_frame_id"] = \
                 str(ff.key)
         return model
-
-    def refuse_iteration_checkpoints(self) -> None:
-        """Iteration checkpoints (``recovery_dir``,
-        ``checkpoint_interval``) come with the runtime services (P14): a
-        builder without them raises instead of training without them."""
-        p = self.params
-        if p.get("recovery_dir") or int(p.get("checkpoint_interval") or 0):
-            raise NotImplementedError(
-                f"{self.algo}: recovery_dir/checkpoint_interval comes with "
-                "the runtime services (P14)")
 
     def checkpoint_model(self) -> Optional[Model]:
         """The ``checkpoint`` param as a Model: a port model as given,

@@ -19,8 +19,9 @@ Each size's best GLM is published in ``store.dkv()`` under its key,
 (``:87-92``), and kept at ``output["best_models"][size]["model"]``,
 beside its ``predictors``, ``coef`` and ``score``.
 ``predict_raw`` raises, as the reference's does: score a size's GLM.
-``p_values_threshold`` runs at 0 only; iteration checkpoints (P14) are
-refused.
+``p_values_threshold`` runs at 0 only.  ``recovery_dir`` snapshots the
+build (``models/model.py``), as the reference's does; no iteration
+checkpoint.
 """
 
 from __future__ import annotations
@@ -114,7 +115,6 @@ class ModelSelection(ModelBuilder):
 
     def _fit(self, x: List[str], y: str, train: Frame,
              valid: Optional[Frame] = None) -> ModelSelectionModel:
-        self.refuse_iteration_checkpoints()
         p = self.params
         dev = self.device
         di = DataInfo(train, x, y, dev, mode="tree")

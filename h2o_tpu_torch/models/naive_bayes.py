@@ -15,8 +15,8 @@ probability floored at ``eps_prob`` (or ``min_prob``); an NA value, and
 a categorical code outside the training domain, skip their predictor.
 The class probabilities are the softmax of those sums, the label their
 argmax; the metrics are the binomial or multinomial ones
-(``Model.metrics_from_raw``).  Iteration checkpoints (``recovery_dir``,
-P14) are refused.
+(``Model.metrics_from_raw``).  ``recovery_dir`` snapshots the build
+(``models/model.py``), as the reference's does; no iteration checkpoint.
 """
 
 from __future__ import annotations
@@ -124,7 +124,6 @@ class NaiveBayes(ModelBuilder):
 
     def _fit(self, x: List[str], y: str, train: Frame,
              valid: Optional[Frame] = None) -> NaiveBayesModel:
-        self.refuse_iteration_checkpoints()
         p = self.params
         dev = self.device
         di = DataInfo(train, x, y, dev, mode="tree",

@@ -10,8 +10,9 @@ float32 ``evd`` driver, whose eigenvector signs are the reference's).
 count: the port's frames hold no padded rows, so the reference's
 rescaled padded mean is this mean.  Scores are the expanded rows times
 the eigenvectors (``PC1..PCk``).  ``transform`` values other than NONE,
-STANDARDIZE and DEMEAN, which the reference treats as NONE, are refused,
-as are iteration checkpoints (``recovery_dir``, P14).
+STANDARDIZE and DEMEAN, which the reference treats as NONE, are
+refused.  ``recovery_dir`` snapshots the build (``models/model.py``), as
+the reference's does; no iteration checkpoint.
 """
 
 from __future__ import annotations
@@ -116,7 +117,6 @@ class PCA(ModelBuilder):
 
     def _fit(self, x: List[str], y: Optional[str], train: Frame,
              valid: Optional[Frame] = None) -> PCAModel:
-        self.refuse_iteration_checkpoints()
         p = self.params
         di, X = decomposition_matrix(train, x, self.device,
                                      (p["transform"] or "NONE").upper(),

@@ -20,8 +20,9 @@ where R is the reference's padded row count (``statpack.padded_rows``).
 Class probabilities are a Platt sigmoid of the decision value, its 50
 Newton steps on the host in the reference's numpy float32 arithmetic.
 ``predict_raw`` gives [label (decision >= 0), p0, p1]; the metrics are
-the binomial ones.  ``kernel_type`` is gaussian only; iteration
-checkpoints (P14) are refused; the npz MOJO scores it on the host
+the binomial ones.  ``kernel_type`` is gaussian only; ``recovery_dir``
+snapshots the build (``models/model.py``), with no iteration
+checkpoint, as the reference's; the npz MOJO scores it on the host
 (``mojo/scorers.py`` ``score_psvm``).
 """
 
@@ -157,7 +158,6 @@ class PSVM(ModelBuilder):
 
     def _fit(self, x: List[str], y: str, train: Frame,
              valid: Optional[Frame] = None, step_hook=None) -> PSVMModel:
-        self.refuse_iteration_checkpoints()
         p = self.params
         dev = self.device
         warnings.warn(ENGINE_NOTE)

@@ -15,7 +15,8 @@ reference's bits), ``min(max_iterations, 10)`` power iterations.
 ``store.dkv()`` as ``svd_u_<model_id>`` under ``output["u_key"]``, as the
 reference's (``:135-137``), and kept on the model as
 ``output["u_frame"]``.  Scores (``SVD1..SVDnv``) are the expanded rows times V.
-Iteration checkpoints (``recovery_dir``, P14) are refused.
+``recovery_dir`` snapshots the build (``models/model.py``), as the
+reference's does; no iteration checkpoint.
 """
 
 from __future__ import annotations
@@ -109,7 +110,6 @@ class SVD(ModelBuilder):
 
     def _fit(self, x: List[str], y: Optional[str], train: Frame,
              valid: Optional[Frame] = None) -> SVDModel:
-        self.refuse_iteration_checkpoints()
         p = self.params
         dev = self.device
         di, X = decomposition_matrix(train, x, dev,

@@ -24,7 +24,8 @@ blending weights are computed on the host in float32, exactly its
 expressions, and gathered per row on the model's device; LeaveOneOut's
 per-row means are float64 there, as numpy promotes them; the noise is
 added in float64 and the column cast to float32.  The MOJO form is
-``mojo/genmodel.py``'s; iteration checkpoints (P14) are refused.
+``mojo/genmodel.py``'s.  ``recovery_dir`` snapshots the build
+(``models/model.py``), as the reference's does; no iteration checkpoint.
 """
 
 from __future__ import annotations
@@ -191,7 +192,6 @@ class TargetEncoder(ModelBuilder):
 
     def _fit(self, x: List[str], y: str, train: Frame,
              valid: Optional[Frame] = None) -> TargetEncoderModel:
-        self.refuse_iteration_checkpoints()
         p = self.params
         dev = self.device
         fold_col = p.get("fold_column")

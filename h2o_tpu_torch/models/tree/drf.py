@@ -167,7 +167,8 @@ class DRF(ModelBuilder):
         self._update(0.05, f"training {int(p['ntrees']) - prior} trees")
         model = run_tree_driver(p, train_kwargs, F0, self.rng_key(),
                                 make_model, scorer, kind, prior_trees=prior,
-                                update=self._update)
+                                update=self._update,
+                                recovery=self._recovery)
         model.output["training_metrics"] = model.model_metrics(train)
         if valid is not None:
             model.output["validation_metrics"] = model.model_metrics(valid)

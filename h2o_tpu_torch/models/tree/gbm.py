@@ -297,4 +297,5 @@ class GBM(ModelBuilder):
         self._update(0.05, f"training {int(p['ntrees']) - prior} trees")
         return run_tree_driver(p, train_kwargs, F, self.rng_key(),
                                make_model, scorer, kind, prior_trees=prior,
-                               update=self._update)
+                               update=self._update,
+                               recovery=self._recovery)

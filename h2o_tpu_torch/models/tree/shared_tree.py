@@ -67,16 +67,10 @@ HISTOGRAM_TYPES = ("AUTO", "UniformAdaptive", "QuantilesGlobal", "Random")
 
 
 def check_slice(algo: str, p: Dict) -> None:
-    """Reject, by name, what no tree builder of the port runs yet:
-    iteration-level recovery (P14)."""
+    """Reject an unknown histogram type and a forest of no trees."""
     if str(p.get("histogram_type") or "AUTO") not in HISTOGRAM_TYPES:
         raise ValueError(f"{algo}: unknown histogram_type "
                          f"{p.get('histogram_type')!r}")
-    if p.get("recovery_dir") or int(p.get("checkpoint_interval") or 0):
-        raise NotImplementedError(
-            f"{algo}: recovery_dir/checkpoint_interval (iteration-level "
-            "recovery) is not in the port yet; it comes with the runtime "
-            "services (P14)")
     if int(p["ntrees"]) < 1:
         raise ValueError(f"{algo}: ntrees must be >= 1")
 

@@ -24,7 +24,9 @@ Boosters:
   the same seed, so each round's tree is tree 0 of that key's stream, as
   in the reference.  The one-tree fits run with no scoring interval and
   no early stopping, and skip the final metrics (``_train_model``); a
-  ``checkpoint`` raises, as in the reference;
+  ``checkpoint`` raises, as in the reference.  With ``recovery_dir`` it
+  writes the build's snapshot but no iteration checkpoint: one-tree
+  fits of one shape would each resume the last one's checkpoint;
 - ``gblinear`` — the elastic-net GLM (``models/glm.py``): reg_alpha is
   the L1 and reg_lambda the L2 strength, alpha = a / (a + l) and lambda =
   (a + l) / rows in GLM's per-row convention; binomial, multinomial or
@@ -185,6 +187,9 @@ class XGBoost(GBM):
         # one-tree fits: no scoring interval and no early stopping
         self.params.update(ntrees=1, offset_column=_DART_OFFSET,
                            score_tree_interval=0, stopping_rounds=0)
+        # the one-tree fits write no iteration checkpoints: each has the
+        # shape of the last, and would resume from its checkpoint
+        rec, self._recovery = self._recovery, None
         try:
             for t in range(ntrees):
                 k_idx = np.array([], np.int64)
@@ -220,6 +225,7 @@ class XGBoost(GBM):
                              f"dart tree {t + 1}/{ntrees} (dropped {k})")
         finally:
             self.params = p_all
+            self._recovery = rec
         out = dict(fits[0])
         for name in ("split_col", "bitset", "thr_bin", "na_left", "child",
                      "node_w"):

@@ -22,8 +22,8 @@ indices in no fixed order, so two runs on the card may differ in the
 last bits of the embeddings (the reference's scatter is XLA's, not a
 Pallas kernel).  ``find_synonyms`` (cosine) and ``transform`` (NONE:
 a vector a token; AVERAGE: a mean vector an NA-delimited sequence) run
-on the host vectors.  Iteration checkpoints (``recovery_dir``, P14) are
-refused.
+on the host vectors.  ``recovery_dir`` snapshots the build
+(``models/model.py``), as the reference's does; no iteration checkpoint.
 """
 
 from __future__ import annotations
@@ -239,7 +239,6 @@ class Word2Vec(ModelBuilder):
 
     def _fit(self, x: List[str], y: Optional[str], train: Frame,
              valid: Optional[Frame] = None) -> Word2VecModel:
-        self.refuse_iteration_checkpoints()
         p = self.params
         dev = self.device
         warnings.warn(NEG_SAMPLING_NOTICE)

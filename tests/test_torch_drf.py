@@ -23,6 +23,8 @@ takes about 30 s on a CPU, most of it the reference's compile of 20
 unrolled levels.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -147,11 +149,19 @@ def test_stock_default_depth20_drf(cl):
                                rtol=0, atol=1e-5)
 
 
-def test_out_of_slice_options_raise():
+def test_out_of_slice_options_raise(tmp_path):
     _, pf = _frames(True)
-    with pytest.raises(NotImplementedError):
-        DRF(device="cpu", ntrees=1, recovery_dir="r").train(
-            y="y", training_frame=pf)
+    # recovery_dir: the snapshot, one checkpoint a block of 10 trees,
+    # the snapshot dropped at the end, as in the reference
+    from h2o_tpu_torch.core.recovery import pending_recoveries
+    d = str(tmp_path / "r")
+    m = DRF(device="cpu", ntrees=1, seed=1, recovery_dir=d).train(
+        y="y", training_frame=pf)
+    assert pending_recoveries(d) == [] and os.path.isdir(d)
+    plain = DRF(device="cpu", ntrees=1, seed=1).train(y="y",
+                                                     training_frame=pf)
+    assert m.output["split_col"].tobytes() == \
+        plain.output["split_col"].tobytes()
     # a custom metric that does not load records NaN, as the reference's
     # attach_custom_metric does; the model trains
     m = DRF(device="cpu", ntrees=1, custom_metric_func="f").train(

@@ -155,16 +155,32 @@ def test_bf16_histograms_reach_the_tables():
                                atol=1e-4)
 
 
-def test_out_of_slice_options_raise():
-    """Iteration-level recovery (P14) raises by name; a checkpoint that
-    names no saved model, an unknown stats dtype or histogram type,
-    ntrees 0 and a custom distribution without its function are errors;
-    a custom metric that does not load records NaN, as the reference's
-    does."""
+def test_out_of_slice_options_raise(tmp_path, monkeypatch):
+    """``recovery_dir`` trains as the reference's does (a snapshot, an
+    iteration checkpoint every ``checkpoint_interval`` trees, the
+    snapshot dropped at the end) and ``checkpoint_interval`` alone
+    changes nothing; a checkpoint that names no saved model, an unknown
+    stats dtype or histogram type, ntrees 0 and a custom distribution
+    without its function are errors; a custom metric that does not load
+    records NaN, as the reference's does."""
+    from h2o_tpu_torch.core import recovery
     jf, pf = _frames(True)
-    for kw in (dict(recovery_dir="r"), dict(checkpoint_interval=2)):
-        with pytest.raises(NotImplementedError):
-            GBM(device="cpu", ntrees=1, **kw).train(y="y", training_frame=pf)
+    saved = []
+    orig = recovery.Recovery.save_iteration
+    monkeypatch.setattr(recovery.Recovery, "save_iteration",
+                        lambda self, payload, meta=None: (
+                            saved.append(meta["trees_done"]),
+                            orig(self, payload, meta))[1])
+    plain = GBM(device="cpu", ntrees=3, seed=1).train(y="y",
+                                                     training_frame=pf)
+    d = str(tmp_path / "r")
+    for kw in (dict(recovery_dir=d, checkpoint_interval=2),
+               dict(checkpoint_interval=2)):
+        m = GBM(device="cpu", ntrees=3, seed=1, **kw).train(
+            y="y", training_frame=pf)
+        for k in ("split_col", "bitset", "value"):
+            assert m.output[k].tobytes() == plain.output[k].tobytes(), k
+    assert saved == [2, 3] and recovery.pending_recoveries(d) == []
     m = GBM(device="cpu", ntrees=1, custom_metric_func="f").train(
         y="y", training_frame=pf)
     assert np.isnan(m.output["training_metrics"]["custom_metric_value"])

@@ -427,9 +427,15 @@ def test_refusals(data):
                                                       training_frame=jf5)
     np.testing.assert_array_equal(np.asarray(j5.output["beta"]),
                                   np.asarray(j0.output["beta"]))
-    with pytest.raises(NotImplementedError, match="P14"):
-        GLM(device="cpu", recovery_dir="/nonexistent").train(
-            y="y", training_frame=pf)
+    # recovery_dir: IRLSM checkpoints each iteration into the build's
+    # snapshot, which the finished build drops, as the reference's does
+    from h2o_tpu_torch.core.recovery import pending_recoveries
+    with tempfile.TemporaryDirectory() as d:
+        m = GLM(device="cpu", recovery_dir=d).train(y="y",
+                                                   training_frame=pf)
+        assert pending_recoveries(d) == [] and os.listdir(d) == []
+    assert m.output["beta"].tobytes() == GLM(device="cpu").train(
+        y="y", training_frame=pf).output["beta"].tobytes()
     # a key the DKV does not hold is refused as the reference refuses it;
     # a custom metric that does not load records NaN, as there
     with pytest.raises(ValueError, match="bc_key"):

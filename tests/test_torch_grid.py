@@ -18,7 +18,9 @@ binomial rows from ``default_rng(42)``):
 - a GLM grid's coefficients within 1e-5 of the reference's; export and
   import give the same models back, published under their keys;
 - ``parallelism=2`` gives the same set of forests, bitwise, as the
-  sequential walk; ``recovery_dir`` is refused by name.
+  sequential walk; ``recovery_dir`` snapshots the search and its
+  finished models and drops the snapshot when the walk ends
+  (``tests/test_torch_recovery.py`` kills and resumes one).
 
 Every grid and model a test publishes is removed from the port's DKV
 after it.
@@ -261,7 +263,8 @@ def test_parallel_grid_gives_the_same_forests(grids):
                 np.array_equal(a.view(np.uint8), b.view(np.uint8)), (hv, k)
 
 
-def test_grid_published_before_its_models_and_refusals(cl):
+def test_grid_published_before_its_models_and_refusals(cl, tmp_path,
+                                                       monkeypatch):
     _, pf = _frames(n=300)
     gs = GridSearch("gbm", {"max_depth": [2]}, grid_id="early_grid",
                     ntrees=2, device="cpu")
@@ -270,9 +273,20 @@ def test_grid_published_before_its_models_and_refusals(cl):
     g = job.join()
     assert job.dest == "early_grid" and p_dkv().get("early_grid") is g
     assert len(g.models) == 1
-    with pytest.raises(NotImplementedError, match="recovery_dir.*P14b"):
-        GridSearch("gbm", {"max_depth": [2]}, recovery_dir="/nowhere",
-                   device="cpu")
+    from h2o_tpu_torch.core import recovery
+    calls = []
+    for name in ("begin", "model_done", "done"):
+        orig = getattr(recovery.Recovery, name)
+        monkeypatch.setattr(recovery.Recovery, name,
+                            lambda self, *a, _o=orig, _n=name, **k:
+                            (calls.append(_n), _o(self, *a, **k))[1])
+    d = str(tmp_path / "rec")
+    g = GridSearch("gbm", {"max_depth": [2, 3]}, recovery_dir=d,
+                   grid_id="rec_grid", ntrees=2, device="cpu").train(
+        y="y", training_frame=pf)
+    assert len(g.models) == 2
+    assert calls == ["begin", "model_done", "model_done", "done"]
+    assert recovery.pending_recoveries(d) == []
     with pytest.raises(KeyError, match="unknown algo"):
         GridSearch("nope", {"x": [1]})
 

@@ -173,9 +173,14 @@ def test_isotonic_refusals():
         IsotonicRegression(device="cpu").train(y="y", training_frame=pf)
     with pytest.raises(ValueError, match="out_of_bounds"):
         IsotonicRegression(device="cpu", out_of_bounds="extrapolate")
-    with pytest.raises(NotImplementedError, match="P14"):
-        IsotonicRegression(device="cpu", recovery_dir="ck").train(
+    # recovery_dir: the build's snapshot, dropped when it succeeds, as
+    # the reference's; no iteration checkpoint
+    from h2o_tpu_torch.core.recovery import pending_recoveries
+    with tempfile.TemporaryDirectory() as d:
+        m = IsotonicRegression(device="cpu", recovery_dir=d).train(
             x=["x0"], y="y", training_frame=pf)
+        assert pending_recoveries(d) == [] and os.listdir(d) == []
+    assert m.output["nobs"] == pf.nrows
 
 
 # -- Aggregator ---------------------------------------------------------------
@@ -271,6 +276,8 @@ def test_aggregator_refusals():
         Aggregator(device="cpu", categorical_encoding="Binary")
     with pytest.raises(ValueError, match="cross-validation"):
         Aggregator(device="cpu", nfolds=3).train(training_frame=pf)
-    with pytest.raises(NotImplementedError, match="P14"):
-        Aggregator(device="cpu", checkpoint_interval=1).train(
-            training_frame=pf)
+    # checkpoint_interval alone is a recovery's cadence: without a
+    # recovery_dir it changes nothing, as in the reference
+    m = Aggregator(device="cpu", checkpoint_interval=1).train(
+        training_frame=pf)
+    assert m.aggregated_frame().nrows == m.output["num_exemplars"] > 0

@@ -230,7 +230,7 @@ def test_chi2_sf_is_the_reference_tail():
 
 
 def test_anova_converter_save_load_and_refusals(anova_fits):
-    jf, pf, _, jm, pm = anova_fits["binomial_interactions"]
+    jf, pf, kw, jm, pm = anova_fits["binomial_interactions"]
     full = _np(jcloud().dkv.get(jm.output["full_model_id"]).output)
     cm = anovaglm_from_jax_output(jm.output, jm.params, full, device="cpu")
     assert cm.result() == [tuple(r) for r in jm.result()]
@@ -243,6 +243,11 @@ def test_anova_converter_save_load_and_refusals(anova_fits):
     assert str(back.output["full_model"].device) == "cpu"
     with pytest.raises(NotImplementedError, match="analysis"):
         pm.predict_raw(pf)
-    with pytest.raises(NotImplementedError, match="P14"):
-        AnovaGLM(device="cpu", recovery_dir="ck").train(y="y",
-                                                        training_frame=pf)
+    # recovery_dir: the build's snapshot, dropped when it succeeds, as
+    # the reference's; the inner GLMs write no iteration checkpoint
+    from h2o_tpu_torch.core.recovery import pending_recoveries
+    with tempfile.TemporaryDirectory() as d:
+        m = AnovaGLM(device="cpu", seed=1, recovery_dir=d, **kw).train(
+            y="y", training_frame=pf)
+        assert pending_recoveries(d) == [] and os.listdir(d) == []
+    assert m.result() == pm.result()

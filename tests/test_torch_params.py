@@ -27,11 +27,13 @@ only), so its resolved params are compared with the reference's
 defaults instead.
 GBM and XGBoost take ``custom_distribution_func`` as the reference's do
 (unused unless ``distribution="custom"``, whose function must be in the
-DKV); ``calibrate_model=True`` is refused by name.  What the port
-refuses by name instead of dropping: iteration checkpoints (``recovery_dir`` or ``checkpoint_interval``
-for KMeans, DeepLearning, GAM, RuleFit and the six builders of PCA to
-CoxPH: P14) and DeepLearning's ``model_parallel`` over
-several cards (P8).
+DKV); ``calibrate_model=True`` is refused by name.  ``recovery_dir`` and
+``checkpoint_interval``, which sixteen cases of ``test_refused_by_name``
+once held refused, are now held doing what the reference's builders do
+with them: a snapshot begun and dropped on success, DeepLearning's
+iteration checkpoints, nothing for ``checkpoint_interval`` alone.  What
+the port refuses by name instead of dropping: DeepLearning's
+``model_parallel`` over several cards (P8).
 """
 
 import numpy as np
@@ -322,23 +324,57 @@ _SMALL = {"kmeans": dict(k=2), "deeplearning": dict(hidden=[4], epochs=1.0),
           "coxph": dict(stop_column="a")}
 
 
-@pytest.mark.parametrize("algo,kw,match", [
-    ("kmeans", dict(recovery_dir="ck"), "P14"),
-    ("deeplearning", dict(recovery_dir="ck"), "P14"),
-    ("deeplearning", dict(checkpoint_interval=1), "P14"),
-    ("gam", dict(recovery_dir="ck"), "P14"),
-    ("rulefit", dict(recovery_dir="ck"), "P14"),
-    ("pca", dict(recovery_dir="ck"), "P14"),
-    ("svd", dict(checkpoint_interval=1), "P14"),
-    ("glrm", dict(recovery_dir="ck"), "P14"),
-    ("word2vec", dict(recovery_dir="ck"), "P14"),
-    ("naivebayes", dict(checkpoint_interval=2), "P14"),
-    ("coxph", dict(recovery_dir="ck"), "P14"),
-    ("aggregator", dict(recovery_dir="ck"), "P14"),
-    ("psvm", dict(checkpoint_interval=1), "P14"),
-    ("infogram", dict(recovery_dir="ck"), "P14"),
-    ("modelselection", dict(checkpoint_interval=1), "P14"),
-    ("isotonicregression", dict(recovery_dir="ck"), "P14"),
+def _jframe(n=300):
+    """``_frame``'s columns as a reference frame."""
+    from h2o_tpu.core.frame import Frame as JFrame, T_CAT as J_CAT, \
+        Vec as JVec
+    f = _frame(n)
+    return JFrame(f.names, [
+        JVec(v.data, J_CAT, domain=v.domain) if v.is_categorical
+        else JVec(v.data) for v in f.vecs])
+
+
+def _words_frames():
+    from h2o_tpu.core.frame import Frame as JFrame, T_STR as J_STR, \
+        Vec as JVec
+    return JFrame(["t"], [JVec(_WORDS, J_STR)]), \
+        Frame(["t"], [Vec(_WORDS, T_STR)])
+
+
+def _recovery_calls(monkeypatch) -> dict:
+    """Per package, the number of snapshots begun and dropped and of
+    iteration checkpoints written, counted from now."""
+    from h2o_tpu.core import recovery as jrec
+    from h2o_tpu_torch.core import recovery as prec
+    counts = {}
+    for tag, cls in (("reference", jrec.Recovery), ("port", prec.Recovery)):
+        c = counts[tag] = {"begin": 0, "done": 0, "save_iteration": 0}
+        for name in c:
+            def spy(self, *a, _orig=getattr(cls, name), _name=name, _c=c,
+                    **k):
+                _c[_name] += 1
+                return _orig(self, *a, **k)
+            monkeypatch.setattr(cls, name, spy)
+    return counts
+
+
+@pytest.mark.parametrize("algo,kw,iterations", [
+    ("kmeans", dict(recovery_dir="ck"), False),
+    ("deeplearning", dict(recovery_dir="ck"), True),
+    ("deeplearning", dict(checkpoint_interval=1), False),
+    ("gam", dict(recovery_dir="ck"), False),
+    ("rulefit", dict(recovery_dir="ck"), False),
+    ("pca", dict(recovery_dir="ck"), False),
+    ("svd", dict(checkpoint_interval=1), False),
+    ("glrm", dict(recovery_dir="ck"), False),
+    ("word2vec", dict(recovery_dir="ck"), False),
+    ("naivebayes", dict(checkpoint_interval=2), False),
+    ("coxph", dict(recovery_dir="ck"), False),
+    ("aggregator", dict(recovery_dir="ck"), False),
+    ("psvm", dict(checkpoint_interval=1), False),
+    ("infogram", dict(recovery_dir="ck"), False),
+    ("modelselection", dict(checkpoint_interval=1), False),
+    ("isotonicregression", dict(recovery_dir="ck"), False),
 ], ids=["kmeans_recovery", "dl_recovery",
         "dl_checkpoint_interval", "gam_recovery", "rulefit_recovery",
         "pca_recovery", "svd_checkpoint_interval", "glrm_recovery",
@@ -346,14 +382,46 @@ _SMALL = {"kmeans": dict(k=2), "deeplearning": dict(hidden=[4], epochs=1.0),
         "coxph_recovery", "aggregator_recovery", "psvm_checkpoint_interval",
         "infogram_recovery", "modelselection_checkpoint_interval",
         "isotonic_recovery"])
-def test_refused_by_name(algo, kw, match):
-    _, pcls = PAIRS[algo]
-    b = pcls(device="cpu", **_SMALL[algo], **kw)
-    with pytest.raises(NotImplementedError, match=match):
-        if b.supervised:
-            b.train(x=["a", "b", "c"], y="y", training_frame=_frame())
-        else:
-            b.train(x=["a", "b", "c"], training_frame=_frame())
+def test_refused_by_name(algo, kw, iterations, cl, tmp_path, monkeypatch):
+    """What these builders once refused by name, ``recovery_dir`` and
+    ``checkpoint_interval``, they now do as the reference's builders do
+    with the same param: a ``recovery_dir`` snapshot begun before the
+    build and dropped after it (``pending_recoveries`` then finds
+    nothing), iteration checkpoints where the reference writes them
+    (DeepLearning, once a block), and nothing for
+    ``checkpoint_interval`` alone (the cadence of a recovery)."""
+    import warnings
+    from h2o_tpu.core import recovery as jrec
+    from h2o_tpu_torch.core import recovery as prec
+    jcls, pcls = PAIRS[algo]
+    counts = _recovery_calls(monkeypatch)
+    dirs = {}
+    for tag, cls, extra in (("reference", jcls, {}),
+                            ("port", pcls, dict(device="cpu"))):
+        params = dict(_SMALL[algo], **kw, **extra)
+        if "recovery_dir" in params:
+            params["recovery_dir"] = dirs[tag] = str(tmp_path / tag)
+        jf, pf = _words_frames() if algo == "word2vec" else \
+            (_jframe(), _frame())
+        fr = jf if tag == "reference" else pf
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")         # PSVM's engine note
+            b = cls(**params)
+            if algo == "word2vec":
+                m = b.train(training_frame=fr)
+            elif b.supervised:
+                m = b.train(x=_TRAIN_X.get(algo, ["a", "b", "c"]), y="y",
+                            training_frame=fr)
+            else:
+                m = b.train(x=["a", "b", "c"], training_frame=fr)
+        assert m is not None
+    assert counts["port"] == counts["reference"]
+    snap = int("recovery_dir" in kw)
+    assert counts["port"]["begin"] == counts["port"]["done"] == snap
+    assert (counts["port"]["save_iteration"] > 0) == iterations
+    for tag, pkg in (("reference", jrec), ("port", prec)):
+        if tag in dirs:
+            assert pkg.pending_recoveries(dirs[tag]) == []
 
 
 def test_dl_model_parallel_over_several_cards_names_p8(monkeypatch):

@@ -187,8 +187,14 @@ def test_converter_save_load_and_refusals(fits):
                                   pm.predict_raw(pf).numpy())
     with pytest.raises(ValueError, match="kernel_type"):
         PSVM(device="cpu", kernel_type="polynomial")
-    with pytest.raises(NotImplementedError, match="P14"):
-        PSVM(device="cpu", recovery_dir="ck").train(y="y", training_frame=pf)
+    # recovery_dir: the build's snapshot, dropped when it succeeds, as
+    # the reference's; no iteration checkpoint
+    from h2o_tpu_torch.core.recovery import pending_recoveries
+    with tempfile.TemporaryDirectory() as d, warnings.catch_warnings():
+        warnings.simplefilter("ignore")             # the Fourier note
+        PSVM(device="cpu", max_iterations=2, recovery_dir=d).train(
+            y="y", training_frame=pf)
+        assert pending_recoveries(d) == [] and os.listdir(d) == []
     with pytest.warns(UserWarning, match="Fourier"):
         PSVM(device="cpu", max_iterations=2).train(y="y", training_frame=pf)
     three = Frame(["x0", "y"], [Vec(np.arange(9, dtype=np.float32)),

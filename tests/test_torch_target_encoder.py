@@ -228,9 +228,13 @@ def test_refusals(fits):
     with pytest.raises(ValueError, match="categorical"):
         TargetEncoder(device="cpu", columns=["num"]).train(
             y="y", training_frame=pf2)
-    with pytest.raises(NotImplementedError, match="P14"):
-        TargetEncoder(device="cpu", recovery_dir="ck").train(
+    # recovery_dir: the build's snapshot, dropped when it succeeds, as
+    # the reference's; no iteration checkpoint
+    from h2o_tpu_torch.core.recovery import pending_recoveries
+    with tempfile.TemporaryDirectory() as d:
+        TargetEncoder(device="cpu", recovery_dir=d).train(
             y="y", training_frame=pf)
+        assert pending_recoveries(d) == [] and os.listdir(d) == []
     with pytest.raises(NotImplementedError):
         TargetEncoder(device="cpu").train(
             y="y", training_frame=pf).predict_raw(pf)
